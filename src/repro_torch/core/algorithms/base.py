@@ -1,0 +1,180 @@
+"""Codec API (port of `repro/core/algorithms/base.py`).
+
+  * Streams are `(lanes, B)` uint32 tuple arrays, carried as `torch.int32`
+    tensors holding the uint32 bit patterns (see `repro_torch.core.bits`).
+    `lanes` are parallel substreams, each with private state.
+  * Encoders are shape-stable: every input tuple owns one output symbol slot
+    `(codes[l, b, 2], bitlen[l, b])`. The bit-packer (`core/bits.py`, the
+    CUDA kernels under `csrc/`) turns symbol slots into a dense bitstream.
+  * Stateful codecs carry a dict of tensors with leading dim `lanes`;
+    `decode` replays the same state evolution, so a decoder needs only the
+    symbol stream. `flush` emits the trailing state (none of the codecs
+    ported so far has any).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass
+class Encoded:
+    """Shape-stable encoder output: one symbol slot per input tuple."""
+
+    codes: torch.Tensor  # int32[..., L, B, 2] (low word, high word), LSB-first
+    bitlen: torch.Tensor  # int32[..., L, B]     (0 => suppressed slot)
+
+
+@dataclasses.dataclass(frozen=True)
+class CodecMeta:
+    name: str
+    lossy: bool
+    stateful: bool
+    state_kind: str  # 'none' | 'value' | 'dictionary' | 'model'
+    aligned: bool
+    #: decode locality: 'block' codecs reconstruct each micro-batch block
+    #: from its own symbols (+ replayed state); 'stream' codecs emit symbols
+    #: whose expansion crosses block boundaries
+    scope: str = "block"  # 'block' | 'stream'
+    #: True if pad symbols may be dropped from the wire: the decoder never
+    #: reads them and no state replay depends on them
+    maskable: bool = True
+
+
+class Codec:
+    """Base class. Subclasses are immutable config holders; all methods are
+    pure functions of (state, data) on tensors."""
+
+    meta: CodecMeta
+    #: numpy dtype of each state field, for `state_to_numpy`: uint32 fields
+    #: travel as int32 tensors holding the same bits
+    state_dtypes: Dict[str, np.dtype] = {}
+
+    def init_state(self, lanes: int, device: torch.device) -> Any:
+        return None
+
+    def encode(self, state: Any, x: torch.Tensor) -> Tuple[Any, Encoded]:
+        raise NotImplementedError
+
+    def decode(self, state: Any, enc: Encoded) -> Tuple[Any, torch.Tensor]:
+        """Replays encoder state; returns reconstructed int32[L, B] bits."""
+        raise NotImplementedError
+
+    def flush(self, state: Any) -> Optional[Encoded]:
+        """Final symbols for trailing state (None if the codec has none).
+        Must not mutate `state`."""
+        return None
+
+    def encode_blocks(self, state: Any, blocks: torch.Tensor) -> Tuple[Any, Encoded]:
+        """Encode C consecutive blocks `(C, L, B)` in one call.
+
+        Lane l's symbols across the chunk are the encoding of its
+        concatenated tuples `blocks.permute(1, 0, 2).reshape(L, C*B)`, which
+        equals C sequential `encode` calls for every codec whose state is a
+        per-lane recurrence over the tuple stream (all codecs ported so
+        far). A codec with per-block state transitions overrides this."""
+        c, lanes, b = blocks.shape
+        state, enc = self.encode(state, blocks.permute(1, 0, 2).reshape(lanes, c * b))
+        return state, Encoded(
+            enc.codes.reshape(lanes, c, b, 2).permute(1, 0, 2, 3),
+            enc.bitlen.reshape(lanes, c, b).permute(1, 0, 2),
+        )
+
+    def decode_blocks(self, state: Any, enc: Encoded) -> Tuple[Any, torch.Tensor]:
+        """Decode C consecutive blocks (`encode_blocks`'s inverse):
+        codes `(C, L, B, 2)`, bitlen `(C, L, B)` -> values `(C, L, B)`."""
+        c, lanes, b = enc.bitlen.shape
+        flat = Encoded(
+            enc.codes.permute(1, 0, 2, 3).reshape(lanes, c * b, 2),
+            enc.bitlen.permute(1, 0, 2).reshape(lanes, c * b),
+        )
+        state, x = self.decode(state, flat)
+        return state, x.reshape(lanes, c, b).permute(1, 0, 2)
+
+    def error_bound(self) -> Optional[float]:
+        """Max-abs reconstruction error this codec guarantees per tuple
+        (0.0 for lossless codecs)."""
+        return 0.0 if not self.meta.lossy else None
+
+    # -- convenience ---------------------------------------------------------
+    @property
+    def name(self) -> str:
+        return self.meta.name
+
+
+_REGISTRY: Dict[str, Callable[..., Codec]] = {}
+
+#: reference codecs not ported yet -> the ROADMAP item that brings them
+UNPORTED = {
+    "tdic32": "ROADMAP A2, with kernel B5 (the next slice)",
+    "rle": "ROADMAP A2, stream-scope decode and the flush mini-block",
+    "leb128_nuq": "ROADMAP A5, lossy codecs after C2",
+    "uanuq": "ROADMAP A5, lossy codecs after C2",
+    "adpcm": "ROADMAP A5, lossy codecs after C2",
+    "uaadpcm": "ROADMAP A5, lossy codecs after C2",
+    "pla": "ROADMAP A5, lossy codecs after C2",
+}
+
+
+def register(name: str):
+    def deco(factory):
+        _REGISTRY[name] = factory
+        return factory
+
+    return deco
+
+
+def codec_factory(name: str) -> Callable[..., Codec]:
+    """The registered factory for a codec name (capability introspection)."""
+    if name not in _REGISTRY:
+        if name in UNPORTED:
+            raise KeyError(
+                f"codec {name!r} is not ported to repro_torch yet "
+                f"({UNPORTED[name]}); ported: {sorted(_REGISTRY)}"
+            )
+        raise KeyError(f"unknown codec {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]
+
+
+def accepted_params(name: str) -> Tuple[str, ...]:
+    """Parameter names a codec's factory accepts, introspected from its
+    signature (codecs without an `__init__` accept none)."""
+    import inspect
+
+    factory = codec_factory(name)
+    try:
+        sig = inspect.signature(factory)
+    except (TypeError, ValueError):
+        return ()
+    return tuple(
+        p.name
+        for p in sig.parameters.values()
+        if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)
+    )
+
+
+def check_codec_params(name: str, kwargs) -> None:
+    """Raise ValueError naming the codec and its accepted parameters when
+    `kwargs` contains names the factory does not take."""
+    allowed = accepted_params(name)
+    unknown = sorted(set(kwargs) - set(allowed))
+    if unknown:
+        raise ValueError(
+            f"codec {name!r} does not accept parameter(s) "
+            f"{', '.join(map(repr, unknown))}; accepted: "
+            f"{', '.join(allowed) if allowed else '(none)'}"
+        )
+
+
+def make_codec(name: str, **kwargs) -> Codec:
+    factory = codec_factory(name)
+    check_codec_params(name, kwargs)
+    return factory(**kwargs)
+
+
+def codec_names() -> Tuple[str, ...]:
+    """Registered codec names, sorted for deterministic listings."""
+    return tuple(sorted(_REGISTRY))

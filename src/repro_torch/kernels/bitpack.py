@@ -1,0 +1,30 @@
+"""B1: block-local bitstream packing on the card (port of
+`repro/kernels/bitpack.py`; CUDA source `csrc/bitpack.cu`).
+
+`launch` runs the kernel on validated CUDA tensors; `ops.pack_blocks` is the
+public wrapper (checks, allocation, the CPU plain version, the launch
+count). The reference's default kernel block is kept.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+DEFAULT_BLOCK = 256
+
+
+def words_per_block(block: int) -> int:
+    return 2 * block + 1  # worst case: 64 bits/symbol + spill word
+
+
+def launch(codes: torch.Tensor, bitlen: torch.Tensor, words: torch.Tensor,
+           nbits: torch.Tensor, block: int) -> None:
+    """codes int32[N, 2], bitlen int32[N] -> words int32[N/block, OW],
+    nbits int32[N/block] (all contiguous, on one CUDA device)."""
+    lib = build.library()
+    err = lib.repro_pack_blocks(
+        codes.data_ptr(), bitlen.data_ptr(), words.shape[0], block, words.shape[1],
+        words.data_ptr(), nbits.data_ptr(), torch.cuda.current_stream(codes.device).cuda_stream,
+    )
+    build.check(err, "pack_blocks")

@@ -1,0 +1,21 @@
+"""B2: block-local bitstream unpacking on the card (port of
+`repro/kernels/bitunpack.py`; CUDA source `csrc/bitunpack.cu`).
+
+`launch` runs the kernel on validated CUDA tensors; `ops.unpack_blocks` is
+the public wrapper.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels import build
+
+def launch(words: torch.Tensor, bitlen: torch.Tensor, codes: torch.Tensor) -> None:
+    """words int32[nb, W], bitlen int32[nb*S] -> codes int32[nb*S, 2]."""
+    nb, in_words = words.shape
+    lib = build.library()
+    err = lib.repro_unpack_blocks(
+        words.data_ptr(), nb, in_words, bitlen.data_ptr(), bitlen.shape[0] // max(nb, 1),
+        codes.data_ptr(), torch.cuda.current_stream(words.device).cuda_stream,
+    )
+    build.check(err, "unpack_blocks")

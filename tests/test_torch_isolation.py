@@ -1,0 +1,79 @@
+"""The port stands alone: importing every module of `repro_torch` and
+`chip_smoke` (without running it) loads neither jax nor the reference
+package, and an entry point given no device on a host without a GPU
+raises instead of falling back to the CPU."""
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+sys.path.insert(0, {src!r})
+sys.path.insert(0, {root!r})
+import repro_torch
+for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+    importlib.import_module(mod.name)
+import chip_smoke  # noqa: F401  (imported, not run)
+leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print("LEAKED", leaked)
+import torch
+from repro_torch.api import JobSpec
+from repro_torch.core.pipeline import CompressionPipeline, DecompressionPipeline
+if not torch.cuda.is_available():
+    for cls in (CompressionPipeline, DecompressionPipeline):
+        try:
+            cls(JobSpec())
+        except RuntimeError as exc:
+            print("RAISED", type(exc).__name__, "device='cpu'" in str(exc))
+        else:
+            print("NO-RAISE", cls.__name__)
+"""
+
+
+def _run_probe():
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)  # the probe sets its own path: src only
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE.format(src=str(ROOT / "src"), root=str(ROOT))],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(ROOT),
+    )
+    assert out.returncode == 0, out.stderr
+    return out.stdout
+
+
+@pytest.fixture(scope="module")
+def probe_output():
+    return _run_probe()
+
+
+def test_port_and_chip_smoke_import_neither_jax_nor_repro(probe_output):
+    assert "LEAKED []" in probe_output, probe_output
+
+
+def test_no_device_on_a_cpu_only_host_raises(probe_output):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the no-device default is CUDA here")
+    assert probe_output.count("RAISED RuntimeError True") == 2, probe_output
+    assert "NO-RAISE" not in probe_output
+
+
+def test_chip_smoke_refuses_to_run_without_cuda():
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU")
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")],
+        capture_output=True, text=True, timeout=300, env=env, cwd=str(ROOT),
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
