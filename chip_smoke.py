@@ -3,23 +3,33 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line:
+Phases, each printing one line per check:
   1. build   — compile the CUDA kernels of src/repro_torch/csrc with nvcc;
   2. kernels — hold each kernel bit-exact against its plain PyTorch version
-               on the card, at the main path's shapes (128 blocks x 2048
-               symbols, OW 4098, bitlens including 0 and 64), on a ragged
-               tail block and on the kernel contract pack_blocks(block=256);
-               time kernel and plain version with CUDA events;
-  3. path    — for raw32, tcomp32, leb128 and delta_leb128, compress the
-               paper's evaluation volume (932,800 bytes of Rovio, seed 7) on
-               the card: the frame bytes must equal the CPU path's, `ingest`
-               on the card must return the input exactly, one codec runs with
+               on the card. B1-B4 at the main path's shapes (128 blocks x
+               2048 symbols, OW 4098, bitlens including 0 and 64), on a
+               ragged tail block and on the kernel contract
+               pack_blocks(block=256); B5 (dictionary probe) with 1 and 4
+               lanes of 512 tuples at idx_bits 12 and 10; B8/B9 (rANS) on
+               a section whose last chunk is partial and on a constant
+               stream, which never emits;
+  3. path    — compress the paper's evaluation volume (932,800 bytes of
+               Rovio, seed 7) on the card with raw32, tcomp32, leb128,
+               delta_leb128, tdic32 (frozen/private, frozen/shared, and
+               exact/private on the first 16 blocks), rle, and
+               delta_leb128 and tcomp32 with entropy="rans": the frame bytes
+               must equal the CPU path's, `ingest` on the card must return
+               the input exactly, two configurations run with
                integrity="crc32c", and every kernel's launch count must rise;
-  4. full    — the main path at full size: JobSpec() (tcomp32, 4 lanes, 8 KiB
-               micro-batches, 128-block chunks) on a 64 MiB Rovio stream,
-               compressed and decoded on the card; the roundtrip must be exact.
-               The kernel launch counts are set to 0 just before this phase
-               and read just after it.
+  4. full    — the main paths at full width on a 64 MiB Rovio stream, each
+               compressed and decoded on the card, each roundtrip exact:
+               JobSpec() (tcomp32, 4 lanes, 8 KiB micro-batches, 128-block
+               chunks), the heavy tier JobSpec(codec="delta_leb128",
+               entropy="rans", egress=True), and JobSpec(codec="tdic32").
+               The kernel launch counts are set to 0 just before each run
+               and read just after it; each run must launch its kernels;
+  5. timing  — each kernel and its plain version timed with CUDA events on
+               the main paths' own inputs.
 Then one JSON line of per-kernel numbers, the card's name and power limit as
 nvidia-smi reports them, and a last JSON line with the device.
 
@@ -44,6 +54,7 @@ from repro_torch.api import JobSpec  # noqa: E402
 from repro_torch.core import bits  # noqa: E402
 from repro_torch.core.pipeline import CompressionPipeline, DecompressionPipeline  # noqa: E402
 from repro_torch.data import make_dataset  # noqa: E402
+from repro_torch.core import entropy  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 
 #: H100 SXM device-memory rate (NVIDIA data sheet), for the byte bound
@@ -51,13 +62,42 @@ HBM_BYTES_PER_S = 3.35e12
 #: the paper's evaluation volume (repro data/datasets.py PAPER_EVAL_BYTES)
 EVAL_BYTES = 932800
 FULL_BYTES = 64 << 20
-SLICE_CODECS = ("raw32", "tcomp32", "leb128", "delta_leb128")
+#: the path phase: (name, JobSpec fields, blocks of the stream it compresses
+#: or None for all); integrity is on for two of them
+PATH_CONFIGS = (
+    ("raw32", dict(codec="raw32"), None),
+    ("tcomp32", dict(codec="tcomp32"), None),
+    ("leb128", dict(codec="leb128"), None),
+    ("delta_leb128", dict(codec="delta_leb128", integrity="crc32c"), None),
+    ("tdic32", dict(codec="tdic32"), None),
+    ("tdic32/shared", dict(codec="tdic32", state="shared"), None),
+    ("tdic32/exact", dict(codec="tdic32", params={"mode": "exact"}), 16),
+    ("rle", dict(codec="rle"), None),
+    ("delta_leb128+rans", dict(codec="delta_leb128", entropy="rans", integrity="crc32c"), None),
+    ("tcomp32+rans", dict(codec="tcomp32", entropy="rans"), None),
+)
+#: the full phase: name -> (JobSpec, kernels its run must launch)
+FULL_SPECS = {
+    "tcomp32": (JobSpec(), ("pack_blocks", "unpack_blocks", "compact_blocks", "pack_meta7_blocks")),
+    "heavy": (
+        JobSpec(codec="delta_leb128", entropy="rans", egress=True),
+        ("pack_blocks", "unpack_blocks", "compact_blocks", "pack_meta7_blocks",
+         "rans_encode", "rans_decode"),
+    ),
+    "tdic32": (
+        JobSpec(codec="tdic32"),
+        ("pack_blocks", "unpack_blocks", "compact_blocks", "pack_meta7_blocks", "dict_probe"),
+    ),
+}
 #: kernel -> (CUDA source, the Pallas kernel it replaces)
 KERNELS = {
     "pack_blocks": ("src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:55"),
     "unpack_blocks": ("src/repro_torch/csrc/bitunpack.cu", "src/repro/kernels/bitunpack.py:61"),
     "compact_blocks": ("src/repro_torch/csrc/frame_compact.cu", "src/repro/kernels/frame_compact.py:54"),
     "pack_meta7_blocks": ("src/repro_torch/csrc/frame_compact.cu", "src/repro/kernels/frame_compact.py:100"),
+    "dict_probe": ("src/repro_torch/csrc/dict_probe.cu", "src/repro/kernels/dict_hash.py:46"),
+    "rans_encode": ("src/repro_torch/csrc/rans.cu", "src/repro/kernels/rans.py:64"),
+    "rans_decode": ("src/repro_torch/csrc/rans.cu", "src/repro/kernels/rans.py:137"),
 }
 
 
@@ -77,23 +117,28 @@ def sleep_cycles_per_ms() -> float:
     return 1e7 / start.elapsed_time(end)
 
 
-def time_ms(fn, iters: int, cycles_per_ms: float):
+def time_ms(fn, iters: int, cycles_per_ms: float, queued: bool = True):
     """(device ms, host ms) per call of `fn`, warm.
 
     Device time: CUDA events around `iters` calls that queue back to back
     behind a device sleep long enough to cover their enqueue, so the host's
-    launch cost (argument checks, allocation, ctypes) is not counted. Host
-    time: one call's wall clock up to a synchronize."""
+    launch cost (argument checks, allocation, ctypes) is not counted. A
+    function of thousands of launches (the plain rANS scans) overflows the
+    launch queue behind any sleep; with `queued=False` it runs without the
+    sleep, and its time includes the host's launch gaps (an upper bound of
+    the device time). Host time: one call's wall clock up to a
+    synchronize."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     fn()
     torch.cuda.synchronize()
     host_ms = (time.perf_counter() - t0) * 1e3
-    sleep_ms = 2.0 * iters * host_ms + 5.0
+    sleep_ms = 2.0 * iters * host_ms + 5.0 if queued else 0.0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
+    if queued:
+        torch.cuda._sleep(int(sleep_ms * cycles_per_ms))
     start.record()
     t0 = time.perf_counter()
     for _ in range(iters):
@@ -101,7 +146,7 @@ def time_ms(fn, iters: int, cycles_per_ms: float):
     end.record()
     enqueue_ms = (time.perf_counter() - t0) * 1e3
     end.synchronize()
-    if enqueue_ms >= sleep_ms:
+    if queued and enqueue_ms >= sleep_ms:
         raise AssertionError(f"enqueue took {enqueue_ms:.3f} ms, past the {sleep_ms:.3f} ms sleep")
     return start.elapsed_time(end) / iters, host_ms
 
@@ -154,14 +199,75 @@ def check_kernels(dev) -> dict:
         m = ops.pack_meta7_blocks(blen.view(nb, s))
         err["pack_meta7_blocks"] = max(err["pack_meta7_blocks"], max_abs_err(m, ref.pack_meta7_ref(blen.view(nb, s))))
         torch.cuda.synchronize()
+    rng = np.random.default_rng(12)
+    for lanes, idx_bits in ((1, 12), (4, 12), (1, 10), (4, 10)):
+        ts = 1 << idx_bits
+        x = bits.u32_tensor(rng.integers(0, 3 * ts, (lanes, 512)).astype(np.uint32), dev)
+        table = bits.u32_tensor(rng.integers(0, 3 * ts, (lanes, ts)).astype(np.uint32), dev)
+        table[:, :256] = x[:, :256]  # some values sit in some slots
+        valid = torch.from_numpy((rng.random((lanes, ts)) < 0.7).astype(np.uint8)).to(dev)
+        got = ops.dict_probe(x, table, valid, idx_bits)
+        want = ref.probe_ref(x, table, valid, idx_bits)
+        err["dict_probe"] = max([err["dict_probe"]] + [max_abs_err(g, w) for g, w in zip(got, want)])
+        torch.cuda.synchronize()
+    ragged = (rng.zipf(1.4, 37 * 4096 - 1234) - 1).clip(0, 255).astype(np.uint8)
+    for data in (ragged, np.full(3 * 4096, 9, np.uint8)):
+        e_enc, e_dec, flags = check_rans(data, dev)
+        err["rans_encode"] = max(err["rans_encode"], e_enc)
+        err["rans_decode"] = max(err["rans_decode"], e_dec)
+        if data.min() == data.max() and flags != 0:
+            raise AssertionError(f"a constant stream emitted {flags} u16s")
     return err
 
 
-def time_kernels(dev, values: np.ndarray) -> dict:
-    """Kernel and plain-version times at the main path's shapes, on the main
-    path's own data: the first fused chunk (128 blocks) of the tcomp32
-    Rovio stream. Returns per kernel (ms, plain_ms, bound_ms, host_ms,
-    plain_host_ms)."""
+def rans_grid(data: np.ndarray, dev):
+    """A section's bytes as the stage codes them: (syms int32[C, 512, 8],
+    mask, freqs int32[256]), as `entropy._encode_device` builds them."""
+    n = data.size
+    c = -(-n // entropy.CHUNK_BYTES)
+    flat = torch.zeros(c * entropy.CHUNK_BYTES, dtype=torch.int32, device=dev)
+    flat[:n] = torch.from_numpy(data.astype(np.int32)).to(dev)
+    mask = (torch.arange(flat.numel(), device=dev) < n).view(c, entropy.ROWS, entropy.N_LANES)
+    freqs = entropy.quantize_freqs(torch.bincount(flat[:n].long(), minlength=256)).int()
+    return flat.view(c, entropy.ROWS, entropy.N_LANES), mask, freqs
+
+
+def rans_stream(states, flags, vals):
+    """The u16 stream and lane offsets assembled from B8's outputs."""
+    c = flags.shape[0]
+    counts = flags.sum(1).reshape(-1).long()
+    off = (torch.cumsum(counts, 0) - counts).view(c, 1, entropy.N_LANES)
+    rank = torch.cumsum(flags, 1).long() - flags
+    cap = c * entropy.CHUNK_BYTES
+    pos = torch.where(flags > 0, off + rank, cap)
+    stream = torch.zeros(cap + 1, dtype=torch.int32, device=flags.device)
+    stream.scatter_(0, pos.reshape(-1), vals.reshape(-1))
+    return stream[: int(counts.sum())], off.view(c, entropy.N_LANES).int(), cap
+
+
+def check_rans(data: np.ndarray, dev):
+    """B8 and B9 against their plain versions on one section's bytes; the
+    decode must also return the bytes. (max err enc, max err dec, u16s)."""
+    syms, mask, freqs = rans_grid(data, dev)
+    enc = ops.rans_encode(syms, mask, freqs)
+    e_enc = max(max_abs_err(a, b) for a, b in zip(enc, ref.rans_encode_ref(syms, mask, freqs)))
+    stream, off, cap = rans_stream(*enc)
+    got = ops.rans_decode(stream, freqs, enc[0], off, mask, cap)
+    want = ref.rans_decode_ref(stream, cap, freqs, enc[0], off, mask)
+    e_dec = max(max_abs_err(got, want), max_abs_err(got, torch.where(mask, syms, 0)))
+    torch.cuda.synchronize()
+    return e_enc, e_dec, int(enc[1].sum())
+
+
+def time_kernels(dev, values: np.ndarray, heavy_frame: bits.Frame) -> dict:
+    """Kernel and plain-version times at the main paths' shapes, on their
+    own data: B1-B4 on the first fused chunk (128 blocks) of the tcomp32
+    Rovio stream; B5 on one tdic32 block (4 lanes x 512 tuples) probing the
+    table the stream built over the 64 blocks before it; B8/B9 on the
+    heavy tier's payload section (the 64 MiB delta_leb128 frame's raw
+    payload). Each kernel is first held bit-exact against its plain version
+    on these inputs. Returns per kernel (ms, plain_ms, bound_ms, host_ms,
+    plain_host_ms, max_abs_err)."""
     pipe = CompressionPipeline(JobSpec(), device=dev)
     chunk = pipe.plan.scan_chunk
     shaped = pipe.shape_blocks(values[: chunk * pipe.block_tuples])
@@ -197,32 +303,67 @@ def time_kernels(dev, values: np.ndarray) -> dict:
             c * s * 4 + c * mw * 4,
         ),
     }
+    tdic = CompressionPipeline(JobSpec(codec="tdic32"), device=dev)
+    tshaped = tdic.shape_blocks(values[: 65 * tdic.block_tuples])
+    tblocks = bits.u32_tensor(tshaped.blocks, dev)
+    tstate, _ = tdic.codec.encode_blocks(tdic.init_state(), tblocks[:64])
+    x, table = tblocks[64].contiguous(), tstate["table"]
+    valid = tstate["valid"].view(torch.uint8)
+    idx_bits = tdic.codec.idx_bits
+    plan["dict_probe"] = (
+        lambda: ops.dict_probe(x, table, valid, idx_bits),
+        lambda: ref.probe_ref(x, table, valid, idx_bits),
+        x.numel() * 4 + table.numel() * 4 + valid.numel() + 3 * x.numel() * 4,
+    )
+    section = np.ascontiguousarray(heavy_frame.payload, np.uint32).view(np.uint8)
+    syms, mask, freqs = rans_grid(section, dev)
+    enc = ops.rans_encode(syms, mask, freqs)
+    stream, off, cap = rans_stream(*enc)
+    g = syms.numel()
+    plan["rans_encode"] = (
+        lambda: ops.rans_encode(syms, mask, freqs),
+        lambda: ref.rans_encode_ref(syms, mask, freqs),
+        g * 4 + g + 256 * 4 + enc[0].numel() * 4 + 2 * g * 4,
+    )
+    plan["rans_decode"] = (
+        lambda: ops.rans_decode(stream, freqs, enc[0], off, mask, cap),
+        lambda: ref.rans_decode_ref(stream, cap, freqs, enc[0], off, mask),
+        stream.numel() * 4 + 256 * 4 + 2 * off.numel() * 4 + g + g * 4,
+    )
     cpm = sleep_cycles_per_ms()
     out = {}
     for name, (kern, plain, nbytes) in plan.items():
-        ms, host_ms = time_ms(kern, 100, cpm)
-        plain_ms, plain_host_ms = time_ms(plain, 10, cpm)
-        out[name] = (ms, plain_ms, nbytes / HBM_BYTES_PER_S * 1e3, host_ms, plain_host_ms)
+        got, want = kern(), plain()
+        got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
+        err = max(max_abs_err(g, w) for g, w in zip(got, want))
+        scan = name.startswith("rans")
+        ms, host_ms = time_ms(kern, 20 if scan else 100, cpm)
+        plain_ms, plain_host_ms = time_ms(plain, 3 if scan else 10, cpm, queued=not scan)
+        out[name] = (ms, plain_ms, nbytes / HBM_BYTES_PER_S * 1e3, host_ms, plain_host_ms, err)
     return out
 
 
 def run_path(dev) -> None:
-    """Phase 3: the eval volume through every slice codec, card vs CPU."""
+    """Phase 3: the eval volume through every configuration, card vs CPU."""
     values = make_dataset("rovio", n_tuples=EVAL_BYTES // 16, seed=7).stream()
     assert values.size == EVAL_BYTES // 4
     before = ops.launch_counts()
-    for codec in SLICE_CODECS:
-        spec = JobSpec(codec=codec, integrity="crc32c" if codec == "delta_leb128" else None)
-        gpu = CompressionPipeline(spec, device=dev).compress_to_frame(values).to_bytes()
-        cpu = CompressionPipeline(spec, device="cpu").compress_to_frame(values).to_bytes()
+    for name, fields, n_blocks in PATH_CONFIGS:
+        spec = JobSpec(**fields)
+        gpu_pipe = CompressionPipeline(spec, device=dev)
+        v = values if n_blocks is None else values[: n_blocks * gpu_pipe.block_tuples]
+        t0 = time.perf_counter()
+        gpu = gpu_pipe.compress_to_frame(v).to_bytes()
+        cpu = CompressionPipeline(spec, device="cpu").compress_to_frame(v).to_bytes()
         if gpu != cpu:
-            raise AssertionError(f"{codec}: card frame differs from the CPU path's frame")
+            raise AssertionError(f"{name}: card frame differs from the CPU path's frame")
         back = DecompressionPipeline(spec, device=dev).ingest(gpu)
-        if not np.array_equal(back.values, values):
-            raise AssertionError(f"{codec}: ingest on the card did not return the input")
-        emit({"phase": "path", "codec": codec, "integrity": spec.integrity,
-              "tuples": int(values.size), "wire_bytes": len(gpu),
-              "ratio": values.nbytes / len(gpu), "frame_equals_cpu": True, "exact": True})
+        if not np.array_equal(back.values, v):
+            raise AssertionError(f"{name}: ingest on the card did not return the input")
+        emit({"phase": "path", "config": name, "integrity": spec.integrity,
+              "entropy": spec.entropy, "tuples": int(v.size), "wire_bytes": len(gpu),
+              "ratio": v.nbytes / len(gpu), "frame_equals_cpu": True, "exact": True,
+              "seconds": time.perf_counter() - t0})
     after = ops.launch_counts()
     stale = [k for k in after if after[k] <= before[k]]
     if stale:
@@ -241,15 +382,17 @@ def device_busy_ms(fn) -> float:
     return total_us / 1e3 if total_us > 0 else None
 
 
-def run_full(dev) -> dict:
-    """Phase 4: JobSpec() tcomp32 on 64 MiB of Rovio, compress + decode,
-    timed step by step on the host clock; then one profiled pass of each
-    direction for the device's busy time."""
-    values = make_dataset("rovio", n_tuples=FULL_BYTES // 16, seed=7).stream()
-    spec = JobSpec()
+def run_full(dev, name: str, values: np.ndarray):
+    """Phase 4: one main path on 64 MiB of Rovio, compress + decode, timed
+    step by step on the host clock, with the launch counts set to 0 just
+    before and read just after; then one profiled pass of each direction
+    for the device's busy time. Returns (launches, frame)."""
+    t_run = time.perf_counter()
+    spec, needed = FULL_SPECS[name]
     pipe = CompressionPipeline(spec, device=dev)
     decomp = DecompressionPipeline(spec, device=dev)
-    pipe.compress_to_frame(values[: 8 * pipe.block_tuples])  # warm the allocator
+    warm = pipe.compress_to_frame(values[: 8 * pipe.block_tuples]).to_bytes()  # warm the allocator
+    decomp.ingest(warm)
     torch.cuda.synchronize()
     ops.reset_launches()
     t = {}
@@ -261,13 +404,13 @@ def run_full(dev) -> dict:
     t["execute_s"] = time.perf_counter() - t0
     t["execute_loop_s"] = res.wall_s  # chunk loop + egress fetches + metadata splice
     t0 = time.perf_counter()
-    frame = pipe.frame_from(shaped, res)
+    frame = pipe.frame_from(shaped, res)  # with entropy: the rANS blob (B8)
     t["frame_from_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     wire = frame.to_bytes()
     t["to_bytes_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    parsed = bits.parse_frame(wire)
+    parsed = bits.parse_frame(wire, dev)  # with entropy: the blob decode (B9)
     t["parse_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     dec = decomp.decompress(parsed)
@@ -275,22 +418,27 @@ def run_full(dev) -> dict:
     t["decompress_device_loop_s"] = dec.wall_s  # unpack + decode chunks, synced
     launches = ops.launch_counts()
     if not np.array_equal(dec.values, values):
-        raise AssertionError("64 MiB tcomp32 roundtrip is not exact")
+        raise AssertionError(f"64 MiB {name} roundtrip is not exact")
+    missing = [k for k in needed if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"the {name} main path did not launch: {missing}")
     comp_s = t["shape_s"] + t["execute_s"] + t["frame_from_s"] + t["to_bytes_s"]
     dec_s = t["parse_s"] + t["decompress_s"]
-    busy_c = device_busy_ms(lambda: pipe.execute(shaped, collect_payload=True))
-    busy_d = device_busy_ms(lambda: decomp.decompress(parsed))
+    t0 = time.perf_counter()
+    busy_c = device_busy_ms(lambda: pipe.frame_from(shaped, pipe.execute(shaped, collect_payload=True)))
+    busy_d = device_busy_ms(lambda: decomp.ingest(wire))
+    t["profile_s"] = time.perf_counter() - t0  # the two profiled passes
     emit({
-        "phase": "full", "codec": spec.codec, "input_bytes": int(values.nbytes),
+        "phase": "full", "path": name, "spec": spec.to_dict(), "input_bytes": int(values.nbytes),
         "blocks": int(len(shaped.blocks)), "chunks": len(pipe._chunks(len(shaped.blocks))),
         "wire_bytes": len(wire), "ratio": values.nbytes / len(wire),
         "compress_s": comp_s, "compress_MBps": values.nbytes / 1e6 / comp_s,
         "decompress_s": dec_s, "decompress_MBps": values.nbytes / 1e6 / dec_s,
         "d2h_bytes": res.compacted.d2h_bytes,
-        "steps": t, "device_busy_ms": {"execute": busy_c, "decompress": busy_d},
-        "exact": True, "launches": launches,
+        "steps": t, "device_busy_ms": {"compress": busy_c, "decompress": busy_d},
+        "exact": True, "launches": launches, "seconds": time.perf_counter() - t_run,
     })
-    return launches
+    return launches, frame
 
 
 def main() -> int:
@@ -304,24 +452,40 @@ def main() -> int:
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": regs,
           "torch": torch.__version__, "cuda": torch.version.cuda, "numpy": np.__version__})
 
+    t0 = time.perf_counter()
     err = check_kernels(dev)
     bad = {k: v for k, v in err.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
+    emit({"phase": "kernels", "bit_exact": True, "max_abs_err": err,
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    run_path(dev)
+    emit({"phase": "path", "seconds": time.perf_counter() - t0})
     full_values = make_dataset("rovio", n_tuples=FULL_BYTES // 16, seed=7).stream()
-    times = time_kernels(dev, full_values)
-    emit({"phase": "kernels", "bit_exact": True, "kernels": {
+    launches = {k: 0 for k in KERNELS}
+    frames = {}
+    for name in FULL_SPECS:
+        counts, frames[name] = run_full(dev, name, full_values)
+        for k, n in counts.items():
+            launches[k] += n
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"the main paths did not launch: {missing}")
+
+    t_timing = time.perf_counter()
+    times = time_kernels(dev, full_values, frames["heavy"])
+    for k, t in times.items():
+        err[k] = max(err[k], t[5])
+    bad = {k: v for k, v in err.items() if v != 0}
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions at the main paths' shapes: {bad}")
+    emit({"phase": "timing", "seconds": time.perf_counter() - t_timing, "kernels": {
         k: {"kernel_ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "host_ms": t[3],
             "plain_host_ms": t[4]}
         for k, t in times.items()
     }})
-
-    run_path(dev)
-    launches = run_full(dev)
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"the main path did not launch: {missing}")
-
     emit({"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

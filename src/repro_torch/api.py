@@ -7,10 +7,11 @@
     (executor + schedule + latency layers), and compress -> frame ->
     decompress with the fidelity check.
 
-The pipelines refuse a spec whose `entropy`, `adaptive`, `dictionary`,
-`gang` or `devices > 0` asks for a feature the port does not have yet, with
-a one-line NotImplementedError naming the ROADMAP item. `negotiate`,
-`open`/`StreamHandle` and `Dispatcher` come with the next slice.
+`entropy="rans"` runs the rANS stage on the pipeline's device. The
+pipelines refuse a spec whose `adaptive`, `dictionary`, `gang` or
+`devices > 0` asks for a feature the port does not have yet, with a
+one-line NotImplementedError naming the ROADMAP item. `negotiate`,
+`open`/`StreamHandle` and `Dispatcher` come with a later slice.
 """
 from __future__ import annotations
 
@@ -97,7 +98,7 @@ class JobSpec:
     egress: bool = False
     max_abs_error: Optional[float] = None
     strict_masking: bool = False
-    #: stage-2 entropy coder (ROADMAP A7; refused by the port's pipelines)
+    #: stage-2 entropy coder: "rans" codes each frame's sections with rANS
     entropy: Optional[str] = None
     #: adaptive tier selection (ROADMAP A8; refused by the port's pipelines)
     adaptive: bool = False

@@ -8,8 +8,7 @@
     CUDA kernels under `csrc/`) turns symbol slots into a dense bitstream.
   * Stateful codecs carry a dict of tensors with leading dim `lanes`;
     `decode` replays the same state evolution, so a decoder needs only the
-    symbol stream. `flush` emits the trailing state (none of the codecs
-    ported so far has any).
+    symbol stream. `flush` emits the trailing state (rle's open run).
 """
 from __future__ import annotations
 
@@ -68,25 +67,50 @@ class Codec:
         Must not mutate `state`."""
         return None
 
-    def encode_blocks(self, state: Any, blocks: torch.Tensor) -> Tuple[Any, Encoded]:
-        """Encode C consecutive blocks `(C, L, B)` in one call.
+    #: True when the state changes per block, not per tuple (tdic32's
+    #: frozen table): the chunk forms then walk the blocks one by one
+    per_block_state: bool = False
 
-        Lane l's symbols across the chunk are the encoding of its
-        concatenated tuples `blocks.permute(1, 0, 2).reshape(L, C*B)`, which
-        equals C sequential `encode` calls for every codec whose state is a
-        per-lane recurrence over the tuple stream (all codecs ported so
-        far). A codec with per-block state transitions overrides this."""
+    def encode_blocks(self, state: Any, blocks: torch.Tensor,
+                      merge: Optional[Callable[[Any], Any]] = None) -> Tuple[Any, Encoded]:
+        """Encode C consecutive blocks `(C, L, B)`; `merge` (the shared-state
+        strategy's cross-lane merge, or None) is applied to the state after
+        every block.
+
+        Without a merge, lane l's symbols across the chunk are the encoding
+        of its concatenated tuples `blocks.permute(1, 0, 2).reshape(L, C*B)`
+        in one call, which equals C sequential `encode` calls for every
+        codec whose state is a per-lane recurrence over the tuple stream
+        (raw32, tcomp32, leb128, delta_leb128, rle). A merge, or a codec with
+        `per_block_state`, walks the C blocks in order instead."""
         c, lanes, b = blocks.shape
+        if merge is not None or self.per_block_state:
+            codes, bitlen = [], []
+            for blk in blocks:
+                state, enc = self.encode(state, blk)
+                state = state if merge is None else merge(state)
+                codes.append(enc.codes)
+                bitlen.append(enc.bitlen)
+            return state, Encoded(torch.stack(codes), torch.stack(bitlen))
         state, enc = self.encode(state, blocks.permute(1, 0, 2).reshape(lanes, c * b))
         return state, Encoded(
             enc.codes.reshape(lanes, c, b, 2).permute(1, 0, 2, 3),
             enc.bitlen.reshape(lanes, c, b).permute(1, 0, 2),
         )
 
-    def decode_blocks(self, state: Any, enc: Encoded) -> Tuple[Any, torch.Tensor]:
-        """Decode C consecutive blocks (`encode_blocks`'s inverse):
-        codes `(C, L, B, 2)`, bitlen `(C, L, B)` -> values `(C, L, B)`."""
+    def decode_blocks(self, state: Any, enc: Encoded,
+                      merge: Optional[Callable[[Any], Any]] = None) -> Tuple[Any, torch.Tensor]:
+        """Decode C consecutive blocks (`encode_blocks`'s inverse, with the
+        same `merge` after every block): codes `(C, L, B, 2)`, bitlen
+        `(C, L, B)` -> values `(C, L, B)`."""
         c, lanes, b = enc.bitlen.shape
+        if merge is not None or self.per_block_state:
+            xs = []
+            for i in range(c):
+                state, x = self.decode(state, Encoded(enc.codes[i], enc.bitlen[i]))
+                state = state if merge is None else merge(state)
+                xs.append(x)
+            return state, torch.stack(xs)
         flat = Encoded(
             enc.codes.permute(1, 0, 2, 3).reshape(lanes, c * b, 2),
             enc.bitlen.permute(1, 0, 2).reshape(lanes, c * b),
@@ -109,8 +133,6 @@ _REGISTRY: Dict[str, Callable[..., Codec]] = {}
 
 #: reference codecs not ported yet -> the ROADMAP item that brings them
 UNPORTED = {
-    "tdic32": "ROADMAP A2, with kernel B5 (the next slice)",
-    "rle": "ROADMAP A2, stream-scope decode and the flush mini-block",
     "leb128_nuq": "ROADMAP A5, lossy codecs after C2",
     "uanuq": "ROADMAP A5, lossy codecs after C2",
     "adpcm": "ROADMAP A5, lossy codecs after C2",

@@ -29,6 +29,8 @@ from typing import Dict, Iterator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
+
 M32 = 0xFFFFFFFF
 
 
@@ -490,8 +492,9 @@ def _check_crc(section: str, stored: int, data: bytes) -> None:
 #
 # All serialization is host-side numpy on explicit little-endian uint32
 # words; device code only ever sees the unpacked arrays. The port writes
-# the CRC feature only; it refuses FEATURE_ENTROPY (ROADMAP A7) and
-# FEATURE_DICT (ROADMAP A8) frames with a FrameFeatureError.
+# and reads the CRC and entropy features; the rANS stage itself
+# (`core/entropy.py`) runs on a device. It refuses FEATURE_DICT frames
+# (ROADMAP A8) with a FrameFeatureError.
 # ======================================================================
 
 FRAME_MAGIC = 0x43535746  # "CSWF"
@@ -572,10 +575,16 @@ class Frame:
     #: `to_bytes` then reuses it instead of re-packing `bitlen`. Must stay
     #: consistent with `bitlen` — both come from the same source.
     packed_meta: Optional[np.ndarray] = None
+    #: rANS stage-2 blob (uint32 words, `core.entropy.encode_blob`). When
+    #: set, serialization carries the blob INSTEAD of the raw metadata +
+    #: payload sections and raises FEATURE_ENTROPY in the version word;
+    #: the in-memory fields above always stay in raw form so decoders and
+    #: the executor never see entropy-coded bytes.
+    entropy: Optional[np.ndarray] = None
     #: integrity kind ("crc32c" or None). When set, the frame raises
     #: FEATURE_CRC and `to_bytes` appends a 5-word trailer of per-section
-    #: CRC32C checksums (header, counts, dict-id, meta, payload; the dict-id
-    #: section is always empty here and checksums as 0); `from_bytes`
+    #: CRC32C checksums (header, counts, dict-id, meta/blob, payload; the
+    #: dict-id section is always empty here and checksums as 0); `from_bytes`
     #: verifies every section before trusting the body and re-stamps the
     #: field so reserialization round-trips. `None` keeps the frame
     #: byte-identical to integrity-off builds.
@@ -611,28 +620,61 @@ class Frame:
 
     @property
     def wire_bytes(self) -> int:
-        """Total serialized size (header + metadata + payload), computed in
-        O(1) — must equal len(self.to_bytes())."""
+        """Total serialized size (header + metadata + payload, or header +
+        entropy blob), computed in O(1) — must equal len(self.to_bytes())."""
         cw = _CRC_TRAILER_WORDS if self.integrity is not None else 0
+        if self.entropy is not None:
+            return 4 * (_HDR_WORDS + 2 * self.n_blocks + self.entropy.size + cw)
         meta_words = (7 * self.n_symbols + 31) // 32
         return 4 * (_HDR_WORDS + 2 * self.n_blocks + meta_words + self.payload.size + cw)
 
+    # ------------------------------------------------------- entropy stage --
+    def apply_entropy(self, device: Union[None, str, torch.device] = None) -> "Frame":
+        """Attach the rANS stage-2 blob, in place, coding on `device` (CUDA
+        when None, or raise).
+
+        Entropy-codes the 7-bit metadata stream and the compacted payload
+        into `self.entropy`; the raw fields are kept untouched so the
+        decode executor is oblivious to the stage. Idempotent."""
+        if self.entropy is None:
+            from repro_torch.core import entropy as _entropy
+
+            dev = resolve_device(device)
+            meta = self.packed_meta
+            if meta is None:
+                meta = _pack_bitlens(self.bitlen)
+                self.packed_meta = meta
+            self.entropy = _entropy.encode_blob(
+                meta, np.ascontiguousarray(self.payload, np.uint32), dev
+            )
+        return self
+
     # ----------------------------------------------------------- serialize --
     def _section_bytes(self) -> Tuple[bytes, bytes, bytes, bytes, bytes]:
-        """The five serialized sections (header, counts, dict, meta,
+        """The five serialized sections (header, counts, dict, meta/blob,
         payload) as little-endian bytes; absent sections are empty."""
         crc_bit = FEATURE_CRC if self.integrity is not None else 0
         counts_sec = (
             np.ascontiguousarray(self.block_bits, np.uint32).astype("<u4").tobytes()
             + np.ascontiguousarray(self.block_valid, np.uint32).astype("<u4").tobytes()
         )
-        meta = self.packed_meta
-        if meta is None:
-            meta = _pack_bitlens(self.bitlen)
+        if self.entropy is not None:
+            feature_bits = FEATURE_ENTROPY | crc_bit
+            meta_size, payload_size = self.entropy.size, 0
+            meta_sec = np.ascontiguousarray(self.entropy, np.uint32).astype("<u4").tobytes()
+            payload_sec = b""
+        else:
+            meta = self.packed_meta
+            if meta is None:
+                meta = _pack_bitlens(self.bitlen)
+            feature_bits = crc_bit
+            meta_size, payload_size = meta.size, self.payload.size
+            meta_sec = meta.astype("<u4").tobytes()
+            payload_sec = np.ascontiguousarray(self.payload, np.uint32).astype("<u4").tobytes()
         header = np.array(
             [
                 FRAME_MAGIC,
-                FRAME_VERSION | crc_bit,
+                FRAME_VERSION | feature_bits,
                 self.codec_id,
                 self.lanes,
                 self.per_lane,
@@ -641,18 +683,12 @@ class Frame:
                 self.flush_slots,
                 self.n_valid,
                 self.n_blocks,
-                meta.size,
-                self.payload.size,
+                meta_size,
+                payload_size,
             ],
             np.uint32,
         )
-        return (
-            header.astype("<u4").tobytes(),
-            counts_sec,
-            b"",
-            meta.astype("<u4").tobytes(),
-            np.ascontiguousarray(self.payload, np.uint32).astype("<u4").tobytes(),
-        )
+        return (header.astype("<u4").tobytes(), counts_sec, b"", meta_sec, payload_sec)
 
     def to_bytes(self) -> bytes:
         if self.integrity is not None and self.integrity not in INTEGRITY_KINDS:
@@ -667,7 +703,9 @@ class Frame:
         return b"".join(secs) + trailer.astype("<u4").tobytes()
 
     @classmethod
-    def from_bytes(cls, buf: bytes) -> "Frame":
+    def from_bytes(cls, buf: bytes, device: Union[None, str, torch.device] = None) -> "Frame":
+        """Parse one serialized frame. `device` is used only by entropy
+        frames, whose blob is decoded there (CUDA when None, or raise)."""
         buf = bytes(buf)
         if len(buf) < 4 * _HDR_WORDS:
             raise FrameTruncatedError(
@@ -693,17 +731,14 @@ class Frame:
                 f"build understands 0x{_KNOWN_FEATURES:08x}: entropy, dict, "
                 "crc); decode with a newer build"
             )
-        if features & FEATURE_ENTROPY:
-            raise FrameFeatureError(
-                "frame uses FEATURE_ENTROPY (rANS stage 2), which the torch "
-                "port does not decode yet (ROADMAP A7); decode it with repro"
-            )
         if features & FEATURE_DICT:
             raise FrameFeatureError(
                 "frame uses FEATURE_DICT (trained dictionary), which the torch "
                 "port does not decode yet (ROADMAP A8); decode it with repro"
             )
+        has_entropy = bool(features & FEATURE_ENTROPY)
         has_crc = bool(features & FEATURE_CRC)
+        dev = resolve_device(device) if has_entropy else None
         nb, meta_words, payload_words = int(head[9]), int(head[10]), int(head[11])
         crc_words = _CRC_TRAILER_WORDS if has_crc else 0
         body = np.frombuffer(buf[4 * _HDR_WORDS :], dtype="<u4")
@@ -718,6 +753,13 @@ class Frame:
                 )
             _check_crc("header", int(body[body.size - crc_words]), buf[: 4 * _HDR_WORDS])
         sec_words = body.size - crc_words
+        # with FEATURE_ENTROPY, header word 10 is the blob size and word 11
+        # must be zero: the raw sections are inside the blob
+        if has_entropy and payload_words != 0:
+            raise FrameHeaderError(
+                "frame header inconsistent: entropy frames carry no raw "
+                "payload section"
+            )
         if sec_words != 2 * nb + meta_words + payload_words:
             raise FrameTruncatedError(
                 f"frame length mismatch: body carries {sec_words} words, the "
@@ -757,9 +799,29 @@ class Frame:
                 f"frame header inconsistent: {nb} blocks declared, shape "
                 f"fields imply {frame.n_blocks}"
             )
-        if (7 * frame.n_symbols + 31) // 32 != meta_words:
+        if has_entropy:
+            from repro_torch.core import entropy as _entropy
+
+            blob = meta  # word-10 section is the blob on this path
+            try:
+                meta, frame.payload = _entropy.decode_blob(
+                    blob,
+                    (7 * frame.n_symbols + 31) // 32,
+                    int(frame.block_words().sum()),
+                    dev,
+                )
+            except FrameError:
+                raise
+            except Exception as exc:
+                msg = str(exc).replace("\n", " ")
+                raise FrameDecodeError(
+                    f"frame entropy blob undecodable ({type(exc).__name__}: "
+                    f"{msg}); the frame is corrupt — discard it and resync"
+                ) from exc
+            frame.entropy = blob
+        elif (7 * frame.n_symbols + 31) // 32 != meta_words:
             raise FrameHeaderError("frame header inconsistent: bitlen metadata size")
-        if int(frame.block_words().sum()) != payload_words:
+        elif int(frame.block_words().sum()) != payload_words:
             raise FrameHeaderError("frame header inconsistent: payload size")
         frame.bitlen = _unpack_bitlens(meta, frame.n_symbols)
         frame.packed_meta = meta  # reserialization reuses the parsed stream
@@ -846,15 +908,22 @@ class Frame:
         return frame
 
 
-def parse_frame(buf: bytes) -> Frame:
+def parse_frame(buf: bytes, device: Union[None, str, torch.device] = None) -> Frame:
     """Parse one serialized frame; every failure raises a `FrameError`.
 
     The collector-side entry point: unlike calling `Frame.from_bytes`
     directly in older builds, no raw numpy/struct error (misaligned slice,
     short buffer, corrupt section) ever escapes — body-length mismatches
-    and corruption all surface as single-line, typed, actionable errors."""
+    and corruption all surface as single-line, typed, actionable errors.
+    `device` decodes entropy frames (CUDA when None); a missing device is
+    the entry points' RuntimeError, raised before parsing, not a frame
+    error."""
+    head = bytes(buf[:8])
+    if (device is None and len(head) == 8
+            and int.from_bytes(head[4:], "little") & FEATURE_ENTROPY):
+        device = resolve_device(None)
     try:
-        return Frame.from_bytes(buf)
+        return Frame.from_bytes(buf, device)
     except FrameError:
         raise
     except Exception as exc:  # defensive: the parser's error contract

@@ -23,20 +23,27 @@ the resolved execution plan, block shaping and chunking. On top of it:
 
 Pad symbols of the tail block are dropped from the bitstream only for
 `meta.maskable` codecs; codecs whose decoder replays state from the symbols
-(delta_leb128) ship them, and the frame's valid counts trim them after
-decode.
+(delta_leb128, tdic32, rle) ship them, and the frame's valid counts trim
+them after decode.
+
+Under the shared-state strategy a dictionary codec's lanes merge their
+tables after every block, in both directions (`merge_shared_dictionary`,
+handed to the codec's chunk walk as a callable). Stream-scope codecs (rle)
+decode in two passes: every block is unpacked, then one expansion decodes
+the whole symbol stream, flush mini-block included. With
+`entropy="rans"` the marshalled frame carries the rANS blob, coded on the
+pipeline's device (kernels B8/B9), and parsing decodes it there.
 
 Every entry point runs on `torch.device("cuda")` unless the caller passes
 `device="cpu"`; with no device and no GPU it raises. On the CPU the kernel
 wrappers run their plain versions; on the card they launch the CUDA kernels.
-Gang execution, `lww_select` and `merge_shared_dictionary` wait for ROADMAP
-A6/A8.
+Gang execution waits for ROADMAP A6.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -50,10 +57,12 @@ from repro_torch.core.algorithms import (
     make_codec,
 )
 from repro_torch.core.calibration import calibrated_kwargs
+from repro_torch.core.device import resolve_device
 from repro_torch.core.strategies import (
     ExecutionPlan,
     ExecutionStrategy,
     SpecLike,
+    StateStrategy,
     plan_execution,
 )
 from repro_torch.kernels import ops
@@ -65,26 +74,11 @@ _FORCED_FUSE_CHUNK = 128
 #: spec fields that name features this port does not have yet:
 #: (field, is-requested test, what it needs)
 _UNPORTED_FIELDS = (
-    ("entropy", lambda v: v not in (None, "none"), "the rANS entropy stage (ROADMAP A7)"),
     ("adaptive", bool, "the adaptive tier ladder (ROADMAP A8)"),
     ("dictionary", lambda v: v is not None, "trained dictionaries (ROADMAP A8)"),
     ("gang", bool, "gang execution (ROADMAP A6)"),
     ("devices", lambda v: v > 0, "sharded fleets (ROADMAP A9)"),
 )
-
-
-def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller names one.
-    There is no silent CPU fallback."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "repro_torch runs on a CUDA device unless told otherwise, and "
-                "none is available; pass device='cpu' to run the plain "
-                "versions of the kernels on the CPU"
-            )
-        return torch.device("cuda")
-    return torch.device(device)
 
 
 def refuse_unported(config: SpecLike) -> None:
@@ -104,6 +98,38 @@ def codec_align(codec: Codec) -> int:
 
     PLA fits superwindows of 2W tuples; every other codec packs any shape."""
     return 2 * codec.window if codec.name == "pla" else 1
+
+
+# ------------------------------------------------------- shared-state merge --
+def lww_select(tables: torch.Tensor, valids: torch.Tensor, tss: torch.Tensor):
+    """Last-writer-wins slot selection over group axis 0.
+
+    Given per-group dictionary views `(G, TS)`, returns the merged
+    `(table, valid, ts)` rows `(TS,)`: each slot takes the entry with the
+    newest write timestamp (invalid slots never win). Equal timestamps are
+    common (every lane shares one clock), so ties go to the LOWEST group,
+    as the reference's `jnp.argmax` does; the tie-break is spelled out as a
+    min over the tied groups rather than left to an argmax."""
+    key = torch.where(valids, tss, torch.full_like(tss, -1))
+    groups = torch.arange(key.shape[0], device=key.device)[:, None]
+    tied = key == key.max(dim=0, keepdim=True).values
+    best = torch.where(tied, groups, key.shape[0]).amin(dim=0)
+    slot = torch.arange(key.shape[1], device=key.device)
+    return tables[best, slot], valids.any(dim=0), key[best, slot]
+
+
+def merge_shared_dictionary(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Deterministic cross-lane dictionary merge (shared-state strategy):
+    every lane converges to the last-writer-wins table and the newest
+    clock after every micro-batch block. Decoder-replayable."""
+    lanes, ts_size = state["table"].shape
+    table, valid, ts = lww_select(state["table"], state["valid"], state["ts"])
+    return {
+        "table": table.expand(lanes, ts_size).contiguous(),
+        "valid": valid.expand(lanes, ts_size).contiguous(),
+        "ts": ts.expand(lanes, ts_size).contiguous(),
+        "clock": state["clock"].max().expand(lanes).contiguous(),
+    }
 
 
 # ------------------------------------------------------------ shaped stream --
@@ -344,8 +370,17 @@ class BlockedExecutor:
             plan if plan is not None else plan_execution(config, codec_align=align)
         )
         self._align = align
+        #: stage-2 entropy coder applied at frame marshal ("none" | "rans")
+        self.entropy: str = getattr(config, "entropy", None) or "none"
         #: wire integrity stamped at frame marshal ("none" | "crc32c")
         self.integrity: str = getattr(config, "integrity", None) or "none"
+        #: the per-block state merge of the shared-state strategy, or None
+        self.merge: Optional[Callable[[Any], Any]] = (
+            merge_shared_dictionary
+            if config.state == StateStrategy.SHARED
+            and self.codec.meta.state_kind == "dictionary"
+            else None
+        )
 
     # ------------------------------------------------------------- plumbing
     def init_state(self, lanes: Optional[int] = None) -> Any:
@@ -361,6 +396,9 @@ class BlockedExecutor:
     def align(self) -> int:
         """Per-lane tuple alignment the codec requires (PLA superwindows)."""
         return self._align
+
+    def _merge_if_shared(self, state: Any) -> Any:
+        return state if self.merge is None else self.merge(state)
 
     def warmup(self) -> None:
         """Build and load the CUDA kernels before a timed region (a no-op
@@ -445,6 +483,7 @@ class CompressionPipeline(BlockedExecutor):
         their pad symbols so the decoder's state replay stays exact.
         Returns (state, words int32[OW], nbits, bitlen int32[lanes*B])."""
         state, enc = self.codec.encode(state, block)
+        state = self._merge_if_shared(state)
         if mask is not None and self.codec.meta.maskable:
             enc = Encoded(enc.codes, torch.where(mask, enc.bitlen, torch.zeros_like(enc.bitlen)))
         words, nbits, bitlen = self._pack(enc, 1)
@@ -454,7 +493,7 @@ class CompressionPipeline(BlockedExecutor):
         """Encode and pack C full blocks `(C, lanes, B)` in one codec call and
         one B1 launch: (state, words int32[C, OW], nbits int32[C],
         bitlen int32[C, lanes*B])."""
-        state, enc = self.codec.encode_blocks(state, blocks)
+        state, enc = self.codec.encode_blocks(state, blocks, self.merge)
         words, nbits, bitlen = self._pack(enc, blocks.shape[0])
         return state, words, nbits, bitlen
 
@@ -687,8 +726,13 @@ class CompressionPipeline(BlockedExecutor):
         return (bits.u32_numpy(fw), int(fb), fblen.cpu().numpy().astype(np.int32).ravel(), 0)
 
     def _apply_wire_features(self, frame: bits.Frame) -> bits.Frame:
-        """Stamp the wire features this pipeline negotiated (integrity) on
-        a marshalled frame; only serialization changes."""
+        """Apply the wire stages this pipeline negotiated to a marshalled
+        frame: the rANS blob (coded on this pipeline's device), then the
+        integrity flag, whose CRCs `to_bytes` computes over the final,
+        post-entropy sections. The frame keeps its raw fields; only
+        serialization changes."""
+        if self.entropy == "rans":
+            frame.apply_entropy(self.device)
         if self.integrity == "crc32c":
             frame.integrity = "crc32c"
         return frame
@@ -857,7 +901,7 @@ class DecompressionPipeline(BlockedExecutor):
         failures latch the same quarantine as decode-stage ones."""
         self._check_quarantine()
         try:
-            frame = bits.parse_frame(buf)
+            frame = bits.parse_frame(buf, self.device)
         except bits.FrameError as err:
             self.quarantined = err
             raise
@@ -906,35 +950,53 @@ class DecompressionPipeline(BlockedExecutor):
         values = self._assemble(frame, shapes, outs)
         return DecompressionResult(values=values, wall_s=wall, n_tuples=frame.n_valid)
 
-    def _decode_chunk(self, state: Any, words: torch.Tensor, bl: torch.Tensor):
-        """Unpack C staged blocks (B2 kernel) and decode them in one codec
-        call: words int32[C, OW], bl int32[C, L, B] -> (state, int32[C, L, B])."""
-        c, lanes, b = bl.shape
-        codes = ops.unpack_blocks(words, bl.reshape(-1).contiguous())
-        return self.codec.decode_blocks(state, Encoded(codes.view(c, lanes, b, 2), bl))
-
-    def _run_blocks(self, lanes: int, full, extras) -> List[torch.Tensor]:
-        """One decode pass over the staged blocks (the timed region)."""
+    def _run_blocks(self, lanes: int, full, extras):
+        """One decode pass over the staged blocks (the timed region). Each
+        unit (a chunk of full blocks, or one extra block) is unpacked by the
+        B2 kernel. Block-scope codecs decode it right away, replaying state
+        (and the shared merge) block after block: a list of int32[C, L, B].
+        Stream-scope codecs collect every unit's symbols in temporal order
+        per lane and expand them in one decode: int32[L, total slots]."""
         state = self.init_state(lanes)
-        outs: List[torch.Tensor] = []
+        stream_scope = self.codec.meta.scope == "stream"
+        units = []
         if full is not None:
             words, bl = full
-            for start, length in self._chunks(words.shape[0]):
-                state, x = self._decode_chunk(
-                    state, words[start : start + length], bl[start : start + length]
-                )
+            units = [
+                (words[start : start + length], bl[start : start + length])
+                for start, length in self._chunks(words.shape[0])
+            ]
+        outs: List[torch.Tensor] = []
+        codes_l, blen_l = [], []
+        for words, bl in units + list(extras):
+            c, _, b = bl.shape
+            codes = ops.unpack_blocks(words, bl.reshape(-1).contiguous()).view(c, lanes, b, 2)
+            if stream_scope:
+                codes_l.append(codes.permute(1, 0, 2, 3).reshape(lanes, c * b, 2))
+                blen_l.append(bl.permute(1, 0, 2).reshape(lanes, c * b))
+            else:
+                state, x = self.codec.decode_blocks(state, Encoded(codes, bl), self.merge)
                 outs.append(x)
-        for words, bl in extras:
-            state, x = self._decode_chunk(state, words, bl)
-            outs.append(x)
-        return outs
+        if not stream_scope:
+            return outs
+        _, x = self.codec.decode(
+            None, Encoded(torch.cat(codes_l, dim=1), torch.cat(blen_l, dim=1))
+        )
+        return x
 
     @staticmethod
-    def _assemble(frame: bits.Frame, shapes, outs: List[torch.Tensor]) -> np.ndarray:
+    def _assemble(frame: bits.Frame, shapes, outs) -> np.ndarray:
         """Trim per-block pads (flat row-major suffix) and re-flatten. The
-        flush mini-block, if any, carries no tuples."""
+        flush mini-block, if any, carries no tuples. `outs` is a list of
+        per-unit (C, L, B) blocks, or a stream-scope codec's (L, slots)
+        expansion, cut here into the blocks' (L, B) columns."""
         n_data = frame.n_full + (1 if frame.tail_per_lane else 0)
-        rows = [r for x in outs for r in bits.u32_numpy(x).reshape(x.shape[0], -1)]
+        if isinstance(outs, torch.Tensor):
+            xs = bits.u32_numpy(outs)
+            starts = np.concatenate([[0], np.cumsum([b for _, b in shapes])])
+            rows = [xs[:, starts[i] : starts[i + 1]].ravel() for i in range(n_data)]
+        else:
+            rows = [r for x in outs for r in bits.u32_numpy(x).reshape(x.shape[0], -1)]
         pieces = [rows[b][: int(frame.block_valid[b])] for b in range(n_data)]
         values = np.concatenate(pieces) if pieces else np.zeros(0, np.uint32)
         return values.astype(np.uint32)[: frame.n_valid]

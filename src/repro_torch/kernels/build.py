@@ -33,12 +33,16 @@ LIB_NAME = "librepro_torch_kernels.so"
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 #: C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES: Dict[str, List[type]] = {
     "repro_pack_blocks": [_P, _P, _I, _I, _I, _P, _P, _P],
     "repro_unpack_blocks": [_P, _I, _I, _P, _I, _P, _P],
     "repro_compact_blocks": [_P, _P, _I, _I, _P, _P, _P],
     "repro_pack_meta7_blocks": [_P, _I, _I, _I, _P, _P],
+    "repro_dict_probe": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "repro_rans_encode": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
+    "repro_rans_decode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -15,14 +15,17 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.kernels import bitpack, bitunpack, frame_compact, ref
+from repro_torch.core import bits, entropy
+from repro_torch.kernels import bitpack, bitunpack, dict_hash, frame_compact, rans, ref
 
 
-def _check(t: torch.Tensor, name: str, ndim: int, device: torch.device) -> None:
+def _check(t: torch.Tensor, name: str, ndim: int, device: torch.device,
+           dtype: torch.dtype = torch.int32) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32 (uint32 bits), got {t.dtype}")
+    if t.dtype != dtype:
+        what = "int32 (uint32 bits)" if dtype == torch.int32 else str(dtype)
+        raise TypeError(f"{name} must be {what}, got {t.dtype}")
     if t.dim() != ndim:
         raise ValueError(f"{name} must have {ndim} dims, got shape {tuple(t.shape)}")
     if t.device != device:
@@ -114,12 +117,99 @@ def pack_meta7_blocks(bitlen: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def dict_probe(x: torch.Tensor, table: torch.Tensor, valid: torch.Tensor, idx_bits: int = 12):
+    """Probe uint32 words int32[L, N] against per-lane frozen tables
+    int32[L, 2^idx_bits] (valid uint8[L, 2^idx_bits]): (c0, c1, bitlen)
+    int32[L, N]. L = 1 is the Pallas kernel's contract."""
+    dev = x.device
+    _check(x, "x", 2, dev)
+    _check(table, "table", 2, dev)
+    _check(valid, "valid", 2, dev, torch.uint8)
+    if not 1 <= idx_bits <= 31:
+        raise ValueError(f"idx_bits must be in [1, 31], got {idx_bits}")
+    lanes = x.shape[0]
+    if table.shape != (lanes, 1 << idx_bits) or valid.shape != table.shape:
+        raise ValueError(
+            f"table {tuple(table.shape)} and valid {tuple(valid.shape)} must be "
+            f"({lanes}, {1 << idx_bits}) for x {tuple(x.shape)}, idx_bits={idx_bits}"
+        )
+    if dev.type == "cpu":
+        return ref.probe_ref(x, table, valid, idx_bits)
+    c0, c1, bitlen = (torch.empty_like(x) for _ in range(3))
+    dict_hash.launch(x, table, valid, idx_bits, c0, c1, bitlen)
+    dict_probe.launches += 1
+    return c0, c1, bitlen
+
+
+def _check_grid(syms_or_mask: torch.Tensor, name: str, dev, dtype) -> None:
+    _check(syms_or_mask, name, 3, dev, dtype)
+    if syms_or_mask.shape[2] != entropy.N_LANES:
+        raise ValueError(f"{name} must be (C, T, {entropy.N_LANES}), got {tuple(syms_or_mask.shape)}")
+
+
+def rans_encode(syms: torch.Tensor, mask: torch.Tensor, freqs: torch.Tensor):
+    """Interleaved rANS encode of C chunks' (C, T, 8) byte grids (int32
+    bytes, bool mask) under one frequency table int32[256]: (states
+    int32[C, 8], flags int32[C, T, 8], vals int32[C, T, 8]), flags and
+    u16 values at the original row."""
+    dev = syms.device
+    _check_grid(syms, "syms", dev, torch.int32)
+    _check_grid(mask, "mask", dev, torch.bool)
+    _check(freqs, "freqs", 1, dev)
+    if mask.shape != syms.shape or freqs.shape[0] != 256:
+        raise ValueError(f"syms {tuple(syms.shape)}, mask {tuple(mask.shape)} and freqs "
+                         f"{tuple(freqs.shape)} disagree")
+    if dev.type == "cpu":
+        return ref.rans_encode_ref(syms, mask, freqs)
+    c, t_rows, n = syms.shape
+    states = torch.empty((c, n), dtype=torch.int32, device=dev)
+    flags = torch.empty_like(syms)
+    vals = torch.empty_like(syms)
+    cum = bits._i32(entropy.cum_freqs(freqs))
+    rans.launch_encode(syms, mask.view(torch.uint8), freqs, cum, states, flags, vals)
+    rans_encode.launches += 1
+    return states, flags, vals
+
+
+def rans_decode(stream: torch.Tensor, freqs: torch.Tensor, states: torch.Tensor,
+                offsets: torch.Tensor, mask: torch.Tensor, cap: Optional[int] = None):
+    """Forward rANS decode of C chunks: the u16 `stream` int32[S], table
+    int32[256], lane states int32[C, 8] and absolute lane offsets int32
+    [C, 8], mask bool[C, T, 8] -> bytes int32[C, T, 8]. Reads clip to
+    [0, cap-1] of the stream zero-padded to `cap` entries (default S, the
+    Pallas contract's padded stream)."""
+    dev = mask.device
+    _check(stream, "stream", 1, dev)
+    _check(freqs, "freqs", 1, dev)
+    _check(states, "states", 2, dev)
+    _check(offsets, "offsets", 2, dev)
+    _check_grid(mask, "mask", dev, torch.bool)
+    cap = stream.numel() if cap is None else int(cap)
+    c = mask.shape[0]
+    if states.shape != (c, entropy.N_LANES) or offsets.shape != states.shape or freqs.shape[0] != 256:
+        raise ValueError(f"states {tuple(states.shape)}, offsets {tuple(offsets.shape)} and "
+                         f"freqs {tuple(freqs.shape)} disagree with mask {tuple(mask.shape)}")
+    if cap < 1 or cap < stream.numel():
+        raise ValueError(f"cap={cap} must be >= 1 and cover the {stream.numel()}-entry stream")
+    if dev.type == "cpu":
+        return ref.rans_decode_ref(stream, cap, freqs, states, offsets, mask)
+    syms = torch.empty(mask.shape, dtype=torch.int32, device=dev)
+    cum = bits._i32(entropy.cum_freqs(freqs))
+    lut = entropy.slot_table(freqs).to(torch.int32)
+    rans.launch_decode(stream, cap, freqs, cum, lut, states, offsets, mask.view(torch.uint8), syms)
+    rans_decode.launches += 1
+    return syms
+
+
 #: the kernel wrappers, by kernel name
 WRAPPERS = {
     "pack_blocks": pack_blocks,
     "unpack_blocks": unpack_blocks,
     "compact_blocks": compact_blocks,
     "pack_meta7_blocks": pack_meta7_blocks,
+    "dict_probe": dict_probe,
+    "rans_encode": rans_encode,
+    "rans_decode": rans_decode,
 }
 for _fn in WRAPPERS.values():
     _fn.launches = 0
@@ -138,9 +228,12 @@ def launch_counts() -> Dict[str, int]:
 
 __all__ = [
     "compact_blocks",
+    "dict_probe",
     "launch_counts",
     "pack_blocks",
     "pack_meta7_blocks",
+    "rans_decode",
+    "rans_encode",
     "reset_launches",
     "unpack_blocks",
 ]

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the CUDA kernels (port of `repro/kernels/ref.py`
 for the kernels ported so far). They repeat the kernels' arithmetic with the
-tensor ops of `core/bits.py`: the CPU path of `ops`, and the oracle the
-kernels are held against on the card, bit for bit.
+tensor ops of `core/bits.py` and `core/entropy.py`: the CPU path of `ops`,
+and the oracle the kernels are held against on the card, bit for bit.
 """
 from __future__ import annotations
 
@@ -9,7 +9,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import bits
+from repro_torch.core import bits, entropy
+from repro_torch.kernels import dict_hash
 
 
 def pack_blocks_ref(codes: torch.Tensor, bitlen: torch.Tensor, block: int,
@@ -41,3 +42,22 @@ def compact_blocks_ref(words: torch.Tensor, nbits: torch.Tensor):
 def pack_meta7_ref(bitlen: torch.Tensor) -> torch.Tensor:
     """`bits.pack_meta7` per row: int32[n, S] -> int32[n, ceil(7S/32)]."""
     return bits.pack_meta7(bitlen)
+
+
+def probe_ref(x: torch.Tensor, table: torch.Tensor, valid: torch.Tensor, idx_bits: int):
+    """Dictionary probe per lane: x int32[L, N] against table int32[L, TS]
+    and valid uint8[L, TS] -> (c0, c1, bitlen) int32[L, N]."""
+    h = dict_hash.hash_tensor(x, idx_bits)
+    hit = (valid.gather(1, h) != 0) & (table.gather(1, h) == x)
+    return dict_hash.symbols(hit, h, x, idx_bits)
+
+
+def rans_encode_ref(syms: torch.Tensor, mask: torch.Tensor, freqs: torch.Tensor):
+    """`entropy.encode_rows` over (C, T, 8) grids: (states, flags, vals)."""
+    return entropy.encode_rows(syms, mask, freqs)
+
+
+def rans_decode_ref(stream: torch.Tensor, cap: int, freqs: torch.Tensor,
+                    states: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor):
+    """`entropy.decode_rows` over (C, T, 8) grids: int32[C, T, 8] bytes."""
+    return entropy.decode_rows(stream, freqs, states, offsets, mask, cap)

@@ -293,13 +293,53 @@ def test_frame_error_classes():
 
 
 def test_unported_features_raise_feature_error_naming_roadmap():
-    """Reference frames with the entropy stage (A7) or a dictionary id (A8)
-    are refused with a FrameFeatureError, not mis-parsed."""
+    """A reference frame with a dictionary id (A8) is refused with a
+    FrameFeatureError, not mis-parsed. The entropy stage (once A7) is
+    ported: a reference entropy frame parses here, on the named device, and
+    reserializes byte-identically; with no device and no GPU it raises."""
     _, fr = _frame_pair(None)
     fr.apply_entropy()
-    with pytest.raises(tbits.FrameFeatureError, match="A7"):
-        tbits.parse_frame(fr.to_bytes())
+    buf = fr.to_bytes()
+    back = tbits.parse_frame(buf, device="cpu")
+    assert back.to_bytes() == buf
+    np.testing.assert_array_equal(back.payload, fr.payload)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            tbits.parse_frame(buf)
     _, fr = _frame_pair(None)
     fr.dict_id = ("sensors", 3)
     with pytest.raises(tbits.FrameFeatureError, match="A8"):
         tbits.parse_frame(fr.to_bytes())
+
+
+@pytest.mark.parametrize("integrity", [None, "crc32c"])
+def test_entropy_frames_byte_identical_and_parse_across(integrity):
+    """`apply_entropy` gives the reference's bytes and wire size; each side
+    parses the other's entropy frame back to the raw sections."""
+    ft, fr = _frame_pair(integrity)
+    ft.apply_entropy("cpu")
+    fr.apply_entropy()
+    buf = fr.to_bytes()
+    assert ft.to_bytes() == buf and ft.wire_bytes == len(buf) == fr.wire_bytes
+    np.testing.assert_array_equal(ft.entropy, fr.entropy)
+    back_t = tbits.Frame.from_bytes(buf, device="cpu")
+    back_r = rbits.Frame.from_bytes(ft.to_bytes())
+    assert back_t.to_bytes() == buf == back_r.to_bytes()
+    np.testing.assert_array_equal(back_t.bitlen, back_r.bitlen)
+    np.testing.assert_array_equal(back_t.payload, back_r.payload)
+
+
+def test_entropy_frame_corruption_raises_like_reference():
+    """A flipped blob word surfaces as the reference's error class: the CRC
+    trailer catches it when present, otherwise the blob decode does."""
+    for integrity in (None, "crc32c"):
+        ft, fr = _frame_pair(integrity)
+        fr.apply_entropy()
+        bad = bytearray(fr.to_bytes())
+        bad[4 * (12 + 2 * 4) + 8] ^= 0x55  # a word of the blob's first section
+        with pytest.raises(tbits.FrameError) as ours:
+            tbits.parse_frame(bytes(bad), device="cpu")
+        with pytest.raises(rbits.FrameError) as theirs:
+            rbits.parse_frame(bytes(bad))
+        assert type(ours.value).__name__ == type(theirs.value).__name__
+        assert str(ours.value) == str(theirs.value)

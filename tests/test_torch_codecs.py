@@ -1,6 +1,10 @@
-"""The port's codecs (raw32, tcomp32, leb128, delta_leb128) against the
-reference's: the same symbol slots, decoded values and replayed state, block
-after block; codec state handed over between the two packages."""
+"""The port's block-scope codecs of the first slice (raw32, tcomp32, leb128,
+delta_leb128) against the reference's: the same symbol slots, decoded values
+and replayed state, block after block; codec state handed over between the
+two packages. The registry covers every ported codec; tdic32 and rle have
+their own file (tests/test_torch_dictionary.py)."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -16,6 +20,8 @@ from repro_torch.core.pipeline import CompressionPipeline
 from repro_torch.core.strategies import EngineConfig
 
 CODECS = ("raw32", "tcomp32", "leb128", "delta_leb128")
+#: every codec the port registers
+PORTED = CODECS + ("tdic32", "rle")
 LANES = 4
 
 
@@ -118,7 +124,7 @@ def _ref_pipe(codec: str) -> RefCompression:
     return _REF_PIPES[codec]
 
 
-@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("codec", CODECS + ("tdic32",))
 def test_stream_handoff_reference_to_port(codec):
     """The reference compresses the first half of a stream; its codec state
     carries over and the port finishes: the second frame is identical to the
@@ -141,8 +147,8 @@ def test_registry_matches_reference():
     assert talg.WIRE_CODEC_IDS == ralg.WIRE_CODEC_IDS
     assert talg.WIRE_CODEC_NAMES == ralg.WIRE_CODEC_NAMES
     assert talg.PAPER_TABLE1 == ralg.PAPER_TABLE1
-    assert set(talg.codec_names()) == set(CODECS)
-    for name in CODECS:
+    assert set(talg.codec_names()) == set(PORTED)
+    for name in PORTED:
         tm, rm = talg.make_codec(name).meta, ralg.make_codec(name).meta
         assert (tm.name, tm.lossy, tm.stateful, tm.state_kind, tm.aligned, tm.scope,
                 tm.maskable) == (rm.name, rm.lossy, rm.stateful, rm.state_kind,
@@ -151,7 +157,15 @@ def test_registry_matches_reference():
 
 @pytest.mark.parametrize("name", ["tdic32", "rle", "leb128_nuq", "uanuq", "adpcm", "uaadpcm", "pla"])
 def test_unported_codecs_name_their_roadmap_item(name):
-    with pytest.raises(KeyError, match="ROADMAP A[25]"):
+    """The lossy codecs still raise a KeyError naming ROADMAP A5. tdic32 and
+    rle were on this list until they were ported (A2): they now build with
+    the reference's parameters and meta."""
+    if name in PORTED:
+        assert talg.accepted_params(name) == ralg.accepted_params(name)
+        tm, rm = talg.make_codec(name).meta, ralg.make_codec(name).meta
+        assert dataclasses.astuple(tm) == dataclasses.astuple(rm)
+        return
+    with pytest.raises(KeyError, match="ROADMAP A5"):
         talg.make_codec(name)
 
 

@@ -181,8 +181,16 @@ def test_wrappers_check_inputs_and_do_not_count_cpu_calls():
     with pytest.raises(ValueError, match="dims"):
         ops.pack_meta7_blocks(blen)
     ops.pack_blocks(codes, blen, block=32)
+    ops.dict_probe(codes[:2].contiguous(), torch.zeros((2, 16), dtype=torch.int32),
+                   torch.zeros((2, 16), dtype=torch.uint8), idx_bits=4)
+    grid = torch.zeros((1, 4, 8), dtype=torch.int32)
+    freqs = torch.zeros(256, dtype=torch.int32)
+    freqs[0] = 4096
+    states, flags, _ = ops.rans_encode(grid, grid.bool(), freqs)
+    ops.rans_decode(torch.zeros(0, dtype=torch.int32), freqs, states, states * 0, grid.bool(), 1)
     assert ops.launch_counts() == {
         "pack_blocks": 0, "unpack_blocks": 0, "compact_blocks": 0, "pack_meta7_blocks": 0,
+        "dict_probe": 0, "rans_encode": 0, "rans_decode": 0,
     }
 
 
@@ -203,4 +211,50 @@ def test_cuda_kernels_match_plain_versions(cuda, nblocks, symbols, out_words):
     assert torch.equal(pay, p_ref) and int(tot) == int(t_ref)
     meta = ops.pack_meta7_blocks(b.view(nblocks, symbols))
     assert torch.equal(meta, ref.pack_meta7_ref(b.view(nblocks, symbols)))
-    assert all(n == 1 for n in ops.launch_counts().values())
+    counts = ops.launch_counts()
+    assert all(counts[k] == 1 for k in ("pack_blocks", "unpack_blocks", "compact_blocks",
+                                        "pack_meta7_blocks"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,idx_bits", [(1, 12), (4, 12), (4, 10)])
+def test_cuda_dict_probe_matches_plain_version(cuda, lanes, idx_bits):
+    rng = np.random.default_rng(lanes + idx_bits)
+    ts = 1 << idx_bits
+    x = torch.from_numpy(rng.integers(0, 3 * ts, (lanes, 512)).astype(np.int32)).to(cuda)
+    table = torch.from_numpy(rng.integers(0, 3 * ts, (lanes, ts)).astype(np.int32)).to(cuda)
+    valid = torch.from_numpy((rng.random((lanes, ts)) < 0.7).astype(np.uint8)).to(cuda)
+    ops.reset_launches()
+    got = ops.dict_probe(x, table, valid, idx_bits)
+    want = ref.probe_ref(x, table, valid, idx_bits)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+    assert ops.launch_counts()["dict_probe"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunks,fill", [(1, 100), (3, 3 * 4096 - 77), (2, 2 * 4096)])
+def test_cuda_rans_kernels_match_plain_versions(cuda, chunks, fill):
+    from repro_torch.core import entropy
+
+    rng = np.random.default_rng(chunks)
+    data = (rng.zipf(1.6, chunks * 4096) - 1).clip(0, 255).astype(np.int32)
+    syms = torch.from_numpy(data).to(cuda).view(chunks, 512, 8)
+    mask = (torch.arange(chunks * 4096, device=cuda) < fill).view(chunks, 512, 8)
+    freqs = entropy.quantize_freqs(
+        torch.bincount(syms.reshape(-1)[:fill].long(), minlength=256)
+    ).int()
+    ops.reset_launches()
+    enc = ops.rans_encode(syms, mask, freqs)
+    assert all(torch.equal(a, b) for a, b in zip(enc, ref.rans_encode_ref(syms, mask, freqs)))
+    states, flags, vals = enc
+    counts = flags.sum(1).reshape(-1).long()
+    off = (torch.cumsum(counts, 0) - counts).view(chunks, 8)
+    rank = torch.cumsum(flags, 1).long() - flags
+    pos = torch.where(flags > 0, off.view(chunks, 1, 8) + rank, chunks * 4096)
+    stream = torch.zeros(chunks * 4096 + 1, dtype=torch.int32, device=cuda)
+    stream = stream.scatter_(0, pos.reshape(-1), vals.reshape(-1))[: int(counts.sum())]
+    off = off.int()
+    got = ops.rans_decode(stream, freqs, states, off, mask, chunks * 4096)
+    assert torch.equal(got, ref.rans_decode_ref(stream, chunks * 4096, freqs, states, off, mask))
+    assert torch.equal(got, torch.where(mask, syms, 0))
+    assert ops.launch_counts()["rans_encode"] == 1 and ops.launch_counts()["rans_decode"] == 1

@@ -1,9 +1,11 @@
 """The port's executors and job API against the reference, on the CPU.
 
-For raw32, tcomp32, leb128 and delta_leb128, in fused lazy mode (small
-micro-batches and scan_chunk=2, so streams cross chunk boundaries) and in
-eager mode, over the length grid {0, 1, lanes-1, block-1, block, block+1,
-3*block+ragged} and with integrity off and on:
+For raw32, tcomp32, leb128 and delta_leb128; tdic32 in frozen and exact
+mode under private and shared state; rle; and every ported codec with
+`entropy="rans"` — in fused lazy mode (small micro-batches and
+scan_chunk=2, so streams cross chunk boundaries) and in eager mode, over the
+length grid {0, 1, lanes-1, block-1, block, block+1, 3*block+ragged} and
+with integrity off and on:
   * `compress_to_frame(v).to_bytes()` is byte-identical to the reference's;
   * frames decode across both ways;
   * `run_roundtrip` is lossless;
@@ -35,6 +37,19 @@ from repro_torch.core.pipeline import CompressionPipeline, DecompressionPipeline
 from repro_torch.data import datasets as tdata
 
 CODECS = ("raw32", "tcomp32", "leb128", "delta_leb128")
+#: the second slice's paths: tdic32 (mode x state strategy), rle, and the
+#: rANS stage over every ported codec
+SLICE2 = {
+    "tdic32": dict(codec="tdic32"),
+    "tdic32-shared": dict(codec="tdic32", state="shared"),
+    "tdic32-exact": dict(codec="tdic32", params={"mode": "exact"}),
+    "tdic32-exact-shared": dict(codec="tdic32", params={"mode": "exact"}, state="shared"),
+    "rle": dict(codec="rle"),
+    **{f"{c}+rans": dict(codec=c, entropy="rans") for c in CODECS + ("tdic32", "rle")},
+}
+#: configuration name -> JobSpec fields
+CONFIGS = {**{c: dict(codec=c) for c in CODECS}, **SLICE2}
+ALL = tuple(CONFIGS)
 LANES = 4
 #: fused: 32-tuple blocks (the 7-bit metadata path), two blocks per chunk;
 #: eager: one lane-aligned unit per block (raw metadata, per-block steps)
@@ -53,8 +68,8 @@ def _values(seed: int, n: int) -> np.ndarray:
     return np.where(rng.random(n) < 0.25, spikes, walk).astype(np.uint32)
 
 
-def _specs(codec: str, mode: str, integrity=None):
-    kw = dict(codec=codec, lanes=LANES, integrity=integrity, **MODES[mode])
+def _specs(config: str, mode: str, integrity=None):
+    kw = dict(lanes=LANES, integrity=integrity, **CONFIGS[config], **MODES[mode])
     return api.JobSpec(**kw), cstream.JobSpec(**kw)
 
 
@@ -102,7 +117,7 @@ def _ref_frame(codec: str, mode: str, n: int, integrity) -> bytes:
 @pytest.mark.parametrize("integrity", CRC)
 @pytest.mark.parametrize("length_idx", range(7))
 @pytest.mark.parametrize("mode", sorted(MODES))
-@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("codec", ALL)
 def test_frames_byte_identical_and_cross_decode(codec, mode, length_idx, integrity):
     n = _length(mode, length_idx)
     v = _values(n, n)
@@ -116,7 +131,7 @@ def test_frames_byte_identical_and_cross_decode(codec, mode, length_idx, integri
 
 @pytest.mark.parametrize("integrity", CRC)
 @pytest.mark.parametrize("mode", sorted(MODES))
-@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("codec", ALL)
 def test_run_roundtrip_is_lossless(codec, mode, integrity):
     spec, pipe, decomp = _port_pipes(codec, mode, integrity)
     v = _values(77, _length(mode, 6))
@@ -124,11 +139,12 @@ def test_run_roundtrip_is_lossless(codec, mode, integrity):
     assert rt.fidelity.bit_exact and rt.fidelity.n_tuples == v.size
     np.testing.assert_array_equal(rt.values, v)
     assert rt.wire_bytes == len(rt.compress.frame.to_bytes())
+    assert (rt.compress.frame.entropy is not None) == (spec.entropy == "rans")
     assert rt.compress.stats.latency_s is not None and rt.compress.stats.energy_j > 0
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
-@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("codec", ALL)
 def test_legacy_collection_matches_compacted_egress(codec, mode):
     """compact=False (full worst-case buffers, `build_frame`) and the device
     compaction path give the same bytes; so do the per-block bit counts of
@@ -144,7 +160,7 @@ def test_legacy_collection_matches_compacted_egress(codec, mode):
 
 @pytest.mark.parametrize("integrity", CRC)
 @pytest.mark.parametrize("mode", sorted(MODES))
-@pytest.mark.parametrize("codec", CODECS)
+@pytest.mark.parametrize("codec", ALL)
 def test_jobspec_json_equal(codec, mode, integrity):
     ts, rs = _specs(codec, mode, integrity)
     assert json.dumps(ts.to_dict(), sort_keys=True) == json.dumps(rs.to_dict(), sort_keys=True)
@@ -178,7 +194,17 @@ def test_jobspec_validation_matches_reference(bad):
     ("gang", True, "A6"), ("devices", 2, "A9"),
 ])
 def test_unported_spec_features_are_refused(field, value, item):
+    """Features the port does not have yet are refused, naming their ROADMAP
+    item. `entropy="rans"` was refused until the rANS stage was ported
+    (A7): the pipelines now accept it and frames carry the blob."""
     spec = api.JobSpec(**{field: value})
+    if field == "entropy":
+        v = _values(2, 300)
+        frame = CompressionPipeline(spec, device="cpu").compress_to_frame(v)
+        assert frame.entropy is not None
+        back = DecompressionPipeline(spec, device="cpu").ingest(frame.to_bytes())
+        np.testing.assert_array_equal(back.values, v)
+        return
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         CompressionPipeline(spec, device="cpu")
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -259,3 +285,33 @@ def test_datasets_match_reference(name):
     assert (ours.source, ours.structure, ours.words_per_tuple) == (
         theirs.source, theirs.structure, theirs.words_per_tuple
     )
+
+
+def test_no_device_entropy_frame_parse_raises_without_gpu():
+    """An entropy frame parsed with no device follows the entry points'
+    rule: CUDA, or a RuntimeError naming device='cpu' (not a FrameError)."""
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the no-device default is CUDA here")
+    spec, pipe, _ = _port_pipes("tcomp32+rans", "fused", None)
+    buf = pipe.compress_to_frame(_values(4, 200)).to_bytes()
+    with pytest.raises(RuntimeError, match="device='cpu'") as err:
+        tbits.parse_frame(buf)
+    assert not isinstance(err.value, tbits.FrameError)
+
+
+def test_shared_state_merges_per_block_in_both_directions():
+    """Under the shared strategy every lane converges to one table after
+    each block: the final encoder and decoder states equal the reference's
+    and all lanes hold the same table."""
+    spec, pipe, _ = _port_pipes("tdic32-shared", "fused", None)
+    rpipe = _ref_pipes("tdic32-shared", "fused")[0]
+    v = _values(6, _length("fused", 6))
+    ours = pipe.execute(pipe.shape_blocks(v)).state
+    theirs = rpipe.execute(rpipe.shape_blocks(v)).state
+    for k in ours:
+        np.testing.assert_array_equal(
+            ours[k].numpy().view(np.asarray(theirs[k]).dtype), np.asarray(theirs[k])
+        )
+    assert all(np.array_equal(row, ours["table"][0].numpy()) for row in ours["table"].numpy())
