@@ -57,8 +57,12 @@ from repro_torch.data import make_dataset  # noqa: E402
 from repro_torch.core import entropy  # noqa: E402
 from repro_torch.kernels import build, ops, ref  # noqa: E402
 
-#: H100 SXM device-memory rate (NVIDIA data sheet), for the byte bound
+#: H100 SXM peaks (NVIDIA data sheet, dense, 700 W), for the bounds: the
+#: device-memory rate, and the 32-bit scalar rate outside the tensor cores
+#: (the sheet's float32 figure; it lists no int32 rate, and Hopper issues
+#: int32 at a quarter of it, so the operations bound below is a floor)
 HBM_BYTES_PER_S = 3.35e12
+SCALAR_OPS_PER_S = 67e12
 #: the paper's evaluation volume (repro data/datasets.py PAPER_EVAL_BYTES)
 EVAL_BYTES = 932800
 FULL_BYTES = 64 << 20
@@ -220,43 +224,36 @@ def check_kernels(dev) -> dict:
     return err
 
 
-def rans_grid(data: np.ndarray, dev):
-    """A section's bytes as the stage codes them: (syms int32[C, 512, 8],
-    mask, freqs int32[256]), as `entropy._encode_device` builds them."""
-    n = data.size
-    c = -(-n // entropy.CHUNK_BYTES)
-    flat = torch.zeros(c * entropy.CHUNK_BYTES, dtype=torch.int32, device=dev)
-    flat[:n] = torch.from_numpy(data.astype(np.int32)).to(dev)
-    mask = (torch.arange(flat.numel(), device=dev) < n).view(c, entropy.ROWS, entropy.N_LANES)
-    freqs = entropy.quantize_freqs(torch.bincount(flat[:n].long(), minlength=256)).int()
-    return flat.view(c, entropy.ROWS, entropy.N_LANES), mask, freqs
-
-
-def rans_stream(states, flags, vals):
-    """The u16 stream and lane offsets assembled from B8's outputs."""
-    c = flags.shape[0]
-    counts = flags.sum(1).reshape(-1).long()
-    off = (torch.cumsum(counts, 0) - counts).view(c, 1, entropy.N_LANES)
-    rank = torch.cumsum(flags, 1).long() - flags
-    cap = c * entropy.CHUNK_BYTES
-    pos = torch.where(flags > 0, off + rank, cap)
-    stream = torch.zeros(cap + 1, dtype=torch.int32, device=flags.device)
-    stream.scatter_(0, pos.reshape(-1), vals.reshape(-1))
-    return stream[: int(counts.sum())], off.view(c, entropy.N_LANES).int(), cap
+def rans_decode_inputs(data: np.ndarray, dev):
+    """One section's bytes through the library's encode half, as
+    `entropy._encode_device` runs it: (syms, mask, freqs, B8's outputs,
+    and B9's inputs stream, lane offsets, cap)."""
+    syms, mask, freqs = entropy.section_grid(data, dev)
+    enc = ops.rans_encode(syms, mask, freqs)
+    stream, counts = entropy.assemble_stream(enc[1], enc[2])
+    off, cap = entropy.lane_offsets(counts), entropy.decode_cap(syms.shape[0])
+    return syms, mask, freqs, enc, stream, off, cap
 
 
 def check_rans(data: np.ndarray, dev):
     """B8 and B9 against their plain versions on one section's bytes; the
     decode must also return the bytes. (max err enc, max err dec, u16s)."""
-    syms, mask, freqs = rans_grid(data, dev)
-    enc = ops.rans_encode(syms, mask, freqs)
+    syms, mask, freqs, enc, stream, off, cap = rans_decode_inputs(data, dev)
     e_enc = max(max_abs_err(a, b) for a, b in zip(enc, ref.rans_encode_ref(syms, mask, freqs)))
-    stream, off, cap = rans_stream(*enc)
     got = ops.rans_decode(stream, freqs, enc[0], off, mask, cap)
     want = ref.rans_decode_ref(stream, cap, freqs, enc[0], off, mask)
     e_dec = max(max_abs_err(got, want), max_abs_err(got, torch.where(mask, syms, 0)))
     torch.cuda.synchronize()
     return e_enc, e_dec, int(enc[1].sum())
+
+
+def bound(nbytes: int, nops: int) -> tuple:
+    """(least ms, "bytes" or "operations"): the larger of the bytes the
+    function must move (each input read once, each output written once)
+    over the memory rate, and its 32-bit operations over the scalar rate."""
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / SCALAR_OPS_PER_S * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def time_kernels(dev, values: np.ndarray, heavy_frame: bits.Frame) -> dict:
@@ -266,8 +263,19 @@ def time_kernels(dev, values: np.ndarray, heavy_frame: bits.Frame) -> dict:
     table the stream built over the 64 blocks before it; B8/B9 on the
     heavy tier's payload section (the 64 MiB delta_leb128 frame's raw
     payload). Each kernel is first held bit-exact against its plain version
-    on these inputs. Returns per kernel (ms, plain_ms, bound_ms, host_ms,
-    plain_host_ms, max_abs_err)."""
+    on these inputs.
+
+    Each plan entry holds the bytes and the 32-bit operations the function
+    needs on these inputs: B1-B5 at their contracts' widths, with
+    operations counted per element from their arithmetic (they are far
+    below the byte bound); B8/B9 at the widths the stage needs, not the
+    kernels' int32 grids: the section's n bytes, the table as 256 u16, the
+    E u16s this data emits, and per (chunk, lane) a u32 state and a u16
+    count; per byte 7 operations to encode (renorm shift and compare,
+    divide, modulo, shift, two adds) or 6 to decode (mask, shift,
+    multiply, add, subtract, compare), and per u16 2 to emit or 3 to read.
+    Returns per kernel a dict of ms, plain_ms, bound_ms, bound_by, bytes,
+    ops, host_ms, plain_host_ms and max_abs_err."""
     pipe = CompressionPipeline(JobSpec(), device=dev)
     chunk = pipe.plan.scan_chunk
     shaped = pipe.shape_blocks(values[: chunk * pipe.block_tuples])
@@ -286,21 +294,25 @@ def time_kernels(dev, values: np.ndarray, heavy_frame: bits.Frame) -> dict:
             lambda: ops.pack_blocks(codes, blen, block=s, out_words=ow),
             lambda: ref.pack_blocks_ref(codes, blen, s, ow),
             c * s * 12 + c * ow * 4 + c * 4,
+            10 * c * s,  # offset scan, word/bit split, 4 shifts, 3 ors
         ),
         "unpack_blocks": (
             lambda: ops.unpack_blocks(words, blen),
             lambda: ref.unpack_blocks_ref(words, blen),
             live * 4 + c * s * 4 + c * s * 8,
+            11 * c * s,  # offset scan, word/bit split, 4 shifts, 2 ors, 2 masks
         ),
         "compact_blocks": (
             lambda: ops.compact_blocks(words, nbits),
             lambda: ref.compact_blocks_ref(words, nbits),
             live * 4 + c * 4 + c * ow * 4 + 4,
+            3 * c,  # word count and offset scan per block; the words are copies
         ),
         "pack_meta7_blocks": (
             lambda: ops.pack_meta7_blocks(blen2),
             lambda: ref.pack_meta7_ref(blen2),
             c * s * 4 + c * mw * 4,
+            4 * c * s,  # mask, shift, or, and the split across two words
         ),
     }
     tdic = CompressionPipeline(JobSpec(codec="tdic32"), device=dev)
@@ -314,32 +326,37 @@ def time_kernels(dev, values: np.ndarray, heavy_frame: bits.Frame) -> dict:
         lambda: ops.dict_probe(x, table, valid, idx_bits),
         lambda: ref.probe_ref(x, table, valid, idx_bits),
         x.numel() * 4 + table.numel() * 4 + valid.numel() + 3 * x.numel() * 4,
+        8 * x.numel(),  # hash multiply and shift, two compares, and, symbol shift/or/select
     )
     section = np.ascontiguousarray(heavy_frame.payload, np.uint32).view(np.uint8)
-    syms, mask, freqs = rans_grid(section, dev)
-    enc = ops.rans_encode(syms, mask, freqs)
-    stream, off, cap = rans_stream(*enc)
-    g = syms.numel()
+    syms, mask, freqs, enc, stream, off, cap = rans_decode_inputs(section, dev)
+    n, e, streams = section.size, stream.numel(), enc[0].numel()
+    stage_bytes = n + 256 * 2 + 2 * e + streams * (4 + 2)
     plan["rans_encode"] = (
         lambda: ops.rans_encode(syms, mask, freqs),
         lambda: ref.rans_encode_ref(syms, mask, freqs),
-        g * 4 + g + 256 * 4 + enc[0].numel() * 4 + 2 * g * 4,
+        stage_bytes,
+        7 * n + 2 * e,
     )
     plan["rans_decode"] = (
         lambda: ops.rans_decode(stream, freqs, enc[0], off, mask, cap),
         lambda: ref.rans_decode_ref(stream, cap, freqs, enc[0], off, mask),
-        stream.numel() * 4 + 256 * 4 + 2 * off.numel() * 4 + g + g * 4,
+        stage_bytes,
+        6 * n + 3 * e,
     )
     cpm = sleep_cycles_per_ms()
     out = {}
-    for name, (kern, plain, nbytes) in plan.items():
+    for name, (kern, plain, nbytes, nops) in plan.items():
         got, want = kern(), plain()
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         err = max(max_abs_err(g, w) for g, w in zip(got, want))
         scan = name.startswith("rans")
         ms, host_ms = time_ms(kern, 20 if scan else 100, cpm)
         plain_ms, plain_host_ms = time_ms(plain, 3 if scan else 10, cpm, queued=not scan)
-        out[name] = (ms, plain_ms, nbytes / HBM_BYTES_PER_S * 1e3, host_ms, plain_host_ms, err)
+        bound_ms, bound_by = bound(nbytes, nops)
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                     "bytes": nbytes, "ops": nops, "host_ms": host_ms,
+                     "plain_host_ms": plain_host_ms, "max_abs_err": err}
     return out
 
 
@@ -477,22 +494,20 @@ def main() -> int:
     t_timing = time.perf_counter()
     times = time_kernels(dev, full_values, frames["heavy"])
     for k, t in times.items():
-        err[k] = max(err[k], t[5])
+        err[k] = max(err[k], t["max_abs_err"])
     bad = {k: v for k, v in err.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions at the main paths' shapes: {bad}")
     emit({"phase": "timing", "seconds": time.perf_counter() - t_timing, "kernels": {
-        k: {"kernel_ms": t[0], "plain_ms": t[1], "bound_ms": t[2], "host_ms": t[3],
-            "plain_host_ms": t[4]}
-        for k, t in times.items()
+        k: {key: v for key, v in t.items() if key != "max_abs_err"} for k, t in times.items()
     }})
     emit({"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[name], "max_abs_err": err[name],
-            "ms": times[name][0], "plain_ms": times[name][1],
-            "bound_ms": times[name][2], "bound_by": "bytes", "library_ms": None,
-            "host_ms": times[name][3],
+            "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
+            "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
+            "library_ms": None, "host_ms": times[name]["host_ms"],
         }
         for name, (src, replaces) in KERNELS.items()
     ]})

@@ -67,31 +67,20 @@ class Codec:
         Must not mutate `state`."""
         return None
 
-    #: True when the state changes per block, not per tuple (tdic32's
-    #: frozen table): the chunk forms then walk the blocks one by one
-    per_block_state: bool = False
-
     def encode_blocks(self, state: Any, blocks: torch.Tensor,
                       merge: Optional[Callable[[Any], Any]] = None) -> Tuple[Any, Encoded]:
-        """Encode C consecutive blocks `(C, L, B)`; `merge` (the shared-state
-        strategy's cross-lane merge, or None) is applied to the state after
-        every block.
+        """Encode C consecutive blocks `(C, L, B)` in one call.
 
-        Without a merge, lane l's symbols across the chunk are the encoding
-        of its concatenated tuples `blocks.permute(1, 0, 2).reshape(L, C*B)`
-        in one call, which equals C sequential `encode` calls for every
-        codec whose state is a per-lane recurrence over the tuple stream
-        (raw32, tcomp32, leb128, delta_leb128, rle). A merge, or a codec with
-        `per_block_state`, walks the C blocks in order instead."""
+        Lane l's symbols across the chunk are the encoding of its
+        concatenated tuples `blocks.permute(1, 0, 2).reshape(L, C*B)`, which
+        equals C sequential `encode` calls for every codec whose state is a
+        per-lane recurrence over the tuple stream (raw32, tcomp32, leb128,
+        delta_leb128, rle). `merge` is the shared-state strategy's cross-lane
+        merge after every block; only codecs with dictionary state take one,
+        and they override this form to walk their blocks (Tdic32)."""
+        if merge is not None:
+            raise ValueError(f"codec {self.name!r} has no per-block state merge")
         c, lanes, b = blocks.shape
-        if merge is not None or self.per_block_state:
-            codes, bitlen = [], []
-            for blk in blocks:
-                state, enc = self.encode(state, blk)
-                state = state if merge is None else merge(state)
-                codes.append(enc.codes)
-                bitlen.append(enc.bitlen)
-            return state, Encoded(torch.stack(codes), torch.stack(bitlen))
         state, enc = self.encode(state, blocks.permute(1, 0, 2).reshape(lanes, c * b))
         return state, Encoded(
             enc.codes.reshape(lanes, c, b, 2).permute(1, 0, 2, 3),
@@ -100,17 +89,11 @@ class Codec:
 
     def decode_blocks(self, state: Any, enc: Encoded,
                       merge: Optional[Callable[[Any], Any]] = None) -> Tuple[Any, torch.Tensor]:
-        """Decode C consecutive blocks (`encode_blocks`'s inverse, with the
-        same `merge` after every block): codes `(C, L, B, 2)`, bitlen
-        `(C, L, B)` -> values `(C, L, B)`."""
+        """Decode C consecutive blocks (`encode_blocks`'s inverse): codes
+        `(C, L, B, 2)`, bitlen `(C, L, B)` -> values `(C, L, B)`."""
+        if merge is not None:
+            raise ValueError(f"codec {self.name!r} has no per-block state merge")
         c, lanes, b = enc.bitlen.shape
-        if merge is not None or self.per_block_state:
-            xs = []
-            for i in range(c):
-                state, x = self.decode(state, Encoded(enc.codes[i], enc.bitlen[i]))
-                state = state if merge is None else merge(state)
-                xs.append(x)
-            return state, torch.stack(xs)
         flat = Encoded(
             enc.codes.permute(1, 0, 2, 3).reshape(lanes, c * b, 2),
             enc.bitlen.permute(1, 0, 2).reshape(lanes, c * b),

@@ -7,7 +7,8 @@ Two execution fidelities, as in the reference:
     (kernel B5, `ops.dict_probe`, one launch per block for all lanes);
     updates are merged once at batch end with deterministic
     last-writer-wins. A chunk of blocks is walked block by block
-    (`per_block_state`), so the table freezes per block, never per chunk.
+    (`encode_blocks`/`decode_blocks`), so the table freezes per block,
+    never per chunk.
   * ``mode='exact'`` — the per-tuple semantics: the table is updated after
     every tuple. The reference runs it as a `lax.scan`; here it is a plain
     per-tuple loop of tensor ops on both devices (a serial CUDA kernel for
@@ -21,7 +22,7 @@ merge, and an int32 per-lane clock. Trained-dictionary seeding
 """
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,8 +46,6 @@ class Tdic32(Codec):
         "ts": np.dtype(np.int32),
         "clock": np.dtype(np.int32),
     }
-    per_block_state = True
-
     def __init__(self, idx_bits: int = 12, mode: str = "frozen"):
         assert mode in ("frozen", "exact")
         self.idx_bits = idx_bits
@@ -158,3 +157,28 @@ class Tdic32(Codec):
 
     def decode(self, state: Any, enc: Encoded) -> Tuple[Any, torch.Tensor]:
         return self._decode_frozen(state, enc) if self.mode == "frozen" else self._decode_exact(state, enc)
+
+    def encode_blocks(self, state: Any, blocks: torch.Tensor,
+                      merge: Optional[Callable[[Any], Any]] = None) -> Tuple[Any, Encoded]:
+        """Encode C consecutive blocks `(C, L, B)` one block at a time: the
+        frozen table freezes per block, so one call over the chunk would
+        change the symbols. `merge` (the shared-state strategy's cross-lane
+        merge, or None) is applied to the state after every block."""
+        codes, bitlen = [], []
+        for blk in blocks:
+            state, enc = self.encode(state, blk)
+            state = state if merge is None else merge(state)
+            codes.append(enc.codes)
+            bitlen.append(enc.bitlen)
+        return state, Encoded(torch.stack(codes), torch.stack(bitlen))
+
+    def decode_blocks(self, state: Any, enc: Encoded,
+                      merge: Optional[Callable[[Any], Any]] = None) -> Tuple[Any, torch.Tensor]:
+        """`encode_blocks`'s inverse, block by block with the same `merge`:
+        codes `(C, L, B, 2)`, bitlen `(C, L, B)` -> values `(C, L, B)`."""
+        xs = []
+        for codes, bitlen in zip(enc.codes, enc.bitlen):
+            state, x = self.decode(state, Encoded(codes, bitlen))
+            state = state if merge is None else merge(state)
+            xs.append(x)
+        return state, torch.stack(xs)

@@ -14,14 +14,13 @@ The wire layout and the arithmetic are the reference's, byte for byte:
   * a raw fallback (`[0]` + the raw words) when coding would not shrink
     the section.
 
-The device half runs on torch tensors: on CUDA the one-chunk scans are the
-B8/B9 kernels (`kernels/ops.py` `rans_encode`/`rans_decode`, one launch
-for all chunks of a section); `encode_rows`/`decode_rows` here are their
-plain versions, batched over chunks as the reference's `vmap` is. The host
-half (u16 packing, section and blob layout, validation) is numpy.
-
-State arithmetic is uint32 in the reference; here it runs on int64 values
-in [0, 2^32) with explicit wraparound (`& M32`), as in `core/bits.py`.
+The device half runs on torch tensors: the chunk scans are the B8/B9
+wrappers (`kernels/ops.py` `rans_encode`/`rans_decode`, one launch for all
+chunks of a section on CUDA; on the CPU their plain versions in
+`kernels/ref.py`, batched over chunks as the reference's `vmap` of
+`encode_rows`/`decode_rows` is). The coder's constants and tables come
+from `kernels/rans.py`. The host half (u16 packing, section and blob
+layout, validation) is numpy.
 """
 from __future__ import annotations
 
@@ -31,14 +30,18 @@ import numpy as np
 import torch
 
 from repro_torch.core import bits
-from repro_torch.core.bits import M32
+from repro_torch.kernels import ops
+from repro_torch.kernels.rans import (  # noqa: F401  (the coder's constants, re-exported)
+    CHUNK_BYTES,
+    N_LANES,
+    PROB_BITS,
+    PROB_SCALE,
+    RANS_L,
+    ROWS,
+    cum_freqs,
+    slot_table,
+)
 
-PROB_BITS = 12
-PROB_SCALE = 1 << PROB_BITS  # 4096: fixed table denominator
-RANS_L = 1 << 16  # lower bound of the state interval (16-bit renorm)
-N_LANES = 8  # interleaved coders per chunk
-CHUNK_BYTES = 4096  # bytes per independently-decodable chunk
-ROWS = CHUNK_BYTES // N_LANES  # scan steps per chunk
 ENTROPY_KIND_RANS = 1  # blob kind word
 
 DeviceLike = Union[str, torch.device]
@@ -73,124 +76,63 @@ def _histogram(data: torch.Tensor) -> torch.Tensor:
     return torch.bincount(data.to(torch.int64), minlength=256)
 
 
-def cum_freqs(freqs: torch.Tensor) -> torch.Tensor:
-    """Exclusive cumulative frequencies (int64[256])."""
-    f = freqs.to(torch.int64)
-    return torch.cumsum(f, 0) - f
-
-
-def slot_table(freqs: torch.Tensor) -> torch.Tensor:
-    """slot -> symbol lookup (int64[PROB_SCALE]) from the frequency table:
-    the last symbol whose cumulative start is <= the slot."""
-    slots = torch.arange(PROB_SCALE, dtype=torch.int64, device=freqs.device)
-    return torch.searchsorted(cum_freqs(freqs), slots, right=True) - 1
-
-
-# ------------------------------------------------------- one-chunk scans --
-def encode_rows(syms: torch.Tensor, mask: torch.Tensor, freqs: torch.Tensor):
-    """Interleaved rANS encode of C chunks' (C, T, N_LANES) byte grids
-    (the plain version of kernel B8).
-
-    `syms` byte values (any integer dtype), `mask` marks real bytes
-    (masked steps are identity). Returns `(states int32[C, N], flags
-    int32[C, T, N], vals int32[C, T, N])`, indexed by ORIGINAL row; uint32
-    values travel as int32 bit patterns."""
-    c, t_rows, n = syms.shape
-    fr = bits._u(freqs)
-    cum = cum_freqs(freqs) & M32
-    s = syms.to(torch.int64).clamp(0, 255)  # the reference's clamped gather
-    m = mask.to(torch.bool)
-    x = torch.full((c, n), RANS_L, dtype=torch.int64, device=syms.device)
-    flags = torch.zeros((c, t_rows, n), dtype=torch.int32, device=syms.device)
-    vals = torch.zeros((c, t_rows, n), dtype=torch.int64, device=syms.device)
-    for t in range(t_rows - 1, -1, -1):  # reverse, so decode runs forward
-        st, mt = s[:, t], m[:, t]
-        f, cu = fr[st], cum[st]
-        f_safe = torch.where(mt & (f > 0), f, torch.ones_like(f))
-        # renorm: x >= f·2^20, spelled so f = PROB_SCALE cannot overflow
-        emit = mt & ((x >> 20) >= f_safe)
-        vals[:, t] = torch.where(emit, x & 0xFFFF, torch.zeros_like(x))
-        flags[:, t] = emit.to(torch.int32)
-        x1 = torch.where(emit, x >> 16, x)
-        x2 = (((x1 // f_safe) << PROB_BITS) + (x1 % f_safe) + cu) & M32
-        x = torch.where(mt, x2, x)
-    return bits._i32(x), flags, bits._i32(vals)
-
-
-def read_stream(stream: torch.Tensor, p: torch.Tensor, cap: int) -> torch.Tensor:
-    """u16 reads (int64) at positions `p` of `stream` (int64 values), as
-    over a stream zero-padded to `cap` entries with reads clipped to
-    [0, cap-1], the reference's decode reads; only the first
-    `stream.numel()` entries are stored."""
-    q = p.clamp(0, cap - 1)
-    if stream.numel() == 0:
-        return torch.zeros_like(q)
-    got = stream[q.clamp(max=stream.numel() - 1)]
-    return torch.where(q < stream.numel(), got, torch.zeros_like(got))
-
-
-def decode_rows(stream: torch.Tensor, freqs: torch.Tensor, states: torch.Tensor,
-                offsets: torch.Tensor, mask: torch.Tensor, cap: int) -> torch.Tensor:
-    """Forward decode of C chunks to their (C, T, N_LANES) byte grids (the
-    plain version of kernel B9). `offsets` are each lane's ABSOLUTE start
-    into the u16 `stream`; reads behave as over a zero-padded `cap`-entry
-    stream. Returns int32[C, T, N]."""
-    c, t_rows, n = mask.shape
-    fr = bits._u(freqs)
-    cum = cum_freqs(freqs) & M32
-    lut = slot_table(freqs)
-    su = bits._u(stream)
-    m = mask.to(torch.bool)
-    x = bits._u(states)
-    p = offsets.to(torch.int64)
-    out = torch.zeros((c, t_rows, n), dtype=torch.int32, device=mask.device)
-    for t in range(t_rows):
-        mt = m[:, t]
-        slot = x & (PROB_SCALE - 1)
-        sym = lut[slot]
-        x2 = (fr[sym] * (x >> PROB_BITS) + slot - cum[sym]) & M32
-        need = mt & (x2 < RANS_L)
-        w = read_stream(su, p, cap)
-        x3 = torch.where(need, ((x2 << 16) | w) & M32, x2)
-        x = torch.where(mt, x3, x)
-        p = p + need.to(torch.int64)
-        out[:, t] = torch.where(mt, sym, torch.zeros_like(sym)).to(torch.int32)
-    return out
-
-
 # ----------------------------------------------------- section (de)coders --
-def _encode_device(data: np.ndarray, device: torch.device):
-    """Encode a section's bytes (uint8[n], n > 0) on `device`: one frequency
-    table over all bytes, all chunks in one B8 call, and the emissions
-    scattered into one u16 stream in (chunk, lane) order. The reference
-    pads to a power-of-two chunk count; the padding chunks are fully
-    masked, emit nothing and are dropped, so they are not encoded here."""
-    from repro_torch.kernels import ops
-
+def section_grid(data: np.ndarray, device: torch.device):
+    """A section's bytes (uint8[n], n > 0) as the coder's chunk grid on
+    `device`: (syms int32[C, ROWS, N_LANES], zero past byte n; mask
+    bool[C, ROWS, N_LANES], true on the n real bytes; freqs int32[256],
+    one quantized table over all bytes). The reference pads to a
+    power-of-two chunk count; the padding chunks are fully masked, emit
+    nothing and are dropped, so the grid holds only C = ceil(n / 4096)."""
     n = data.size
     nchunks = -(-n // CHUNK_BYTES)
     padded = np.zeros(nchunks * CHUNK_BYTES, np.uint8)
     padded[:n] = data
     flat = torch.from_numpy(padded).to(device).to(torch.int32)
-    freqs = quantize_freqs(_histogram(flat[:n]))
+    freqs = quantize_freqs(_histogram(flat[:n])).to(torch.int32)
     mask = (torch.arange(flat.numel(), device=device) < n).reshape(nchunks, ROWS, N_LANES)
-    states, flags, vals = ops.rans_encode(
-        flat.reshape(nchunks, ROWS, N_LANES), mask, freqs.to(torch.int32)
-    )
-    counts = flags.sum(dim=1)  # (C, N) u16s per lane stream
+    return flat.reshape(nchunks, ROWS, N_LANES), mask, freqs
+
+
+def lane_offsets(counts: torch.Tensor) -> torch.Tensor:
+    """Each (chunk, lane) stream's absolute start in the u16 stream, the
+    exclusive cumsum of the lane counts in (chunk, lane) order: int32[C, N]."""
     cflat = counts.reshape(-1).to(torch.int64)
-    off = (torch.cumsum(cflat, 0) - cflat).reshape(nchunks, 1, N_LANES)
+    return (torch.cumsum(cflat, 0) - cflat).reshape(counts.shape).to(torch.int32)
+
+
+def decode_cap(nchunks: int) -> int:
+    """The reference decoder's stream length, `next_pow2(C) * CHUNK_BYTES`
+    u16 entries; reads clip to its last entry."""
+    return _next_pow2(nchunks) * CHUNK_BYTES
+
+
+def assemble_stream(flags: torch.Tensor, vals: torch.Tensor):
+    """The u16 stream from B8's per-step outputs (C, T, N): every emission
+    scattered at its lane's offset plus its rank within the lane. Returns
+    (stream int32[total], counts int32[C, N] u16s per lane stream)."""
+    counts = flags.sum(dim=1, dtype=torch.int32)
+    off = lane_offsets(counts).to(torch.int64).unsqueeze(1)
     rank = torch.cumsum(flags, dim=1).to(torch.int64) - flags
-    cap = flat.numel()
-    pos = torch.where(flags > 0, off + rank, cap)  # non-emitters -> spill slot
-    stream = torch.zeros(cap + 1, dtype=torch.int32, device=device)
+    spill = flags.numel()  # one slot past any emission, for non-emitters
+    pos = torch.where(flags > 0, off + rank, spill)
+    stream = torch.zeros(spill + 1, dtype=torch.int32, device=flags.device)
     stream.scatter_(0, pos.reshape(-1), vals.reshape(-1))
-    total = int(cflat.sum())
+    return stream[: int(counts.sum())], counts
+
+
+def _encode_device(data: np.ndarray, device: torch.device):
+    """Encode a section's bytes (uint8[n], n > 0) on `device`: the chunk
+    grid, all chunks in one B8 call, and the emissions assembled into one
+    u16 stream in (chunk, lane) order."""
+    syms, mask, freqs = section_grid(data, device)
+    states, flags, vals = ops.rans_encode(syms, mask, freqs)
+    stream, counts = assemble_stream(flags, vals)
     return (
-        bits.u32_numpy(freqs.to(torch.int32)),
+        bits.u32_numpy(freqs),
         bits.u32_numpy(states).reshape(-1),
         counts.cpu().numpy().astype(np.uint32).reshape(-1),
-        bits.u32_numpy(stream[:total]),
+        bits.u32_numpy(stream),
     )
 
 
@@ -199,12 +141,8 @@ def _decode_device(stream: np.ndarray, freqs: np.ndarray, states: np.ndarray,
     """Decode `n` bytes of a section on `device`: every (chunk, lane) starts
     at its exclusive-cumsum offset, all in one B9 call; reads clip to the
     reference's cap of `next_pow2(nchunks) * CHUNK_BYTES` entries."""
-    from repro_torch.kernels import ops
-
     nchunks = states.shape[0]
-    cap = _next_pow2(nchunks) * CHUNK_BYTES
-    cflat = torch.from_numpy(counts.reshape(-1).astype(np.int64)).to(device)
-    off = (torch.cumsum(cflat, 0) - cflat).reshape(nchunks, N_LANES).to(torch.int32)
+    off = lane_offsets(torch.from_numpy(counts.astype(np.int64)).to(device))
     mask = (
         torch.arange(nchunks * CHUNK_BYTES, device=device) < n
     ).reshape(nchunks, ROWS, N_LANES)
@@ -214,7 +152,7 @@ def _decode_device(stream: np.ndarray, freqs: np.ndarray, states: np.ndarray,
         bits.u32_tensor(states, device),
         off,
         mask,
-        cap,
+        decode_cap(nchunks),
     )
     return syms.reshape(-1)[:n].to(torch.uint8).cpu().numpy()
 

@@ -1,28 +1,34 @@
 // B8 and B9: the interleaved rANS entropy stage, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernels of `src/repro/kernels/rans.py`:
-//   * B8 `encode_rows` (`_enc_kernel`), oracle `core/entropy.py:
-//     encode_rows`: 8-lane interleaved rANS encode of a 4 KiB chunk's
+//   * B8 `encode_rows` (`_enc_kernel`), plain version `kernels/ref.py:
+//     rans_encode_ref`: 8-lane interleaved rANS encode of a 4 KiB chunk's
 //     (T=512, 8) byte grid, rows walked in reverse, 12-bit probabilities,
 //     16-bit renormalisation. Outputs the lane states (8,) and, at the
 //     ORIGINAL row, each step's emission flag and u16 value (T, 8).
-//   * B9 `decode_rows` (`_dec_kernel`), oracle `core/entropy.py:
-//     decode_rows`: the forward decode, each lane starting from its own
-//     absolute offset into the shared u16 stream.
+//   * B9 `decode_rows` (`_dec_kernel`), plain version `kernels/ref.py:
+//     rans_decode_ref`: the forward decode, each lane starting from its
+//     own absolute offset into the shared u16 stream.
 // Both take all C chunks of a section in one launch, as the reference
 // batches its scan with vmap: (C, T, 8) grids, (C, 8) states.
 //
-// What bounds them: operations, and the serial chain. Each (chunk, lane)
-// stream is a recurrence of T steps with a 32-bit division (encode) or a
-// multiply and a table lookup (decode) per step; the bytes moved are
-// ~13 bytes per input byte (syms, mask, flags, vals), far below what the
-// chain's latency allows. The TPU kernel walks the rows as its sequential
-// grid, carrying the 8 lane states in an output block and looking tables
-// up by one-hot folds. Here one thread owns one (chunk, lane) stream and
-// walks its rows in a register loop; the chunks give the parallelism
-// (a 37 MB section is ~9,000 chunks, ~72,000 threads). The frequency and
-// cumulative tables (and, for decode, the 4096-entry slot table) are read
-// into shared memory once per CTA, so every lookup is a shared-memory load.
+// What bounds them: the stage needs about 1 byte in and, per emission, a
+// u16 out per input byte (plus a state and a count per lane stream), and
+// 6-7 integer operations per byte; at this card's rates the bytes are the
+// larger bound (`chip_smoke.py` computes both). This first design does
+// not come near it. It moves ~13 bytes per input byte (int32 symbols, a
+// mask byte, and for encode an int32 flag and value per step, the Pallas
+// contract's grids), and each thread runs a serial chain of T steps with
+// a 32-bit division (encode) or a multiply and a table lookup (decode) per
+// step, with too few threads per SM to hide that chain's latency. Narrow
+// grids and compacted emissions are later work. The TPU kernel walks the
+// rows as its sequential grid, carrying the 8 lane states in an output
+// block and looking tables up by one-hot folds. Here one thread owns one
+// (chunk, lane) stream and walks its rows in a register loop; the chunks
+// give the parallelism (a 35 MB section is ~8,400 chunks, ~68,000
+// threads). The frequency and cumulative tables (and, for decode, the
+// 4096-entry slot table) are read into shared memory once per CTA, so
+// every lookup is a shared-memory load.
 // Division is the hardware's unsigned 32-bit division, and the renorm test
 // keeps the reference's overflow-safe spelling `(x >> 20) >= f`. Decode
 // reads are clipped to [0, cap-1] of a stream that is zero past its

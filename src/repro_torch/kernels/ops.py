@@ -15,7 +15,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch.core import bits, entropy
+from repro_torch.core import bits
 from repro_torch.kernels import bitpack, bitunpack, dict_hash, frame_compact, rans, ref
 
 
@@ -143,8 +143,8 @@ def dict_probe(x: torch.Tensor, table: torch.Tensor, valid: torch.Tensor, idx_bi
 
 def _check_grid(syms_or_mask: torch.Tensor, name: str, dev, dtype) -> None:
     _check(syms_or_mask, name, 3, dev, dtype)
-    if syms_or_mask.shape[2] != entropy.N_LANES:
-        raise ValueError(f"{name} must be (C, T, {entropy.N_LANES}), got {tuple(syms_or_mask.shape)}")
+    if syms_or_mask.shape[2] != rans.N_LANES:
+        raise ValueError(f"{name} must be (C, T, {rans.N_LANES}), got {tuple(syms_or_mask.shape)}")
 
 
 def rans_encode(syms: torch.Tensor, mask: torch.Tensor, freqs: torch.Tensor):
@@ -165,7 +165,7 @@ def rans_encode(syms: torch.Tensor, mask: torch.Tensor, freqs: torch.Tensor):
     states = torch.empty((c, n), dtype=torch.int32, device=dev)
     flags = torch.empty_like(syms)
     vals = torch.empty_like(syms)
-    cum = bits._i32(entropy.cum_freqs(freqs))
+    cum = bits._i32(rans.cum_freqs(freqs))
     rans.launch_encode(syms, mask.view(torch.uint8), freqs, cum, states, flags, vals)
     rans_encode.launches += 1
     return states, flags, vals
@@ -186,7 +186,7 @@ def rans_decode(stream: torch.Tensor, freqs: torch.Tensor, states: torch.Tensor,
     _check_grid(mask, "mask", dev, torch.bool)
     cap = stream.numel() if cap is None else int(cap)
     c = mask.shape[0]
-    if states.shape != (c, entropy.N_LANES) or offsets.shape != states.shape or freqs.shape[0] != 256:
+    if states.shape != (c, rans.N_LANES) or offsets.shape != states.shape or freqs.shape[0] != 256:
         raise ValueError(f"states {tuple(states.shape)}, offsets {tuple(offsets.shape)} and "
                          f"freqs {tuple(freqs.shape)} disagree with mask {tuple(mask.shape)}")
     if cap < 1 or cap < stream.numel():
@@ -194,8 +194,8 @@ def rans_decode(stream: torch.Tensor, freqs: torch.Tensor, states: torch.Tensor,
     if dev.type == "cpu":
         return ref.rans_decode_ref(stream, cap, freqs, states, offsets, mask)
     syms = torch.empty(mask.shape, dtype=torch.int32, device=dev)
-    cum = bits._i32(entropy.cum_freqs(freqs))
-    lut = entropy.slot_table(freqs).to(torch.int32)
+    cum = bits._i32(rans.cum_freqs(freqs))
+    lut = rans.slot_table(freqs).to(torch.int32)
     rans.launch_decode(stream, cap, freqs, cum, lut, states, offsets, mask.view(torch.uint8), syms)
     rans_decode.launches += 1
     return syms

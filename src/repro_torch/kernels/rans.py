@@ -6,15 +6,38 @@
   * `launch_decode` — the forward decode, each lane from its absolute
     offset into the shared u16 stream.
 
-`ops.rans_encode` and `ops.rans_decode` are the public wrappers; they
-compute the tables (`cum`, and the slot table for decode) as the Pallas
-wrappers do, and the kernels read them into shared memory.
+The coder's constants and its two tables (`cum_freqs`, `slot_table`) live
+here, below both the wrappers (`kernels/ops.py`), the plain versions
+(`kernels/ref.py`) and the section coder (`core/entropy.py`). The public
+wrappers are `ops.rans_encode` and `ops.rans_decode`; they compute the
+tables as the Pallas wrappers do, and the kernels read them into shared
+memory.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import build
+
+PROB_BITS = 12
+PROB_SCALE = 1 << PROB_BITS  # 4096: fixed table denominator
+RANS_L = 1 << 16  # lower bound of the state interval (16-bit renorm)
+N_LANES = 8  # interleaved coders per chunk
+CHUNK_BYTES = 4096  # bytes per independently-decodable chunk
+ROWS = CHUNK_BYTES // N_LANES  # scan steps per chunk
+
+
+def cum_freqs(freqs: torch.Tensor) -> torch.Tensor:
+    """Exclusive cumulative frequencies (int64[256])."""
+    f = freqs.to(torch.int64)
+    return torch.cumsum(f, 0) - f
+
+
+def slot_table(freqs: torch.Tensor) -> torch.Tensor:
+    """slot -> symbol lookup (int64[PROB_SCALE]) from the frequency table:
+    the last symbol whose cumulative start is <= the slot."""
+    slots = torch.arange(PROB_SCALE, dtype=torch.int64, device=freqs.device)
+    return torch.searchsorted(cum_freqs(freqs), slots, right=True) - 1
 
 
 def launch_encode(syms: torch.Tensor, mask: torch.Tensor, freqs: torch.Tensor,

@@ -1,7 +1,7 @@
 """Plain PyTorch versions of the CUDA kernels (port of `repro/kernels/ref.py`
 for the kernels ported so far). They repeat the kernels' arithmetic with the
-tensor ops of `core/bits.py` and `core/entropy.py`: the CPU path of `ops`,
-and the oracle the kernels are held against on the card, bit for bit.
+tensor ops of `core/bits.py`: the CPU path of `ops`, and the oracle the
+kernels are held against on the card, bit for bit.
 """
 from __future__ import annotations
 
@@ -9,8 +9,10 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core import bits, entropy
+from repro_torch.core import bits
+from repro_torch.core.bits import M32
 from repro_torch.kernels import dict_hash
+from repro_torch.kernels.rans import PROB_BITS, PROB_SCALE, RANS_L, cum_freqs, slot_table
 
 
 def pack_blocks_ref(codes: torch.Tensor, bitlen: torch.Tensor, block: int,
@@ -53,11 +55,72 @@ def probe_ref(x: torch.Tensor, table: torch.Tensor, valid: torch.Tensor, idx_bit
 
 
 def rans_encode_ref(syms: torch.Tensor, mask: torch.Tensor, freqs: torch.Tensor):
-    """`entropy.encode_rows` over (C, T, 8) grids: (states, flags, vals)."""
-    return entropy.encode_rows(syms, mask, freqs)
+    """Interleaved rANS encode of C chunks' (C, T, N_LANES) byte grids,
+    batched over chunks as the reference's `vmap` of `encode_rows` is.
+
+    `syms` byte values (any integer dtype), `mask` marks real bytes
+    (masked steps are identity). Returns `(states int32[C, N], flags
+    int32[C, T, N], vals int32[C, T, N])`, indexed by ORIGINAL row; uint32
+    values travel as int32 bit patterns, the state arithmetic runs on int64
+    values in [0, 2^32) with explicit wraparound (`& M32`)."""
+    c, t_rows, n = syms.shape
+    fr = bits._u(freqs)
+    cum = cum_freqs(freqs) & M32
+    s = syms.to(torch.int64).clamp(0, 255)  # the reference's clamped gather
+    m = mask.to(torch.bool)
+    x = torch.full((c, n), RANS_L, dtype=torch.int64, device=syms.device)
+    flags = torch.zeros((c, t_rows, n), dtype=torch.int32, device=syms.device)
+    vals = torch.zeros((c, t_rows, n), dtype=torch.int64, device=syms.device)
+    for t in range(t_rows - 1, -1, -1):  # reverse, so decode runs forward
+        st, mt = s[:, t], m[:, t]
+        f, cu = fr[st], cum[st]
+        f_safe = torch.where(mt & (f > 0), f, torch.ones_like(f))
+        # renorm: x >= f·2^20, spelled so f = PROB_SCALE cannot overflow
+        emit = mt & ((x >> 20) >= f_safe)
+        vals[:, t] = torch.where(emit, x & 0xFFFF, torch.zeros_like(x))
+        flags[:, t] = emit.to(torch.int32)
+        x1 = torch.where(emit, x >> 16, x)
+        x2 = (((x1 // f_safe) << PROB_BITS) + (x1 % f_safe) + cu) & M32
+        x = torch.where(mt, x2, x)
+    return bits._i32(x), flags, bits._i32(vals)
+
+
+def _read_stream(stream: torch.Tensor, p: torch.Tensor, cap: int) -> torch.Tensor:
+    """u16 reads (int64) at positions `p` of `stream` (int64 values), as
+    over a stream zero-padded to `cap` entries with reads clipped to
+    [0, cap-1], the reference's decode reads; only the first
+    `stream.numel()` entries are stored."""
+    q = p.clamp(0, cap - 1)
+    if stream.numel() == 0:
+        return torch.zeros_like(q)
+    got = stream[q.clamp(max=stream.numel() - 1)]
+    return torch.where(q < stream.numel(), got, torch.zeros_like(got))
 
 
 def rans_decode_ref(stream: torch.Tensor, cap: int, freqs: torch.Tensor,
                     states: torch.Tensor, offsets: torch.Tensor, mask: torch.Tensor):
-    """`entropy.decode_rows` over (C, T, 8) grids: int32[C, T, 8] bytes."""
-    return entropy.decode_rows(stream, freqs, states, offsets, mask, cap)
+    """Forward decode of C chunks to their (C, T, N_LANES) byte grids,
+    batched as the reference's `vmap` of `decode_rows` is. `offsets` are
+    each lane's ABSOLUTE start into the u16 `stream`; reads behave as over
+    a zero-padded `cap`-entry stream. Returns int32[C, T, N]."""
+    c, t_rows, n = mask.shape
+    fr = bits._u(freqs)
+    cum = cum_freqs(freqs) & M32
+    lut = slot_table(freqs)
+    su = bits._u(stream)
+    m = mask.to(torch.bool)
+    x = bits._u(states)
+    p = offsets.to(torch.int64)
+    out = torch.zeros((c, t_rows, n), dtype=torch.int32, device=mask.device)
+    for t in range(t_rows):
+        mt = m[:, t]
+        slot = x & (PROB_SCALE - 1)
+        sym = lut[slot]
+        x2 = (fr[sym] * (x >> PROB_BITS) + slot - cum[sym]) & M32
+        need = mt & (x2 < RANS_L)
+        w = _read_stream(su, p, cap)
+        x3 = torch.where(need, ((x2 << 16) | w) & M32, x2)
+        x = torch.where(mt, x3, x)
+        p = p + need.to(torch.int64)
+        out[:, t] = torch.where(mt, sym, torch.zeros_like(sym)).to(torch.int32)
+    return out

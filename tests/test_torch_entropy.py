@@ -124,6 +124,29 @@ def test_decode_rows_matches_reference_and_inverts_encode(c, t_rows, fill):
             np.testing.assert_array_equal(got[k].numpy(), np.asarray(kern))
 
 
+@pytest.mark.parametrize("c,t_rows,fill", [(1, 8, 60), (3, 512, 3 * 4096 - 77)])
+def test_assemble_stream_matches_numpy_scatter(c, t_rows, fill):
+    syms, mask, freqs = _chunks(c + 5 * t_rows, c, t_rows, fill)
+    _, fl, va = ops.rans_encode(torch.from_numpy(syms), torch.from_numpy(mask),
+                                torch.from_numpy(freqs))
+    stream, counts = tent.assemble_stream(fl, va)
+    want_stream, want_off = _stream(fl.numpy(), tbits.u32_numpy(va))
+    np.testing.assert_array_equal(tbits.u32_numpy(stream), want_stream)
+    np.testing.assert_array_equal(counts.numpy(), fl.numpy().sum(axis=1))
+    np.testing.assert_array_equal(tent.lane_offsets(counts).numpy(), want_off)
+
+
+def test_section_grid_masks_the_tail_and_quantizes_all_bytes():
+    data = (np.random.default_rng(4).zipf(1.3, 2 * 4096 + 5) - 1).clip(0, 255).astype(np.uint8)
+    syms, mask, freqs = tent.section_grid(data, CPU)
+    assert syms.shape == mask.shape == (3, tent.ROWS, tent.N_LANES)
+    np.testing.assert_array_equal(syms.numpy().reshape(-1)[: data.size], data)
+    assert int(mask.sum()) == data.size and not syms.numpy().reshape(-1)[data.size:].any()
+    want = rent.quantize_freqs(jnp.asarray(np.bincount(data, minlength=256), jnp.int32))
+    np.testing.assert_array_equal(freqs.numpy(), np.asarray(want))
+    assert tent.decode_cap(3) == 4 * tent.CHUNK_BYTES
+
+
 def test_decode_rows_reads_clip_to_cap_like_reference():
     """Garbage states and offsets past the stream: reads see zeros up to
     `cap` and the last entry beyond it, as over the reference's padded
