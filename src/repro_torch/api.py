@@ -22,6 +22,7 @@ from typing import Any, Dict, List, Mapping, Optional, Tuple
 import numpy as np
 
 from repro_torch.core import bits, metrics
+from repro_torch.core.calibration import calibrated_kwargs
 from repro_torch.core.energy import PROFILES, HardwareProfile, edge_energy_j
 from repro_torch.core.pipeline import CompressionPipeline, DecompressionPipeline
 from repro_torch.core.strategies import (
@@ -179,6 +180,13 @@ class JobSpec:
     # ------------------------------------------------------------ transforms
     def replace(self, **changes: Any) -> "JobSpec":
         return dataclasses.replace(self, **changes)
+
+    def calibrated(self, sample: np.ndarray) -> "JobSpec":
+        """Bake sample-tuned codec parameters in (explicit params win)."""
+        kwargs = self.codec_kwargs
+        for k, v in calibrated_kwargs(self.codec, sample).items():
+            kwargs.setdefault(k, v)
+        return self.replace(params=kwargs)
 
     # ------------------------------------------------------- (de)serialization
     def to_dict(self) -> Dict[str, Any]:

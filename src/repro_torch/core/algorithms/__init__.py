@@ -1,8 +1,5 @@
-"""CStream's compression algorithms (paper Table 1), ported to PyTorch.
-
-Ported so far: raw32, tcomp32, leb128, delta_leb128, tdic32, rle. The
-lossy codecs raise a one-line `KeyError` from `make_codec` naming the
-ROADMAP item that ports them (`base.UNPORTED`). The wire ids are the reference's, verbatim.
+"""CStream's compression algorithms (paper Table 1), ported to PyTorch:
+all ten, plus the raw32 bypass. The wire ids are the reference's, verbatim.
 """
 from typing import Any, Dict, Optional
 
@@ -10,7 +7,6 @@ import numpy as np
 import torch
 
 from repro_torch.core.algorithms.base import (
-    UNPORTED,
     Codec,
     CodecMeta,
     Encoded,
@@ -22,9 +18,11 @@ from repro_torch.core.algorithms.base import (
 )
 
 # importing registers each codec
+from repro_torch.core.algorithms import adpcm as _adpcm  # noqa: F401
 from repro_torch.core.algorithms import dictionary as _dictionary  # noqa: F401
 from repro_torch.core.algorithms import elias as _elias  # noqa: F401
 from repro_torch.core.algorithms import leb128 as _leb128  # noqa: F401
+from repro_torch.core.algorithms import pla as _pla  # noqa: F401
 from repro_torch.core.algorithms import raw as _raw  # noqa: F401
 from repro_torch.core.algorithms import rle as _rle  # noqa: F401
 
@@ -102,7 +100,6 @@ __all__ = [
     "Codec",
     "CodecMeta",
     "Encoded",
-    "UNPORTED",
     "accepted_params",
     "check_codec_params",
     "codec_factory",

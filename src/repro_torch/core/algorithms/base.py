@@ -114,16 +114,6 @@ class Codec:
 
 _REGISTRY: Dict[str, Callable[..., Codec]] = {}
 
-#: reference codecs not ported yet -> the ROADMAP item that brings them
-UNPORTED = {
-    "leb128_nuq": "ROADMAP A5, lossy codecs after C2",
-    "uanuq": "ROADMAP A5, lossy codecs after C2",
-    "adpcm": "ROADMAP A5, lossy codecs after C2",
-    "uaadpcm": "ROADMAP A5, lossy codecs after C2",
-    "pla": "ROADMAP A5, lossy codecs after C2",
-}
-
-
 def register(name: str):
     def deco(factory):
         _REGISTRY[name] = factory
@@ -135,11 +125,6 @@ def register(name: str):
 def codec_factory(name: str) -> Callable[..., Codec]:
     """The registered factory for a codec name (capability introspection)."""
     if name not in _REGISTRY:
-        if name in UNPORTED:
-            raise KeyError(
-                f"codec {name!r} is not ported to repro_torch yet "
-                f"({UNPORTED[name]}); ported: {sorted(_REGISTRY)}"
-            )
         raise KeyError(f"unknown codec {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]
 

@@ -1,11 +1,10 @@
 """LEB128 family (port of `repro/core/algorithms/leb128.py`): LEB128
-(lossless, stateless, aligned) and Delta-LEB128 (lossless, value state).
+(lossless, stateless, aligned), Delta-LEB128 (lossless, value state) and
+LEB128-NUQ (lossy, stateless, aligned).
 
 LEB128 follows Android-Dex (paper Alg. 2): 7 data bits per byte, MSB is the
 continuation flag. The byte-append loop becomes a fixed 5-step vectorized
 byte assembly (32-bit tuples need at most 5 groups).
-
-`LEB128NUQ` (lossy) waits for ROADMAP C2.
 """
 from __future__ import annotations
 
@@ -15,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import bits
+from repro_torch.core.algorithms import nuq
 from repro_torch.core.algorithms.base import Codec, CodecMeta, Encoded, register
 
 
@@ -95,3 +95,29 @@ class DeltaLEB128(Codec):
         # prefix-sum turns the sequential reconstruction into a parallel scan
         x = bits._i32(bits._u(state["prev"])[:, None] + torch.cumsum(delta, dim=1))
         return {"prev": x[:, -1]}, x
+
+
+@register("leb128_nuq")
+class LEB128NUQ(Codec):
+    """Lossy: mu-law NUQ of the value (the tables of `nuq.py`), then LEB128
+    of the quantized code."""
+
+    meta = CodecMeta("leb128_nuq", lossy=True, stateful=False, state_kind="none", aligned=True)
+
+    def __init__(self, qbits: int = 8, vmax: float = float(2**32 - 1), mu: float = nuq.DEFAULT_MU):
+        self.qbits = qbits
+        self.vmax = vmax
+        self.mu = mu
+
+    def encode(self, state: Any, x: torch.Tensor) -> Tuple[Any, Encoded]:
+        q = nuq.mulaw_encode_unsigned(bits._u(x).clamp(max=int(self.vmax)), self.qbits, self.vmax, self.mu)
+        c0, c1, blen = leb128_encode_words(q)
+        return state, Encoded(torch.stack([c0, c1], dim=-1), blen)
+
+    def decode(self, state: Any, enc: Encoded) -> Tuple[Any, torch.Tensor]:
+        q = leb128_decode_words(enc.codes, enc.bitlen)
+        v = nuq.mulaw_decode_unsigned(q, self.qbits, self.vmax, self.mu)
+        return state, nuq.to_u32_saturating(v)
+
+    def error_bound(self) -> float:
+        return nuq.mulaw_max_abs_err(self.qbits, self.vmax, self.mu)

@@ -34,6 +34,8 @@ LIB_NAME = "librepro_torch_kernels.so"
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
+_U = ctypes.c_uint
 #: C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES: Dict[str, List[type]] = {
     "repro_pack_blocks": [_P, _P, _I, _I, _I, _P, _P, _P],
@@ -43,6 +45,10 @@ SIGNATURES: Dict[str, List[type]] = {
     "repro_dict_probe": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
     "repro_rans_encode": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "repro_rans_decode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "repro_adpcm_tile_encode": [_P, _I, _I, _I, _F, _P, _P, _I, _P, _P],
+    "repro_adpcm_tile_decode": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
+    "repro_adpcm_lane_encode": [_P, _I, _I, _I, _P, _P, _U, _F, _F, _P, _P, _I, _I, _P, _P, _P],
+    "repro_adpcm_lane_decode": [_P, _I, _I, _I, _P, _P, _U, _F, _P, _P, _I, _P, _P],
 }
 
 _lib: Optional[ctypes.CDLL] = None

@@ -16,7 +16,8 @@ from typing import Dict, Optional
 import torch
 
 from repro_torch.core import bits
-from repro_torch.kernels import bitpack, bitunpack, dict_hash, frame_compact, rans, ref
+from repro_torch.core.algorithms import nuq
+from repro_torch.kernels import bitpack, bitunpack, delta_nuq, dict_hash, frame_compact, rans, ref
 
 
 def _check(t: torch.Tensor, name: str, ndim: int, device: torch.device,
@@ -201,6 +202,110 @@ def rans_decode(stream: torch.Tensor, freqs: torch.Tensor, states: torch.Tensor,
     return syms
 
 
+def _check_qbits(qbits: int) -> None:
+    top = nuq.MAX_TABLE_BITS + 1
+    if not 2 <= qbits <= top:
+        raise ValueError(f"qbits must be in [2, {top}] (a sign bit and a tabled magnitude), got {qbits}")
+
+
+def _check_tiles(t: torch.Tensor, name: str, sublanes: int, t_tile: int) -> None:
+    s, n = t.shape
+    if sublanes < 1 or t_tile < 1 or s % sublanes or n % t_tile:
+        raise ValueError(f"{name} {tuple(t.shape)} must tile by (sublanes={sublanes}, t_tile={t_tile})")
+
+
+def adpcm_encode(x: torch.Tensor, qbits: int = 8, dmax: float = 1.0, mu: float = 255.0,
+                 sublanes: int = delta_nuq.DEFAULT_SUBLANES, t_tile: int = delta_nuq.DEFAULT_T):
+    """Block ADPCM encode, the Pallas contract: x float32[S, T] substreams
+    -> codes int32[S, T] (uint32 bits; code[:, 0] of each t_tile tile is
+    the bit-cast raw sample). S % sublanes == 0 and T % t_tile == 0."""
+    dev = x.device
+    _check(x, "x", 2, dev, torch.float32)
+    _check_qbits(qbits)
+    _check_tiles(x, "x", sublanes, t_tile)
+    if dev.type == "cpu":
+        return ref.delta_nuq_encode_ref(x, qbits, dmax, mu, t_tile)
+    thr, dec = delta_nuq.quantizer(qbits, dmax, mu, False, dev)
+    codes = torch.empty(x.shape, dtype=torch.int32, device=dev)
+    delta_nuq.launch_tile_encode(x, t_tile, dmax, thr, dec, qbits, codes)
+    adpcm_encode.launches += 1
+    return codes
+
+
+def adpcm_decode(codes: torch.Tensor, qbits: int = 8, dmax: float = 1.0, mu: float = 255.0,
+                 sublanes: int = delta_nuq.DEFAULT_SUBLANES, t_tile: int = delta_nuq.DEFAULT_T):
+    """Block ADPCM decode, the Pallas contract: codes int32[S, T] ->
+    float32[S, T], a running float32 sum per tile."""
+    dev = codes.device
+    _check(codes, "codes", 2, dev)
+    _check_qbits(qbits)
+    _check_tiles(codes, "codes", sublanes, t_tile)
+    if dev.type == "cpu":
+        return ref.delta_nuq_decode_ref(codes, qbits, dmax, mu, t_tile)
+    thr, dec = delta_nuq.quantizer(qbits, dmax, mu, False, dev)
+    x = torch.empty(codes.shape, dtype=torch.float32, device=dev)
+    delta_nuq.launch_tile_decode(codes, t_tile, thr, dec, qbits, x)
+    adpcm_decode.launches += 1
+    return x
+
+
+def _check_lane_state(xhat: torch.Tensor, init: torch.Tensor, lanes: int, dev) -> None:
+    _check(xhat, "xhat", 1, dev, torch.float32)
+    _check(init, "init", 1, dev, torch.bool)
+    if xhat.shape[0] != lanes or init.shape[0] != lanes:
+        raise ValueError(f"xhat {tuple(xhat.shape)} and init {tuple(init.shape)} must hold {lanes} lanes")
+
+
+def adpcm_lane_encode(blocks: torch.Tensor, xhat: torch.Tensor, init: torch.Tensor,
+                      qbits: int, vmax: float, dmax: float, mu: float, width: int):
+    """The ADPCM codec's encode of C blocks int32[C, L, B] as one per-lane
+    walk of each lane's C*B tuples, from the state (xhat float32[L], init
+    bool[L]): (codes int32[C, L, B, 2], bitlen int32[C, L, B], xhat, init).
+    `width` is the bitlen of a quantized symbol; a fresh lane's first
+    symbol is its raw tuple at 32 bits."""
+    dev = blocks.device
+    _check(blocks, "blocks", 3, dev)
+    c, lanes, b = blocks.shape
+    _check_lane_state(xhat, init, lanes, dev)
+    _check_qbits(qbits)
+    if dev.type == "cpu":
+        return ref.adpcm_lane_encode_ref(blocks, xhat, init, qbits, vmax, dmax, mu, width)
+    codes = torch.empty((c, lanes, b, 2), dtype=torch.int32, device=dev)
+    bitlen = torch.empty((c, lanes, b), dtype=torch.int32, device=dev)
+    if c * b == 0:  # nothing to walk: the state stays as it was
+        return codes, bitlen, xhat.clone(), init.clone()
+    thr, dec = delta_nuq.quantizer(qbits, dmax, mu, True, dev)
+    xhat, init = xhat.clone(), init.clone()
+    delta_nuq.launch_lane_encode(blocks, xhat, init.view(torch.uint8), vmax, dmax, thr, dec,
+                                 qbits, width, codes, bitlen)
+    adpcm_lane_encode.launches += 1
+    return codes, bitlen, xhat, init
+
+
+def adpcm_lane_decode(codes: torch.Tensor, xhat: torch.Tensor, init: torch.Tensor,
+                      qbits: int, vmax: float, dmax: float, mu: float):
+    """The ADPCM codec's decode of C blocks' codes int32[C, L, B, 2] (word
+    0) as one per-lane walk from the state: (values int32[C, L, B] uint32
+    bits, xhat, init)."""
+    dev = codes.device
+    _check(codes, "codes", 4, dev)
+    c, lanes, b, two = codes.shape
+    if two != 2:
+        raise ValueError(f"codes must be (C, L, B, 2) symbol slots, got {tuple(codes.shape)}")
+    _check_lane_state(xhat, init, lanes, dev)
+    _check_qbits(qbits)
+    if dev.type == "cpu":
+        return ref.adpcm_lane_decode_ref(codes, xhat, init, qbits, vmax, dmax, mu)
+    out = torch.empty((c, lanes, b), dtype=torch.int32, device=dev)
+    if c * b == 0:
+        return out, xhat.clone(), init.clone()
+    thr, dec = delta_nuq.quantizer(qbits, dmax, mu, True, dev)
+    xhat, init = xhat.clone(), init.clone()
+    delta_nuq.launch_lane_decode(codes, xhat, init.view(torch.uint8), vmax, thr, dec, qbits, out)
+    adpcm_lane_decode.launches += 1
+    return out, xhat, init
+
+
 #: the kernel wrappers, by kernel name
 WRAPPERS = {
     "pack_blocks": pack_blocks,
@@ -210,6 +315,10 @@ WRAPPERS = {
     "dict_probe": dict_probe,
     "rans_encode": rans_encode,
     "rans_decode": rans_decode,
+    "adpcm_encode": adpcm_encode,
+    "adpcm_decode": adpcm_decode,
+    "adpcm_lane_encode": adpcm_lane_encode,
+    "adpcm_lane_decode": adpcm_lane_decode,
 }
 for _fn in WRAPPERS.values():
     _fn.launches = 0
@@ -227,6 +336,10 @@ def launch_counts() -> Dict[str, int]:
 
 
 __all__ = [
+    "adpcm_decode",
+    "adpcm_encode",
+    "adpcm_lane_decode",
+    "adpcm_lane_encode",
     "compact_blocks",
     "dict_probe",
     "launch_counts",

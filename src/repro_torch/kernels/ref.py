@@ -11,7 +11,8 @@ import torch
 
 from repro_torch.core import bits
 from repro_torch.core.bits import M32
-from repro_torch.kernels import dict_hash
+from repro_torch.core.algorithms import nuq
+from repro_torch.kernels import delta_nuq, dict_hash
 from repro_torch.kernels.rans import PROB_BITS, PROB_SCALE, RANS_L, cum_freqs, slot_table
 
 
@@ -124,3 +125,112 @@ def rans_decode_ref(stream: torch.Tensor, cap: int, freqs: torch.Tensor,
         p = p + need.to(torch.int64)
         out[:, t] = torch.where(mt, sym, torch.zeros_like(sym)).to(torch.int32)
     return out
+
+
+# ---------------------------------------------------------------- delta_nuq --
+def _quantize(d: torch.Tensor, thr: torch.Tensor, dec: torch.Tensor):
+    """Signed mu-law quantization of float32 deltas on the magnitude tables
+    (`delta_nuq.quantizer`): (sign, magnitude code, dequantized value)."""
+    neg = d < 0
+    mag = torch.searchsorted(thr, d.abs(), right=True)
+    m = dec[mag]
+    return neg, mag, torch.where(neg, -m, m)
+
+
+def _signed_codes(neg: torch.Tensor, mag: torch.Tensor, qbits: int) -> torch.Tensor:
+    return (neg.to(torch.int32) << (qbits - 1)) | mag.to(torch.int32)
+
+
+def delta_nuq_encode_ref(x: torch.Tensor, qbits: int, dmax: float, mu: float, t_tile: int):
+    """The Pallas contract of B6: x float32[S, T] -> codes int32[S, T]
+    (uint32 bits). Each t_tile tile starts from its raw sample, bit-cast
+    into code[0]; later codes quantize the clipped delta against the
+    running float reconstruction, dequantized without integer snapping.
+    (The kernel body's `(mu * |d|) / dmax` and its oracle's `mu * (|d| /
+    dmax)` fold to the same jitted constant, so one table serves both.)"""
+    s, t = x.shape
+    xt = x.reshape(s, t // t_tile, t_tile)
+    thr, dec = delta_nuq.quantizer(qbits, dmax, mu, False, x.device)
+    lim = delta_nuq.f32(dmax)
+    neg = torch.zeros(xt.shape, dtype=torch.bool, device=x.device)
+    mag = torch.zeros(xt.shape, dtype=torch.int64, device=x.device)
+    xhat = xt[..., 0]
+    for k in range(1, t_tile):
+        neg[..., k], mag[..., k], dq = _quantize((xt[..., k] - xhat).clamp(-lim, lim), thr, dec)
+        xhat = xhat + dq
+    codes = _signed_codes(neg, mag, qbits)
+    codes[..., 0] = xt[..., 0].contiguous().view(torch.int32)  # the raw reference sample
+    return codes.reshape(s, t)
+
+
+def delta_nuq_decode_ref(codes: torch.Tensor, qbits: int, dmax: float, mu: float, t_tile: int):
+    """The Pallas contract of B7: codes int32[S, T] -> float32[S, T], a
+    running float32 sum per tile from its bit-cast raw sample."""
+    s, t = codes.shape
+    ct = codes.reshape(s, t // t_tile, t_tile)
+    dq = nuq.mulaw_decode_signed(ct, qbits, dmax, mu, round_int=False)
+    out = torch.empty(ct.shape, dtype=torch.float32, device=codes.device)
+    xhat = ct[..., 0].contiguous().view(torch.float32)
+    out[..., 0] = xhat
+    for k in range(1, t_tile):
+        xhat = xhat + dq[..., k]
+        out[..., k] = xhat
+    return out.reshape(s, t)
+
+
+def adpcm_lane_encode_ref(blocks: torch.Tensor, xhat: torch.Tensor, init: torch.Tensor,
+                          qbits: int, vmax: float, dmax: float, mu: float, width: int):
+    """The ADPCM codec's encode (`repro/core/algorithms/adpcm.py`) over C
+    blocks int32[C, L, B], as one per-lane scan of each lane's C*B tuples
+    from the state (xhat float32[L], init bool[L]): the input clips to vmax,
+    a fresh lane's first symbol is its raw 32-bit tuple (bitlen 32), deltas
+    clip to +-dmax and dequantize snapped to integers, and the
+    reconstruction clips to [0, vmax]. Returns (codes int32[C, L, B, 2],
+    bitlen int32[C, L, B], xhat, init)."""
+    c, lanes, b = blocks.shape
+    dev = blocks.device
+    codes = torch.zeros((c, lanes, b, 2), dtype=torch.int32, device=dev)
+    bitlen = torch.full((c, lanes, b), width, dtype=torch.int32, device=dev)
+    if c * b == 0:
+        return codes, bitlen, xhat.clone(), init.clone()
+    x = blocks.permute(1, 0, 2).reshape(lanes, c * b)
+    thr, dec = delta_nuq.quantizer(qbits, dmax, mu, True, dev)
+    lim, top = delta_nuq.f32(dmax), delta_nuq.f32(vmax)
+    xf = bits._u(x).clamp(max=delta_nuq.u32_limit(vmax)).to(torch.float32)
+    fresh = ~init
+    xhat = torch.where(fresh, xf[:, 0], xhat)
+    neg = torch.empty((lanes, c * b), dtype=torch.bool, device=dev)
+    mag = torch.empty((lanes, c * b), dtype=torch.int64, device=dev)
+    for k in range(c * b):
+        neg[:, k], mag[:, k], dq = _quantize((xf[:, k] - xhat).clamp(-lim, lim), thr, dec)
+        xhat = (xhat + dq).clamp(0.0, top)
+    codes[..., 0] = _signed_codes(neg, mag, qbits).reshape(lanes, c, b).permute(1, 0, 2)
+    # a fresh lane's stream starts at block 0, tuple 0: the raw reference symbol
+    codes[0, :, 0, 0] = torch.where(fresh, blocks[0, :, 0], codes[0, :, 0, 0])
+    bitlen[0, :, 0] = torch.where(fresh, 32, width)
+    return codes, bitlen, xhat, torch.ones_like(init)
+
+
+def adpcm_lane_decode_ref(codes: torch.Tensor, xhat: torch.Tensor, init: torch.Tensor,
+                          qbits: int, vmax: float, dmax: float, mu: float):
+    """The ADPCM codec's decode over C blocks' codes int32[C, L, B, 2]
+    (word 0): the clipped accumulation from the state, a fresh lane
+    restarting at its raw symbol, rounded to uint32 with saturation.
+    Returns (values int32[C, L, B], xhat, init)."""
+    c, lanes, b, _ = codes.shape
+    if c * b == 0:
+        empty = torch.zeros((c, lanes, b), dtype=torch.int32, device=codes.device)
+        return empty, xhat.clone(), init.clone()
+    cw = codes[..., 0].permute(1, 0, 2).reshape(lanes, c * b)
+    top = delta_nuq.f32(vmax)
+    dq = nuq.mulaw_decode_signed(cw, qbits, dmax, mu)
+    fresh = ~init
+    raw = bits._u(cw[:, 0]).clamp(max=delta_nuq.u32_limit(vmax)).to(torch.float32)
+    xhat = torch.where(fresh, raw, xhat)
+    dq[:, 0] = torch.where(fresh, 0.0, dq[:, 0])
+    out = torch.empty((lanes, c * b), dtype=torch.float32, device=codes.device)
+    for k in range(c * b):
+        xhat = (xhat + dq[:, k]).clamp(0.0, top)
+        out[:, k] = xhat
+    values = nuq.to_u32_saturating(torch.round(out))
+    return values.reshape(lanes, c, b).permute(1, 0, 2).contiguous(), xhat, torch.ones_like(init)

@@ -1,8 +1,9 @@
 """The port's block-scope codecs of the first slice (raw32, tcomp32, leb128,
 delta_leb128) against the reference's: the same symbol slots, decoded values
 and replayed state, block after block; codec state handed over between the
-two packages. The registry covers every ported codec; tdic32 and rle have
-their own file (tests/test_torch_dictionary.py)."""
+two packages. The registry covers every codec; tdic32 and rle have their own
+file (tests/test_torch_dictionary.py), the lossy codecs theirs
+(tests/test_torch_lossy.py)."""
 import dataclasses
 
 import numpy as np
@@ -20,8 +21,8 @@ from repro_torch.core.pipeline import CompressionPipeline
 from repro_torch.core.strategies import EngineConfig
 
 CODECS = ("raw32", "tcomp32", "leb128", "delta_leb128")
-#: every codec the port registers
-PORTED = CODECS + ("tdic32", "rle")
+#: every codec the port registers: the reference's whole registry
+PORTED = CODECS + ("tdic32", "rle", "leb128_nuq", "uanuq", "adpcm", "uaadpcm", "pla")
 LANES = 4
 
 
@@ -149,6 +150,7 @@ def test_registry_matches_reference():
     assert talg.PAPER_TABLE1 == ralg.PAPER_TABLE1
     assert set(talg.codec_names()) == set(PORTED)
     for name in PORTED:
+        assert talg.accepted_params(name) == ralg.accepted_params(name)
         tm, rm = talg.make_codec(name).meta, ralg.make_codec(name).meta
         assert (tm.name, tm.lossy, tm.stateful, tm.state_kind, tm.aligned, tm.scope,
                 tm.maskable) == (rm.name, rm.lossy, rm.stateful, rm.state_kind,
@@ -157,16 +159,15 @@ def test_registry_matches_reference():
 
 @pytest.mark.parametrize("name", ["tdic32", "rle", "leb128_nuq", "uanuq", "adpcm", "uaadpcm", "pla"])
 def test_unported_codecs_name_their_roadmap_item(name):
-    """The lossy codecs still raise a KeyError naming ROADMAP A5. tdic32 and
-    rle were on this list until they were ported (A2): they now build with
-    the reference's parameters and meta."""
-    if name in PORTED:
-        assert talg.accepted_params(name) == ralg.accepted_params(name)
-        tm, rm = talg.make_codec(name).meta, ralg.make_codec(name).meta
-        assert dataclasses.astuple(tm) == dataclasses.astuple(rm)
-        return
-    with pytest.raises(KeyError, match="ROADMAP A5"):
-        talg.make_codec(name)
+    """The seven codecs the first slice left unported (each then raised a
+    KeyError naming its ROADMAP item) are all ported now: tdic32 and rle
+    (A2), the lossy five (A5). Each builds with the reference's accepted
+    parameters, meta and error bound."""
+    assert name in talg.codec_names()
+    assert talg.accepted_params(name) == ralg.accepted_params(name)
+    tc, rc = talg.make_codec(name), ralg.make_codec(name)
+    assert dataclasses.astuple(tc.meta) == dataclasses.astuple(rc.meta)
+    assert tc.error_bound() == rc.error_bound()
 
 
 def test_unknown_codec_and_params_raise_like_reference():

@@ -165,6 +165,58 @@ def test_pack_meta7_rows_concatenate_when_aligned(reference):
     np.testing.assert_array_equal(rows.reshape(-1), rbits._pack_bitlens(bl.ravel()))
 
 
+# ---------------------------------------------------------------- delta_nuq --
+@pytest.mark.parametrize("s,t,sublanes,t_tile", [(8, 128, 8, 128), (16, 256, 8, 128), (32, 512, 16, 256)])
+@pytest.mark.parametrize("qbits", [4, 8])
+def test_adpcm_encode_matches_pallas(reference, s, t, sublanes, t_tile, qbits):
+    """B6's contract on the CPU (its plain version) against the Pallas
+    kernel in interpret mode, at tests/test_kernels.py's shapes: equal."""
+    jnp, rbits, rops, rref = reference
+    x = np.random.default_rng(s + qbits).normal(0, 0.3, size=(s, t)).astype(np.float32)
+    k = np.asarray(rops.adpcm_encode(jnp.asarray(x), qbits=qbits, dmax=1.0, sublanes=sublanes,
+                                     t_tile=t_tile))
+    ours = ops.adpcm_encode(torch.from_numpy(x), qbits=qbits, dmax=1.0, sublanes=sublanes,
+                            t_tile=t_tile)
+    np.testing.assert_array_equal(tbits.u32_numpy(ours), k)
+    r = np.asarray(rref.delta_nuq_encode_ref(jnp.asarray(x), qbits=qbits, dmax=1.0, mu=255.0,
+                                             t_tile=t_tile))
+    np.testing.assert_array_equal(k, r)
+
+
+@pytest.mark.parametrize("qbits", [6, 8])
+def test_adpcm_decode_matches_pallas(reference, qbits):
+    """B7's contract on the CPU against the Pallas kernel in interpret mode
+    on the Pallas encoder's codes, tolerance 0 (the reference's own test
+    holds its oracle only to 1e-6)."""
+    jnp, rbits, rops, rref = reference
+    x = np.cumsum(np.random.default_rng(qbits).normal(0, 0.01, size=(8, 256)), axis=1)
+    x = x.astype(np.float32)
+    codes = np.asarray(rops.adpcm_encode(jnp.asarray(x), qbits=qbits, dmax=0.1, t_tile=128))
+    ours_codes = ops.adpcm_encode(torch.from_numpy(x), qbits=qbits, dmax=0.1, t_tile=128)
+    np.testing.assert_array_equal(tbits.u32_numpy(ours_codes), codes)
+    xhat = np.asarray(rops.adpcm_decode(jnp.asarray(codes), qbits=qbits, dmax=0.1, t_tile=128))
+    ours = ops.adpcm_decode(_t(codes), qbits=qbits, dmax=0.1, t_tile=128).numpy()
+    np.testing.assert_array_equal(ours.view(np.uint32), xhat.view(np.uint32))
+    assert np.abs(ours - x).max() < 0.05
+
+
+def test_adpcm_wrappers_check_their_inputs():
+    x = torch.zeros((8, 128), dtype=torch.float32)
+    with pytest.raises(TypeError, match="float32"):
+        ops.adpcm_encode(x.double())
+    with pytest.raises(ValueError, match="tile"):
+        ops.adpcm_encode(x[:, :100].contiguous())
+    with pytest.raises(ValueError, match="qbits"):
+        ops.adpcm_decode(x.to(torch.int32), qbits=1)
+    blocks = torch.zeros((2, 4, 8), dtype=torch.int32)
+    xhat, init = torch.zeros(4), torch.zeros(4, dtype=torch.bool)
+    with pytest.raises(ValueError, match="lanes"):
+        ops.adpcm_lane_encode(blocks, xhat[:3].contiguous(), init, 8, 2.0**24, 2.0**21, 255.0, 8)
+    with pytest.raises(TypeError, match="bool"):
+        ops.adpcm_lane_decode(torch.zeros((2, 4, 8, 2), dtype=torch.int32), xhat, init.int(),
+                              8, 2.0**24, 2.0**21, 255.0)
+
+
 # ------------------------------------------------------------------ wrappers --
 def test_wrappers_check_inputs_and_do_not_count_cpu_calls():
     ops.reset_launches()
@@ -188,9 +240,15 @@ def test_wrappers_check_inputs_and_do_not_count_cpu_calls():
     freqs[0] = 4096
     states, flags, _ = ops.rans_encode(grid, grid.bool(), freqs)
     ops.rans_decode(torch.zeros(0, dtype=torch.int32), freqs, states, states * 0, grid.bool(), 1)
+    ops.adpcm_decode(ops.adpcm_encode(torch.zeros((8, 128))))
+    lane = torch.zeros((1, 4, 8), dtype=torch.int32)
+    xhat, init = torch.zeros(4), torch.zeros(4, dtype=torch.bool)
+    codes, _, _, _ = ops.adpcm_lane_encode(lane, xhat, init, 8, 2.0**24, 2.0**21, 255.0, 8)
+    ops.adpcm_lane_decode(codes, xhat, init, 8, 2.0**24, 2.0**21, 255.0)
     assert ops.launch_counts() == {
         "pack_blocks": 0, "unpack_blocks": 0, "compact_blocks": 0, "pack_meta7_blocks": 0,
-        "dict_probe": 0, "rans_encode": 0, "rans_decode": 0,
+        "dict_probe": 0, "rans_encode": 0, "rans_decode": 0, "adpcm_encode": 0,
+        "adpcm_decode": 0, "adpcm_lane_encode": 0, "adpcm_lane_decode": 0,
     }
 
 
@@ -258,3 +316,53 @@ def test_cuda_rans_kernels_match_plain_versions(cuda, chunks, fill):
     assert torch.equal(got, ref.rans_decode_ref(stream, chunks * 4096, freqs, states, off, mask))
     assert torch.equal(got, torch.where(mask, syms, 0))
     assert ops.launch_counts()["rans_encode"] == 1 and ops.launch_counts()["rans_decode"] == 1
+
+
+def _ecg_blocks(chunks: int, lanes: int = 4, b: int = 512):
+    from repro_torch.data import make_dataset
+
+    v = make_dataset("ecg", n_tuples=chunks * lanes * b, seed=7).stream()
+    return v[: chunks * lanes * b].reshape(chunks, lanes, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qbits", [4, 8, 12])
+@pytest.mark.parametrize("s,t,t_tile", [(8, 128, 128), (32, 512, 256), (1024, 4096, 128)])
+def test_cuda_adpcm_contract_matches_plain_versions(cuda, qbits, s, t, t_tile):
+    x = np.cumsum(np.random.default_rng(qbits).normal(0, 0.05, size=(s, t)), axis=1)
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda)
+    ops.reset_launches()
+    codes = ops.adpcm_encode(x, qbits=qbits, dmax=0.2, t_tile=t_tile)
+    assert torch.equal(codes, ref.delta_nuq_encode_ref(x, qbits, 0.2, 255.0, t_tile))
+    back = ops.adpcm_decode(codes, qbits=qbits, dmax=0.2, t_tile=t_tile)
+    want = ref.delta_nuq_decode_ref(codes, qbits, 0.2, 255.0, t_tile)
+    assert torch.equal(back.view(torch.int32), want.view(torch.int32))
+    counts = ops.launch_counts()
+    assert counts["adpcm_encode"] == 1 and counts["adpcm_decode"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qbits", [4, 8, 12])
+def test_cuda_adpcm_lane_kernels_match_plain_versions(cuda, qbits):
+    """The codec form over two calls of 2 blocks each (state carried), ECG
+    calibrated on the stream's first 8,192 tuples."""
+    from repro_torch.core.calibration import calibrated_kwargs
+
+    blocks = _ecg_blocks(4, b=64)
+    kw = calibrated_kwargs("adpcm", blocks.reshape(-1)[:8192])
+    args = (qbits, kw["vmax"], kw["dmax"], 255.0)
+    dev_blocks = _t(blocks).to(cuda)
+    xhat, init = torch.zeros(4, device=cuda), torch.zeros(4, dtype=torch.bool, device=cuda)
+    st_k, st_p, st_dk, st_dp = (xhat, init), (xhat, init), (xhat, init), (xhat, init)
+    ops.reset_launches()
+    for half in (dev_blocks[:2], dev_blocks[2:]):
+        half = half.contiguous()
+        codes, blen, *st_k = ops.adpcm_lane_encode(half, *st_k, *args, qbits)
+        p_codes, p_blen, *st_p = ref.adpcm_lane_encode_ref(half, *st_p, *args, qbits)
+        assert torch.equal(codes, p_codes) and torch.equal(blen, p_blen)
+        assert all(torch.equal(a, b) for a, b in zip(st_k, st_p))
+        x, *st_dk = ops.adpcm_lane_decode(codes, *st_dk, *args)
+        p_x, *st_dp = ref.adpcm_lane_decode_ref(codes, *st_dp, *args)
+        assert torch.equal(x, p_x) and all(torch.equal(a, b) for a, b in zip(st_dk, st_dp))
+    counts = ops.launch_counts()
+    assert counts["adpcm_lane_encode"] == 2 and counts["adpcm_lane_decode"] == 2

@@ -1,14 +1,17 @@
 """The port's executors and job API against the reference, on the CPU.
 
 For raw32, tcomp32, leb128 and delta_leb128; tdic32 in frozen and exact
-mode under private and shared state; rle; and every ported codec with
+mode under private and shared state; rle; the lossy codecs (adpcm,
+uaadpcm, leb128_nuq, uanuq, pla); and every ported codec with
 `entropy="rans"` — in fused lazy mode (small micro-batches and
 scan_chunk=2, so streams cross chunk boundaries) and in eager mode, over the
 length grid {0, 1, lanes-1, block-1, block, block+1, 3*block+ragged} and
 with integrity off and on:
   * `compress_to_frame(v).to_bytes()` is byte-identical to the reference's;
-  * frames decode across both ways;
-  * `run_roundtrip` is lossless;
+  * frames decode across both ways (lossless codecs to the input, lossy
+    ones to the reference's own decode, within `error_bound()` where the
+    codec has one);
+  * `run_roundtrip` is lossless, or for lossy codecs holds the bound;
   * `JobSpec.to_dict()` JSON is equal.
 Plus the policy modules the executor uses (strategies, energy, calibration,
 metrics) and the datasets, against their reference twins.
@@ -47,9 +50,17 @@ SLICE2 = {
     "rle": dict(codec="rle"),
     **{f"{c}+rans": dict(codec=c, entropy="rans") for c in CODECS + ("tdic32", "rle")},
 }
+#: the third slice's paths: the lossy codecs at their defaults, alone and
+#: with the rANS stage
+LOSSY_CODECS = ("adpcm", "uaadpcm", "leb128_nuq", "uanuq", "pla")
+SLICE3 = {
+    **{c: dict(codec=c) for c in LOSSY_CODECS},
+    **{f"{c}+rans": dict(codec=c, entropy="rans") for c in LOSSY_CODECS},
+}
 #: configuration name -> JobSpec fields
-CONFIGS = {**{c: dict(codec=c) for c in CODECS}, **SLICE2}
+CONFIGS = {**{c: dict(codec=c) for c in CODECS}, **SLICE2, **SLICE3}
 ALL = tuple(CONFIGS)
+LOSSLESS = tuple(c for c in CONFIGS if c not in SLICE3)
 LANES = 4
 #: fused: 32-tuple blocks (the 7-bit metadata path), two blocks per chunk;
 #: eager: one lane-aligned unit per block (raw metadata, per-block steps)
@@ -125,13 +136,19 @@ def test_frames_byte_identical_and_cross_decode(codec, mode, length_idx, integri
     ours = pipe.compress_to_frame(v).to_bytes()
     theirs = _ref_frame(codec, mode, n, integrity)
     assert ours == theirs, (codec, mode, n, integrity)
-    np.testing.assert_array_equal(decomp.ingest(theirs).values, v)
-    np.testing.assert_array_equal(_ref_pipes(codec, mode)[1].ingest(ours).values, v)
+    ref_back = _ref_pipes(codec, mode)[1].ingest(ours).values
+    np.testing.assert_array_equal(decomp.ingest(theirs).values, ref_back)
+    if codec in SLICE3:  # lossy: each package decodes the frame to the same values
+        bound = pipe.codec.error_bound()
+        if bound is not None and n:
+            assert np.abs(ref_back.astype(np.int64) - v.astype(np.int64)).max() <= bound
+    else:
+        np.testing.assert_array_equal(ref_back, v)
 
 
 @pytest.mark.parametrize("integrity", CRC)
 @pytest.mark.parametrize("mode", sorted(MODES))
-@pytest.mark.parametrize("codec", ALL)
+@pytest.mark.parametrize("codec", LOSSLESS)
 def test_run_roundtrip_is_lossless(codec, mode, integrity):
     spec, pipe, decomp = _port_pipes(codec, mode, integrity)
     v = _values(77, _length(mode, 6))
@@ -141,6 +158,23 @@ def test_run_roundtrip_is_lossless(codec, mode, integrity):
     assert rt.wire_bytes == len(rt.compress.frame.to_bytes())
     assert (rt.compress.frame.entropy is not None) == (spec.entropy == "rans")
     assert rt.compress.stats.latency_s is not None and rt.compress.stats.energy_j > 0
+
+
+@pytest.mark.parametrize("integrity", CRC)
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("codec", tuple(SLICE3))
+def test_run_roundtrip_of_lossy_codecs_holds_error_bound(codec, mode, integrity):
+    """A lossy roundtrip returns the reference's decode of the same frame;
+    the bounded codecs (leb128_nuq, uanuq, pla) stay within
+    `error_bound()`, ADPCM/UAADPCM (no bound) report their error."""
+    spec, pipe, decomp = _port_pipes(codec, mode, integrity)
+    v = _values(77, _length(mode, 6))
+    rt = api.run_roundtrip(pipe, decomp, spec, v, arrival_rate_tps=1e6)
+    assert rt.fidelity.n_tuples == v.size and rt.fidelity.bound == pipe.codec.error_bound()
+    assert rt.fidelity.within_bound
+    ref_back = _ref_pipes(codec, mode)[1].ingest(rt.compress.frame.to_bytes()).values
+    np.testing.assert_array_equal(rt.values, ref_back)
+    assert (rt.compress.frame.entropy is not None) == (spec.entropy == "rans")
 
 
 @pytest.mark.parametrize("mode", sorted(MODES))
