@@ -41,8 +41,28 @@ Phases, each printing one line per check:
                scan is too slow for 64 MiB). The kernel launch counts are
                set to 0 just before each run and read just after it; each
                run must launch its kernels;
-  5. timing  — each kernel and its plain version timed with CUDA events on
-               the main paths' own inputs.
+  5. flash   — B10 (flash attention forward) against its plain version (a
+               dense float32 softmax) at the serving path's prefill shape
+               (4 x 2048, 16 query and 8 kv heads of 128, bf16), in float32
+               at a smaller shape, with a window whose late rows have fully
+               masked leading tiles, at a ragged S = 1000 and with one kv
+               head (MQA). Tolerance: float32 2e-4 (the reference test's
+               rtol and atol); bf16 output one bf16 step, |d| <= 2^-7 |plain|
+               + 1e-6 elementwise;
+  6. lm      — qwen3-1.7b served through `repro_torch.launch.serve.serve`:
+               first at full width and 2 layers, 2 requests x 256 tokens and
+               4 generated, the same weights and prompts on the card and on
+               the CPU (prefill logits, cache codes and generated tokens
+               compared, tolerances in `check_lm_card_vs_cpu`); then the
+               full path at all 28 layers, 4 requests x 2,048 prompt tokens
+               and 32 generated each, NUQ KV cache on, with the launch counts
+               set to 0 just before and read just after (B10 must launch once
+               per layer), and one profiled prefill and decode for the
+               device's busy time;
+  7. timing  — each kernel and its plain version timed with CUDA events on
+               the main paths' own inputs; B10 on the full lm path's layer-0
+               q, k, v, beside torch's scaled_dot_product_attention
+               (`library_ms`, a yardstick the port never calls).
 Then one JSON line of per-kernel numbers, the card's name and power limit as
 nvidia-smi reports them, and a last JSON line with the device.
 
@@ -52,6 +72,7 @@ nothing of jax or of the reference package `repro`.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -68,14 +89,21 @@ from repro_torch.core import bits  # noqa: E402
 from repro_torch.core.pipeline import CompressionPipeline, DecompressionPipeline  # noqa: E402
 from repro_torch.data import make_dataset  # noqa: E402
 from repro_torch.core import entropy  # noqa: E402
-from repro_torch.kernels import build, delta_nuq, ops, ref  # noqa: E402
+from repro_torch.kernels import build, delta_nuq, flash_attn, ops, ref  # noqa: E402
+from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.launch.serve import serve  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
+from repro_torch.models.convert import params_to_numpy  # noqa: E402
+from repro_torch.models.transformer import _round_window, decode_step, init_params, prefill  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, 700 W), for the bounds: the
 #: device-memory rate, and the 32-bit scalar rate outside the tensor cores
 #: (the sheet's float32 figure; it lists no int32 rate, and Hopper issues
-#: int32 at a quarter of it, so the operations bound below is a floor)
+#: int32 at a quarter of it, so the operations bound below is a floor);
+#: B10's bf16 attention is bounded at the bf16 tensor-core rate
 HBM_BYTES_PER_S = 3.35e12
 SCALAR_OPS_PER_S = 67e12
+BF16_TENSOR_OPS_PER_S = 989e12
 #: the paper's evaluation volume (repro data/datasets.py PAPER_EVAL_BYTES)
 EVAL_BYTES = 932800
 FULL_BYTES = 64 << 20
@@ -117,6 +145,8 @@ FULL_SPECS = {
 #: kernels no path runs: B6/B7 in the Pallas contract's form, which only the
 #: reference's tests call (the ADPCM codec runs their per-lane form)
 OFF_PATH = ("adpcm_encode", "adpcm_decode")
+#: the LM serving path's kernel (the codec paths never launch it)
+LM_KERNELS = ("flash_attention_fwd",)
 #: kernel -> (CUDA source, the Pallas kernel it replaces)
 KERNELS = {
     "pack_blocks": ("src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:55"),
@@ -130,7 +160,24 @@ KERNELS = {
     "adpcm_decode": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:109"),
     "adpcm_lane_encode": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:86"),
     "adpcm_lane_decode": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:109"),
+    "flash_attention_fwd": ("src/repro_torch/csrc/flash_attn.cu", "src/repro/kernels/flash_attn.py:84"),
 }
+#: B10's cases: (B, S, H, K, Dh, window, dtype); the first is the serving
+#: path's prefill shape
+FLASH_CASES = (
+    (4, 2048, 16, 8, 128, None, torch.bfloat16),
+    (2, 512, 8, 2, 128, None, torch.float32),
+    (2, 700, 8, 4, 64, 96, torch.float32),  # windowed: late rows' leading tiles masked
+    (1, 1000, 4, 2, 32, None, torch.float32),  # ragged
+    (2, 300, 4, 1, 128, None, torch.bfloat16),  # MQA
+    (2, 300, 4, 1, 128, 40, torch.float32),  # MQA, windowed
+)
+FLASH_F32_TOL = 2e-4
+#: the LM path: qwen3-1.7b, 4 requests x 2,048 prompt tokens, 32 generated
+LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen3-1.7b", 4, 2048, 32
+#: decode steps in the profiled pass (its busy share is taken against the
+#: unprofiled run's wall time for as many steps)
+LM_PROFILED_STEPS = 8
 
 
 #: (kernel iterations, plain iterations, plain queued behind a sleep) of the
@@ -551,21 +598,253 @@ def run_path(dev) -> None:
               "decode_equals_cpu": True, "exact": err == 0, "max_abs_err": err,
               "error_bound": bound, "seconds": time.perf_counter() - t0})
     after = ops.launch_counts()
-    stale = [k for k in after if after[k] <= before[k] and k not in OFF_PATH]
+    stale = [k for k in after if after[k] <= before[k] and k not in OFF_PATH + LM_KERNELS]
     if stale:
         raise AssertionError(f"the path did not launch: {stale}")
 
 
-def device_busy_ms(fn) -> float:
-    """Device time of every kernel `fn` runs, summed from a profiler trace
-    (None if the trace holds no device time)."""
+def bf16_step_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
+    """Elementwise within one bf16 rounding step: |d| <= 2^-7 |want| + 1e-6."""
+    g, w = got.float(), want.float()
+    return bool(((g - w).abs() <= w.abs() * 2.0**-7 + 1e-6).all())
+
+
+def flash_within(got: torch.Tensor, want: torch.Tensor) -> tuple:
+    """(within tolerance, the tolerance's statement) for B10 against its
+    plain version: one bf16 step for bf16, 2e-4 + 2e-4 |plain| for f32."""
+    if got.dtype == torch.bfloat16:
+        return bf16_step_ok(got, want), "|d| <= 2^-7 |plain| + 1e-6 (one bf16 step)"
+    d = (got - want).abs()
+    return bool((d <= FLASH_F32_TOL + FLASH_F32_TOL * want.abs()).all()), "|d| <= 2e-4 + 2e-4 |plain|"
+
+
+def check_flash(dev) -> float:
+    """Phase 5: B10 against its plain version on every case of FLASH_CASES;
+    returns the largest max-abs error."""
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst = 0.0
+    for b, s, h, kh, dh, window, dt in FLASH_CASES:
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
+                   for shape in ((b, s, h, dh), (b, s, kh, dh), (b, s, kh, dh)))
+        got = ops.flash_attention_fwd(q, k, v, window=window)
+        want = ref.flash_reference(q, k, v, window=window)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        ok, tol = flash_within(got, want)
+        finite = bool(torch.isfinite(got).all())
+        emit({"phase": "flash", "case": {"B": b, "S": s, "H": h, "K": kh, "Dh": dh, "window": window,
+                                         "dtype": str(dt)},
+              "max_abs_err": err, "tolerance": tol, "within": ok, "finite": finite})
+        if not (ok and finite):
+            raise AssertionError(f"B10 disagrees with its plain version at {(b, s, h, kh, dh, window, dt)}: "
+                                 f"max abs err {err}, finite {finite}")
+        worst = max(worst, err)
+    return worst
+
+
+#: the reduced-depth card-vs-CPU check: full width, 2 layers, 2 x 256 + 4;
+#: prefill logits within 3 % of the largest |logit| (bf16 matrix products
+#: sum in another order on the card, and B10 against its dense plain
+#: version rounds its float32 output to bf16 at other ties: bf16-step
+#: differences, grown over two layers; 1.0 % measured on the H100); cache
+#: codes equal at a rate >= 0.999 in layer 0 (its k/v differ only by the
+#: card's matrix-product rounding; 0.99988 measured) and >= 0.8 over both
+#: layers (layer 1 sees layer 0's bf16 differences, and a value moving by
+#: one bf16 step often moves its mu-law code by a level; 0.917 measured);
+#: the first generated token equal for every request whose CPU top-2 logit
+#: margin exceeds twice the logits' max error
+LM_CHECK = dict(layers=2, batch=2, prompt_len=256, gen=4, logits_frac=0.03, codes_layer0=0.999,
+                codes_all=0.8)
+
+
+def check_lm_card_vs_cpu(dev) -> dict:
+    """Phase 6, first part: the same weights and prompts served on the card
+    and on the CPU at qwen3-1.7b's full width and reduced depth."""
+    c = LM_CHECK
+    cfg = dataclasses.replace(get_arch(LM_ARCH).model, n_layers=c["layers"])
+    tree = params_to_numpy(init_params(cfg, seed=0, device="cpu"))
+    prompts = torch.randint(0, cfg.vocab_size, (c["batch"], c["prompt_len"]),
+                            generator=torch.Generator().manual_seed(5))
+    card, cpu = (serve(cfg, batch=c["batch"], prompt_len=c["prompt_len"], gen=c["gen"], device=d,
+                       params=tree, prompts=prompts) for d in (dev, "cpu"))
+    lc, lp = card.prefill_logits.float().cpu(), cpu.prefill_logits.float()
+    scale = lp.abs().max().item()
+    err = (lc - lp).abs().max().item()
+    codes = {}
+    for name in ("k_codes", "v_codes"):
+        a, b = card.cache["layers"][name].cpu(), cpu.cache["layers"][name]
+        codes[name] = {"all": (a == b).double().mean().item(), "layer0": (a[0] == b[0]).double().mean().item()}
+    top2 = lp[:, 0].topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    first = [bool(card.tokens[i, 0] == cpu.tokens[i, 0]) or margin[i] < 2 * err for i in range(c["batch"])]
+    out = {"phase": "lm", "path": "card_vs_cpu", "config": {**c, "d_model": cfg.d_model},
+           "prefill_logits_max_abs_err": err, "max_abs_logit": scale, "code_agreement": codes,
+           "tokens_card": card.tokens.tolist(), "tokens_cpu": cpu.tokens.tolist(),
+           "token_agreement": float((card.tokens == cpu.tokens).mean()), "top2_margin_cpu": margin,
+           "finite": bool(torch.isfinite(lc).all())}
+    emit(out)
+    bad = []
+    if not out["finite"] or err > c["logits_frac"] * scale:
+        bad.append(f"prefill logits differ by {err} (max |logit| {scale})")
+    for name, r in codes.items():
+        if r["layer0"] < c["codes_layer0"] or r["all"] < c["codes_all"]:
+            bad.append(f"{name} agreement {r}")
+    if not all(first):
+        bad.append(f"first tokens differ where the margin is clear: {margin}")
+    if bad:
+        raise AssertionError("card and CPU serving disagree: " + "; ".join(bad))
+    return out
+
+
+def run_lm(dev):
+    """Phase 6, the main path: qwen3-1.7b at full width and depth serving
+    LM_BATCH requests of LM_PROMPT tokens and LM_GEN generated each, with
+    the launch counts set to 0 just before and read just after; then one
+    profiled prefill and decode for the device's busy time. Returns
+    (launches, model, prompts on the card)."""
+    t_run = time.perf_counter()
+    cfg = get_arch(LM_ARCH).model
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                            generator=torch.Generator().manual_seed(0)).to(dev, torch.int32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    serve(cfg, batch=1, prompt_len=64, gen=2, device=dev, params=model)  # warm the library and handles
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    run = serve(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, device=dev, params=model,
+                prompts=prompts)
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    if launches["flash_attention_fwd"] != cfg.n_layers:
+        raise AssertionError(f"B10 launched {launches['flash_attention_fwd']} times in a prefill of "
+                             f"{cfg.n_layers} layers")
+    cache_len = LM_PROMPT + LM_GEN
+    w = _round_window(cfg.effective_kv_window(cache_len))
+    logits, ring = run.prefill_logits, run.cache["layers"]
+    checks = {
+        "logits_shape": tuple(logits.shape) == (LM_BATCH, 1, cfg.padded_vocab),
+        "logits_finite": bool(torch.isfinite(logits).all()),
+        "tokens_shape": run.tokens.shape == (LM_BATCH, LM_GEN),
+        "tokens_in_vocab": bool(((run.tokens >= 0) & (run.tokens < cfg.padded_vocab)).all()),
+        "ring_shape": tuple(ring["k_codes"].shape) == (cfg.n_layers, LM_BATCH, w, cfg.n_kv_heads, cfg.head_dim),
+        "scales_positive": bool((ring["k_scale"] > 0).all() and (ring["v_scale"] > 0).all()),
+        "pos": run.cache["pos"] == LM_PROMPT + LM_GEN - 1,
+    }
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        busy_p, top_p, ops_p = device_busy_ms(lambda: prefill(model, cfg, prompts, cache_len), top=8)
+        cache, lg = prefill(model, cfg, prompts, cache_len)
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+
+        def decode_loop():
+            nonlocal cache, tok
+            for _ in range(LM_PROFILED_STEPS):
+                cache, lg2 = decode_step(model, cfg, cache, tok)
+                tok = torch.argmax(lg2, dim=-1).to(torch.int32)
+
+        busy_d, top_d, ops_d = device_busy_ms(decode_loop, top=8)
+        del cache
+    profile_s = time.perf_counter() - t0
+    # the unprofiled run's wall time for as many decode steps as were profiled
+    decode_wall_ms = run.decode_s * 1e3 * LM_PROFILED_STEPS / (LM_GEN - 1)
+    emit({
+        "phase": "lm", "path": "full", "arch": LM_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": cfg.param_count(), "batch": LM_BATCH, "prompt_len": LM_PROMPT, "gen": LM_GEN,
+        "ring_slots": w, "kv_quant": cfg.kv_quant, "prefill_s": run.prefill_s, "decode_s": run.decode_s,
+        "prefill_tok_per_s": LM_BATCH * LM_PROMPT / run.prefill_s,
+        "decode_tok_per_s": run.decode_tok_per_s, "tokens_generated": run.tokens_generated,
+        "cache_bytes": run.cache_bytes, "cache_bytes_raw_equiv": run.cache_bytes_raw_equiv,
+        "kv_compression": run.cache_bytes_raw_equiv / run.cache_bytes,
+        "peak_memory_allocated": peak, "launches": launches, "first_tokens": run.tokens[:, :8].tolist(),
+        "device_busy_ms": {"prefill": busy_p, f"decode_{LM_PROFILED_STEPS}_steps": busy_d},
+        "busy_share": {"prefill": busy_p / (run.prefill_s * 1e3) if busy_p else None,
+                       "decode": busy_d / decode_wall_ms if busy_d else None},
+        "top_kernels_ms": {"prefill": top_p, f"decode_{LM_PROFILED_STEPS}_steps": top_d},
+        "host_ops": {"prefill": ops_p, "per_decode_step": ops_d / LM_PROFILED_STEPS},
+        "checks": checks, "init_s": init_s, "profile_s": profile_s,
+        "seconds": time.perf_counter() - t_run,
+    })
+    if not all(checks.values()):
+        raise AssertionError(f"the lm path's outputs fail their checks: {checks}")
+    del run
+    return launches, model, prompts
+
+
+def time_flash(dev, model, prompts, cycles_per_ms: float) -> dict:
+    """B10 on the full lm path's layer-0 q, k, v (4 x 2048, bf16): kernel,
+    plain version and torch's scaled_dot_product_attention (the library
+    yardstick, causal with GQA), each timed with CUDA events; the bound the
+    larger of the band's operations at the bf16 tensor-core rate and q, k,
+    v read once and o written once at the memory rate."""
+    cfg = model.cfg
+    with torch.inference_mode():
+        blk = model.layers[0]
+        b, s = prompts.shape
+        pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+        x = layers.rms_norm(model.embed[prompts.long()], blk.attn_norm)
+        q, k, v = layers.attention_qkv(blk.attn.params(), cfg, x, pos)
+    window = cfg.swa_window
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+
+    def kern():
+        return ops.flash_attention_fwd(q, k, v, window=window)
+
+    def plain():
+        return ref.flash_reference(q, k, v, window=window)
+
+    def library():
+        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+    got, want = kern(), plain()
+    ok, tol = flash_within(got, want)
+    err = (got.float() - want.float()).abs().max().item()
+    lib_err = (library().transpose(1, 2).float() - want.float()).abs().max().item()
+    if not ok:
+        raise AssertionError(f"B10 disagrees with its plain version on the lm path's inputs: {err}")
+    ms, host_ms = time_ms(kern, 20, cycles_per_ms)
+    plain_ms, plain_host_ms = time_ms(plain, 5, cycles_per_ms)
+    library_ms, _ = time_ms(library, 50, cycles_per_ms)
+    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
+    nops = flash_attn.flops(b, s, s, cfg.n_heads, cfg.head_dim, window, True)
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / BF16_TENSOR_OPS_PER_S * 1e3
+    bound_ms, bound_by = (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "ops": nops, "chain_steps": None,
+            "host_ms": host_ms, "plain_host_ms": plain_host_ms, "max_abs_err": err,
+            "library_max_abs_err": lib_err, "tolerance": tol, "shape": [b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+            "tflops": nops / (ms * 1e-3) / 1e12}
+
+
+def device_busy_ms(fn, top: int = 0):
+    """Device time of every kernel, copy and set `fn` runs, summed over the
+    profiler trace's device-side events (None if it holds none). A torch
+    op's own entry in `key_averages()` also carries its kernels' device
+    time, so the sum runs over the device events alone. With `top`, returns
+    (ms, the `top` kernel names with the most device time and their ms, the
+    count of torch ops the host called at top level)."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages())
-    return total_us / 1e3 if total_us > 0 else None
+    by_name: dict = {}
+    host_ops = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
+        elif e.cpu_parent is None and e.name.startswith("aten::"):
+            host_ops += 1
+    total = sum(by_name.values())
+    ms = total if total > 0 else None
+    if not top:
+        return ms
+    return ms, sorted(by_name.items(), key=lambda kv: -kv[1])[:top], host_ops
 
 
 def run_full(dev, name: str, values: np.ndarray):
@@ -656,7 +935,12 @@ def main() -> int:
     bad = {k: v for k, v in err.items() if v != 0}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions: {bad}")
-    emit({"phase": "kernels", "bit_exact": True, "max_abs_err": err,
+    emit({"phase": "kernels", "bit_exact": True, "max_abs_err": {k: v for k, v in err.items() if k not in LM_KERNELS},
+          "seconds": time.perf_counter() - t0})
+
+    t0 = time.perf_counter()
+    err["flash_attention_fwd"] = check_flash(dev)
+    emit({"phase": "flash", "within_tolerance": True, "max_abs_err": err["flash_attention_fwd"],
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
@@ -672,6 +956,12 @@ def main() -> int:
         counts, frames[name] = run_full(dev, name, full_values[dataset])
         for k, n in counts.items():
             launches[k] += n
+    t0 = time.perf_counter()
+    check_lm_card_vs_cpu(dev)
+    lm_launches, model, prompts = run_lm(dev)
+    for k, n in lm_launches.items():
+        launches[k] += n
+    emit({"phase": "lm", "seconds": time.perf_counter() - t0})
     missing = [k for k, n in launches.items() if n == 0 and k not in OFF_PATH]
     if missing:
         raise AssertionError(f"the main paths did not launch: {missing}")
@@ -680,9 +970,12 @@ def main() -> int:
     times = time_kernels(dev, full_values, frames["heavy"])
     for k, t in times.items():
         err[k] = max(err[k], t["max_abs_err"])
-    bad = {k: v for k, v in err.items() if v != 0}
+    bad = {k: v for k, v in err.items() if v != 0 and k not in LM_KERNELS}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions at the main paths' shapes: {bad}")
+    times["flash_attention_fwd"] = time_flash(dev, model, prompts, sleep_cycles_per_ms())
+    err["flash_attention_fwd"] = max(err["flash_attention_fwd"], times["flash_attention_fwd"]["max_abs_err"])
+    del model, prompts
     emit({"phase": "timing", "seconds": time.perf_counter() - t_timing, "kernels": {
         k: {key: v for key, v in t.items() if key != "max_abs_err"} for k, t in times.items()
     }})
@@ -692,7 +985,7 @@ def main() -> int:
             "launches": launches[name], "max_abs_err": err[name],
             "ms": times[name]["ms"], "plain_ms": times[name]["plain_ms"],
             "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
-            "library_ms": None, "host_ms": times[name]["host_ms"],
+            "library_ms": times[name].get("library_ms"), "host_ms": times[name]["host_ms"],
             "chain_steps": times[name]["chain_steps"],
         }
         for name, (src, replaces) in KERNELS.items()

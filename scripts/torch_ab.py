@@ -29,15 +29,18 @@ from pathlib import Path
 
 
 def device_busy_ms(fn, dev) -> float:
-    """Device time of every kernel `fn` runs, summed from a profiler trace."""
+    """Device time of every kernel, copy and set `fn` runs, summed over the
+    trace's device-side events (a torch op's own entry also carries its
+    kernels' time, so summing over all entries would count them twice)."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         if dev.type == "cuda":
             torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()) / 1e3
+    return sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3
 
 
 def child(tree: str, reps: int, device: str, mib: int) -> None:

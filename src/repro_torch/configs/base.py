@@ -1,0 +1,90 @@
+"""Architecture registry (port of `repro/configs/base.py`): ArchSpec, the
+LM shape set, `register_arch`, `get_arch`, `arch_ids`.
+
+The port registers the architectures whose family it builds: the dense
+`qwen3-1.7b` so far. The reference's other architectures are known by id,
+and `get_arch` of one of them raises a KeyError naming the ROADMAP item
+that ports it. `input_specs` (the reference's `jax.ShapeDtypeStruct`
+stand-ins for its dry-run) has no counterpart yet (ROADMAP A10).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional, Tuple
+
+from repro_torch.models.config import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeSpec:
+    name: str
+    kind: str  # 'train' | 'prefill' | 'decode'
+    seq_len: int
+    global_batch: int
+
+
+#: the assigned LM shape set: decode_*/long_* run the serve step
+TRAIN_4K = ShapeSpec("train_4k", "train", 4_096, 256)
+PREFILL_32K = ShapeSpec("prefill_32k", "prefill", 32_768, 32)
+DECODE_32K = ShapeSpec("decode_32k", "decode", 32_768, 128)
+LONG_500K = ShapeSpec("long_500k", "decode", 524_288, 1)
+LM_SHAPES: Tuple[ShapeSpec, ...] = (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)
+
+FULL_ATTN_SKIP = (
+    "long_500k needs sub-quadratic attention; pure full-attention arch — "
+    "skipped per task spec (DESIGN.md §6)"
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class ArchSpec:
+    arch_id: str
+    model: ModelConfig
+    source: str  # provenance tag from the assignment table
+    shapes: Tuple[ShapeSpec, ...] = LM_SHAPES
+    skips: Optional[Dict[str, str]] = None  # shape name -> reason
+    notes: str = ""
+
+    def runnable_shapes(self) -> Tuple[ShapeSpec, ...]:
+        skips = self.skips or {}
+        return tuple(s for s in self.shapes if s.name not in skips)
+
+
+_REGISTRY: Dict[str, Callable[[], ArchSpec]] = {}
+
+#: the reference's architectures the port does not build yet, by the
+#: ROADMAP item that ports their family or front end
+UNPORTED: Dict[str, str] = {
+    "deepseek-coder-33b": "A10 (dense configs beyond qwen3-1.7b)",
+    "mistral-nemo-12b": "A10 (dense configs beyond qwen3-1.7b)",
+    "phi4-mini-3.8b": "A10 (dense configs beyond qwen3-1.7b)",
+    "musicgen-large": "A10 (embedding front ends)",
+    "pixtral-12b": "A10 (embedding front ends)",
+    "mixtral-8x7b": "A10 (the moe family)",
+    "qwen3-moe-30b-a3b": "A10 (the moe family)",
+    "recurrentgemma-9b": "A10 (the hybrid family)",
+    "mamba2-1.3b": "A10 (the ssm family)",
+}
+
+
+def register_arch(arch_id: str):
+    def deco(fn):
+        _REGISTRY[arch_id] = fn
+        return fn
+
+    return deco
+
+
+def get_arch(arch_id: str) -> ArchSpec:
+    if arch_id in _REGISTRY:
+        return _REGISTRY[arch_id]()
+    if arch_id in UNPORTED:
+        raise KeyError(
+            f"arch {arch_id!r} is not ported to repro_torch yet (ROADMAP {UNPORTED[arch_id]}); "
+            f"have {sorted(_REGISTRY)}"
+        )
+    raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)}")
+
+
+def arch_ids():
+    return sorted(_REGISTRY)

@@ -1,0 +1,188 @@
+"""NUQ-compressed KV cache: CStream's mu-law quantizer on the decode path
+(port of `repro/core/kvcache.py`).
+
+Layout: codes uint8[L, B, W, K, Dh] and scales float32[L, B, W // G, K],
+one absmax scale per (group of G = 128 ring slots, kv head). A prefill
+quantizes whole groups (`quantize_block`); a decode step appends one token
+against the current group's scale (`append_token_layer`) and reads the ring
+back block by block, dequantizing through a 256-entry table
+(`dequantize_block_kmajor`) inside the reference's flash step.
+
+The encoder is the port's host-built mu-law threshold table at (7 bits,
+vmax 1.0) (`core/algorithms/nuq.py`, ROADMAP C2), which follows the
+reference's jitted quantizer; the dequantization table is the reference's
+own float64 construction, copied. Writes update the cache tensors in place.
+Only the single-view decode is ported: the reference's shard_map branch of
+`decode_attend_dlse` (the ring sharded over a model axis) needs a mesh
+(ROADMAP A9).
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.algorithms.nuq import mulaw_decode_unsigned, mulaw_encode_unsigned
+
+SCALE_GROUP = 128  # tokens per quantization scale group
+
+
+def _build_dequant_table(qbits: int = 8) -> np.ndarray:
+    """All 2^qbits signed mu-law reconstructions, in float64 rounded once to
+    float32 (the reference's table, copied)."""
+    codes = np.arange(1 << qbits, dtype=np.uint32)
+    sign = (codes >> (qbits - 1)) & 1
+    mag_mask = (1 << (qbits - 1)) - 1
+    levels = (1 << (qbits - 1)) - 1
+    y = (codes & mag_mask).astype(np.float64) / levels
+    mag = (np.power(1.0 + 255.0, y) - 1.0) / 255.0
+    return np.where(sign == 1, -mag, mag).astype(np.float32)
+
+
+_DEQUANT_TABLE_8 = _build_dequant_table(8)
+_TABLES: Dict[tuple, torch.Tensor] = {}
+
+
+def dequant_table(qbits: int, device) -> torch.Tensor:
+    """`_build_dequant_table(qbits)` as a float32 tensor on `device`, cached."""
+    key = (qbits, torch.device(device))
+    t = _TABLES.get(key)
+    if t is None:
+        table = _DEQUANT_TABLE_8 if qbits == 8 else _build_dequant_table(qbits)
+        t = _TABLES[key] = torch.from_numpy(table.copy()).to(device)
+    return t
+
+
+def _signed_codes(xn: torch.Tensor, qbits: int) -> torch.Tensor:
+    """Normalized float32 values in [-1, 1] -> uint8 codes: a sign bit over
+    a (qbits - 1)-bit mu-law magnitude."""
+    sign = (xn < 0).to(torch.int32)
+    mag = mulaw_encode_unsigned(xn.abs(), qbits - 1, 1.0)
+    return ((sign << (qbits - 1)) | mag).to(torch.uint8)
+
+
+# ----------------------------------------------------------- quant / deq --
+def quantize_block(x: torch.Tensor, qbits: int = 8):
+    """x (B, S, K, Dh) -> (codes uint8 (B, S, K, Dh), scale float32
+    (B, S // G, K)): absmax (+ 1e-6) per group of G = min(128, S) tokens and
+    kv head, then a signed mu-law code of x / scale."""
+    b, s, kh, dh = x.shape
+    g = min(SCALE_GROUP, s)
+    xg = x.reshape(b, s // g, g, kh, dh).to(torch.float32)
+    scale = xg.abs().amax(dim=(2, 4)) + 1e-6
+    xn = xg / scale[:, :, None, :, None]
+    return _signed_codes(xn, qbits).reshape(b, s, kh, dh), scale
+
+
+def dequantize_block(codes: torch.Tensor, scale: torch.Tensor, qbits: int = 8,
+                     dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """codes (B, S, K, Dh) + scale (B, S // G, K) -> values (B, S, K, Dh),
+    through the quantizer's continuous decode table."""
+    b, s, kh, dh = codes.shape
+    g = min(SCALE_GROUP, s)
+    c = codes.to(torch.int32).reshape(b, s // g, g, kh, dh)
+    mag = mulaw_decode_unsigned(c & ((1 << (qbits - 1)) - 1), qbits - 1, 1.0, round_int=False)
+    xn = torch.where(((c >> (qbits - 1)) & 1) == 1, -mag, mag)
+    x = xn * scale[:, :, None, :, None]
+    return x.reshape(b, s, kh, dh).to(dtype)
+
+
+def dequantize_block_kmajor(codes: torch.Tensor, scale: torch.Tensor, ring_w: int,
+                            qbits: int = 8, dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """codes (B, C, K, Dh) + scale (B, C // G, K) -> values (B, K, C, Dh):
+    the uint8 codes are moved into the attention layout before the table
+    lookup widens them."""
+    b, c, kh, dh = codes.shape
+    g = min(SCALE_GROUP, ring_w)
+    ct = codes.transpose(1, 2).reshape(b, kh, c // g, g, dh)
+    xn = dequant_table(qbits, codes.device)[ct.to(torch.int64)]
+    st = scale.transpose(1, 2)[:, :, :, None, None]  # (B, K, C // G, 1, 1)
+    return (xn * st).to(dtype).reshape(b, kh, c, dh)
+
+
+# ----------------------------------------------------------------- writes --
+def append_token_layer(cache_layer: dict, k_t: torch.Tensor, v_t: torch.Tensor, pos: int) -> dict:
+    """Append one token (B, 1, K, Dh) to a single layer's ring at slot
+    pos % W, in place. The token is quantized against its group's current
+    scale (set at prefill), clipped to [-1, 1]."""
+    w = cache_layer["k_codes"].shape[1]
+    slot = pos % w
+    g = min(slot // min(SCALE_GROUP, w), cache_layer["k_scale"].shape[1] - 1)
+
+    def write(codes, scale, x):
+        s = scale[:, g, :]  # (B, K)
+        xn = torch.clamp(x[:, 0].to(torch.float32) / s[..., None], -1.0, 1.0)
+        codes[:, slot] = _signed_codes(xn, 8)
+
+    write(cache_layer["k_codes"], cache_layer["k_scale"], k_t)
+    write(cache_layer["v_codes"], cache_layer["v_scale"], v_t)
+    return cache_layer
+
+
+# ------------------------------------------------------------------ reads --
+def _flash_quant_stats(q: torch.Tensor, cache_layer: dict, pos: int, window: Optional[int],
+                       kv_block: int, softcap: Optional[float]):
+    """Blocked flash statistics over one layer's quantized ring: q (B, 1,
+    H, Dh) against the W slots in blocks of C keys (the largest multiple of
+    the scale group up to `kv_block` that divides W). Returns unnormalized
+    (m, l, acc) float32."""
+    from repro_torch.models.layers import _chunk_attn_update
+
+    b, _, h, dh = q.shape
+    w = cache_layer["k_codes"].shape[1]
+    kh = cache_layer["k_codes"].shape[2]
+    grp = h // kh
+    dev = q.device
+    q_ = q.transpose(1, 2)  # (B, H, 1, Dh)
+
+    g_eff = min(SCALE_GROUP, w)
+    c = g_eff
+    for cand in range(min(kv_block, w), g_eff - 1, -g_eff):
+        if w % cand == 0:
+            c = cand
+            break
+    slots = torch.arange(w, device=dev)
+    # slot s holds absolute position s before the ring wraps, else the latest
+    # p <= pos with p % W == s
+    abs_pos = pos - torch.remainder(pos - slots, w) if pos >= w else slots
+    valid = abs_pos <= pos
+    if window is not None:
+        valid = valid & (abs_pos > pos - window)
+
+    m = torch.full((b, kh, grp, 1), -float("inf"), dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kh, grp, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kh, grp, 1, dh), dtype=torch.float32, device=dev)
+    gpb = c // g_eff
+    for j in range(w // c):
+        blk, gblk = slice(j * c, (j + 1) * c), slice(j * gpb, (j + 1) * gpb)
+        k_blk = dequantize_block_kmajor(cache_layer["k_codes"][:, blk], cache_layer["k_scale"][:, gblk], w)
+        v_blk = dequantize_block_kmajor(cache_layer["v_codes"][:, blk], cache_layer["v_scale"][:, gblk], w)
+        mask = valid[blk][None, None, :].expand(b, 1, c)
+        m, l, acc = _chunk_attn_update(q_, k_blk, v_blk, mask, m, l, acc, softcap)
+    return m, l, acc
+
+
+def decode_attention_quant(q: torch.Tensor, cache_layer: dict, pos: int, window: Optional[int],
+                           kv_block: int = 2048, softcap: Optional[float] = None) -> torch.Tensor:
+    """Blocked decode attention of q (B, 1, H, Dh) over the quantized ring
+    (single view): (B, 1, H, Dh) in q's dtype."""
+    b, _, h, dh = q.shape
+    m, l, acc = _flash_quant_stats(q, cache_layer, pos, window, kv_block, softcap)
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out.reshape(b, h, 1, dh).transpose(1, 2).to(q.dtype)
+
+
+def decode_attend_dlse(q: torch.Tensor, cache_layer: dict, k_t: torch.Tensor, v_t: torch.Tensor,
+                       pos: int, window: Optional[int], kv_block: int = 2048,
+                       softcap: Optional[float] = None):
+    """The reference's decode attention, single-view branch (no mesh):
+    append the token at its slot, then scan the whole ring. Returns
+    (attn_out (B, 1, H, Dh), cache_layer), the cache updated in place."""
+    cache_layer = append_token_layer(cache_layer, k_t, v_t, pos)
+    return decode_attention_quant(q, cache_layer, pos, window, kv_block, softcap), cache_layer
+
+
+def cache_bytes(ring: Dict[str, torch.Tensor]) -> int:
+    """Bytes of a ring's tensors (codes and scales, or raw K/V)."""
+    return sum(t.numel() * t.element_size() for t in ring.values())

@@ -17,7 +17,9 @@ import torch
 
 from repro_torch.core import bits
 from repro_torch.core.algorithms import nuq
-from repro_torch.kernels import bitpack, bitunpack, delta_nuq, dict_hash, frame_compact, rans, ref
+from repro_torch.kernels import (
+    bitpack, bitunpack, delta_nuq, dict_hash, flash_attn, frame_compact, rans, ref,
+)
 
 
 def _check(t: torch.Tensor, name: str, ndim: int, device: torch.device,
@@ -306,6 +308,46 @@ def adpcm_lane_decode(codes: torch.Tensor, xhat: torch.Tensor, init: torch.Tenso
     return out, xhat, init
 
 
+_FLASH_DTYPES = (torch.bfloat16, torch.float32)
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: Optional[int] = None, causal: bool = True) -> torch.Tensor:
+    """GQA flash attention forward, the Pallas contract (`flash_fwd`): q
+    (B, Sq, H, Dh) against k/v (B, Sk, K, Dh) at positions arange(Sq) x
+    arange(Sk), causal and/or a sliding window (keys > q_pos - window),
+    float32 softmax, the output (B, Sq, H, Dh) in q's dtype. All three
+    bfloat16 or all float32, H % K == 0, 1 <= Dh <= 128; any Sq and Sk."""
+    dev = q.device
+    _check(q, "q", 4, dev, q.dtype)
+    if q.dtype not in _FLASH_DTYPES:
+        raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
+    _check(k, "k", 4, dev, q.dtype)
+    _check(v, "v", 4, dev, q.dtype)
+    b, sq, h, dh = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh:
+        raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v {tuple(v.shape)} disagree")
+    kv = k.shape[2]
+    if kv < 1 or h % kv:
+        raise ValueError(f"{h} query heads do not group over {kv} kv heads")
+    if not 1 <= dh <= flash_attn.MAX_HEAD_DIM:
+        raise ValueError(f"head_dim must be in [1, {flash_attn.MAX_HEAD_DIM}], got {dh}")
+    if window is not None and window < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    if dev.type == "cpu":
+        return ref.flash_reference(q, k, v, window, causal)
+    if b > 65535 or kv > 65535:
+        raise ValueError(f"batch {b} and kv heads {kv} must each be <= 65535 (the launch grid)")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    if k.shape[1] == 0:
+        return out.zero_()
+    flash_attn.launch(q, k, v, out, window, causal)
+    flash_attention_fwd.launches += 1
+    return out
+
+
 #: the kernel wrappers, by kernel name
 WRAPPERS = {
     "pack_blocks": pack_blocks,
@@ -319,6 +361,7 @@ WRAPPERS = {
     "adpcm_decode": adpcm_decode,
     "adpcm_lane_encode": adpcm_lane_encode,
     "adpcm_lane_decode": adpcm_lane_decode,
+    "flash_attention_fwd": flash_attention_fwd,
 }
 for _fn in WRAPPERS.values():
     _fn.launches = 0
@@ -342,6 +385,7 @@ __all__ = [
     "adpcm_lane_encode",
     "compact_blocks",
     "dict_probe",
+    "flash_attention_fwd",
     "launch_counts",
     "pack_blocks",
     "pack_meta7_blocks",

@@ -1,10 +1,12 @@
-"""Plain PyTorch versions of the CUDA kernels (port of `repro/kernels/ref.py`
-for the kernels ported so far). They repeat the kernels' arithmetic with the
-tensor ops of `core/bits.py`: the CPU path of `ops`, and the oracle the
-kernels are held against on the card, bit for bit.
+"""Plain PyTorch versions of the CUDA kernels (port of `repro/kernels/ref.py`).
+They repeat the kernels' arithmetic with the tensor ops of `core/bits.py`:
+the CPU path of `ops`, and the oracle the kernels are held against on the
+card, bit for bit; B10's (`flash_reference`, a dense float32 softmax) within
+a stated tolerance, its sums running in another order than the kernel's.
 """
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -234,3 +236,28 @@ def adpcm_lane_decode_ref(codes: torch.Tensor, xhat: torch.Tensor, init: torch.T
         out[:, k] = xhat
     values = nuq.to_u32_saturating(torch.round(out))
     return values.reshape(lanes, c, b).permute(1, 0, 2).contiguous(), xhat, torch.ones_like(init)
+
+
+def flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: Optional[int] = None, causal: bool = True) -> torch.Tensor:
+    """Dense GQA attention, q (B, Sq, H, Dh) against k/v (B, Sk, K, Dh) at
+    positions arange(Sq) x arange(Sk): softmax over the scores in float32 on
+    inputs converted to float32, masked scores at -1e30, the output in q's
+    dtype. Query head h reads kv head h // (H/K) (the reference's
+    `jnp.repeat(k, G, axis=2)`)."""
+    b, sq, h, dh = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    kk = k.to(torch.float32).repeat_interleave(g, dim=2)
+    vv = v.to(torch.float32).repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kk) / math.sqrt(dh)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s.masked_fill_(~mask, -1e30)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)

@@ -1,0 +1,155 @@
+"""Batched serving: prefill + greedy autoregressive decode with the
+NUQ-compressed KV cache (port of `repro/launch/serve.py`).
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --full \
+      --batch 4 --prompt-len 2048 --gen 32          # on the card
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \
+      --batch 4 --prompt-len 64 --gen 32 --device cpu
+
+Weights are random, drawn from a seed (`init_params`), as in the reference.
+On the card the prefill and decode times are taken after
+`torch.cuda.synchronize()`.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import time
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_arch
+from repro_torch.core import kvcache
+from repro_torch.core.device import resolve_device
+from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.convert import params_from_numpy
+from repro_torch.models.transformer import Transformer, _round_window, init_params
+
+
+@dataclasses.dataclass
+class ServeRun:
+    prefill_s: float
+    decode_s: float
+    tokens_generated: int
+    decode_tok_per_s: float
+    cache_bytes: int
+    cache_bytes_raw_equiv: int
+    tokens: np.ndarray
+    #: the prefill's logits of the last prompt position (B, 1, V), and the
+    #: cache after the last decode step (port-only, for parity checks)
+    prefill_logits: Optional[torch.Tensor] = None
+    cache: Optional[Dict[str, Any]] = None
+
+
+def _sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def serve(
+    cfg: ModelConfig,
+    batch: int = 4,
+    prompt_len: int = 64,
+    gen: int = 32,
+    cache_len: Optional[int] = None,
+    seed: int = 0,
+    device: Union[None, str, torch.device] = None,
+    params: Union[None, Transformer, Dict[str, Any]] = None,
+    prompts: Union[None, np.ndarray, torch.Tensor] = None,
+) -> ServeRun:
+    """Prefill `batch` prompts of `prompt_len` tokens, then decode `gen`
+    tokens each greedily (the first from the prefill's logits). `device`
+    None means CUDA (no CPU fallback). `params`: a `Transformer` (moved to
+    the device) or the reference's parameter tree as numpy leaves; None
+    draws them from `seed`. `prompts` int (batch, prompt_len); None draws
+    them from `seed`."""
+    device = resolve_device(device)
+    if params is None:
+        model = init_params(cfg, seed, device)
+    elif isinstance(params, Transformer):
+        model = params.to(device)
+    else:
+        model = params_from_numpy(params, cfg, device)
+    cache_len = cache_len or (prompt_len + gen)
+    prefill_step = make_prefill_step(cfg, cache_seq_len=cache_len)
+    serve_step = make_serve_step(cfg)
+    if prompts is None:
+        gen_t = torch.Generator().manual_seed(seed)
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen_t)
+    if not isinstance(prompts, torch.Tensor):
+        prompts = torch.from_numpy(np.array(prompts))
+    prompts = prompts.to(device=device, dtype=torch.int32)
+
+    with torch.inference_mode():
+        _sync(device)
+        t0 = time.perf_counter()
+        cache, logits = prefill_step(model, prompts)
+        _sync(device)
+        prefill_s = time.perf_counter() - t0
+
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, 1)
+        out = [tok]
+        t1 = time.perf_counter()
+        for _ in range(gen - 1):
+            cache, tok = serve_step(model, cache, tok)
+            out.append(tok)
+        _sync(device)
+        decode_s = time.perf_counter() - t1
+        toks = torch.cat(out, dim=1).cpu().numpy()
+
+    # the reference's cache also holds `pos` as an int32 scalar: 4 bytes
+    cache_bytes = kvcache.cache_bytes(cache["layers"]) + 4
+    # raw bf16 cache equivalent for the same layers/window (compression win)
+    w = _round_window(cfg.effective_kv_window(cache_len))
+    raw_equiv = cfg.n_layers * batch * w * cfg.n_kv_heads * cfg.head_dim * 2 * 2
+    return ServeRun(
+        prefill_s=prefill_s,
+        decode_s=decode_s,
+        tokens_generated=batch * gen,
+        decode_tok_per_s=batch * (gen - 1) / max(decode_s, 1e-9),
+        cache_bytes=cache_bytes,
+        cache_bytes_raw_equiv=raw_equiv,
+        tokens=toks,
+        prefill_logits=logits,
+        cache=cache,
+    )
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-1.7b")
+    ap.add_argument("--reduced", action="store_true", default=True)
+    ap.add_argument("--full", dest="reduced", action="store_false")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=64)
+    ap.add_argument("--gen", type=int, default=32)
+    ap.add_argument("--raw-cache", action="store_true", help="disable NUQ KV compression")
+    ap.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    args = ap.parse_args(argv)
+
+    spec = get_arch(args.arch)
+    cfg = spec.model.reduced() if args.reduced else spec.model
+    if args.raw_cache:
+        cfg = dataclasses.replace(cfg, kv_quant=False)
+    device = resolve_device(args.device)
+    run = serve(cfg, batch=args.batch, prompt_len=args.prompt_len, gen=args.gen, device=device)
+    print(json.dumps({
+        "arch": args.arch,
+        "device": torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu",
+        "prefill_s": round(run.prefill_s, 3),
+        "decode_tok_per_s": round(run.decode_tok_per_s, 1),
+        "cache_bytes": run.cache_bytes,
+        "cache_bytes_raw_equiv": run.cache_bytes_raw_equiv,
+        "kv_compression": round(run.cache_bytes_raw_equiv / max(run.cache_bytes, 1), 2)
+        if run.cache_bytes_raw_equiv
+        else None,
+        "sample_tokens": run.tokens[0, :8].tolist(),
+    }, indent=1))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,301 @@
+"""Decoder backbone, dense family (port of `repro/models/transformer.py`).
+
+GQA + RoPE + SwiGLU (with qwen3's per-head q/k norm), as `nn.Module`s:
+`Transformer` holds the embedding, the final norm, the head when it is not
+tied, and a `DenseBlock` per layer (`Attention`, `SwiGLU` and two norms).
+Parameters keep the reference's names and layout (`x @ w` with `w` of
+shape (d_in, d_out), norm gammas as offsets from 1), so the reference's
+parameter tree carries across without transposes (`models/convert.py`).
+They are held in `cfg.dtype` only: the reference keeps float32 master
+weights and casts them to `cfg.dtype` at every call, which computes the
+same thing.
+
+The serving API of the reference: `init_params`, `forward`,
+`init_decode_cache`, `prefill` (writes the ring cache, NUQ-quantized by
+default) and `decode_step`. Prefill attention runs kernel B10
+(`ops.flash_attention_fwd`); the decode reads the quantized ring in plain
+torch (`core/kvcache.py`). The cache is a dict of tensors updated in place,
+with `pos` a Python int. The `moe`, `hybrid` and `ssm` families and
+embedding front ends raise NotImplementedError naming ROADMAP A10; training
+(`loss_fn`, the backward pass) is not ported yet (ROADMAP A10).
+`models/partition.py` has no counterpart: its sharding hints are the
+identity without a mesh.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from repro_torch.core import kvcache
+from repro_torch.core.device import resolve_device
+from repro_torch.models import layers
+from repro_torch.models.config import ModelConfig
+
+Device = Union[None, str, torch.device]
+
+
+def dtype_of(cfg: ModelConfig) -> torch.dtype:
+    """The compute dtype `cfg.dtype` as a torch dtype."""
+    return getattr(torch, cfg.dtype)
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what the port does not build yet."""
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"{cfg.name}: the {cfg.family!r} family is not ported to repro_torch yet (ROADMAP A10)"
+        )
+    if cfg.input_kind != "tokens":
+        raise NotImplementedError(
+            f"{cfg.name}: input_kind={cfg.input_kind!r} (embedding front ends) is not ported to "
+            "repro_torch yet (ROADMAP A10)"
+        )
+    layers.check_softcap(cfg)
+
+
+class _Params(nn.Module):
+    """A module whose own parameters carry the reference's names; `params()`
+    maps them for the functions of `models/layers.py`."""
+
+    def _add(self, name: str, shape, dtype, device) -> None:
+        self.register_parameter(
+            name, nn.Parameter(torch.zeros(shape, dtype=dtype, device=device), requires_grad=False)
+        )
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        return dict(self.named_parameters(recurse=False))
+
+
+class Attention(_Params):
+    """GQA projections (`wq`, `wk`, `wv`, `wo`) and qwen3's `q_norm`/`k_norm`."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+        self._add("wq", (d, h * dh), dtype, device)
+        self._add("wk", (d, kh * dh), dtype, device)
+        self._add("wv", (d, kh * dh), dtype, device)
+        self._add("wo", (h * dh, d), dtype, device)
+        if cfg.qk_norm:
+            self._add("q_norm", (dh,), dtype, device)
+            self._add("k_norm", (dh,), dtype, device)
+
+
+class SwiGLU(_Params):
+    """`w_gate`, `w_up` (d_model, d_ff) and `w_down` (d_ff, d_model)."""
+
+    def __init__(self, d_model: int, d_ff: int, dtype, device):
+        super().__init__()
+        self._add("w_gate", (d_model, d_ff), dtype, device)
+        self._add("w_up", (d_model, d_ff), dtype, device)
+        self._add("w_down", (d_ff, d_model), dtype, device)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layers.swiglu(self.params(), x)
+
+
+class DenseBlock(_Params):
+    """Pre-norm attention and SwiGLU with residuals."""
+
+    def __init__(self, cfg: ModelConfig, dtype, device):
+        super().__init__()
+        self._add("attn_norm", (cfg.d_model,), dtype, device)
+        self._add("ffn_norm", (cfg.d_model,), dtype, device)
+        self.attn = Attention(cfg, dtype, device)
+        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, dtype, device)
+
+    def prefill(self, cfg: ModelConfig, x: torch.Tensor):
+        """(x out, k, v) over a whole prompt (B, S, D); attention on B10."""
+        a, k, v = layers.attention_prefill(
+            self.attn.params(), cfg, layers.rms_norm(x, self.attn_norm), window=cfg.swa_window
+        )
+        h = x + a
+        return h + self.ffn(layers.rms_norm(h, self.ffn_norm)), k, v
+
+
+class Transformer(_Params):
+    """The dense decoder: `embed` (padded_vocab, d_model), `final_norm`,
+    `head` (d_model, padded_vocab) unless tied, `layers`."""
+
+    def __init__(self, cfg: ModelConfig, device: Device = None):
+        super().__init__()
+        check_supported(cfg)
+        device = resolve_device(device)
+        dtype = dtype_of(cfg)
+        self.cfg = cfg
+        self._add("embed", (cfg.padded_vocab, cfg.d_model), dtype, device)
+        self._add("final_norm", (cfg.d_model,), dtype, device)
+        if not cfg.tie_embeddings:
+            self._add("head", (cfg.d_model, cfg.padded_vocab), dtype, device)
+        self.layers = nn.ModuleList(DenseBlock(cfg, dtype, device) for _ in range(cfg.n_layers))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def head_weight(self) -> torch.Tensor:
+        return self.embed.t() if self.cfg.tie_embeddings else self.head
+
+    def logits(self, x: torch.Tensor) -> torch.Tensor:
+        x = layers.rms_norm(x, self.final_norm)
+        return x @ self.head_weight()
+
+
+# =============================================================== init =====
+def init_params(cfg: ModelConfig, seed: int = 0, device: Device = None) -> Transformer:
+    """A `Transformer` with the reference's initial distributions (not its
+    numbers): embedding N(0, 1) / sqrt(d_model), dense weights N(0, 1) /
+    sqrt(d_in), norms 0; drawn in float32 from a `torch.Generator` on the
+    device seeded with `seed`, then cast to `cfg.dtype`."""
+    model = Transformer(cfg, device)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+
+    def normal_(p: torch.Tensor, scale: float) -> None:
+        p.copy_(torch.randn(p.shape, generator=gen, device=p.device, dtype=torch.float32) * scale)
+
+    with torch.no_grad():
+        normal_(model.embed, 1.0 / math.sqrt(cfg.d_model))
+        if not cfg.tie_embeddings:
+            normal_(model.head, 1.0 / math.sqrt(cfg.d_model))
+        for p in model.layers.parameters():
+            if p.dim() == 2:
+                normal_(p, 1.0 / math.sqrt(p.shape[0]))
+    return model
+
+
+# ============================================================ forward =====
+def forward(model: Transformer, cfg: ModelConfig, inputs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """inputs int tokens (B, S) at positions arange(S) -> (logits (B, S, V),
+    aux loss 0.0)."""
+    x = model.embed[inputs.long()]
+    for blk in model.layers:
+        x, _, _ = blk.prefill(cfg, x)
+    return model.logits(x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# ============================================================= decode =====
+def _round_window(w: int) -> int:
+    """Ring size: a multiple of the NUQ scale group, and of the 2048-key
+    decode block when larger."""
+    g = min(kvcache.SCALE_GROUP, w)
+    w = -(-w // g) * g
+    if w > 2048:
+        w = -(-w // 2048) * 2048
+    return w
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int, device: Device = None) -> Dict[str, Any]:
+    """Decode state for `decode_step`: `pos` and, per layer stacked on dim
+    0, a ring of `_round_window(effective_kv_window(seq_len))` slots,
+    quantized (uint8 codes + float32 group scales) when `cfg.kv_quant`, else
+    raw in `cfg.dtype`."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    n, kh, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
+    w = _round_window(cfg.effective_kv_window(seq_len))
+    if cfg.kv_quant:
+        g = min(kvcache.SCALE_GROUP, w)
+        ring = {
+            "k_codes": torch.zeros((n, batch, w, kh, dh), dtype=torch.uint8, device=device),
+            "v_codes": torch.zeros((n, batch, w, kh, dh), dtype=torch.uint8, device=device),
+            "k_scale": torch.ones((n, batch, w // g, kh), dtype=torch.float32, device=device),
+            "v_scale": torch.ones((n, batch, w // g, kh), dtype=torch.float32, device=device),
+        }
+    else:
+        ring = {
+            "k": torch.zeros((n, batch, w, kh, dh), dtype=dtype_of(cfg), device=device),
+            "v": torch.zeros((n, batch, w, kh, dh), dtype=dtype_of(cfg), device=device),
+        }
+    return {"pos": 0, "layers": ring}
+
+
+def layer_view(cache: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
+    """Layer i's slice of every ring tensor (views: writes land in the cache)."""
+    return {name: t[i] for name, t in cache["layers"].items()}
+
+
+def store_kv(cfg: ModelConfig, cache_l: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write a prefill's K/V (B, S, K, Dh) at positions [0, S) into one
+    layer's ring in place: position p at slot p % W, the last W positions
+    when S > W; quantized by groups of the scale group when the cache is."""
+    s = k.shape[1]
+    w = next(iter(cache_l.values())).shape[1]
+    sw = min(s, w)
+    k_w, v_w = k[:, -sw:], v[:, -sw:]
+    start = (s - sw) % w
+    idx = (start + torch.arange(sw, device=k.device)) % w
+    if cfg.kv_quant:
+        g = min(kvcache.SCALE_GROUP, w)
+        pad = (-sw) % g
+        padded = (0, 0, 0, 0, 0, pad)
+        kq, ks = kvcache.quantize_block(torch.nn.functional.pad(k_w, padded))
+        vq, vs = kvcache.quantize_block(torch.nn.functional.pad(v_w, padded))
+        gidx = (start // g + torch.arange(ks.shape[1], device=k.device)) % max(w // g, 1)
+        cache_l["k_codes"][:, idx] = kq[:, :sw]
+        cache_l["v_codes"][:, idx] = vq[:, :sw]
+        cache_l["k_scale"][:, gidx] = ks
+        cache_l["v_scale"][:, gidx] = vs
+    else:
+        cache_l["k"][:, idx] = k_w.to(cache_l["k"].dtype)
+        cache_l["v"][:, idx] = v_w.to(cache_l["v"].dtype)
+
+
+def _decode_attend(p: Dict[str, torch.Tensor], cfg: ModelConfig, x_t: torch.Tensor,
+                   cache_l: Dict[str, torch.Tensor], pos: int, window: Optional[int]) -> torch.Tensor:
+    """One layer's decode attention: write the token into the ring cache (in
+    place), attend over it, project."""
+    b = x_t.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int32, device=x_t.device)
+    q, k_t, v_t = layers.attention_qkv(p, cfg, x_t, positions)
+    if cfg.kv_quant:
+        out, _ = kvcache.decode_attend_dlse(q, cache_l, k_t, v_t, pos, window,
+                                            softcap=cfg.attn_logit_softcap)
+    else:
+        w = cache_l["k"].shape[1]
+        slot = pos % w
+        cache_l["k"][:, slot] = k_t[:, 0].to(cache_l["k"].dtype)
+        cache_l["v"][:, slot] = v_t[:, 0].to(cache_l["v"].dtype)
+        slots = torch.arange(w, device=x_t.device)
+        abs_pos = pos - torch.remainder(pos - slots, w) if pos >= w else slots
+        valid = abs_pos <= pos
+        if window is not None:
+            valid = valid & (abs_pos > pos - window)
+        out = layers.flash_attention(
+            q, cache_l["k"], cache_l["v"], positions, abs_pos[None].expand(b, w),
+            kv_valid=valid[None].expand(b, w), causal=True, softcap=cfg.attn_logit_softcap,
+        )
+    return out.reshape(b, 1, cfg.n_heads * cfg.head_dim) @ p["wo"]
+
+
+def decode_step(model: Transformer, cfg: ModelConfig, cache: Dict[str, Any],
+                inputs_t: torch.Tensor) -> Tuple[Dict[str, Any], torch.Tensor]:
+    """One autoregressive step of int tokens (B, 1): (cache, logits (B, 1,
+    V)). The cache's tensors are updated in place and `pos` advances."""
+    pos = cache["pos"]
+    x = model.embed[inputs_t.long()]
+    for i, blk in enumerate(model.layers):
+        a = _decode_attend(blk.attn.params(), cfg, layers.rms_norm(x, blk.attn_norm),
+                           layer_view(cache, i), pos, cfg.swa_window)
+        h = x + a
+        x = h + blk.ffn(layers.rms_norm(h, blk.ffn_norm))
+    cache["pos"] = pos + 1
+    return cache, model.logits(x)
+
+
+def prefill(model: Transformer, cfg: ModelConfig, inputs: torch.Tensor,
+            cache_seq_len: Optional[int] = None) -> Tuple[Dict[str, Any], torch.Tensor]:
+    """Process a prompt of int tokens (B, S): fill the decode cache (ring
+    of `max(cache_seq_len or S, S)` positions) layer by layer with the K/V
+    the forward pass computes, and return (cache, logits of the last prompt
+    position (B, 1, V))."""
+    b, s = inputs.shape
+    cache = init_decode_cache(cfg, b, max(cache_seq_len or s, s), model.device)
+    x = model.embed[inputs.long()]
+    for i, blk in enumerate(model.layers):
+        x, k, v = blk.prefill(cfg, x)
+        store_kv(cfg, layer_view(cache, i), k, v)
+    cache["pos"] = s
+    return cache, model.logits(x[:, -1:])

@@ -1,7 +1,7 @@
 """The port stands alone: importing every module of `repro_torch` and
 `chip_smoke` (without running it) loads neither jax nor the reference
-package, and an entry point given no device on a host without a GPU
-raises instead of falling back to the CPU."""
+package, and an entry point given no device on a host without a GPU (the
+pipelines, the LM `serve`) raises instead of falling back to the CPU."""
 import os
 import subprocess
 import sys
@@ -32,6 +32,14 @@ if not torch.cuda.is_available():
             print("RAISED", type(exc).__name__, "device='cpu'" in str(exc))
         else:
             print("NO-RAISE", cls.__name__)
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.serve import serve
+    try:
+        serve(get_arch("qwen3-1.7b").model.reduced(), batch=1, prompt_len=4, gen=1)
+    except RuntimeError as exc:
+        print("SERVE-REFUSED", type(exc).__name__, "device='cpu'" in str(exc))
+    else:
+        print("SERVE-RAN without a device")
 """
 
 
@@ -62,6 +70,15 @@ def test_no_device_on_a_cpu_only_host_raises(probe_output):
         pytest.skip("this host has a GPU; the no-device default is CUDA here")
     assert probe_output.count("RAISED RuntimeError True") == 2, probe_output
     assert "NO-RAISE" not in probe_output
+
+
+def test_serve_without_a_device_on_a_cpu_only_host_raises(probe_output):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU; the no-device default is CUDA here")
+    assert "SERVE-REFUSED RuntimeError True" in probe_output, probe_output
+    assert "SERVE-RAN" not in probe_output
 
 
 def test_chip_smoke_refuses_to_run_without_cuda():

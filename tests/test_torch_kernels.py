@@ -245,10 +245,13 @@ def test_wrappers_check_inputs_and_do_not_count_cpu_calls():
     xhat, init = torch.zeros(4), torch.zeros(4, dtype=torch.bool)
     codes, _, _, _ = ops.adpcm_lane_encode(lane, xhat, init, 8, 2.0**24, 2.0**21, 255.0, 8)
     ops.adpcm_lane_decode(codes, xhat, init, 8, 2.0**24, 2.0**21, 255.0)
+    ops.flash_attention_fwd(torch.zeros((1, 8, 4, 16)), torch.zeros((1, 8, 2, 16)),
+                            torch.zeros((1, 8, 2, 16)))
     assert ops.launch_counts() == {
         "pack_blocks": 0, "unpack_blocks": 0, "compact_blocks": 0, "pack_meta7_blocks": 0,
         "dict_probe": 0, "rans_encode": 0, "rans_decode": 0, "adpcm_encode": 0,
         "adpcm_decode": 0, "adpcm_lane_encode": 0, "adpcm_lane_decode": 0,
+        "flash_attention_fwd": 0,
     }
 
 
