@@ -42,13 +42,21 @@ Phases, each printing one line per check:
                set to 0 just before each run and read just after it; each
                run must launch its kernels;
   5. flash   — B10 (flash attention forward) against its plain version (a
-               dense float32 softmax) at the serving path's prefill shape
-               (4 x 2048, 16 query and 8 kv heads of 128, bf16), in float32
-               at a smaller shape, with a window whose late rows have fully
-               masked leading tiles, at a ragged S = 1000 and with one kv
-               head (MQA). Tolerance: float32 2e-4 (the reference test's
-               rtol and atol); bf16 output one bf16 step, |d| <= 2^-7 |plain|
-               + 1e-6 elementwise;
+               dense float32 softmax) on every case of FLASH_CASES, each
+               through `ops.flash_attention_fwd`, which sends bf16 with Dh %
+               16 == 0 to the tensor-core kernel and the rest to the FMA
+               kernel (the line names the kernel that ran): the serving
+               path's prefill shape (4 x 2048, 16 query and 8 kv heads of
+               128, bf16), float32 at a smaller shape, windows whose late
+               rows have fully masked leading tiles, ragged Sq and Sk (Sk <
+               Sq and Sk > Sq), G 1, 2, 4 and 16 (MQA), Dh 16 to 128, a
+               non-causal case, and bf16 at Dh 40 (the FMA kernel).
+               Tolerance: float32 2e-4 (the reference test's rtol and atol);
+               bf16 output one bf16 step, |d| <= 2^-7 |plain| + 1e-6
+               elementwise. For the tensor-core cases the line also counts
+               the outputs a torch emulation of that kernel's numerics puts
+               outside the rule with p@v taking p as one, two and three bf16
+               terms (the kernel takes three);
   6. lm      — qwen3-1.7b served through `repro_torch.launch.serve.serve`:
                first at full width and 2 layers, 2 requests x 256 tokens and
                4 generated, the same weights and prompts on the card and on
@@ -56,13 +64,15 @@ Phases, each printing one line per check:
                compared, tolerances in `check_lm_card_vs_cpu`); then the
                full path at all 28 layers, 4 requests x 2,048 prompt tokens
                and 32 generated each, NUQ KV cache on, with the launch counts
-               set to 0 just before and read just after (B10 must launch once
-               per layer), and one profiled prefill and decode for the
-               device's busy time;
+               set to 0 just before and read just after (B10's tensor-core
+               kernel must launch once per layer, its FMA kernel never), and
+               one profiled prefill and decode for the device's busy time;
   7. timing  — each kernel and its plain version timed with CUDA events on
                the main paths' own inputs; B10 on the full lm path's layer-0
-               q, k, v, beside torch's scaled_dot_product_attention
-               (`library_ms`, a yardstick the port never calls).
+               q, k, v: the tensor-core kernel in bf16 and the FMA kernel on
+               the same values in float32, each beside torch's
+               scaled_dot_product_attention on its inputs (`library_ms`, a
+               yardstick the port never calls).
 Then one JSON line of per-kernel numbers, the card's name and power limit as
 nvidia-smi reports them, and a last JSON line with the device.
 
@@ -143,10 +153,12 @@ FULL_SPECS = {
     "adpcm": (JobSpec(codec="adpcm"), B1_B4 + ("adpcm_lane_encode", "adpcm_lane_decode"), "ecg"),
 }
 #: kernels no path runs: B6/B7 in the Pallas contract's form, which only the
-#: reference's tests call (the ADPCM codec runs their per-lane form)
-OFF_PATH = ("adpcm_encode", "adpcm_decode")
-#: the LM serving path's kernel (the codec paths never launch it)
-LM_KERNELS = ("flash_attention_fwd",)
+#: reference's tests call (the ADPCM codec runs their per-lane form), and
+#: B10's FMA kernel, which takes float32 and the bf16 shapes outside the
+#: tensor-core kernel's rule (the lm path is bf16 at Dh 128)
+OFF_PATH = ("adpcm_encode", "adpcm_decode", "flash_attention_fwd")
+#: B10's kernels, the LM serving path's (the codec paths never launch them)
+LM_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_tc")
 #: kernel -> (CUDA source, the Pallas kernel it replaces)
 KERNELS = {
     "pack_blocks": ("src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:55"),
@@ -161,16 +173,28 @@ KERNELS = {
     "adpcm_lane_encode": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:86"),
     "adpcm_lane_decode": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:109"),
     "flash_attention_fwd": ("src/repro_torch/csrc/flash_attn.cu", "src/repro/kernels/flash_attn.py:84"),
+    "flash_attention_fwd_tc": ("src/repro_torch/csrc/flash_attn_tc.cu", "src/repro/kernels/flash_attn.py:84"),
 }
-#: B10's cases: (B, S, H, K, Dh, window, dtype); the first is the serving
-#: path's prefill shape
+#: B10's cases: (B, Sq, Sk, H, K, Dh, window, causal, dtype); the first is
+#: the serving path's prefill shape. bf16 with Dh % 16 == 0 runs on the
+#: tensor-core kernel (tiles of 128 rows and 64 keys), the rest on the FMA
+#: kernel
 FLASH_CASES = (
-    (4, 2048, 16, 8, 128, None, torch.bfloat16),
-    (2, 512, 8, 2, 128, None, torch.float32),
-    (2, 700, 8, 4, 64, 96, torch.float32),  # windowed: late rows' leading tiles masked
-    (1, 1000, 4, 2, 32, None, torch.float32),  # ragged
-    (2, 300, 4, 1, 128, None, torch.bfloat16),  # MQA
-    (2, 300, 4, 1, 128, 40, torch.float32),  # MQA, windowed
+    (4, 2048, 2048, 16, 8, 128, None, True, torch.bfloat16),
+    (2, 512, 512, 8, 2, 128, None, True, torch.float32),
+    (2, 700, 700, 8, 4, 64, 96, True, torch.float32),  # windowed: late rows' leading tiles masked
+    (1, 1000, 1000, 4, 2, 32, None, True, torch.float32),  # ragged
+    (2, 300, 300, 4, 1, 128, None, True, torch.bfloat16),  # MQA
+    (2, 300, 300, 4, 1, 128, 40, True, torch.float32),  # MQA, windowed
+    (2, 700, 700, 8, 4, 64, 96, True, torch.bfloat16),  # Dh 64, windowed: leading tiles masked
+    (2, 333, 250, 8, 2, 80, None, True, torch.bfloat16),  # ragged Sq and Sk, Sk < Sq, Dh 80
+    (2, 200, 300, 8, 2, 96, 40, True, torch.bfloat16),  # Sk > Sq, windowed, Dh 96
+    (1, 250, 250, 4, 4, 128, None, True, torch.bfloat16),  # G 1
+    (1, 250, 250, 16, 1, 128, None, True, torch.bfloat16),  # G 16 (MQA)
+    (1, 1000, 1000, 4, 2, 32, None, True, torch.bfloat16),  # Dh 32, ragged
+    (1, 333, 333, 4, 2, 16, 50, True, torch.bfloat16),  # Dh 16, windowed
+    (1, 190, 190, 4, 2, 128, None, False, torch.bfloat16),  # not causal
+    (1, 200, 200, 4, 2, 40, None, True, torch.bfloat16),  # Dh 40: the FMA kernel in bf16
 )
 FLASH_F32_TOL = 2e-4
 #: the LM path: qwen3-1.7b, 4 requests x 2,048 prompt tokens, 32 generated
@@ -337,7 +361,7 @@ def check_delta_nuq(dev) -> dict:
     the state carried, encode and decode. Returns the max error per
     kernel (codes and bit patterns of floats and states)."""
     rng = np.random.default_rng(13)
-    err = dict.fromkeys(OFF_PATH + ("adpcm_lane_encode", "adpcm_lane_decode"), 0)
+    err = dict.fromkeys(("adpcm_encode", "adpcm_decode", "adpcm_lane_encode", "adpcm_lane_decode"), 0)
     ecg = ecg_stream(EVAL_BYTES // 4)
     spec = JobSpec(codec="adpcm").calibrated(ecg[:CALIBRATION_TUPLES])
     pipe = CompressionPipeline(spec, device=dev)
@@ -609,6 +633,12 @@ def bf16_step_ok(got: torch.Tensor, want: torch.Tensor) -> bool:
     return bool(((g - w).abs() <= w.abs() * 2.0**-7 + 1e-6).all())
 
 
+def bf16_outside(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Outputs not within one bf16 rounding step (NaN counts as outside)."""
+    g, w = got.float(), want.float()
+    return int((~((g - w).abs() <= w.abs() * 2.0**-7 + 1e-6)).sum())
+
+
 def flash_within(got: torch.Tensor, want: torch.Tensor) -> tuple:
     """(within tolerance, the tolerance's statement) for B10 against its
     plain version: one bf16 step for bf16, 2e-4 + 2e-4 |plain| for f32."""
@@ -618,27 +648,68 @@ def flash_within(got: torch.Tensor, want: torch.Tensor) -> tuple:
     return bool((d <= FLASH_F32_TOL + FLASH_F32_TOL * want.abs()).all()), "|d| <= 2e-4 + 2e-4 |plain|"
 
 
-def check_flash(dev) -> float:
+def split_emulation(q, k, v, window, causal, terms: int) -> torch.Tensor:
+    """The tensor-core kernel's numerics in dense torch on the card: bf16
+    q.k products in float32 scaled by f32(1/sqrt(Dh)), masked scores at
+    -1e30, float32 p and l, then p@v as `terms` float32 products of bf16
+    terms of p (each the bf16 rounding of what the terms before it leave),
+    over max(l, 1e-30), in bf16. The kernel takes three terms; one and two
+    show why."""
+    b, sq, h, dh = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    vv = v.float().repeat_interleave(h // kh, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float().repeat_interleave(h // kh, dim=2))
+    s *= flash_attn.scale(dh)
+    qpos = torch.arange(sq, device=q.device)[:, None]
+    kpos = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s.masked_fill_(~mask, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    del s
+    l = p.sum(dim=-1)
+    out = torch.zeros_like(q, dtype=torch.float32)
+    for _ in range(terms):
+        term = p.bfloat16().float()
+        out += torch.einsum("bhqk,bkhd->bqhd", term, vv)
+        p -= term
+    return (out / l.clamp_min(1e-30).permute(0, 2, 1)[..., None]).to(q.dtype)
+
+
+def check_flash(dev) -> dict:
     """Phase 5: B10 against its plain version on every case of FLASH_CASES;
-    returns the largest max-abs error."""
+    returns the largest max-abs error of each of its two kernels."""
     gen = torch.Generator(device=dev).manual_seed(21)
-    worst = 0.0
-    for b, s, h, kh, dh, window, dt in FLASH_CASES:
+    worst = {k: 0.0 for k in LM_KERNELS}
+    for case in FLASH_CASES:
+        b, sq, sk, h, kh, dh, window, causal, dt = case
         q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dt)
-                   for shape in ((b, s, h, dh), (b, s, kh, dh), (b, s, kh, dh)))
-        got = ops.flash_attention_fwd(q, k, v, window=window)
-        want = ref.flash_reference(q, k, v, window=window)
+                   for shape in ((b, sq, h, dh), (b, sk, kh, dh), (b, sk, kh, dh)))
+        before = ops.launch_counts()
+        got = ops.flash_attention_fwd(q, k, v, window=window, causal=causal)
+        ran = [n for n in LM_KERNELS if ops.launch_counts()[n] > before[n]]
+        want = ref.flash_reference(q, k, v, window=window, causal=causal)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs().max().item()
         ok, tol = flash_within(got, want)
         finite = bool(torch.isfinite(got).all())
-        emit({"phase": "flash", "case": {"B": b, "S": s, "H": h, "K": kh, "Dh": dh, "window": window,
-                                         "dtype": str(dt)},
-              "max_abs_err": err, "tolerance": tol, "within": ok, "finite": finite})
+        expected = flash_attn.kernel_for(dt, dh, h // kh)
+        split = None
+        if expected == flash_attn.TENSOR_CORE:  # outputs outside the rule with p in 1, 2, 3 bf16 terms
+            split = {t: bf16_outside(split_emulation(q, k, v, window, causal, t), want) for t in (1, 2, 3)}
+        emit({"phase": "flash", "case": {"B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh, "Dh": dh,
+                                         "window": window, "causal": causal, "dtype": str(dt)},
+              "kernel": ran, "max_abs_err": err, "tolerance": tol, "within": ok, "finite": finite,
+              "outside_by_split_terms": split})
+        if ran != [expected]:
+            raise AssertionError(f"B10 case {case} launched {ran}, expected {expected}")
         if not (ok and finite):
-            raise AssertionError(f"B10 disagrees with its plain version at {(b, s, h, kh, dh, window, dt)}: "
+            raise AssertionError(f"B10 ({expected}) disagrees with its plain version at {case}: "
                                  f"max abs err {err}, finite {finite}")
-        worst = max(worst, err)
+        worst[expected] = max(worst[expected], err)
     return worst
 
 
@@ -718,9 +789,10 @@ def run_lm(dev):
                 prompts=prompts)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
-    if launches["flash_attention_fwd"] != cfg.n_layers:
-        raise AssertionError(f"B10 launched {launches['flash_attention_fwd']} times in a prefill of "
-                             f"{cfg.n_layers} layers")
+    if launches["flash_attention_fwd_tc"] != cfg.n_layers or launches["flash_attention_fwd"]:
+        raise AssertionError(f"B10 launched {launches['flash_attention_fwd_tc']} times on the tensor "
+                             f"cores and {launches['flash_attention_fwd']} on the FMA kernel in a "
+                             f"prefill of {cfg.n_layers} layers")
     cache_len = LM_PROMPT + LM_GEN
     w = _round_window(cfg.effective_kv_window(cache_len))
     logits, ring = run.prefill_logits, run.cache["layers"]
@@ -775,11 +847,14 @@ def run_lm(dev):
 
 
 def time_flash(dev, model, prompts, cycles_per_ms: float) -> dict:
-    """B10 on the full lm path's layer-0 q, k, v (4 x 2048, bf16): kernel,
-    plain version and torch's scaled_dot_product_attention (the library
-    yardstick, causal with GQA), each timed with CUDA events; the bound the
-    larger of the band's operations at the bf16 tensor-core rate and q, k,
-    v read once and o written once at the memory rate."""
+    """B10 on the full lm path's layer-0 q, k, v (4 x 2048): the
+    tensor-core kernel on them in bf16 and the FMA kernel on the same values
+    in float32, each with its plain version and torch's
+    scaled_dot_product_attention on the same inputs (the library yardstick,
+    causal with GQA), timed with CUDA events. The bound is the larger of the
+    band's operations at the peak rate for the inputs' type (bf16 tensor
+    cores; float32 outside them, B10's float32 contract) and q, k, v read
+    once and o written once at the memory rate. Returns per-kernel dicts."""
     cfg = model.cfg
     with torch.inference_mode():
         blk = model.layers[0]
@@ -788,36 +863,47 @@ def time_flash(dev, model, prompts, cycles_per_ms: float) -> dict:
         x = layers.rms_norm(model.embed[prompts.long()], blk.attn_norm)
         q, k, v = layers.attention_qkv(blk.attn.params(), cfg, x, pos)
     window = cfg.swa_window
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-
-    def kern():
-        return ops.flash_attention_fwd(q, k, v, window=window)
-
-    def plain():
-        return ref.flash_reference(q, k, v, window=window)
-
-    def library():
-        return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-
-    got, want = kern(), plain()
-    ok, tol = flash_within(got, want)
-    err = (got.float() - want.float()).abs().max().item()
-    lib_err = (library().transpose(1, 2).float() - want.float()).abs().max().item()
-    if not ok:
-        raise AssertionError(f"B10 disagrees with its plain version on the lm path's inputs: {err}")
-    ms, host_ms = time_ms(kern, 20, cycles_per_ms)
-    plain_ms, plain_host_ms = time_ms(plain, 5, cycles_per_ms)
-    library_ms, _ = time_ms(library, 50, cycles_per_ms)
-    nbytes = 2 * q.numel() * q.element_size() + 2 * k.numel() * k.element_size()
     nops = flash_attn.flops(b, s, s, cfg.n_heads, cfg.head_dim, window, True)
-    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    by_ops = nops / BF16_TENSOR_OPS_PER_S * 1e3
-    bound_ms, bound_by = (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
-    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "bytes": nbytes, "ops": nops, "chain_steps": None,
-            "host_ms": host_ms, "plain_host_ms": plain_host_ms, "max_abs_err": err,
-            "library_max_abs_err": lib_err, "tolerance": tol, "shape": [b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
-            "tflops": nops / (ms * 1e-3) / 1e12}
+    tensor_bound_ms = nops / BF16_TENSOR_OPS_PER_S * 1e3
+    out = {}
+    for name, dtype, ops_per_s, iters in (("flash_attention_fwd_tc", torch.bfloat16, BF16_TENSOR_OPS_PER_S, 50),
+                                          ("flash_attention_fwd", torch.float32, SCALAR_OPS_PER_S, 20)):
+        qd, kd, vd = (t.to(dtype) for t in (q, k, v))
+        qt, kt, vt = (t.transpose(1, 2) for t in (qd, kd, vd))
+
+        def kern():
+            return ops.flash_attention_fwd(qd, kd, vd, window=window)
+
+        def plain():
+            return ref.flash_reference(qd, kd, vd, window=window)
+
+        def library():
+            return torch.nn.functional.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
+
+        before = ops.launch_counts()[name]
+        got, want = kern(), plain()
+        if ops.launch_counts()[name] != before + 1:
+            raise AssertionError(f"the {dtype} lm-shape call did not run {name}")
+        ok, tol = flash_within(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        lib_err = (library().transpose(1, 2).float() - want.float()).abs().max().item()
+        if not (ok and bool(torch.isfinite(got).all())):
+            raise AssertionError(f"{name} disagrees with its plain version on the lm path's inputs: {err}")
+        ms, host_ms = time_ms(kern, iters, cycles_per_ms)
+        plain_ms, plain_host_ms = time_ms(plain, 5, cycles_per_ms)
+        library_ms, _ = time_ms(library, 50, cycles_per_ms)
+        nbytes = 2 * qd.numel() * qd.element_size() + 2 * kd.numel() * kd.element_size()
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = nops / ops_per_s * 1e3
+        bound_ms, bound_by = (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+        out[name] = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                     "bound_by": bound_by, "tensor_bound_ms": tensor_bound_ms, "bytes": nbytes, "ops": nops,
+                     "chain_steps": None, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
+                     "max_abs_err": err, "library_max_abs_err": lib_err, "tolerance": tol,
+                     "dtype": str(dtype), "shape": [b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+                     "tflops": nops / (ms * 1e-3) / 1e12}
+        del got, want, qd, kd, vd, qt, kt, vt
+    return out
 
 
 def device_busy_ms(fn, top: int = 0):
@@ -926,8 +1012,15 @@ def main() -> int:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     build.library()
-    regs = [ln.strip() for ln in build.build_log().splitlines() if "registers" in ln]
-    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": regs,
+    log = build.build_log()
+    regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
+    tc_log = log.split("== flash_attn_tc.cu")[-1].split("\n== ")[0]
+    flash_tc = {
+        "ptxas": [ln.strip() for ln in tc_log.splitlines() if "Used" in ln or "spill" in ln],
+        "smem_bytes": {dh: flash_attn.tc_smem_bytes(dh) for dh in (64, 128)},
+        "injected_warpgroup_arrives": tc_log.count("C7519"),
+    }
+    emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": regs, "flash_tc": flash_tc,
           "torch": torch.__version__, "cuda": torch.version.cuda, "numpy": np.__version__})
 
     t0 = time.perf_counter()
@@ -939,8 +1032,9 @@ def main() -> int:
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
-    err["flash_attention_fwd"] = check_flash(dev)
-    emit({"phase": "flash", "within_tolerance": True, "max_abs_err": err["flash_attention_fwd"],
+    flash_err = check_flash(dev)
+    err.update(flash_err)
+    emit({"phase": "flash", "within_tolerance": True, "max_abs_err": flash_err,
           "seconds": time.perf_counter() - t0})
 
     t0 = time.perf_counter()
@@ -973,8 +1067,9 @@ def main() -> int:
     bad = {k: v for k, v in err.items() if v != 0 and k not in LM_KERNELS}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions at the main paths' shapes: {bad}")
-    times["flash_attention_fwd"] = time_flash(dev, model, prompts, sleep_cycles_per_ms())
-    err["flash_attention_fwd"] = max(err["flash_attention_fwd"], times["flash_attention_fwd"]["max_abs_err"])
+    times.update(time_flash(dev, model, prompts, sleep_cycles_per_ms()))
+    for k in LM_KERNELS:
+        err[k] = max(err[k], times[k]["max_abs_err"])
     del model, prompts
     emit({"phase": "timing", "seconds": time.perf_counter() - t_timing, "kernels": {
         k: {key: v for key, v in t.items() if key != "max_abs_err"} for k, t in times.items()

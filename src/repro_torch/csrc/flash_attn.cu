@@ -1,5 +1,5 @@
 // B10: GQA flash-attention forward (causal, optional window), for Hopper
-// (sm_90a).
+// (sm_90a), on the f32 FMA units.
 //
 // Replaces the Pallas kernel `src/repro/kernels/flash_attn.py:84 flash_fwd`
 // (`_flash_fwd_kernel`), oracle `src/repro/kernels/ref.py: flash_reference`.
@@ -37,8 +37,10 @@
 //     is wiped by corr = 0), and CTAs start longest first;
 //   * the score tile's shared memory is reused for p once the scores are in
 //     registers: 100,352 bytes at Dh 128, two CTAs per SM.
-// The tensor-core redesign (wgmma on bf16 q/k with f32 p@v, or a stated
-// change of contract) is later work; PERF.md holds the times.
+// bf16 inputs with Dh a multiple of 16 run on the tensor-core kernel of
+// `flash_attn_tc.cu` instead (`kernels/flash_attn.py: kernel_for`); this
+// kernel takes float32 and the shapes outside that rule. PERF.md holds the
+// times of both.
 
 #include <cuda_bf16.h>
 #include <math_constants.h>

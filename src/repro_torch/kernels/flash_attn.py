@@ -1,18 +1,28 @@
 """B10: GQA flash-attention forward on the card (port of
-`repro/kernels/flash_attn.py`; CUDA source `csrc/flash_attn.cu`).
+`repro/kernels/flash_attn.py`), by two CUDA kernels:
 
-`launch` runs the kernel on validated CUDA tensors; `ops.flash_attention_fwd`
-is the public wrapper and `ref.flash_reference` the plain version. The
-kernel keeps the TPU kernel's contract: (B, Sq, H, Dh) queries against
-(B, Sk, K, Dh) keys and values, query head h paired with kv head h // (H/K),
-scores, running max, sum and accumulator in float32 on inputs converted to
-float32, masked scores at -1e30, the output in q's dtype. Unlike the TPU
-kernel it takes any Sq and Sk (no tile divisibility): it masks the ragged
-edge itself.
+  * `csrc/flash_attn_tc.cu`, on Hopper's tensor cores (`wgmma`, TMA-fed
+    K/V), for bf16 inputs inside `kernel_for`'s rule: bf16 q.k products
+    (exact in float32) summed in float32, float32 running max, sum and p,
+    and p@v as three bf16 products, p split as p_hi + p_mid + p_lo with each
+    term the bf16 rounding of what the terms before it leave, into one
+    float32 accumulator;
+  * `csrc/flash_attn.cu`, on the f32 FMA units, for float32 inputs and
+    shapes outside that rule: scores, running max, sum, p and p@v in
+    float32 on inputs converted to float32.
 
-What bounds it, and the design, are in the note at the top of the source:
-operations (~69.5 us per call at the serving path's prefill shape against
-the bf16 tensor-core peak), met here on the f32 CUDA cores.
+`launch` and `launch_tc` run them on validated CUDA tensors;
+`ops.flash_attention_fwd` is the public wrapper and chooses between them by
+`kernel_for`, `ref.flash_reference` the plain version. Both keep the TPU
+kernel's contract: (B, Sq, H, Dh) queries against (B, Sk, K, Dh) keys and
+values, query head h paired with kv head h // (H/K), masked scores at
+-1e30, the output in q's dtype, held to the dense float32 softmax within
+one bf16 step (bf16) or 2e-4 (float32). Unlike the TPU kernel they take any
+Sq and Sk (no tile divisibility): they mask the ragged edge themselves.
+
+What bounds them, and the designs, are in the notes at the top of the
+sources: operations (~69.5 us per call at the serving path's prefill shape
+against the bf16 tensor-core peak).
 """
 from __future__ import annotations
 
@@ -23,8 +33,29 @@ import torch
 
 from repro_torch.kernels import build
 
-#: the widest head the kernel's register accumulator holds
+#: the widest head the kernels' register accumulators hold
 MAX_HEAD_DIM = 128
+#: the widest GQA group (H / K) the tensor-core kernel takes
+MAX_TC_GROUPS = 64
+#: (position, query head) rows of one kv head, Sq * G, the tensor-core
+#: kernel indexes in 32 bits
+MAX_TC_ROWS = 2**31 - 1 - 128
+#: the kernel names `kernel_for` returns (the `ops.WRAPPERS` entries that
+#: count their launches)
+FMA, TENSOR_CORE = "flash_attention_fwd", "flash_attention_fwd_tc"
+
+
+def kernel_for(dtype: torch.dtype, head_dim: int, groups: int, aligned: bool = True,
+               rows: int = 0) -> str:
+    """Which kernel takes CUDA inputs of this dtype, head_dim and GQA group
+    (H / K): the tensor-core kernel for bfloat16 with head_dim a multiple of
+    16 up to 128, groups <= 64, 16-byte aligned tensors (TMA and its
+    16-byte loads need them) and rows = Sq * groups <= MAX_TC_ROWS; the FMA
+    kernel for everything else."""
+    if (dtype == torch.bfloat16 and head_dim % 16 == 0 and 16 <= head_dim <= MAX_HEAD_DIM
+            and 1 <= groups <= MAX_TC_GROUPS and aligned and rows <= MAX_TC_ROWS):
+        return TENSOR_CORE
+    return FMA
 
 
 def scale(head_dim: int) -> float:
@@ -47,8 +78,8 @@ def flops(batch: int, seq_q: int, seq_k: int, heads: int, head_dim: int,
 
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
            window: Optional[int], causal: bool) -> None:
-    """q (B, Sq, H, Dh), k/v (B, Sk, K, Dh), out like q: contiguous, one
-    dtype (bfloat16 or float32), on one CUDA device."""
+    """The FMA kernel. q (B, Sq, H, Dh), k/v (B, Sk, K, Dh), out like q:
+    contiguous, one dtype (bfloat16 or float32), on one CUDA device."""
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     err = build.library().repro_flash_fwd(
@@ -58,3 +89,23 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "flash_attention_fwd")
+
+
+def launch_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+              window: Optional[int], causal: bool) -> None:
+    """The tensor-core kernel. As `launch`, for inputs `kernel_for` sends
+    to it (bfloat16). Raises if the launch or a tensor map is refused
+    (codes from 100000 up carry the tensor-map encoder's CUresult)."""
+    b, sq, h, dh = q.shape
+    sk, kv = k.shape[1], k.shape[2]
+    err = build.library().repro_flash_fwd_tc(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kv, dh,
+        0 if window is None else int(window), int(bool(causal)), scale(dh),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    build.check(err, "flash_attention_fwd_tc")
+
+
+def tc_smem_bytes(head_dim: int) -> int:
+    """Dynamic shared memory a tensor-core launch at this head_dim requests."""
+    return int(build.library().repro_flash_fwd_tc_smem(head_dim))

@@ -311,13 +311,8 @@ def adpcm_lane_decode(codes: torch.Tensor, xhat: torch.Tensor, init: torch.Tenso
 _FLASH_DTYPES = (torch.bfloat16, torch.float32)
 
 
-def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        window: Optional[int] = None, causal: bool = True) -> torch.Tensor:
-    """GQA flash attention forward, the Pallas contract (`flash_fwd`): q
-    (B, Sq, H, Dh) against k/v (B, Sk, K, Dh) at positions arange(Sq) x
-    arange(Sk), causal and/or a sliding window (keys > q_pos - window),
-    float32 softmax, the output (B, Sq, H, Dh) in q's dtype. All three
-    bfloat16 or all float32, H % K == 0, 1 <= Dh <= 128; any Sq and Sk."""
+def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 window: Optional[int]) -> None:
     dev = q.device
     _check(q, "q", 4, dev, q.dtype)
     if q.dtype not in _FLASH_DTYPES:
@@ -334,18 +329,64 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head_dim must be in [1, {flash_attn.MAX_HEAD_DIM}], got {dh}")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
-    if dev.type == "cpu":
-        return ref.flash_reference(q, k, v, window, causal)
-    if b > 65535 or kv > 65535:
+    if dev.type == "cuda" and (b > 65535 or kv > 65535):
         raise ValueError(f"batch {b} and kv heads {kv} must each be <= 65535 (the launch grid)")
+
+
+def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """`flash_attn.kernel_for` on the inputs (shapes already checked)."""
+    aligned = all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+    groups = q.shape[2] // k.shape[2]
+    return flash_attn.kernel_for(q.dtype, q.shape[3], groups, aligned, q.shape[1] * groups)
+
+
+def _flash_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  window: Optional[int], causal: bool) -> torch.Tensor:
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     if k.shape[1] == 0:
         return out.zero_()
-    flash_attn.launch(q, k, v, out, window, causal)
-    flash_attention_fwd.launches += 1
+    if kernel == flash_attn.TENSOR_CORE:
+        flash_attn.launch_tc(q, k, v, out, window, causal)
+        flash_attention_fwd_tc.launches += 1
+    else:
+        flash_attn.launch(q, k, v, out, window, causal)
+        flash_attention_fwd.launches += 1
     return out
+
+
+def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: Optional[int] = None, causal: bool = True) -> torch.Tensor:
+    """GQA flash attention forward, the Pallas contract (`flash_fwd`): q
+    (B, Sq, H, Dh) against k/v (B, Sk, K, Dh) at positions arange(Sq) x
+    arange(Sk), causal and/or a sliding window (keys > q_pos - window),
+    float32 softmax, the output (B, Sq, H, Dh) in q's dtype. All three
+    bfloat16 or all float32, H % K == 0, 1 <= Dh <= 128; any Sq and Sk.
+
+    On CUDA, `flash_attn.kernel_for` picks the kernel: bfloat16 with Dh a
+    multiple of 16 and H / K <= 64 runs on the tensor cores (counted as
+    `flash_attention_fwd_tc`), the rest on the FMA kernel (counted here).
+    A refused launch raises; neither kernel stands in for the other."""
+    _check_flash(q, k, v, window)
+    if q.device.type == "cpu":
+        return ref.flash_reference(q, k, v, window, causal)
+    return _flash_launch(_flash_kernel(q, k, v), q, k, v, window, causal)
+
+
+def flash_attention_fwd_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           window: Optional[int] = None, causal: bool = True) -> torch.Tensor:
+    """`flash_attention_fwd` on the tensor-core kernel alone: raises
+    ValueError for inputs outside `flash_attn.kernel_for`'s rule. On CPU
+    tensors inside the rule, the plain version."""
+    _check_flash(q, k, v, window)
+    if _flash_kernel(q, k, v) != flash_attn.TENSOR_CORE:
+        raise ValueError(
+            f"{q.dtype} q {tuple(q.shape)} against {k.shape[2]} kv heads is outside the "
+            "tensor-core kernel's rule (bfloat16, head_dim % 16 == 0, H / K <= 64, 16-byte aligned)")
+    if q.device.type == "cpu":
+        return ref.flash_reference(q, k, v, window, causal)
+    return _flash_launch(flash_attn.TENSOR_CORE, q, k, v, window, causal)
 
 
 #: the kernel wrappers, by kernel name
@@ -362,6 +403,7 @@ WRAPPERS = {
     "adpcm_lane_encode": adpcm_lane_encode,
     "adpcm_lane_decode": adpcm_lane_decode,
     "flash_attention_fwd": flash_attention_fwd,
+    "flash_attention_fwd_tc": flash_attention_fwd_tc,
 }
 for _fn in WRAPPERS.values():
     _fn.launches = 0
@@ -386,6 +428,7 @@ __all__ = [
     "compact_blocks",
     "dict_probe",
     "flash_attention_fwd",
+    "flash_attention_fwd_tc",
     "launch_counts",
     "pack_blocks",
     "pack_meta7_blocks",

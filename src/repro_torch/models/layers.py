@@ -9,11 +9,14 @@ parameters) and keep its weight layout, `x @ w` with `w` of shape
 Two attentions:
   * `attention_prefill` (the reference's `attention_train`: a whole
     sequence, here the prompt) calls kernel B10 through
-    `ops.flash_attention_fwd`: float32 scores and p@v on every
-    input dtype. The reference's prefill runs the blocked `flash_attention`
-    below instead, whose bf16 einsums round the scores and p to bf16, so in
-    a bf16 configuration the two prefills differ by that rounding by design
-    (in float32 both are float32 and agree to summation order);
+    `ops.flash_attention_fwd`: float32 scores (bf16 inputs' products are
+    exact in float32), float32 softmax, and p@v in float32, or on bf16
+    inputs as three bf16 products of p split as p_hi + p_mid + p_lo (p to
+    2^-26) on the tensor cores. The reference's prefill runs the blocked
+    `flash_attention` below instead, whose bf16 einsums round the scores and
+    p to bf16, so in a bf16 configuration the two prefills differ by that
+    rounding by design (in float32 both are float32 and agree to summation
+    order);
   * `flash_attention`, the reference's general blocked scan (positions,
     `kv_valid`, softcap) in plain torch, with the reference's numerics. The
     raw-cache decode uses it; `_chunk_attn_update` is also the step of the

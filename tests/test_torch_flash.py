@@ -11,7 +11,14 @@ compute in float32 and differ by summation order and by the score scale
 bfloat16 output: one bf16 rounding step, |a - b| <= 2^-7 |b| + 1e-6, since
 both sides round float32 results that agree to ~1e-6 into bf16.
 
-Tests marked `cuda` hold the CUDA kernel against the plain version on the
+On the card, bf16 inputs with Dh a multiple of 16 run on the tensor-core
+kernel, whose p@v takes p as three bf16 terms. A plain-torch emulation of
+those numerics (dense, float32 products of the bf16 terms with v) is held
+to the plain version under the bf16 rule here, beside the emulations with
+one and two terms, which break it: that is why the kernel splits p in
+three.
+
+Tests marked `cuda` hold the CUDA kernels against the plain version on the
 card and skip without one."""
 import numpy as np
 import pytest
@@ -50,6 +57,132 @@ def _qkv(seed, b, sq, sk, h, kh, dh):
 def _bf16_close(got: torch.Tensor, want: torch.Tensor) -> None:
     g, w = got.float(), want.float()
     assert bool(((g - w).abs() <= w.abs() * 2.0**-7 + 1e-6).all()), (g - w).abs().max()
+
+
+def _bf16_outside(got: torch.Tensor, want: torch.Tensor) -> int:
+    """Outputs not within one bf16 step (NaN counts as outside)."""
+    g, w = got.float(), want.float()
+    return int((~((g - w).abs() <= w.abs() * 2.0**-7 + 1e-6)).sum())
+
+
+def _split_emulation(q, k, v, window, causal, terms):
+    """The tensor-core kernel's numerics in dense plain torch: bf16 q.k
+    products in float32 (exact) scaled by f32(1/sqrt(Dh)), masked scores at
+    -1e30, float32 p = exp(s - max) and l = sum(p), then p@v as `terms`
+    float32 products of bf16 terms of p (each the bf16 rounding of what the
+    terms before it leave), summed, divided by max(l, 1e-30), in bf16."""
+    b, sq, h, dh = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    kk = k.float().repeat_interleave(g, dim=2)
+    vv = v.float().repeat_interleave(g, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * flash_attn.scale(dh)
+    qpos, kpos = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    s.masked_fill_(~mask, -1e30)
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    l = p.sum(dim=-1)
+    out, rest = 0.0, p
+    for _ in range(terms):
+        term = rest.bfloat16().float()
+        out = out + torch.einsum("bhqk,bkhd->bqhd", term, vv)
+        rest = rest - term
+    return (out / l.clamp_min(1e-30).permute(0, 2, 1)[..., None]).bfloat16()
+
+
+def _bf16_qkv(seed, b, sq, sk, h, kh, dh, cancel=False):
+    """bf16 q, k, v from a seed; with `cancel`, v minus its mean over the
+    keys, so long rows' outputs sit near 0 where the rule is tightest."""
+    rng = np.random.default_rng(seed)
+    q = rng.normal(size=(b, sq, h, dh)).astype(np.float32)
+    k = rng.normal(size=(b, sk, kh, dh)).astype(np.float32)
+    v = rng.normal(size=(b, sk, kh, dh)).astype(np.float32)
+    if cancel:
+        v -= v.mean(axis=1, keepdims=True)
+    return tuple(torch.from_numpy(a).bfloat16() for a in (q, k, v))
+
+
+#: (B, Sq, Sk, H, K, Dh, window, causal, cancel, seed) for the emulation
+SPLIT_CASES = [
+    (1, 256, 256, 8, 2, 128, None, True, False, 1),  # causal
+    (1, 200, 200, 4, 2, 64, 40, True, False, 2),  # windowed
+    (2, 150, 100, 4, 2, 32, None, True, False, 3),  # ragged, Sk < Sq
+    (1, 100, 180, 4, 2, 48, 30, True, False, 4),  # Sk > Sq, windowed
+    (1, 160, 160, 8, 1, 64, None, True, False, 5),  # MQA
+    (1, 192, 192, 4, 2, 128, None, True, True, 7),  # v drawn to cancel
+    (1, 130, 130, 4, 4, 16, None, False, True, 8),  # not causal, cancelling
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,Dh,window,causal,cancel,seed", SPLIT_CASES)
+def test_three_term_split_emulation_is_within_one_bf16_step(B, Sq, Sk, H, K, Dh, window, causal,
+                                                            cancel, seed):
+    q, k, v = _bf16_qkv(seed, B, Sq, Sk, H, K, Dh, cancel)
+    got = _split_emulation(q, k, v, window, causal, terms=3)
+    want = ref.flash_reference(q, k, v, window, causal)
+    assert _bf16_outside(got, want) == 0
+    assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,Dh,window,causal,cancel,seed", SPLIT_CASES)
+def test_p_rounded_once_to_bf16_breaks_the_rule(B, Sq, Sk, H, K, Dh, window, causal, cancel, seed):
+    """Why p is split: one bf16 rounding of p (a bf16 p@v product) puts
+    outputs outside one bf16 step on every case."""
+    q, k, v = _bf16_qkv(seed, B, Sq, Sk, H, K, Dh, cancel)
+    want = ref.flash_reference(q, k, v, window, causal)
+    assert _bf16_outside(_split_emulation(q, k, v, window, causal, terms=1), want) > 0
+
+
+def test_two_term_split_breaks_the_rule_on_short_rows():
+    """Why three terms: p_hi + p_lo carries p to 2^-18 and still puts two
+    outputs of this causal case outside one bf16 step (both in short rows,
+    where the 1e-6 floor of the rule dominates)."""
+    q, k, v = _bf16_qkv(1, 1, 256, 256, 8, 2, 128)
+    want = ref.flash_reference(q, k, v)
+    got = _split_emulation(q, k, v, None, True, terms=2)
+    bad = ~((got.float() - want.float()).abs() <= want.float().abs() * 2.0**-7 + 1e-6)
+    assert int(bad.sum()) > 0
+    assert int(bad.nonzero()[:, 1].max()) < 64  # positions of short rows
+    assert _bf16_outside(_split_emulation(q, k, v, None, True, terms=3), want) == 0
+
+
+@pytest.mark.parametrize(
+    "dtype,Dh,G,aligned,rows,kernel",
+    [
+        (torch.bfloat16, 128, 2, True, 4096, flash_attn.TENSOR_CORE),  # the lm path
+        (torch.bfloat16, 16, 1, True, 1, flash_attn.TENSOR_CORE),
+        (torch.bfloat16, 80, 16, True, 100, flash_attn.TENSOR_CORE),
+        (torch.bfloat16, 64, 64, True, 100, flash_attn.TENSOR_CORE),
+        (torch.bfloat16, 40, 2, True, 100, flash_attn.FMA),  # Dh % 16 != 0
+        (torch.bfloat16, 8, 2, True, 100, flash_attn.FMA),
+        (torch.bfloat16, 128, 65, True, 100, flash_attn.FMA),  # G > 64
+        (torch.bfloat16, 128, 2, False, 100, flash_attn.FMA),  # misaligned
+        (torch.bfloat16, 128, 2, True, 2**31, flash_attn.FMA),  # rows past 32-bit indexing
+        (torch.float32, 128, 2, True, 4096, flash_attn.FMA),  # float32 contract
+        (torch.float32, 64, 1, True, 100, flash_attn.FMA),
+    ],
+)
+def test_dispatch_rule(dtype, Dh, G, aligned, rows, kernel):
+    assert flash_attn.kernel_for(dtype, Dh, G, aligned, rows) == kernel
+
+
+def test_tensor_core_wrapper_on_cpu_takes_its_rule_and_no_more():
+    """`flash_attention_fwd_tc`: inside the rule the plain version on CPU
+    tensors (and no launch counted), outside it a ValueError."""
+    ops.reset_launches()
+    q, k, v = _bf16_qkv(9, 1, 40, 40, 4, 2, 32)
+    torch.testing.assert_close(ops.flash_attention_fwd_tc(q, k, v, window=7),
+                               ref.flash_reference(q, k, v, window=7), rtol=0, atol=0)
+    assert ops.launch_counts()["flash_attention_fwd_tc"] == 0
+    with pytest.raises(ValueError, match="outside the tensor-core kernel's rule"):
+        ops.flash_attention_fwd_tc(q.float(), k.float(), v.float())
+    q40, k40, v40 = _bf16_qkv(9, 1, 40, 40, 4, 2, 40)
+    with pytest.raises(ValueError, match="outside the tensor-core kernel's rule"):
+        ops.flash_attention_fwd_tc(q40, k40, v40)
 
 
 @pytest.mark.parametrize(
@@ -141,25 +274,53 @@ def test_flops_count_the_band():
 
 
 # ---------------------------------------------------------------- on the card --
+#: chip_smoke.py's FLASH_CASES: (B, Sq, Sk, H, K, Dh, window, causal, dtype)
+FLASH_CASES = [
+    (4, 2048, 2048, 16, 8, 128, None, True, torch.bfloat16),  # the serving path's prefill
+    (2, 512, 512, 8, 2, 128, None, True, torch.float32),
+    (2, 700, 700, 8, 4, 64, 96, True, torch.float32),  # windowed, leading tiles masked
+    (1, 1000, 1000, 4, 2, 32, None, True, torch.float32),  # ragged
+    (2, 300, 300, 4, 1, 128, None, True, torch.bfloat16),  # MQA
+    (2, 300, 300, 4, 1, 128, 40, True, torch.float32),  # MQA, windowed
+    (2, 700, 700, 8, 4, 64, 96, True, torch.bfloat16),  # Dh 64, windowed
+    (2, 333, 250, 8, 2, 80, None, True, torch.bfloat16),  # ragged, Sk < Sq, Dh 80
+    (2, 200, 300, 8, 2, 96, 40, True, torch.bfloat16),  # Sk > Sq, windowed, Dh 96
+    (1, 250, 250, 4, 4, 128, None, True, torch.bfloat16),  # G 1
+    (1, 250, 250, 16, 1, 128, None, True, torch.bfloat16),  # G 16 (MQA)
+    (1, 1000, 1000, 4, 2, 32, None, True, torch.bfloat16),  # Dh 32
+    (1, 333, 333, 4, 2, 16, 50, True, torch.bfloat16),  # Dh 16, windowed
+    (1, 190, 190, 4, 2, 128, None, False, torch.bfloat16),  # not causal
+    (1, 200, 200, 4, 2, 40, None, True, torch.bfloat16),  # Dh 40: the FMA kernel in bf16
+]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "B,S,H,K,Dh,window,dtype",
-    [
-        (4, 2048, 16, 8, 128, None, torch.bfloat16),  # the serving path's prefill
-        (2, 512, 8, 2, 128, None, torch.float32),
-        (2, 700, 8, 4, 64, 96, torch.float32),  # windowed, leading tiles masked
-        (1, 1000, 4, 2, 32, None, torch.float32),  # ragged
-        (2, 300, 4, 1, 128, None, torch.bfloat16),  # MQA
-    ],
-)
-def test_cuda_flash_matches_plain_version(cuda, B, S, H, K, Dh, window, dtype):
-    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in _qkv(S, B, S, S, H, K, Dh))
+@pytest.mark.parametrize("B,Sq,Sk,H,K,Dh,window,causal,dtype", FLASH_CASES)
+def test_cuda_flash_matches_plain_version(cuda, B, Sq, Sk, H, K, Dh, window, causal, dtype):
+    """`ops.flash_attention_fwd` on the card: the kernel `kernel_for` names
+    launches once, within the tolerance of its dtype."""
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in _qkv(Sq, B, Sq, Sk, H, K, Dh))
     ops.reset_launches()
-    got = ops.flash_attention_fwd(q, k, v, window=window)
-    assert ops.launch_counts()["flash_attention_fwd"] == 1
-    want = ref.flash_reference(q, k, v, window=window)
+    got = ops.flash_attention_fwd(q, k, v, window=window, causal=causal)
+    kernel = flash_attn.kernel_for(dtype, Dh, H // K)
+    assert ops.launch_counts() == {**{n: 0 for n in ops.WRAPPERS}, kernel: 1}
+    want = ref.flash_reference(q, k, v, window=window, causal=causal)
     torch.cuda.synchronize()
     if dtype == torch.bfloat16:
         _bf16_close(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,K,Dh,window,causal,dtype",
+                         [c for c in FLASH_CASES if flash_attn.kernel_for(c[8], c[5], c[3] // c[4])
+                          == flash_attn.TENSOR_CORE])
+def test_cuda_tensor_core_kernel_matches_plain_version(cuda, B, Sq, Sk, H, K, Dh, window, causal,
+                                                       dtype):
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in _qkv(3 * Sq + Sk, B, Sq, Sk, H, K, Dh))
+    got = ops.flash_attention_fwd_tc(q, k, v, window=window, causal=causal)
+    want = ref.flash_reference(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _bf16_close(got, want)

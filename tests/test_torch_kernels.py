@@ -247,11 +247,13 @@ def test_wrappers_check_inputs_and_do_not_count_cpu_calls():
     ops.adpcm_lane_decode(codes, xhat, init, 8, 2.0**24, 2.0**21, 255.0)
     ops.flash_attention_fwd(torch.zeros((1, 8, 4, 16)), torch.zeros((1, 8, 2, 16)),
                             torch.zeros((1, 8, 2, 16)))
+    ops.flash_attention_fwd_tc(*(torch.zeros(s, dtype=torch.bfloat16)
+                                 for s in ((1, 8, 4, 16), (1, 8, 2, 16), (1, 8, 2, 16))))
     assert ops.launch_counts() == {
         "pack_blocks": 0, "unpack_blocks": 0, "compact_blocks": 0, "pack_meta7_blocks": 0,
         "dict_probe": 0, "rans_encode": 0, "rans_decode": 0, "adpcm_encode": 0,
         "adpcm_decode": 0, "adpcm_lane_encode": 0, "adpcm_lane_decode": 0,
-        "flash_attention_fwd": 0,
+        "flash_attention_fwd": 0, "flash_attention_fwd_tc": 0,
     }
 
 
