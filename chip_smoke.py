@@ -14,9 +14,15 @@ Phases, each printing one line per check:
                a section whose last chunk is partial and on a constant
                stream, which never emits; B6/B7 (delta-NUQ) in the Pallas
                contract at the reference test's shapes and at S=1024,
-               T=4096, and in the ADPCM codec's per-lane form on the first
-               16 blocks of ECG in two calls (state carried), each at
-               qbits 4, 8 and 12;
+               T=4096, and in the ADPCM codec's per-lane form (the
+               speculative encode, the scan decode and the two serial
+               kernels) on the first 16 blocks of ECG and on 16 blocks of
+               each adversarial stream (noise, a square wave and a saw
+               past the bounds, the never-converging ramp) in two calls
+               (state carried), the new kernels against the serial ones on
+               48 blocks of each adversarial stream, and the decode's
+               kernel choice (a non-integral table; carried states outside
+               the rule), each at qbits 4, 8 and 12;
   3. path    — compress the paper's evaluation volume (932,800 bytes of
                Rovio, seed 7) on the card with raw32, tcomp32, leb128,
                delta_leb128, tdic32 (frozen/private, frozen/shared, and
@@ -38,9 +44,12 @@ Phases, each printing one line per check:
                JobSpec(codec="tdic32"); on ECG, JobSpec(codec="adpcm")
                .calibrated(sample), whose card decode is held against the
                CPU path's decode of the first 16 blocks (the CPU's per-lane
-               scan is too slow for 64 MiB). The kernel launch counts are
-               set to 0 just before each run and read just after it; each
-               run must launch its kernels;
+               scan is too slow for 64 MiB), and whose 64 chunks must each
+               launch the speculative encode and the scan decode once. The
+               kernel launch counts are set to 0 just before each run and
+               read just after it; each run must launch its kernels. Then
+               the codec form's new kernels against the serial ones over
+               all 64 chunks of the ECG stream, state carried;
   5. flash   — B10 (flash attention forward) against its plain version (a
                dense float32 softmax) on every case of FLASH_CASES, each
                through `ops.flash_attention_fwd`, which sends bf16 with Dh %
@@ -68,7 +77,10 @@ Phases, each printing one line per check:
                kernel must launch once per layer, its FMA kernel never), and
                one profiled prefill and decode for the device's busy time;
   7. timing  — each kernel and its plain version timed with CUDA events on
-               the main paths' own inputs; B10 on the full lm path's layer-0
+               the main paths' own inputs (B6/B7's codec form: the new and
+               the serial kernels on the adpcm path's first chunk, and both
+               encodes on the never-converging ramp at that shape); B10 on
+               the full lm path's layer-0
                q, k, v: the tensor-core kernel in bf16 and the FMA kernel on
                the same values in float32, each beside torch's
                scaled_dot_product_attention on its inputs (`library_ms`, a
@@ -153,10 +165,14 @@ FULL_SPECS = {
     "adpcm": (JobSpec(codec="adpcm"), B1_B4 + ("adpcm_lane_encode", "adpcm_lane_decode"), "ecg"),
 }
 #: kernels no path runs: B6/B7 in the Pallas contract's form, which only the
-#: reference's tests call (the ADPCM codec runs their per-lane form), and
-#: B10's FMA kernel, which takes float32 and the bf16 shapes outside the
-#: tensor-core kernel's rule (the lm path is bf16 at Dh 128)
-OFF_PATH = ("adpcm_encode", "adpcm_decode", "flash_attention_fwd")
+#: reference's tests call (the ADPCM codec runs their per-lane form); the
+#: codec form's serial kernels (the serial encode is the speculative one's
+#: oracle, the serial decode takes parameters outside the scan's integer
+#: rule, which the ECG calibration meets); and B10's FMA kernel, which
+#: takes float32 and the bf16 shapes outside the tensor-core kernel's rule
+#: (the lm path is bf16 at Dh 128)
+OFF_PATH = ("adpcm_encode", "adpcm_decode", "adpcm_lane_encode_serial", "adpcm_lane_decode_serial",
+            "flash_attention_fwd")
 #: B10's kernels, the LM serving path's (the codec paths never launch them)
 LM_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_tc")
 #: kernel -> (CUDA source, the Pallas kernel it replaces)
@@ -171,7 +187,9 @@ KERNELS = {
     "adpcm_encode": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:86"),
     "adpcm_decode": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:109"),
     "adpcm_lane_encode": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:86"),
+    "adpcm_lane_encode_serial": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:86"),
     "adpcm_lane_decode": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:109"),
+    "adpcm_lane_decode_serial": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:109"),
     "flash_attention_fwd": ("src/repro_torch/csrc/flash_attn.cu", "src/repro/kernels/flash_attn.py:84"),
     "flash_attention_fwd_tc": ("src/repro_torch/csrc/flash_attn_tc.cu", "src/repro/kernels/flash_attn.py:84"),
 }
@@ -213,9 +231,35 @@ TIMING_ITERS = {
     "rans_decode": (20, 3, False),
     "adpcm_encode": (20, 3, False),
     "adpcm_decode": (20, 3, False),
-    "adpcm_lane_encode": (5, 1, False),
-    "adpcm_lane_decode": (5, 1, False),
+    "adpcm_lane_encode": (100, 1, False),
+    "adpcm_lane_decode": (100, 1, False),
+    "adpcm_lane_encode_serial": (5, 1, False),
+    "adpcm_lane_decode_serial": (5, 1, False),
 }
+def adversarial_stream(name: str, n: int):
+    """The codec form's adversarial streams: (uint32[n], vmax, dmax) of
+    uniform noise over ECG's range (also at a dmax that is not an integer,
+    where the encode walks in float32 and the decode is serial), a square
+    wave past both bounds (the state clips at 0 and at vmax), a saw past
+    vmax (the input clips), or a ramp steeper than dmax = 1 under vmax =
+    2^24, on which no speculative guess ever converges."""
+    t = np.arange(n)
+    if name == "noise":
+        return np.random.default_rng(14).integers(0, 1842, n).astype(np.uint32), 1841.0, 358.0
+    if name == "noise_frac_dmax":  # not an integer: the float32 walk, the serial decode
+        return np.random.default_rng(14).integers(0, 1842, n).astype(np.uint32), 1841.0, 355.812
+    if name == "square":
+        return np.where((t // 37) % 2 == 0, 0, 4000).astype(np.uint32), 1841.0, 358.0
+    if name == "saw":
+        return ((t % 300) * 13).astype(np.uint32), 1841.0, 358.0
+    if name == "ramp":
+        return (5 + 3 * t).astype(np.uint32), float(2**24), 1.0
+    raise KeyError(name)
+
+
+ADVERSARIAL = ("noise", "noise_frac_dmax", "square", "saw", "ramp")
+LANE_KERNELS = ("adpcm_lane_encode", "adpcm_lane_encode_serial", "adpcm_lane_decode",
+                "adpcm_lane_decode_serial")
 
 
 def emit(obj) -> None:
@@ -353,20 +397,81 @@ def ecg_stream(n_tuples: int) -> np.ndarray:
     return make_dataset("ecg", n_tuples=n_tuples, seed=7).stream()
 
 
+def check_lane_plain(blocks: torch.Tensor, args: tuple, width: int, err: dict) -> None:
+    """The codec form's four kernels against their plain versions on
+    `blocks` in two calls (state carried): codes, bitlens, values and state
+    bits. Folds each kernel's max error into `err`."""
+    dev = blocks.device
+    lanes = blocks.shape[1]
+    fresh = (torch.zeros(lanes, device=dev), torch.zeros(lanes, dtype=torch.bool, device=dev))
+    st = dict.fromkeys(LANE_KERNELS + ("enc_plain", "dec_plain"), fresh)
+    half = blocks.shape[0] // 2
+    for part in (blocks[:half].contiguous(), blocks[half:].contiguous()):
+        p_codes, p_blen, *st["enc_plain"] = ref.adpcm_lane_encode_ref(part, *st["enc_plain"], *args, width)
+        for name in ("adpcm_lane_encode", "adpcm_lane_encode_serial"):
+            codes, blen, *st[name] = ops.WRAPPERS[name](part, *st[name], *args, width)
+            e = max(max_abs_err(codes, p_codes), max_abs_err(blen, p_blen),
+                    bits_err(st[name][0], st["enc_plain"][0]),
+                    int(not torch.equal(st[name][1], st["enc_plain"][1])))
+            err[name] = max(err[name], e)
+        p_x, *st["dec_plain"] = ref.adpcm_lane_decode_ref(p_codes, *st["dec_plain"], *args)
+        for name in ("adpcm_lane_decode", "adpcm_lane_decode_serial"):
+            x, *st[name] = ops.WRAPPERS[name](p_codes, *st[name], *args)
+            e = max(max_abs_err(x, p_x), bits_err(st[name][0], st["dec_plain"][0]),
+                    int(not torch.equal(st[name][1], st["dec_plain"][1])))
+            err[name] = max(err[name], e)
+    torch.cuda.synchronize()
+
+
+def check_lane_serial(blocks: torch.Tensor, args: tuple, width: int, chunk: int) -> dict:
+    """The speculative encode and the scan decode against the serial kernels
+    over `blocks` cut into calls of `chunk` blocks, the state carried from
+    call to call: codes, bitlens, values and state bits. Returns the max
+    error of each new kernel."""
+    dev = blocks.device
+    lanes = blocks.shape[1]
+    fresh = (torch.zeros(lanes, device=dev), torch.zeros(lanes, dtype=torch.bool, device=dev))
+    st = dict.fromkeys(LANE_KERNELS, fresh)
+    err = {"adpcm_lane_encode": 0, "adpcm_lane_decode": 0}
+    for i in range(0, blocks.shape[0], chunk):
+        part = blocks[i: i + chunk].contiguous()
+        codes, blen, *st["adpcm_lane_encode"] = ops.adpcm_lane_encode(part, *st["adpcm_lane_encode"], *args, width)
+        s_codes, s_blen, *st["adpcm_lane_encode_serial"] = ops.adpcm_lane_encode_serial(
+            part, *st["adpcm_lane_encode_serial"], *args, width)
+        e = max(max_abs_err(codes, s_codes), max_abs_err(blen, s_blen),
+                bits_err(st["adpcm_lane_encode"][0], st["adpcm_lane_encode_serial"][0]))
+        err["adpcm_lane_encode"] = max(err["adpcm_lane_encode"], e)
+        x, *st["adpcm_lane_decode"] = ops.adpcm_lane_decode(s_codes, *st["adpcm_lane_decode"], *args)
+        s_x, *st["adpcm_lane_decode_serial"] = ops.adpcm_lane_decode_serial(
+            s_codes, *st["adpcm_lane_decode_serial"], *args)
+        e = max(max_abs_err(x, s_x), bits_err(st["adpcm_lane_decode"][0], st["adpcm_lane_decode_serial"][0]))
+        err["adpcm_lane_decode"] = max(err["adpcm_lane_decode"], e)
+    torch.cuda.synchronize()
+    return err
+
+
 def check_delta_nuq(dev) -> dict:
     """B6/B7 against their plain versions at qbits 4, 8 and 12: the Pallas
     contract (normal(0, 0.3) substreams, dmax 1.0) at the reference test's
-    shapes and at S=1024, T=4096; the codec form on the first 16 blocks of
-    the ECG evaluation stream (calibrated), in two calls of 8 blocks with
-    the state carried, encode and decode. Returns the max error per
-    kernel (codes and bit patterns of floats and states)."""
+    shapes and at S=1024, T=4096; the codec form's four kernels (the
+    speculative encode, the scan decode and the two serial ones) on the
+    first 16 blocks of the ECG evaluation stream (calibrated) and on 16
+    blocks of each ADVERSARIAL stream, in two calls of 8 blocks with the
+    state carried; the speculative encode and the scan decode against the
+    serial kernels on 48 blocks of each adversarial stream (3 tiles of 8,192
+    tuples per lane), in calls of 24 blocks, and on 24 blocks of 333 tuples
+    per lane (noise) in calls of 12; and the decode's kernel choice:
+    a calibrated dmax that is not an integer (355.812) on the serial kernel,
+    and carried states outside the rule (17.5, 2000 > vmax, -0.0) walked
+    serially inside the scan kernel. Returns the max error per kernel
+    (codes and bit patterns of floats and states)."""
     rng = np.random.default_rng(13)
-    err = dict.fromkeys(("adpcm_encode", "adpcm_decode", "adpcm_lane_encode", "adpcm_lane_decode"), 0)
+    err = dict.fromkeys(("adpcm_encode", "adpcm_decode") + LANE_KERNELS, 0)
     ecg = ecg_stream(EVAL_BYTES // 4)
     spec = JobSpec(codec="adpcm").calibrated(ecg[:CALIBRATION_TUPLES])
     pipe = CompressionPipeline(spec, device=dev)
     blocks = bits.u32_tensor(pipe.shape_blocks(ecg[: 16 * pipe.block_tuples]).blocks, dev)
-    lanes = blocks.shape[1]
+    lanes, b = blocks.shape[1:]
     for qbits in (4, 8, 12):
         for s, t, sublanes, t_tile in ((8, 128, 8, 128), (16, 256, 8, 128), (32, 512, 16, 256),
                                        (1024, 4096, 8, 128)):
@@ -377,22 +482,54 @@ def check_delta_nuq(dev) -> dict:
             back = ops.adpcm_decode(codes, qbits, 1.0, 255.0, sublanes, t_tile)
             e = bits_err(back, ref.delta_nuq_decode_ref(codes, qbits, 1.0, 255.0, t_tile))
             err["adpcm_decode"] = max(err["adpcm_decode"], e)
-        args = (qbits, spec.codec_kwargs["vmax"], spec.codec_kwargs["dmax"], 255.0)
         width = 8 * ((qbits + 7) // 8)
-        fresh = (torch.zeros(lanes, device=dev), torch.zeros(lanes, dtype=torch.bool, device=dev))
-        enc_k, enc_p, dec_k, dec_p = fresh, fresh, fresh, fresh
-        for half in (blocks[:8].contiguous(), blocks[8:].contiguous()):
-            codes, blen, *enc_k = ops.adpcm_lane_encode(half, *enc_k, *args, width)
-            p_codes, p_blen, *enc_p = ref.adpcm_lane_encode_ref(half, *enc_p, *args, width)
-            e = max(max_abs_err(codes, p_codes), max_abs_err(blen, p_blen),
-                    bits_err(enc_k[0], enc_p[0]), int(not torch.equal(enc_k[1], enc_p[1])))
-            err["adpcm_lane_encode"] = max(err["adpcm_lane_encode"], e)
-            x, *dec_k = ops.adpcm_lane_decode(codes, *dec_k, *args)
-            p_x, *dec_p = ref.adpcm_lane_decode_ref(codes, *dec_p, *args)
-            e = max(max_abs_err(x, p_x), bits_err(dec_k[0], dec_p[0]),
-                    int(not torch.equal(dec_k[1], dec_p[1])))
-            err["adpcm_lane_decode"] = max(err["adpcm_lane_decode"], e)
-        torch.cuda.synchronize()
+        check_lane_plain(blocks, (qbits, spec.codec_kwargs["vmax"], spec.codec_kwargs["dmax"], 255.0),
+                         width, err)
+        for name in ADVERSARIAL:
+            values, vmax, dmax = adversarial_stream(name, 48 * lanes * b)
+            adv = bits.u32_tensor(values.reshape(48, lanes, b), dev)
+            check_lane_plain(adv[:16], (qbits, vmax, dmax, 255.0), width, err)
+            for k, e in check_lane_serial(adv, (qbits, vmax, dmax, 255.0), width, 24).items():
+                err[k] = max(err[k], e)
+        # blocks of 333 tuples per lane: the speculative encode's 4-byte loads and stores
+        values, vmax, dmax = adversarial_stream("noise", 24 * lanes * 333)
+        odd = bits.u32_tensor(values.reshape(24, lanes, 333), dev)
+        for k, e in check_lane_serial(odd, (qbits, vmax, dmax, 255.0), width, 12).items():
+            err[k] = max(err[k], e)
+    codes = ops.adpcm_lane_encode(blocks[:4].contiguous(), torch.zeros(lanes, device=dev),
+                                  torch.zeros(lanes, dtype=torch.bool, device=dev), 8,
+                                  spec.codec_kwargs["vmax"], 355.812, 255.0, 8)[0]
+    carried = torch.tensor([3.0, 17.5, 2000.0, -0.0][:lanes], device=dev)
+    for dmax, xhat, init, kernel in ((355.812, torch.zeros(lanes, device=dev), False, "adpcm_lane_decode_serial"),
+                                     (spec.codec_kwargs["dmax"], carried, True, "adpcm_lane_decode")):
+        args = (codes, xhat, torch.full((lanes,), init, device=dev), 8, spec.codec_kwargs["vmax"], dmax, 255.0)
+        before = ops.launch_counts()[kernel]
+        got, want = ops.adpcm_lane_decode(*args), ref.adpcm_lane_decode_ref(*args)
+        if ops.launch_counts()[kernel] != before + 1:
+            raise AssertionError(f"the codec-form decode at dmax {dmax} did not run {kernel}")
+        e = max(max_abs_err(got[0], want[0]), bits_err(got[1], want[1]))
+        err[kernel] = max(err[kernel], e)
+    torch.cuda.synchronize()
+    return err
+
+
+def check_lane_kernels_full(dev, values: np.ndarray) -> dict:
+    """The codec form's speculative encode and scan decode against the
+    serial kernels over every chunk of the 64 MiB ECG adpcm path (its
+    calibrated spec, blocks and 128-block chunks), the state carried from
+    chunk to chunk: codes, bitlens, values and state bits equal."""
+    t0 = time.perf_counter()
+    spec = FULL_SPECS["adpcm"][0].calibrated(values[:CALIBRATION_TUPLES])
+    pipe = CompressionPipeline(spec, device=dev)
+    codec = pipe.codec
+    blocks = bits.u32_tensor(pipe.shape_blocks(values).blocks, dev)
+    chunk = pipe.plan.scan_chunk
+    err = check_lane_serial(blocks, (codec.qbits, codec.vmax, codec.dmax, codec.mu), codec._bitlen(), chunk)
+    out = {"phase": "full", "path": "adpcm/new_vs_serial", "blocks": int(blocks.shape[0]),
+           "chunks": -(-blocks.shape[0] // chunk), "max_abs_err": err, "seconds": time.perf_counter() - t0}
+    emit(out)
+    if any(err.values()):
+        raise AssertionError(f"the codec form's new kernels differ from the serial ones on the ECG path: {err}")
     return err
 
 
@@ -434,8 +571,11 @@ def time_kernels(dev, full_values: dict, heavy_frame: bits.Frame) -> dict:
     Rovio stream; B5 on one tdic32 block (4 lanes x 512 tuples) probing the
     table the stream built over the 64 blocks before it; B8/B9 on the
     heavy tier's payload section (the 64 MiB delta_leb128 frame's raw
-    payload); B6/B7's codec form on the first chunk (128 blocks) of the
-    64 MiB ECG adpcm path, and their Pallas contract on the same ECG
+    payload); B6/B7's codec form (the speculative encode, the scan decode
+    and the serial kernels, one plain version per direction timed once) on
+    the first chunk (128 blocks) of the 64 MiB ECG adpcm path, both encodes
+    on the never-converging ramp at that shape (`never_converging_ms`,
+    `never_converging_serial_ms`), and their Pallas contract on the same ECG
     stream's first 4M tuples as float32 substreams (S=1024, T=4096, t_tile
     128) at the path's qbits and dmax. Each kernel is first held bit-exact
     against its plain version on these inputs.
@@ -454,8 +594,11 @@ def time_kernels(dev, full_values: dict, heavy_frame: bits.Frame) -> dict:
     state and the tables; per step about 12 operations to encode (two
     clips, a subtraction, sign, abs, the code's shift and or, a lookup, a
     select, an addition) plus 2 per level of the binary search, and 7 to
-    decode; `chain_steps` is each thread's serial chain (rANS: rows per
-    lane; B6/B7: t_tile - 1, or C*B per lane for the codec form).
+    decode, whichever kernel computes it (the speculation's extra work is
+    not the function's); `chain_steps` is each thread's serial chain (rANS:
+    rows per lane; B6/B7: t_tile - 1, C*B per lane for the serial kernels,
+    warm-up + segment for the speculative encode, a thread's share twice
+    for the scan decode).
     Returns per kernel a dict of ms, plain_ms, bound_ms, bound_by, bytes,
     ops, chain_steps, host_ms, plain_host_ms and max_abs_err."""
     values = full_values["rovio"]
@@ -552,7 +695,18 @@ def time_kernels(dev, full_values: dict, heavy_frame: bits.Frame) -> dict:
         nt * 4 + nt * 4 + state + tables,
         nt * 7,
     )
-    chains["adpcm_lane_encode"] = chains["adpcm_lane_decode"] = nt // lanes
+    # the serial kernels: the same function, inputs, plain version and bound
+    plan["adpcm_lane_encode_serial"] = (
+        lambda: ops.adpcm_lane_encode_serial(ablocks, st["xhat"], st["init"], *args, width),
+        *plan["adpcm_lane_encode"][1:],
+    )
+    plan["adpcm_lane_decode_serial"] = (
+        lambda: ops.adpcm_lane_decode_serial(acodes, st["xhat"], st["init"], *args),
+        *plan["adpcm_lane_decode"][1:],
+    )
+    chains["adpcm_lane_encode_serial"] = chains["adpcm_lane_decode_serial"] = nt // lanes
+    chains["adpcm_lane_encode"] = delta_nuq.WARMUP + delta_nuq.SEGMENT
+    chains["adpcm_lane_decode"] = 2 * -(-ablocks.shape[2] // 128)  # a thread's share, composed then applied
     sub = torch.from_numpy(ecg[: 1024 * 4096].astype(np.float32).reshape(1024, 4096)).to(dev)
     tile = (codec.qbits, codec.dmax, codec.mu)
     tcodes = ops.adpcm_encode(sub, *tile)
@@ -571,17 +725,33 @@ def time_kernels(dev, full_values: dict, heavy_frame: bits.Frame) -> dict:
     chains["adpcm_encode"] = chains["adpcm_decode"] = delta_nuq.DEFAULT_T - 1
     cpm = sleep_cycles_per_ms()
     out = {}
+    plain_runs = {}  # a plain version shared by two kernels runs and is timed once
     for name, (kern, plain, nbytes, nops) in plan.items():
-        got, want = kern(), plain()
+        kern_iters, plain_iters, queued = TIMING_ITERS.get(name, (100, 10, True))
+        if plain not in plain_runs:
+            plain_runs[plain] = (plain(), *time_ms(plain, plain_iters, cpm, queued=queued))
+        want, plain_ms, plain_host_ms = plain_runs[plain]
+        got = kern()
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         err = max(max_abs_err(as_bits(g), as_bits(w)) for g, w in zip(got, want))
-        kern_iters, plain_iters, queued = TIMING_ITERS.get(name, (100, 10, True))
         ms, host_ms = time_ms(kern, kern_iters, cpm)
-        plain_ms, plain_host_ms = time_ms(plain, plain_iters, cpm, queued=queued)
         bound_ms, bound_by = bound(nbytes, nops)
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                      "bytes": nbytes, "ops": nops, "chain_steps": chains.get(name),
                      "host_ms": host_ms, "plain_host_ms": plain_host_ms, "max_abs_err": err}
+    # the never-converging ramp at the same shape: the speculative encode
+    # against the serial kernel (held bit-exact to it first)
+    rvals, rvmax, rdmax = adversarial_stream("ramp", nt)
+    ramp = bits.u32_tensor(rvals.reshape(ablocks.shape), dev)
+    rargs = (codec.qbits, rvmax, rdmax, codec.mu)
+    spec_out = ops.adpcm_lane_encode(ramp, st["xhat"], st["init"], *rargs, width)
+    serial_out = ops.adpcm_lane_encode_serial(ramp, st["xhat"], st["init"], *rargs, width)
+    err = max(max_abs_err(as_bits(g), as_bits(w)) for g, w in zip(spec_out, serial_out))
+    out["adpcm_lane_encode"]["max_abs_err"] = max(out["adpcm_lane_encode"]["max_abs_err"], err)
+    out["adpcm_lane_encode"]["never_converging_ms"] = time_ms(
+        lambda: ops.adpcm_lane_encode(ramp, st["xhat"], st["init"], *rargs, width), 5, cpm)[0]
+    out["adpcm_lane_encode"]["never_converging_serial_ms"] = time_ms(
+        lambda: ops.adpcm_lane_encode_serial(ramp, st["xhat"], st["init"], *rargs, width), 5, cpm)[0]
     return out
 
 
@@ -985,6 +1155,13 @@ def run_full(dev, name: str, values: np.ndarray):
     missing = [k for k in needed if launches[k] == 0]
     if missing:
         raise AssertionError(f"the {name} main path did not launch: {missing}")
+    n_chunks = len(pipe._chunks(len(shaped.blocks)))
+    if name == "adpcm" and {k: launches[k] for k in LANE_KERNELS} != {
+            "adpcm_lane_encode": n_chunks, "adpcm_lane_encode_serial": 0,
+            "adpcm_lane_decode": n_chunks, "adpcm_lane_decode_serial": 0}:
+        raise AssertionError(f"the adpcm path's {n_chunks} chunks launched the codec form's kernels "
+                             f"{ {k: launches[k] for k in LANE_KERNELS} } times, expected the "
+                             "speculative encode and the scan decode once per chunk")
     comp_s = t["shape_s"] + t["execute_s"] + t["frame_from_s"] + t["to_bytes_s"]
     dec_s = t["parse_s"] + t["decompress_s"]
     t0 = time.perf_counter()
@@ -993,7 +1170,7 @@ def run_full(dev, name: str, values: np.ndarray):
     t["profile_s"] = time.perf_counter() - t0  # the two profiled passes
     emit({
         "phase": "full", "path": name, "spec": spec.to_dict(), "input_bytes": int(values.nbytes),
-        "blocks": int(len(shaped.blocks)), "chunks": len(pipe._chunks(len(shaped.blocks))),
+        "blocks": int(len(shaped.blocks)), "chunks": n_chunks,
         "wire_bytes": len(wire), "ratio": values.nbytes / len(wire),
         "compress_s": comp_s, "compress_MBps": values.nbytes / 1e6 / comp_s,
         "decompress_s": dec_s, "decompress_MBps": values.nbytes / 1e6 / dec_s,
@@ -1050,6 +1227,8 @@ def main() -> int:
         counts, frames[name] = run_full(dev, name, full_values[dataset])
         for k, n in counts.items():
             launches[k] += n
+    for k, e in check_lane_kernels_full(dev, full_values["ecg"]).items():
+        err[k] = max(err[k], e)
     t0 = time.perf_counter()
     check_lm_card_vs_cpu(dev)
     lm_launches, model, prompts = run_lm(dev)
@@ -1082,6 +1261,8 @@ def main() -> int:
             "bound_ms": times[name]["bound_ms"], "bound_by": times[name]["bound_by"],
             "library_ms": times[name].get("library_ms"), "host_ms": times[name]["host_ms"],
             "chain_steps": times[name]["chain_steps"],
+            **{k: times[name][k] for k in ("never_converging_ms", "never_converging_serial_ms")
+               if k in times[name]},
         }
         for name, (src, replaces) in KERNELS.items()
     ]})

@@ -5,11 +5,13 @@ ADPCM quantizes the *prediction error* against the reconstructed previous
 value, so quantization error cannot accumulate: a true sequential
 recurrence (the quantizer is nonlinear). Parallelism comes from lanes: each
 lane runs its own substream with private reconstruction state, the paper's
-private-state parallelization. On a CUDA device one launch of kernel B6/B7
-in its codec form (`ops.adpcm_lane_encode` / `adpcm_lane_decode`, one
-thread per lane) walks a whole chunk of blocks; on the CPU the wrappers run
-the plain per-lane scan. The mu-law quantizer is the host-built tables of
-`nuq.py`.
+private-state parallelization. On a CUDA device one call of kernel B6/B7
+in its codec form (`ops.adpcm_lane_encode` / `adpcm_lane_decode`) covers a
+whole chunk of blocks: the encode walks each lane in speculative segments
+resolved to the serial walk's codes, the decode scans clamp-add maps
+(serially outside `kernels/delta_nuq.py: decode_kernel_for`'s integer
+rule); on the CPU the wrappers run the plain per-lane scan. The mu-law
+quantizer is the host-built tables of `nuq.py`.
 
 Values are treated as magnitudes in [0, vmax] (float32 internally: exact
 for the <=24-bit sensor ranges the paper's datasets use).

@@ -47,11 +47,21 @@ SIGNATURES: Dict[str, List[type]] = {
     "repro_rans_decode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "repro_adpcm_tile_encode": [_P, _I, _I, _I, _F, _P, _P, _I, _P, _P],
     "repro_adpcm_tile_decode": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
-    "repro_adpcm_lane_encode": [_P, _I, _I, _I, _P, _P, _U, _F, _F, _P, _P, _I, _I, _P, _P, _P],
-    "repro_adpcm_lane_decode": [_P, _I, _I, _I, _P, _P, _U, _F, _P, _P, _I, _P, _P],
+    "repro_adpcm_lane_encode": [_P, _I, _I, _I, _P, _P, _U, _F, _F, _P, _P, _I, _I, _P, _P, _P, _P],
+    "repro_adpcm_lane_encode_scratch": [_I, _I, _I],
+    "repro_adpcm_lane_encode_serial": [_P, _I, _I, _I, _P, _P, _U, _F, _F, _P, _P, _I, _I, _P, _P, _P],
+    "repro_adpcm_lane_decode": [_P, _I, _I, _I, _P, _P, _U, _F, _P, _P, _I, _P, _P, _P],
+    "repro_adpcm_lane_decode_scratch": [_I, _I],
+    "repro_adpcm_lane_decode_serial": [_P, _I, _I, _I, _P, _P, _U, _F, _P, _P, _I, _P, _P],
     "repro_flash_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "repro_flash_fwd_tc": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
     "repro_flash_fwd_tc_smem": [_I],
+}
+
+#: entry points that return something other than a cudaError_t int
+RESTYPES: Dict[str, type] = {
+    "repro_adpcm_lane_encode_scratch": _L,
+    "repro_adpcm_lane_decode_scratch": _L,
 }
 
 _lib: Optional[ctypes.CDLL] = None
@@ -143,7 +153,7 @@ def library() -> ctypes.CDLL:
         for name, argtypes in SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype = RESTYPES.get(name, ctypes.c_int)
         last_build_s = time.perf_counter() - t0
         _lib = lib
     return _lib

@@ -258,13 +258,7 @@ def _check_lane_state(xhat: torch.Tensor, init: torch.Tensor, lanes: int, dev) -
         raise ValueError(f"xhat {tuple(xhat.shape)} and init {tuple(init.shape)} must hold {lanes} lanes")
 
 
-def adpcm_lane_encode(blocks: torch.Tensor, xhat: torch.Tensor, init: torch.Tensor,
-                      qbits: int, vmax: float, dmax: float, mu: float, width: int):
-    """The ADPCM codec's encode of C blocks int32[C, L, B] as one per-lane
-    walk of each lane's C*B tuples, from the state (xhat float32[L], init
-    bool[L]): (codes int32[C, L, B, 2], bitlen int32[C, L, B], xhat, init).
-    `width` is the bitlen of a quantized symbol; a fresh lane's first
-    symbol is its raw tuple at 32 bits."""
+def _lane_encode(blocks, xhat, init, qbits, vmax, dmax, mu, width, kernel: str):
     dev = blocks.device
     _check(blocks, "blocks", 3, dev)
     c, lanes, b = blocks.shape
@@ -276,19 +270,37 @@ def adpcm_lane_encode(blocks: torch.Tensor, xhat: torch.Tensor, init: torch.Tens
     bitlen = torch.empty((c, lanes, b), dtype=torch.int32, device=dev)
     if c * b == 0:  # nothing to walk: the state stays as it was
         return codes, bitlen, xhat.clone(), init.clone()
+    if lanes > 65535:
+        raise ValueError(f"{lanes} lanes exceed the launch grid's 65535")
     thr, dec = delta_nuq.quantizer(qbits, dmax, mu, True, dev)
     xhat, init = xhat.clone(), init.clone()
-    delta_nuq.launch_lane_encode(blocks, xhat, init.view(torch.uint8), vmax, dmax, thr, dec,
-                                 qbits, width, codes, bitlen)
-    adpcm_lane_encode.launches += 1
+    launch = (delta_nuq.launch_lane_encode if kernel == delta_nuq.SPECULATIVE_ENCODE
+              else delta_nuq.launch_lane_encode_serial)
+    launch(blocks, xhat, init.view(torch.uint8), vmax, dmax, thr, dec, qbits, width, codes, bitlen)
+    WRAPPERS[kernel].launches += 1
     return codes, bitlen, xhat, init
 
 
-def adpcm_lane_decode(codes: torch.Tensor, xhat: torch.Tensor, init: torch.Tensor,
-                      qbits: int, vmax: float, dmax: float, mu: float):
-    """The ADPCM codec's decode of C blocks' codes int32[C, L, B, 2] (word
-    0) as one per-lane walk from the state: (values int32[C, L, B] uint32
-    bits, xhat, init)."""
+def adpcm_lane_encode(blocks: torch.Tensor, xhat: torch.Tensor, init: torch.Tensor,
+                      qbits: int, vmax: float, dmax: float, mu: float, width: int):
+    """The ADPCM codec's encode of C blocks int32[C, L, B] as one per-lane
+    walk of each lane's C*B tuples, from the state (xhat float32[L], init
+    bool[L]): (codes int32[C, L, B, 2], bitlen int32[C, L, B], xhat, init).
+    `width` is the bitlen of a quantized symbol; a fresh lane's first
+    symbol is its raw tuple at 32 bits. On CUDA, the speculative segmented
+    kernel, for every parameter set."""
+    return _lane_encode(blocks, xhat, init, qbits, vmax, dmax, mu, width,
+                        delta_nuq.SPECULATIVE_ENCODE)
+
+
+def adpcm_lane_encode_serial(blocks: torch.Tensor, xhat: torch.Tensor, init: torch.Tensor,
+                             qbits: int, vmax: float, dmax: float, mu: float, width: int):
+    """`adpcm_lane_encode` on the serial kernel (one thread per lane), the
+    card-side oracle of the speculative one; no path calls it."""
+    return _lane_encode(blocks, xhat, init, qbits, vmax, dmax, mu, width, delta_nuq.SERIAL_ENCODE)
+
+
+def _lane_decode(codes, xhat, init, qbits, vmax, dmax, mu, serial: bool):
     dev = codes.device
     _check(codes, "codes", 4, dev)
     c, lanes, b, two = codes.shape
@@ -301,11 +313,34 @@ def adpcm_lane_decode(codes: torch.Tensor, xhat: torch.Tensor, init: torch.Tenso
     out = torch.empty((c, lanes, b), dtype=torch.int32, device=dev)
     if c * b == 0:
         return out, xhat.clone(), init.clone()
+    if lanes > 65535:
+        raise ValueError(f"{lanes} lanes exceed the launch grid's 65535")
+    kernel = delta_nuq.SERIAL_DECODE if serial else delta_nuq.lane_decode_kernel(qbits, vmax, dmax, mu)
     thr, dec = delta_nuq.quantizer(qbits, dmax, mu, True, dev)
     xhat, init = xhat.clone(), init.clone()
-    delta_nuq.launch_lane_decode(codes, xhat, init.view(torch.uint8), vmax, thr, dec, qbits, out)
-    adpcm_lane_decode.launches += 1
+    launch = (delta_nuq.launch_lane_decode if kernel == delta_nuq.SCAN_DECODE
+              else delta_nuq.launch_lane_decode_serial)
+    launch(codes, xhat, init.view(torch.uint8), vmax, thr, dec, qbits, out)
+    WRAPPERS[kernel].launches += 1
     return out, xhat, init
+
+
+def adpcm_lane_decode(codes: torch.Tensor, xhat: torch.Tensor, init: torch.Tensor,
+                      qbits: int, vmax: float, dmax: float, mu: float):
+    """The ADPCM codec's decode of C blocks' codes int32[C, L, B, 2] (word
+    0) as one per-lane walk from the state: (values int32[C, L, B] uint32
+    bits, xhat, init).
+
+    On CUDA, `delta_nuq.lane_decode_kernel` picks the kernel: inside its
+    integer rule the clamp-add scan (counted here), outside it the serial
+    walk (counted as `adpcm_lane_decode_serial`)."""
+    return _lane_decode(codes, xhat, init, qbits, vmax, dmax, mu, serial=False)
+
+
+def adpcm_lane_decode_serial(codes: torch.Tensor, xhat: torch.Tensor, init: torch.Tensor,
+                             qbits: int, vmax: float, dmax: float, mu: float):
+    """`adpcm_lane_decode` on the serial kernel, for any parameters."""
+    return _lane_decode(codes, xhat, init, qbits, vmax, dmax, mu, serial=True)
 
 
 _FLASH_DTYPES = (torch.bfloat16, torch.float32)
@@ -401,7 +436,9 @@ WRAPPERS = {
     "adpcm_encode": adpcm_encode,
     "adpcm_decode": adpcm_decode,
     "adpcm_lane_encode": adpcm_lane_encode,
+    "adpcm_lane_encode_serial": adpcm_lane_encode_serial,
     "adpcm_lane_decode": adpcm_lane_decode,
+    "adpcm_lane_decode_serial": adpcm_lane_decode_serial,
     "flash_attention_fwd": flash_attention_fwd,
     "flash_attention_fwd_tc": flash_attention_fwd_tc,
 }
@@ -424,7 +461,9 @@ __all__ = [
     "adpcm_decode",
     "adpcm_encode",
     "adpcm_lane_decode",
+    "adpcm_lane_decode_serial",
     "adpcm_lane_encode",
+    "adpcm_lane_encode_serial",
     "compact_blocks",
     "dict_probe",
     "flash_attention_fwd",

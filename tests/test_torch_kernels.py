@@ -252,7 +252,8 @@ def test_wrappers_check_inputs_and_do_not_count_cpu_calls():
     assert ops.launch_counts() == {
         "pack_blocks": 0, "unpack_blocks": 0, "compact_blocks": 0, "pack_meta7_blocks": 0,
         "dict_probe": 0, "rans_encode": 0, "rans_decode": 0, "adpcm_encode": 0,
-        "adpcm_decode": 0, "adpcm_lane_encode": 0, "adpcm_lane_decode": 0,
+        "adpcm_decode": 0, "adpcm_lane_encode": 0, "adpcm_lane_encode_serial": 0,
+        "adpcm_lane_decode": 0, "adpcm_lane_decode_serial": 0,
         "flash_attention_fwd": 0, "flash_attention_fwd_tc": 0,
     }
 
@@ -370,4 +371,101 @@ def test_cuda_adpcm_lane_kernels_match_plain_versions(cuda, qbits):
         p_x, *st_dp = ref.adpcm_lane_decode_ref(codes, *st_dp, *args)
         assert torch.equal(x, p_x) and all(torch.equal(a, b) for a, b in zip(st_dk, st_dp))
     counts = ops.launch_counts()
-    assert counts["adpcm_lane_encode"] == 2 and counts["adpcm_lane_decode"] == 2
+    # this calibration's table may not be integral: the decode runs where the rule says
+    decode = ops.delta_nuq.lane_decode_kernel(qbits, kw["vmax"], kw["dmax"], 255.0)
+    assert counts["adpcm_lane_encode"] == 2 and counts[decode] == 2
+
+
+def _lane_stream(name: str, n: int) -> tuple:
+    """(uint32[n], vmax, dmax): ECG after its calibration window, uniform
+    noise (also at a dmax that is not an integer, where the kernel walks in
+    float32 with the binary search), a square wave past both bounds, and a
+    ramp no guess converges on."""
+    t = np.arange(n)
+    if name == "ecg":
+        from repro_torch.data import make_dataset
+
+        return make_dataset("ecg", n_tuples=8192 + n, seed=7).stream()[8192: 8192 + n], 1841.0, 358.0
+    if name == "noise":
+        return np.random.default_rng(5).integers(0, 1842, n).astype(np.uint32), 1841.0, 358.0
+    if name == "noise_frac_dmax":
+        return np.random.default_rng(5).integers(0, 1842, n).astype(np.uint32), 1841.0, 355.812
+    if name == "square":
+        return np.where((t // 37) % 2 == 0, 0, 4000).astype(np.uint32), 1841.0, 358.0
+    return (5 + 3 * t).astype(np.uint32), float(2**24), 1.0  # the ramp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b", [1024, 333])
+@pytest.mark.parametrize("qbits", [4, 8, 12])
+@pytest.mark.parametrize("name", ["ecg", "noise", "noise_frac_dmax", "square", "ramp"])
+def test_cuda_speculative_encode_matches_serial_kernel_and_plain_version(cuda, name, qbits, b):
+    """The speculative encode against the serial kernel over 24 blocks of
+    4 x b (3 tiles of 8,192 tuples per lane at b = 1024; b = 333 takes the
+    4-byte loads and stores), state carried into a second call, and
+    against the plain version on the first 2 blocks."""
+    values, vmax, dmax = _lane_stream(name, 24 * 4 * b)
+    blocks = _t(values.reshape(24, 4, b)).to(cuda)
+    args = (qbits, vmax, dmax, 255.0, 8 * ((qbits + 7) // 8))
+    st_k = st_s = (torch.zeros(4, device=cuda), torch.zeros(4, dtype=torch.bool, device=cuda))
+    ops.reset_launches()
+    for part in (blocks[:2], blocks[2:]):
+        part = part.contiguous()
+        got = ops.adpcm_lane_encode(part, *st_k, *args)
+        want = ops.adpcm_lane_encode_serial(part, *st_s, *args)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert torch.equal(got[2].view(torch.int32), want[2].view(torch.int32))
+        assert torch.equal(got[3], want[3])
+        if part.shape[0] == 2:
+            plain = ref.adpcm_lane_encode_ref(part, *st_s, *args)
+            assert all(torch.equal(a, b) for a, b in zip(got[:2], plain[:2]))
+        st_k, st_s = got[2:], want[2:]
+    counts = ops.launch_counts()
+    assert counts["adpcm_lane_encode"] == 2 and counts["adpcm_lane_encode_serial"] == 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qbits", [4, 8, 12])
+@pytest.mark.parametrize("vmax,dmax", [(1841.0, 358.0), (float(2**24), 2.0**21), (float(2**24), 2.0**26)])
+def test_cuda_scan_decode_matches_serial_kernel_and_plain_version(cuda, qbits, vmax, dmax):
+    """Random codes (clips at both bounds), fresh and then carried: the scan
+    decode against the serial kernel and the plain version."""
+    rng = np.random.default_rng(qbits)
+    w = rng.integers(0, 1 << qbits, (6, 4, 512)).astype(np.uint32)
+    w[0, :, 0] = rng.integers(0, 2**32, 4, dtype=np.uint64).astype(np.uint32)
+    codes = np.zeros((6, 4, 512, 2), np.uint32)
+    codes[..., 0] = w
+    codes = _t(codes).to(cuda)
+    args = (qbits, vmax, dmax, 255.0)
+    st_k = st_s = st_p = (torch.zeros(4, device=cuda), torch.zeros(4, dtype=torch.bool, device=cuda))
+    ops.reset_launches()
+    for part in (codes[:3].contiguous(), codes[3:].contiguous()):
+        got = ops.adpcm_lane_decode(part, *st_k, *args)
+        want = ops.adpcm_lane_decode_serial(part, *st_s, *args)
+        plain = ref.adpcm_lane_decode_ref(part, *st_p, *args)
+        for other in (want, plain):
+            assert torch.equal(got[0], other[0]) and torch.equal(got[2], other[2])
+            assert torch.equal(got[1].view(torch.int32), other[1].view(torch.int32))
+        st_k, st_s, st_p = got[1:], want[1:], plain[1:]
+    counts = ops.launch_counts()
+    assert counts["adpcm_lane_decode"] == 2 and counts["adpcm_lane_decode_serial"] == 2
+
+
+@pytest.mark.cuda
+def test_cuda_decode_outside_the_rule_walks_serially(cuda):
+    """A non-integral table (calibrated dmax 355.812) goes to the serial
+    kernel; inside the rule, carried states that are not integers in
+    [0, vmax] (and -0.0) are walked serially by the scan kernel itself."""
+    rng = np.random.default_rng(9)
+    codes = np.zeros((4, 4, 256, 2), np.uint32)
+    codes[..., 0] = rng.integers(0, 256, (4, 4, 256))
+    codes = _t(codes).to(cuda)
+    ops.reset_launches()
+    init = torch.ones(4, dtype=torch.bool, device=cuda)
+    xhat = torch.tensor([3.0, 17.5, 2000.0, -0.0], device=cuda)
+    for dmax, kernel in ((355.812, "adpcm_lane_decode_serial"), (358.0, "adpcm_lane_decode")):
+        got = ops.adpcm_lane_decode(codes, xhat, init, 8, 1841.0, dmax, 255.0)
+        plain = ref.adpcm_lane_decode_ref(codes, xhat, init, 8, 1841.0, dmax, 255.0)
+        assert torch.equal(got[0], plain[0])
+        assert torch.equal(got[1].view(torch.int32), plain[1].view(torch.int32))
+        assert ops.launch_counts()[kernel] == 1

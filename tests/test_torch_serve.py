@@ -25,7 +25,8 @@ Tolerances, and why:
     |logit| (measured 1.4 % here, 2.3 % on another prompt), and the port in bf16 is no further from the
     float32 reference than 2x the reference in bf16 is. Layer 0's codes,
     computed before any attention, agree at >= 0.999;
-  * greedy tokens of `serve()` equal the reference's in float32.
+  * greedy tokens of `serve()` equal the reference's in float32; in bf16
+    their agreement is a measured rate, pinned (ROADMAP C5).
 """
 import dataclasses
 import json
@@ -190,6 +191,38 @@ def test_serve_tokens_equal_the_reference_float32():
     assert run_t.tokens_generated == run_r.tokens_generated == batch * gen
     assert run_t.cache_bytes == run_r.cache_bytes
     assert run_t.cache_bytes_raw_equiv == run_r.cache_bytes_raw_equiv
+
+
+#: ROADMAP C5: the bf16 greedy tokens of `serve()` against the reference's,
+#: 3 seeds x 4 requests x 16 generated: 161 of 192 equal (measured here);
+#: a request that diverges stays apart, each side feeding its own token
+BF16_TOKEN_AGREEMENT = 161 / 192
+
+
+def test_serve_tokens_bfloat16_agreement_rate():
+    """The bf16 prefill rounds scores and p to bf16 in the reference and
+    not in B10, so near-tie greedy tokens can differ (ROADMAP C5). The
+    element-wise agreement over the three runs is pinned at its measured
+    rate; the first generated tokens (from the prefill alone) agree in 11
+    of 12 requests."""
+    cfg, tcfg = _cfgs("bfloat16")
+    batch, prompt_len, gen = 4, 100, 16
+    equal = first = 0
+    for seed in (0, 1, 2):
+        run_r = rserve.serve(cfg, batch=batch, prompt_len=prompt_len, gen=gen, seed=seed)
+        key = jax.random.PRNGKey(seed)
+        tree = jax.tree_util.tree_map(np.asarray, rt.init_params(cfg, key))
+        prompts = np.asarray(jax.random.randint(key, (batch, prompt_len), 0, cfg.vocab_size))
+        run_t = tserve.serve(tcfg, batch=batch, prompt_len=prompt_len, gen=gen, seed=seed,
+                             device="cpu", params=tree, prompts=prompts)
+        same = np.asarray(run_t.tokens) == np.asarray(run_r.tokens)
+        equal += int(same.sum())
+        first += int(same[:, 0].sum())
+    rate = equal / (3 * batch * gen)
+    print(f"bfloat16 greedy tokens equal to the reference's: {equal} of {3 * batch * gen} ({rate:.4f}); "
+          f"first tokens {first} of {3 * batch}")
+    assert rate >= BF16_TOKEN_AGREEMENT
+    assert first >= 11
 
 
 @pytest.mark.parametrize("kw", [dict(kv_quant=False), dict(kv_quant=False, swa_window=16)])
