@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Compare two trees of the PyTorch port on the 64 MiB tcomp32 cell, on one GPU.
+"""Compare two trees of the PyTorch port on a 64 MiB Rovio cell, on one GPU.
 
-    python3 scripts/torch_ab.py PARENT_DIR . . PARENT_DIR [--reps 3] [--out FILE]
+    python3 scripts/torch_ab.py PARENT_DIR . . PARENT_DIR [--reps 3] [--codec tcomp32] [--out FILE]
 
 (`--device cpu --mib 1` rehearses it without a GPU; its device times are 0.)
 
@@ -10,8 +10,9 @@ holds `src/repro_torch`); the trees run in the order given, each in a fresh
 process that imports that tree's `repro_torch` and builds its kernels, so
 alternate them (parent, change, change, parent). Every process measures the
 same way, with the code of this script, not of the tree: `--reps` timed
-roundtrips of `JobSpec()` (tcomp32, 4 lanes, 8 KiB micro-batches) on 64 MiB
-of Rovio (seed 7), each step on the host clock, then one pass of each
+roundtrips of `JobSpec(codec=...)` (tcomp32 by default, or tdic32; 4
+lanes, 8 KiB micro-batches) on 64 MiB of Rovio (seed 7), each step on the
+host clock, then one pass of each
 direction under `torch.profiler` for the device's busy time. It prints one
 JSON line per roundtrip, then one JSON line per tree with the median, min
 and max of every metric over all its roundtrips. The trees must produce the
@@ -43,7 +44,7 @@ def device_busy_ms(fn, dev) -> float:
     return sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA) / 1e3
 
 
-def child(tree: str, reps: int, device: str, mib: int) -> None:
+def child(tree: str, reps: int, device: str, mib: int, codec: str) -> None:
     """Measure one tree: `reps` roundtrips, then the profiled passes."""
     sys.path.insert(0, str(Path(tree).resolve() / "src"))
     import numpy as np
@@ -60,8 +61,9 @@ def child(tree: str, reps: int, device: str, mib: int) -> None:
             raise SystemExit("torch_ab: no CUDA device is available")
         build.library()
     values = make_dataset("rovio", n_tuples=(mib << 20) // 16, seed=7).stream()
-    pipe = CompressionPipeline(JobSpec(), device=dev)
-    decomp = DecompressionPipeline(JobSpec(), device=dev)
+    spec = JobSpec(codec=codec)
+    pipe = CompressionPipeline(spec, device=dev)
+    decomp = DecompressionPipeline(spec, device=dev)
     decomp.ingest(pipe.compress_to_frame(values[: 8 * pipe.block_tuples]).to_bytes())
     for rep in range(reps):
         t = {}
@@ -101,16 +103,18 @@ def main() -> int:
     ap.add_argument("--out", help="also append every JSON line to this file")
     ap.add_argument("--device", default="cuda", help="torch device of the runs")
     ap.add_argument("--mib", type=int, default=64, help="stream size in MiB")
+    ap.add_argument("--codec", default="tcomp32", choices=("tcomp32", "tdic32"),
+                    help="the cell's lossless codec")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        child(args.child, args.reps, args.device, args.mib)
+        child(args.child, args.reps, args.device, args.mib, args.codec)
         return 0
     rows = []
     for tree in args.trees:
         out = subprocess.run(
             [sys.executable, __file__, tree, "--child", tree, "--reps", str(args.reps),
-             "--device", args.device, "--mib", str(args.mib)],
+             "--device", args.device, "--mib", str(args.mib), "--codec", args.codec],
             capture_output=True, text=True, timeout=600,
         )
         if out.returncode:

@@ -3,12 +3,17 @@
 
 Two execution fidelities, as in the reference:
 
-  * ``mode='frozen'`` — lookups hit the table frozen at micro-batch start
-    (kernel B5, `ops.dict_probe`, one launch per block for all lanes);
+  * ``mode='frozen'`` — lookups hit the table frozen at micro-batch start;
     updates are merged once at batch end with deterministic
-    last-writer-wins. A chunk of blocks is walked block by block
-    (`encode_blocks`/`decode_blocks`), so the table freezes per block,
-    never per chunk.
+    last-writer-wins. The table freezes per block, never per chunk. A
+    chunk of blocks (`encode_blocks`/`decode_blocks`) with private state
+    is walked on the card in one launch per direction, B5's codec form
+    (`ops.dict_chunk_encode`/`dict_chunk_decode`, under the rule
+    `dict_hash.chunk_kernel_for`); under the shared-state strategy, or
+    with a table too large for the kernels' shared memory, block by block
+    (`encode_each_block`/`decode_each_block`: B5's probe, `ops.dict_probe`,
+    one launch per block for all lanes, and the merge in torch ops), as a
+    single block (`encode`/`decode`, the executor's tail) always is.
   * ``mode='exact'`` — the per-tuple semantics: the table is updated after
     every tuple. The reference runs it as a `lax.scan`; here it is a plain
     per-tuple loop of tensor ops on both devices (a serial CUDA kernel for
@@ -66,47 +71,19 @@ class Tdic32(Codec):
     def _hash(self, x: torch.Tensor) -> torch.Tensor:
         return dict_hash.hash_tensor(x, self.idx_bits)
 
-    def _unsymbol(self, codes: torch.Tensor):
-        """(hit, table index, literal) of symbol slots."""
-        c0, c1 = bits._u(codes[..., 0]), bits._u(codes[..., 1])
-        hit = (c0 & 1) == 1
-        idx = (c0 >> 1) & (self.table_size - 1)
-        literal = ((c0 >> 1) | (c1 << 31)) & bits.M32
-        return hit, idx, literal
-
     # ------------------------------------------------------------- frozen --
     def _encode_frozen(self, state, x):
         c0, c1, blen = ops.dict_probe(
             x, state["table"], state["valid"].view(torch.uint8), self.idx_bits
         )
-        new_state = self._merge_updates(state, self._hash(x), x)
+        new_state = dict_hash.merge_updates(state, self._hash(x), x, self.idx_bits)
         return new_state, Encoded(torch.stack([c0, c1], dim=-1), blen)
 
-    def _merge_updates(self, state, h, x):
-        """Deterministic last-writer-wins merge of this batch's updates.
-
-        Each slot's winner is the last position that hashed to it
-        (`scatter_reduce` amax, init -1: exact on every device). The writes
-        then gather from the winners, one per slot, so no scatter ever
-        sees duplicate indices."""
-        lanes, b = x.shape
-        pos = torch.arange(b, device=x.device).expand(lanes, b)
-        winner = torch.full((lanes, self.table_size), -1, dtype=torch.int64, device=x.device)
-        winner.scatter_reduce_(1, h, pos, reduce="amax", include_self=True)
-        won = winner >= 0
-        at = winner.clamp(min=0)
-        return {
-            "table": torch.where(won, x.gather(1, at), state["table"]),
-            "valid": state["valid"] | won,
-            "ts": torch.where(won, (state["clock"][:, None] + at).to(torch.int32), state["ts"]),
-            "clock": state["clock"] + b,
-        }
-
     def _decode_frozen(self, state, enc):
-        hit, idx, literal = self._unsymbol(enc.codes)
+        hit, idx, literal = dict_hash.unsymbol(enc.codes, self.idx_bits)
         entry = bits._u(state["table"].gather(1, idx))
         x = bits._i32(torch.where(hit, entry, literal))
-        return self._merge_updates(state, self._hash(x), x), x
+        return dict_hash.merge_updates(state, self._hash(x), x, self.idx_bits), x
 
     # -------------------------------------------------------------- exact --
     def _exact_walk(self, state, b: int, step):
@@ -139,7 +116,7 @@ class Tdic32(Codec):
 
     def _decode_exact(self, state, enc):
         lanes, b = enc.bitlen.shape
-        hit, idx, literal = self._unsymbol(enc.codes)
+        hit, idx, literal = dict_hash.unsymbol(enc.codes, self.idx_bits)
         literal = bits._i32(literal)
         lane = torch.arange(lanes, device=literal.device)
         x = torch.empty_like(literal)
@@ -158,12 +135,46 @@ class Tdic32(Codec):
     def decode(self, state: Any, enc: Encoded) -> Tuple[Any, torch.Tensor]:
         return self._decode_frozen(state, enc) if self.mode == "frozen" else self._decode_exact(state, enc)
 
+    @staticmethod
+    def kernel_state(state) -> tuple:
+        """The state as the chunk kernels take it (valid as uint8 bytes)."""
+        return (state["table"].contiguous(), state["valid"].contiguous().view(torch.uint8),
+                state["ts"].contiguous(), state["clock"].contiguous())
+
+    @staticmethod
+    def codec_state(table, valid, ts, clock):
+        """`kernel_state`'s inverse."""
+        return {"table": table, "valid": valid.view(torch.bool), "ts": ts, "clock": clock}
+
     def encode_blocks(self, state: Any, blocks: torch.Tensor,
                       merge: Optional[Callable[[Any], Any]] = None) -> Tuple[Any, Encoded]:
-        """Encode C consecutive blocks `(C, L, B)` one block at a time: the
-        frozen table freezes per block, so one call over the chunk would
-        change the symbols. `merge` (the shared-state strategy's cross-lane
-        merge, or None) is applied to the state after every block."""
+        """Encode C consecutive blocks `(C, L, B)` with the table frozen per
+        block: the symbols and state of C `encode` calls, each followed by
+        `merge` (the shared-state strategy's cross-lane merge, or None).
+        Inside `dict_hash.chunk_kernel_for` one `ops.dict_chunk_encode`
+        call; outside it `encode_each_block`."""
+        blocks = blocks.to(torch.int32).contiguous()
+        if not dict_hash.chunk_kernel_for(self.idx_bits, blocks.shape[2], self.mode, merge):
+            return self.encode_each_block(state, blocks, merge)
+        codes, bitlen, *st = ops.dict_chunk_encode(blocks, *self.kernel_state(state), self.idx_bits)
+        return self.codec_state(*st), Encoded(codes, bitlen)
+
+    def decode_blocks(self, state: Any, enc: Encoded,
+                      merge: Optional[Callable[[Any], Any]] = None) -> Tuple[Any, torch.Tensor]:
+        """`encode_blocks`'s inverse with the same `merge`: codes
+        `(C, L, B, 2)`, bitlen `(C, L, B)` -> values `(C, L, B)`; inside the
+        rule one `ops.dict_chunk_decode` call, outside it
+        `decode_each_block`."""
+        if not dict_hash.chunk_kernel_for(self.idx_bits, enc.codes.shape[2], self.mode, merge):
+            return self.decode_each_block(state, enc, merge)
+        codes = enc.codes.to(torch.int32).contiguous()
+        x, *st = ops.dict_chunk_decode(codes, *self.kernel_state(state), self.idx_bits)
+        return self.codec_state(*st), x
+
+    def encode_each_block(self, state: Any, blocks: torch.Tensor,
+                          merge: Optional[Callable[[Any], Any]] = None) -> Tuple[Any, Encoded]:
+        """`encode_blocks` one block at a time, any mode and merge: one
+        `encode` call per block, then `merge` on the state."""
         codes, bitlen = [], []
         for blk in blocks:
             state, enc = self.encode(state, blk)
@@ -172,10 +183,10 @@ class Tdic32(Codec):
             bitlen.append(enc.bitlen)
         return state, Encoded(torch.stack(codes), torch.stack(bitlen))
 
-    def decode_blocks(self, state: Any, enc: Encoded,
-                      merge: Optional[Callable[[Any], Any]] = None) -> Tuple[Any, torch.Tensor]:
-        """`encode_blocks`'s inverse, block by block with the same `merge`:
-        codes `(C, L, B, 2)`, bitlen `(C, L, B)` -> values `(C, L, B)`."""
+    def decode_each_block(self, state: Any, enc: Encoded,
+                          merge: Optional[Callable[[Any], Any]] = None) -> Tuple[Any, torch.Tensor]:
+        """`decode_blocks` one block at a time: `encode_each_block`'s
+        inverse."""
         xs = []
         for codes, bitlen in zip(enc.codes, enc.bitlen):
             state, x = self.decode(state, Encoded(codes, bitlen))

@@ -43,6 +43,8 @@ SIGNATURES: Dict[str, List[type]] = {
     "repro_compact_blocks": [_P, _P, _I, _I, _P, _P, _P],
     "repro_pack_meta7_blocks": [_P, _I, _I, _I, _P, _P],
     "repro_dict_probe": [_P, _P, _P, _I, _I, _I, _P, _P, _P, _P],
+    "repro_dict_chunk_encode": [_P] * 5 + [_I] * 4 + [_P] * 7,
+    "repro_dict_chunk_decode": [_P] * 5 + [_I] * 4 + [_P] * 6,
     "repro_rans_encode": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "repro_rans_decode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "repro_adpcm_tile_encode": [_P, _I, _I, _I, _F, _P, _P, _I, _P, _P],

@@ -144,6 +144,76 @@ def dict_probe(x: torch.Tensor, table: torch.Tensor, valid: torch.Tensor, idx_bi
     return c0, c1, bitlen
 
 
+def _check_dict_chunk(table, valid, ts, clock, shape, idx_bits: int, dev) -> None:
+    c, lanes, b = shape[:3]
+    _check(table, "table", 2, dev)
+    _check(valid, "valid", 2, dev, torch.uint8)
+    _check(ts, "ts", 2, dev)
+    _check(clock, "clock", 1, dev)
+    if not 1 <= idx_bits <= 31:
+        raise ValueError(f"idx_bits must be in [1, 31], got {idx_bits}")
+    want = (lanes, 1 << idx_bits)
+    if table.shape != want or valid.shape != want or ts.shape != want or clock.shape != (lanes,):
+        raise ValueError(
+            f"table {tuple(table.shape)}, valid {tuple(valid.shape)}, ts {tuple(ts.shape)} and "
+            f"clock {tuple(clock.shape)} must be {want} and ({lanes},) for idx_bits={idx_bits}")
+    if not dict_hash.chunk_kernel_for(idx_bits, b, "frozen", None):
+        raise ValueError(
+            f"a table of 2^{idx_bits} slots with blocks of {b} tuples per lane does not fit in "
+            f"one CTA's shared memory ({dict_hash.MAX_SMEM_BYTES} bytes)")
+    if c * b > 2**31 - 1:
+        raise ValueError(f"{c} blocks x {b} tuples exceed the kernels' int32 positions")
+
+
+def dict_chunk_encode(blocks: torch.Tensor, table: torch.Tensor, valid: torch.Tensor,
+                      ts: torch.Tensor, clock: torch.Tensor, idx_bits: int = 12):
+    """Tdic32's frozen, private-state encode of C blocks int32[C, L, B]
+    from the state (table int32, valid uint8, ts int32 [L, 2^idx_bits],
+    clock int32[L]), the table frozen per block: (codes int32[C, L, B, 2],
+    bitlen int32[C, L, B], table, valid, ts, clock), the state as C block
+    encodes and merges leave it. On CUDA one launch of the codec-form
+    kernel for the chunk; raises outside `dict_hash.chunk_kernel_for`'s
+    shared-memory rule on either device."""
+    dev = blocks.device
+    _check(blocks, "blocks", 3, dev)
+    c, lanes, b = blocks.shape
+    _check_dict_chunk(table, valid, ts, clock, blocks.shape, idx_bits, dev)
+    if dev.type == "cpu":
+        return ref.dict_chunk_encode_ref(blocks, table, valid, ts, clock, idx_bits)
+    codes = torch.empty((c, lanes, b, 2), dtype=torch.int32, device=dev)
+    bitlen = torch.empty((c, lanes, b), dtype=torch.int32, device=dev)
+    state = (table, valid, ts, clock)
+    if c * b * lanes == 0:  # nothing to walk: the state stays as it was
+        return (codes, bitlen, *(t.clone() for t in state))
+    out_state = tuple(torch.empty_like(t) for t in state)
+    dict_hash.launch_chunk_encode(blocks, state, idx_bits, codes, bitlen, out_state)
+    dict_chunk_encode.launches += 1
+    return (codes, bitlen, *out_state)
+
+
+def dict_chunk_decode(codes: torch.Tensor, table: torch.Tensor, valid: torch.Tensor,
+                      ts: torch.Tensor, clock: torch.Tensor, idx_bits: int = 12):
+    """`dict_chunk_encode`'s inverse: codes int32[C, L, B, 2] (symbol
+    slots) and the state -> (values int32[C, L, B], table, valid, ts,
+    clock). On CUDA one launch of the codec-form decode kernel."""
+    dev = codes.device
+    _check(codes, "codes", 4, dev)
+    c, lanes, b, two = codes.shape
+    if two != 2:
+        raise ValueError(f"codes must be (C, L, B, 2) symbol slots, got {tuple(codes.shape)}")
+    _check_dict_chunk(table, valid, ts, clock, codes.shape, idx_bits, dev)
+    if dev.type == "cpu":
+        return ref.dict_chunk_decode_ref(codes, table, valid, ts, clock, idx_bits)
+    values = torch.empty((c, lanes, b), dtype=torch.int32, device=dev)
+    state = (table, valid, ts, clock)
+    if c * b * lanes == 0:
+        return (values, *(t.clone() for t in state))
+    out_state = tuple(torch.empty_like(t) for t in state)
+    dict_hash.launch_chunk_decode(codes, state, idx_bits, values, out_state)
+    dict_chunk_decode.launches += 1
+    return (values, *out_state)
+
+
 def _check_grid(syms_or_mask: torch.Tensor, name: str, dev, dtype) -> None:
     _check(syms_or_mask, name, 3, dev, dtype)
     if syms_or_mask.shape[2] != rans.N_LANES:
@@ -431,6 +501,8 @@ WRAPPERS = {
     "compact_blocks": compact_blocks,
     "pack_meta7_blocks": pack_meta7_blocks,
     "dict_probe": dict_probe,
+    "dict_chunk_encode": dict_chunk_encode,
+    "dict_chunk_decode": dict_chunk_decode,
     "rans_encode": rans_encode,
     "rans_decode": rans_decode,
     "adpcm_encode": adpcm_encode,
@@ -465,6 +537,8 @@ __all__ = [
     "adpcm_lane_encode",
     "adpcm_lane_encode_serial",
     "compact_blocks",
+    "dict_chunk_decode",
+    "dict_chunk_encode",
     "dict_probe",
     "flash_attention_fwd",
     "flash_attention_fwd_tc",

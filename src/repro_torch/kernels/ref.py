@@ -57,6 +57,58 @@ def probe_ref(x: torch.Tensor, table: torch.Tensor, valid: torch.Tensor, idx_bit
     return dict_hash.symbols(hit, h, x, idx_bits)
 
 
+def _dict_walk(state: tuple, steps, idx_bits: int, block):
+    """Tdic32's frozen per-block walk over a chunk: `block(j, table, valid)`
+    gives block j's values int32[L, B] (read against the state the blocks
+    before it left) and what it emits; each block's values are then merged
+    in (`dict_hash.merge_updates`). Returns (what the blocks emit, the
+    state after the chunk as (table, valid uint8, ts, clock))."""
+    table, valid, ts, clock = state
+    st = {"table": table.clone(), "valid": valid.bool(), "ts": ts.clone(), "clock": clock.clone()}
+    emitted = []
+    for j in range(steps):
+        x, out = block(j, st["table"], st["valid"])
+        st = dict_hash.merge_updates(st, dict_hash.hash_tensor(x, idx_bits), x, idx_bits)
+        emitted.append(out)
+    return emitted, (st["table"], st["valid"].to(torch.uint8), st["ts"], st["clock"])
+
+
+def dict_chunk_encode_ref(blocks: torch.Tensor, table: torch.Tensor, valid: torch.Tensor,
+                          ts: torch.Tensor, clock: torch.Tensor, idx_bits: int):
+    """Tdic32's frozen encode of C blocks int32[C, L, B] from the state
+    (table int32, valid uint8, ts int32 [L, 2^idx_bits], clock int32[L]),
+    block by block: `probe_ref` against the table the blocks before it
+    left, then the block's merge. Returns (codes int32[C, L, B, 2], bitlen
+    int32[C, L, B], table, valid, ts, clock)."""
+    c, lanes, b = blocks.shape
+
+    def block(j, tab, val):
+        c0, c1, blen = probe_ref(blocks[j], tab, val.to(torch.uint8), idx_bits)
+        return blocks[j], (torch.stack([c0, c1], dim=-1), blen)
+
+    out, state = _dict_walk((table, valid, ts, clock), c, idx_bits, block)
+    codes = torch.stack([o[0] for o in out]) if c else blocks.new_zeros((0, lanes, b, 2))
+    bitlen = torch.stack([o[1] for o in out]) if c else blocks.new_zeros((0, lanes, b))
+    return (codes, bitlen, *state)
+
+
+def dict_chunk_decode_ref(codes: torch.Tensor, table: torch.Tensor, valid: torch.Tensor,
+                          ts: torch.Tensor, clock: torch.Tensor, idx_bits: int):
+    """`dict_chunk_encode_ref`'s inverse: codes int32[C, L, B, 2] -> (values
+    int32[C, L, B], table, valid, ts, clock); a hit reads the table the
+    blocks before it left, a miss is its literal."""
+    c, lanes, b, _ = codes.shape
+
+    def block(j, tab, val):
+        hit, idx, literal = dict_hash.unsymbol(codes[j], idx_bits)
+        x = bits._i32(torch.where(hit, bits._u(tab.gather(1, idx)), literal))
+        return x, x
+
+    out, state = _dict_walk((table, valid, ts, clock), c, idx_bits, block)
+    values = torch.stack(out) if c else codes.new_zeros((0, lanes, b))
+    return (values, *state)
+
+
 def rans_encode_ref(syms: torch.Tensor, mask: torch.Tensor, freqs: torch.Tensor):
     """Interleaved rANS encode of C chunks' (C, T, N_LANES) byte grids,
     batched over chunks as the reference's `vmap` of `encode_rows` is.

@@ -235,6 +235,10 @@ def test_wrappers_check_inputs_and_do_not_count_cpu_calls():
     ops.pack_blocks(codes, blen, block=32)
     ops.dict_probe(codes[:2].contiguous(), torch.zeros((2, 16), dtype=torch.int32),
                    torch.zeros((2, 16), dtype=torch.uint8), idx_bits=4)
+    dstate = (torch.zeros((2, 16), dtype=torch.int32), torch.zeros((2, 16), dtype=torch.uint8),
+              torch.full((2, 16), -1, dtype=torch.int32), torch.zeros(2, dtype=torch.int32))
+    dcodes = ops.dict_chunk_encode(codes.view(4, 2, 16), *dstate, idx_bits=4)[0]
+    ops.dict_chunk_decode(dcodes, *dstate, idx_bits=4)
     grid = torch.zeros((1, 4, 8), dtype=torch.int32)
     freqs = torch.zeros(256, dtype=torch.int32)
     freqs[0] = 4096
@@ -251,7 +255,8 @@ def test_wrappers_check_inputs_and_do_not_count_cpu_calls():
                                  for s in ((1, 8, 4, 16), (1, 8, 2, 16), (1, 8, 2, 16))))
     assert ops.launch_counts() == {
         "pack_blocks": 0, "unpack_blocks": 0, "compact_blocks": 0, "pack_meta7_blocks": 0,
-        "dict_probe": 0, "rans_encode": 0, "rans_decode": 0, "adpcm_encode": 0,
+        "dict_probe": 0, "dict_chunk_encode": 0, "dict_chunk_decode": 0, "rans_encode": 0,
+        "rans_decode": 0, "adpcm_encode": 0,
         "adpcm_decode": 0, "adpcm_lane_encode": 0, "adpcm_lane_encode_serial": 0,
         "adpcm_lane_decode": 0, "adpcm_lane_decode_serial": 0,
         "flash_attention_fwd": 0, "flash_attention_fwd_tc": 0,
@@ -293,6 +298,38 @@ def test_cuda_dict_probe_matches_plain_version(cuda, lanes, idx_bits):
     want = ref.probe_ref(x, table, valid, idx_bits)
     assert all(torch.equal(g, w) for g, w in zip(got, want))
     assert ops.launch_counts()["dict_probe"] == 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lanes,idx_bits,b,c", [(1, 12, 512, 7), (4, 12, 512, 128), (4, 10, 333, 7),
+                                                (4, 4, 512, 16)])
+def test_cuda_dict_chunk_kernels_match_plain_versions(cuda, lanes, idx_bits, b, c):
+    """B5's codec form against its plain versions in two calls, the state
+    carried from a warm start: symbols, values and every state tensor; one
+    launch per call and direction."""
+    rng = np.random.default_rng(lanes * idx_bits + b)
+    ts = 1 << idx_bits
+    vals = (rng.integers(0, 2 * ts, (2, c, lanes, b)) * 2654435).astype(np.uint32)
+    vals[rng.random(vals.shape) < 0.1] = 2**31 + 5
+    state = [_t(rng.integers(0, 2 * ts, (lanes, ts)).astype(np.uint32) * np.uint32(2654435)),
+             torch.from_numpy((rng.random((lanes, ts)) < 0.7).astype(np.uint8)),
+             torch.from_numpy(rng.integers(-1, 10**6, (lanes, ts)).astype(np.int32)),
+             torch.from_numpy(np.full(lanes, 2**31 - 1000, np.int32))]
+    enc = {"card": [t.to(cuda) for t in state], "plain": [t.to(cuda) for t in state]}
+    dec = {k: list(v) for k, v in enc.items()}
+    ops.reset_launches()
+    for part in vals:
+        blocks = _t(part).to(cuda)
+        codes, bitlen, *enc["card"] = ops.dict_chunk_encode(blocks, *enc["card"], idx_bits)
+        p_codes, p_bitlen, *enc["plain"] = ref.dict_chunk_encode_ref(blocks, *enc["plain"], idx_bits)
+        assert torch.equal(codes, p_codes) and torch.equal(bitlen, p_bitlen)
+        assert all(torch.equal(g, w) for g, w in zip(enc["card"], enc["plain"]))
+        x, *dec["card"] = ops.dict_chunk_decode(codes, *dec["card"], idx_bits)
+        p_x, *dec["plain"] = ref.dict_chunk_decode_ref(codes, *dec["plain"], idx_bits)
+        assert torch.equal(x, p_x) and torch.equal(x, blocks)
+        assert all(torch.equal(g, w) for g, w in zip(dec["card"], dec["plain"]))
+    counts = ops.launch_counts()
+    assert (counts["dict_chunk_encode"], counts["dict_chunk_decode"], counts["dict_probe"]) == (2, 2, 0)
 
 
 @pytest.mark.cuda
