@@ -9,7 +9,11 @@ Phases, each printing one line per check:
                on the card. B1-B4 at the main path's shapes (128 blocks x
                2048 symbols, OW 4098, bitlens including 0 and 64), on a
                ragged tail block and on the kernel contract
-               pack_blocks(block=256); B5 (dictionary probe) with 1 and 4
+               pack_blocks(block=256); B1/B2 also on blocks of 333 symbols
+               (the scalar loads), of 64-bit symbols, of 4,100 symbols (two
+               rounds), with rows narrower than the live prefix, on tensors
+               that start off a 16-byte boundary, and B2 on random words
+               whose offsets run past the row; B5 (dictionary probe) with 1 and 4
                lanes of 512 tuples at idx_bits 12 and 10; B5's codec form
                (the chunk walk, encode and decode) against its plain
                versions and the per-block route (the probe and the merge in
@@ -373,6 +377,56 @@ def random_symbols(gen: torch.Generator, n_blocks: int, symbols: int, dev):
     return masked.to(dev), blen.to(torch.int32).to(dev)
 
 
+#: B1/B2's cases beyond check_kernels' B1-B4 ones: (blocks, symbols,
+#: out_words, symbols' kind, words by which the inputs start off a 16-byte
+#: boundary); "wide" is all 64-bit symbols, "random" bitlens 0..64
+BITPACK_CASES = (
+    (3, 333, 668, "random", 0),  # not a multiple of 4: the scalar loads
+    (2, 2048, 4098, "wide", 0),  # the live prefix reaches 2S words
+    (2, 2048, 700, "random", 0),  # out_words below the live prefix: bits dropped
+    (1, 4100, 8202, "random", 0),  # two rounds of 2,048 symbols
+    (4, 2048, 4098, "random", 1),  # unaligned: scalar loads, rows off their quads
+    (3, 333, 101, "wide", 2),
+)
+
+
+def offset_copy(t: torch.Tensor, words: int) -> torch.Tensor:
+    """A contiguous copy of `t` whose data starts `words` 4-byte words past
+    a 16-byte boundary."""
+    flat = torch.zeros(t.numel() + words, dtype=t.dtype, device=t.device)
+    flat[words:] = t.reshape(-1)
+    return flat[words:].view(t.shape)
+
+
+def check_bitpack(dev) -> dict:
+    """B1/B2 bit-exact against their plain versions on BITPACK_CASES, and B2
+    on random words and bitlens whose offsets run past the row (windows
+    clamp to the last word, then zeros); returns the max error per kernel."""
+    gen = torch.Generator().manual_seed(13)
+    err = {"pack_blocks": 0, "unpack_blocks": 0}
+    for nb, s, ow, kind, shift in BITPACK_CASES:
+        codes, blen = random_symbols(gen, nb, s, dev)
+        if kind == "wide":
+            codes = bits._i32(torch.randint(0, 2**32, (nb * s, 2), generator=gen)).to(dev)
+            blen = torch.full_like(blen, 64)
+        codes, blen = offset_copy(codes, 2 * shift), offset_copy(blen, shift)
+        words, nbits = ops.pack_blocks(codes, blen, block=s, out_words=ow)
+        w_ref, n_ref = ref.pack_blocks_ref(codes, blen, s, ow)
+        err["pack_blocks"] = max(err["pack_blocks"], max_abs_err(words, w_ref), max_abs_err(nbits, n_ref))
+        rows = offset_copy(words, shift)
+        back = ops.unpack_blocks(rows, blen)
+        err["unpack_blocks"] = max(err["unpack_blocks"], max_abs_err(back, ref.unpack_blocks_ref(rows, blen)))
+        if 64 * s <= 32 * ow:  # every symbol fits the row
+            err["unpack_blocks"] = max(err["unpack_blocks"], max_abs_err(back, codes))
+    for nb, s, ow in ((4, 64, 40), (2, 333, 20), (128, 2048, 1000)):
+        words = bits._i32(torch.randint(0, 2**32, (nb, ow), generator=gen)).to(dev)
+        blen = torch.randint(0, 65, (nb * s,), generator=gen, dtype=torch.int32).to(dev)
+        got = ops.unpack_blocks(words, blen)
+        err["unpack_blocks"] = max(err["unpack_blocks"], max_abs_err(got, ref.unpack_blocks_ref(words, blen)))
+    torch.cuda.synchronize()
+    return err
+
+
 def check_kernels(dev) -> dict:
     """Bit-exact kernel-vs-plain checks; returns the max error per kernel."""
     gen = torch.Generator().manual_seed(11)
@@ -396,6 +450,8 @@ def check_kernels(dev) -> dict:
         m = ops.pack_meta7_blocks(blen.view(nb, s))
         err["pack_meta7_blocks"] = max(err["pack_meta7_blocks"], max_abs_err(m, ref.pack_meta7_ref(blen.view(nb, s))))
         torch.cuda.synchronize()
+    for name, e in check_bitpack(dev).items():
+        err[name] = max(err[name], e)
     rng = np.random.default_rng(12)
     for lanes, idx_bits in ((1, 12), (4, 12), (1, 10), (4, 10)):
         ts = 1 << idx_bits

@@ -19,15 +19,20 @@ into two tables, and quantizes by table:
     input whose code is k or more. Encoding is "count the thresholds <= v".
 
 Both follow the folded op order. Decode takes `pow` from the C math
-library's `powf`, the function XLA's CPU backend calls; encode takes
-`log1p` in float64 rounded once to float32 (XLA's CPU `log1p` is its own
-approximation, which this does not reproduce: the rare input where the
-two round apart gets a code one off). Every step of the encoder is
-monotone in its input, so the thresholds are found by bisection over
-float32 bit patterns. The plain versions on the CPU and the CUDA kernels
-(`csrc/delta_nuq.cu`) read the same tables, so the two devices agree bit
-for bit by construction; agreement with the reference is a measured rate
-(tests/test_torch_lossy.py, ROADMAP C2).
+library's `powf`, the function XLA's CPU backend calls. Encode takes
+`log1p` from `_xla_log1p_f32`, a float32 transcription of the `log1p` that
+XLA's CPU backend inlines (its IR: Cephes' `logf` of 1 + x at |x| >=
+0.41421357, else x - x^2/2 + x^3 P(x)/Q(x)). That function is not
+correctly rounded, and the x86 backend fuses most of its multiply-add
+pairs into FMAs because the host CPU has FMA; the transcription emulates
+each fused pair with one rounding, as the object code does, and flushes
+subnormal inputs to zero as XLA's CPU runtime does. So the reference's own
+codes are those of an FMA host, and the tables equal them there. Every
+step of the encoder is monotone in its input, so the thresholds are found
+by bisection over float32 bit patterns. The plain versions on the CPU and
+the CUDA kernels (`csrc/delta_nuq.cu`) read the same tables, so the two
+devices agree bit for bit by construction, and with the reference where
+`tests/test_torch_lossy.py` checks it (ROADMAP C2).
 """
 from __future__ import annotations
 
@@ -92,16 +97,85 @@ def _libm_powf():
     return lib.powf
 
 
+def _f32_bits(*words: int) -> np.ndarray:
+    return np.array(words, np.uint32).view(_F32)
+
+
+# XLA's CPU log1p, constants as float32 bit patterns. Cephes logf of u = 1 + x
+# (its polynomial in three interleaved chains), then the series of the
+# small branch (numerator and denominator by Horner, highest power first).
+_LOGF_POLY = _f32_bits(0x3D9021BB, 0xBDEBD1B8, 0x3DEF251A, 0xBDFE5D4F, 0x3E11E9BF,
+                       0xBE2AAE50, 0x3E4CCEAC, 0xBE7FFFFC, 0x3EAAAAAA)
+_SQRT_HALF, _LN2_LO, _LN2_HI, _SMALL_X = _f32_bits(0x3F3504F3, 0xB95E8083, 0x3F318000, 0x3ED413CD)
+_MIN_NORMAL = _f32_bits(0x00800000)[0]
+_LOG1P_P = _f32_bits(0x383DE04B, 0x3EFF40C5, 0x40D284FA, 0x41EF4B9C, 0x4273CC76, 0x426473AD,
+                     0x41A05101)
+_LOG1P_Q = _f32_bits(0x3F800000, 0x417101AD, 0x42A6185B, 0x435DC32D, 0x439A8CA3, 0x43586D8A,
+                     0x42707982)
+
+
+def _fma_f32(a, b, c) -> np.ndarray:
+    """float32 a*b + c rounded once, as x86's vfmadd. The product of two
+    float32 is exact in float64; the float64 sum's rounding error (TwoSum)
+    sets the sticky bit (round to odd), so the one rounding to float32 is
+    correct (float64 carries more than 24 + 2 bits)."""
+    a, b, c = (np.asarray(t, _F32).astype(np.float64) for t in (a, b, c))
+    p = a * b
+    s = p + c
+    bp = s - p
+    err = (p - (s - bp)) + (c - bp)
+    even = (s.view(np.int64) & 1) == 0
+    s = np.where((err != 0) & even, np.nextafter(s, np.copysign(np.inf, err)), s)
+    return s.astype(_F32)
+
+
+def _xla_log1p_f32(x: np.ndarray) -> np.ndarray:
+    """`jax.jit(jnp.log1p)` on the CPU for float32 `x`, bit for bit: the
+    inlined `xla.log1p.f32`, op for op, with the multiply-add pairs the x86
+    backend fuses (read from its object code) as single-rounding FMAs."""
+    with np.errstate(all="ignore"):
+        x = np.asarray(x, _F32)
+        x = np.where(np.abs(x) < _MIN_NORMAL, x * _F32(0.0), x)  # subnormals flush
+        # |x| >= 0.41421357: logf(u), mantissa m in [0.5, 1), u = m 2^e
+        u = x + _F32(1.0)
+        ub = np.maximum(u, _MIN_NORMAL).view(np.uint32)
+        m = ((ub & np.uint32(0x7FFFFF)) | np.uint32(0x3F000000)).view(_F32)
+        lo = m < _SQRT_HALF
+        e = ((ub >> 23).astype(np.int32) - 127).astype(_F32) + _F32(1.0)
+        e = e - np.where(lo, _F32(1.0), _F32(0.0))
+        z = (m + _F32(-1.0)) + np.where(lo, m, _F32(0.0))
+        z2 = z * z
+        z3 = z2 * z
+        c = _LOGF_POLY
+        r0 = _fma_f32(_fma_f32(z, c[0], c[1]), z, c[2])
+        r1 = _fma_f32(_fma_f32(z, c[3], c[4]), z, c[5])
+        r2 = _fma_f32(_fma_f32(z, c[6], c[7]), z, c[8])
+        r = _fma_f32(_fma_f32(_fma_f32(r0, z3, r1), z3, r2), z3, e * _LN2_LO)
+        y = _fma_f32(e, _LN2_HI, _fma_f32(-z2, _F32(0.5), z) + r)
+        # u <= 0 or NaN: NaN (all ones); u == 0: -inf; u == inf: inf
+        yb = np.where(u > 0, y.view(np.uint32), np.uint32(0xFFFFFFFF))
+        yb = np.where((u != 0) & (u != np.inf), yb, np.uint32(0))
+        yb |= np.where(u == 0, np.uint32(0xFF800000),
+                       np.where(u == np.inf, np.uint32(0x7F800000), np.uint32(0)))
+        # |x| < 0.41421357: x - x^2/2 + x^3 P(x)/Q(x)
+        num, den = _LOG1P_P[0], _LOG1P_Q[0]
+        for cp, cq in zip(_LOG1P_P[1:], _LOG1P_Q[1:]):
+            num, den = _fma_f32(num, x, cp), _fma_f32(den, x, cq)
+        x2 = x * x
+        small = x + _fma_f32(x2, _F32(-0.5), (x * x2) * (num / den))
+        return np.where(np.abs(x) < _SMALL_X, small, yb.view(_F32))
+
+
 def emulate_encode(v: np.ndarray, qbits: int, vmax: float, mu: float = DEFAULT_MU) -> np.ndarray:
     """The reference's jitted unsigned mu-law encoder on float32 inputs
-    `v`, step by step in float32 with its folded constants and `log1p` in
-    float64 rounded once: int64 codes."""
+    `v`, step by step in float32 with its folded constants and XLA's CPU
+    `log1p` (`_xla_log1p_f32`): int64 codes."""
     levels = _check_bits(qbits)
     scale = _rcp(vmax) * _F32(mu)
     gain = _rcp(_F32(np.log1p(np.float64(_F32(mu))))) * _F32(levels)
     with np.errstate(over="ignore", invalid="ignore"):
         t = np.asarray(v, _F32) * scale
-        y = np.log1p(t.astype(np.float64)).astype(_F32) * gain
+        y = _xla_log1p_f32(t) * gain
         return np.clip(np.round(y), 0, levels).astype(np.int64)
 
 

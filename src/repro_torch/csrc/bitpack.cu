@@ -8,63 +8,122 @@
 //
 // What bounds it: bytes. Per symbol it reads 12 bytes (two code words and a
 // bit length) and does a few shifts, so device memory, not arithmetic, sets
-// the floor. The TPU kernel folds symbols one after another because a grid
-// step is sequential; here one CTA owns one block and its 256 threads work
-// on 256 symbols at a time:
-//   * a block-wide exclusive scan of the bit lengths gives every symbol its
-//     bit offset (a running carry links the 256-symbol tiles);
+// the floor. On the codec path a launch is 128 blocks of 2,048 symbols, one
+// CTA per block on 132 SMs, so each CTA's chain of latencies is the time.
+// The TPU kernel folds symbols one after another because a grid step is
+// sequential; here one CTA of 256 threads owns one block and keeps that
+// chain short:
+//   * every load up front: each thread owns K = 8 consecutive symbols of a
+//     round of 2,048 and issues its bit lengths (two 16-byte loads) and its
+//     codes (four 16-byte loads, two codes each) before any barrier, so the
+//     block's 24 KB is in flight at once. Blocks whose size is not a
+//     multiple of 4 (or unaligned tensors) take scalar loads; blocks of more
+//     than 2,048 symbols take rounds with a running carry;
+//   * one block scan per round: each thread scans its K lengths in
+//     registers, then one `block_exclusive_scan` of the per-thread totals
+//     (3 barriers) gives every symbol its bit offset;
 //   * each symbol ORs its lo/mid/hi words into a shared-memory copy of the
-//     block's output with shared atomicOr. Symbols own disjoint bit ranges,
-//     so the OR is exact and order-free (the argument of bits.py's header);
-//   * one coalesced pass stores the buffer, and thread 0 the bit count.
-// Reads of codes are coalesced 8-byte loads; the only global writes are the
-// final coalesced store. Contributions past `out_words` are dropped, as the
-// reference's `.at[].add(mode="drop")` drops them.
+//     row with shared atomicOr. Symbols own disjoint bit ranges, so the OR
+//     is exact and order-free (the argument of bits.py's header); K
+//     consecutive symbols per thread leave few conflicts;
+//   * the row goes out with 16-byte stores: shared memory holds row word i
+//     at index i + mis, mis the row's misalignment in words, so shared and
+//     global quads line up (a row of 4,098 words starts 8 bytes off every
+//     second time); the zero tail past the live prefix is stored from
+//     registers, and thread 0 stores the bit count.
+// Contributions past `out_words` are dropped, as the reference's
+// `.at[].add(mode="drop")` drops them.
 
 #include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kPer = 8;  // consecutive symbols per thread in a round
+constexpr int kRound = kThreads * kPer;
 
+// Thread's K codes of the round from `first` (zeros past `symbols`); kVec as
+// for repro::load_ints (pairs of codes in one 16-byte load).
+template <bool kVec>
+__device__ __forceinline__ void load_codes(const uint2* __restrict__ c, int first, int symbols,
+                                           uint2 (&code)[kPer]) {
+#pragma unroll
+  for (int g = 0; g < kPer; g += 2) {
+    if (kVec) {
+      const uint4 v = first + g < symbols ? *reinterpret_cast<const uint4*>(c + first + g)
+                                          : make_uint4(0u, 0u, 0u, 0u);
+      code[g] = make_uint2(v.x, v.y), code[g + 1] = make_uint2(v.z, v.w);
+    } else {
+      code[g] = first + g < symbols ? c[first + g] : make_uint2(0u, 0u);
+      code[g + 1] = first + g + 1 < symbols ? c[first + g + 1] : make_uint2(0u, 0u);
+    }
+  }
+}
+
+template <bool kVec>
 __global__ void __launch_bounds__(kThreads)
 pack_blocks_kernel(const uint2* __restrict__ codes, const int* __restrict__ bitlen,
                    int symbols, int out_words, uint32_t* __restrict__ words,
                    int* __restrict__ nbits) {
-  extern __shared__ uint32_t buf[];  // out_words
+  extern __shared__ uint4 quads[];  // (out_words + mis + 3) / 4 quads
   __shared__ int warp_sums[kThreads / 32];
+  uint32_t* buf = reinterpret_cast<uint32_t*>(quads);
   const size_t blk = blockIdx.x;
   const uint2* c = codes + blk * symbols;
   const int* bl = bitlen + blk * symbols;
-  for (int i = threadIdx.x; i < out_words; i += kThreads) buf[i] = 0u;
-  __syncthreads();
+  uint32_t* out = words + blk * out_words;
+  const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(out) >> 2) & 3);
+  const int nq = (out_words + mis + 3) >> 2;
 
   int carry = 0;
-  for (int base = 0; base < symbols; base += kThreads) {
-    const int i = base + threadIdx.x;
-    const int n = i < symbols ? bl[i] : 0;
-    int tile_total;
-    const int off = carry + repro::block_exclusive_scan<kThreads>(n, warp_sums, &tile_total);
-    if (i < symbols && n > 0) {
-      const uint2 cc = c[i];
-      const uint32_t c0 = cc.x & repro::mask_bits(min(n, 32));
-      const uint32_t c1 = cc.y & repro::mask_bits(n - 32);
-      const int w = off >> 5;
-      const int s = off & 31;
+  for (int base = 0; base < symbols; base += kRound) {
+    const int first = base + threadIdx.x * kPer;
+    int n[kPer];
+    uint2 code[kPer];
+    repro::load_ints<kVec>(bl, first, symbols, n);
+    load_codes<kVec>(c, first, symbols, code);
+    if (base == 0) {  // ordered before the ORs by the scan's barriers
+      for (int q = threadIdx.x; q < nq; q += kThreads) quads[q] = make_uint4(0u, 0u, 0u, 0u);
+    }
+    int local[kPer], sum = 0;
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) local[k] = sum, sum += n[k];
+    int round_total;
+    const int off = carry + repro::block_exclusive_scan<kThreads>(sum, warp_sums, &round_total);
+#pragma unroll
+    for (int k = 0; k < kPer; ++k) {
+      if (n[k] <= 0) continue;
+      const int o = off + local[k];
+      const uint32_t c0 = code[k].x & repro::mask_bits(min(n[k], 32));
+      const uint32_t c1 = code[k].y & repro::mask_bits(n[k] - 32);
+      const int w = o >> 5;
+      const int s = o & 31;
       // bits.code64_shift: the 96-bit image of the code shifted left by s
       const uint32_t lo = c0 << s;
       const uint32_t mid = repro::shr(c0, 32 - s) | (c1 << s);
       const uint32_t hi = repro::shr(c1, 32 - s);
-      if (lo && w < out_words) atomicOr(&buf[w], lo);
-      if (mid && w + 1 < out_words) atomicOr(&buf[w + 1], mid);
-      if (hi && w + 2 < out_words) atomicOr(&buf[w + 2], hi);
+      if (lo && w < out_words) atomicOr(&buf[mis + w], lo);
+      if (mid && w + 1 < out_words) atomicOr(&buf[mis + w + 1], mid);
+      if (hi && w + 2 < out_words) atomicOr(&buf[mis + w + 2], hi);
     }
-    carry += tile_total;
+    carry += round_total;
   }
   __syncthreads();
 
-  uint32_t* out = words + blk * out_words;
-  for (int i = threadIdx.x; i < out_words; i += kThreads) out[i] = buf[i];
+  // quad q holds row words 4q - mis .. 4q - mis + 3; the ends are partial
+  const int live = min(out_words, (carry + 31) >> 5);
+  for (int q = threadIdx.x; q < nq; q += kThreads) {
+    const int w0 = 4 * q - mis;
+    const uint4 v = w0 < live ? quads[q] : make_uint4(0u, 0u, 0u, 0u);
+    if (w0 >= 0 && w0 + 4 <= out_words) {
+      *reinterpret_cast<uint4*>(out + w0) = v;
+    } else {
+      const uint32_t e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (w0 + j >= 0 && w0 + j < out_words) out[w0 + j] = e[j];
+    }
+  }
   if (threadIdx.x == 0) nbits[blk] = carry;
 }
 
@@ -76,10 +135,13 @@ extern "C" int repro_pack_blocks(const void* codes, const void* bitlen, int nblo
                                  int symbols, int out_words, void* words, void* nbits,
                                  void* stream) {
   if (nblocks == 0) return 0;
-  const size_t smem = static_cast<size_t>(out_words) * sizeof(uint32_t);
-  cudaError_t err = repro::allow_smem(pack_blocks_kernel, smem);
+  const size_t smem = static_cast<size_t>((out_words + 6) / 4) * sizeof(uint4);
+  const bool vec = symbols % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(codes) | reinterpret_cast<uintptr_t>(bitlen)) & 15) == 0;
+  auto kernel = vec ? pack_blocks_kernel<true> : pack_blocks_kernel<false>;
+  cudaError_t err = repro::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  pack_blocks_kernel<<<nblocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  kernel<<<nblocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint2*>(codes), static_cast<const int*>(bitlen), symbols,
       out_words, static_cast<uint32_t*>(words), static_cast<int*>(nbits));
   return static_cast<int>(cudaGetLastError());

@@ -53,6 +53,26 @@ __device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums, int* 
   return before + x - v;
 }
 
+// K consecutive ints from p[first] (0 past `count`). kVec: count % 4 == 0
+// and p 16-byte aligned, so a group of 4 is in range whole or not at all and
+// comes in one 16-byte load.
+template <bool kVec, int K>
+__device__ __forceinline__ void load_ints(const int* __restrict__ p, int first, int count,
+                                          int (&v)[K]) {
+  static_assert(K % 4 == 0, "K must be a multiple of 4");
+  if (kVec) {
+#pragma unroll
+    for (int g = 0; g < K; g += 4) {
+      const int4 q = first + g < count ? *reinterpret_cast<const int4*>(p + first + g)
+                                       : make_int4(0, 0, 0, 0);
+      v[g] = q.x, v[g + 1] = q.y, v[g + 2] = q.z, v[g + 3] = q.w;
+    }
+  } else {
+#pragma unroll
+    for (int k = 0; k < K; ++k) v[k] = first + k < count ? p[first + k] : 0;
+  }
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory when needed.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

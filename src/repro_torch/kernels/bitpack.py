@@ -1,6 +1,16 @@
 """B1: block-local bitstream packing on the card (port of
 `repro/kernels/bitpack.py`; CUDA source `csrc/bitpack.cu`).
 
+One CTA of 256 threads packs one block. Each thread owns 8 consecutive
+symbols of a round of 2,048 and issues all its loads at once (16-byte
+loads where the block size is a multiple of 4 and the tensors are
+aligned, else scalar ones); a scan of its lengths in registers and one
+block scan of the thread totals give every symbol its bit offset; each
+symbol ORs its words into a shared-memory copy of the row (shared
+atomicOr: the fields are disjoint), which goes out with 16-byte stores,
+the zero tail straight from registers. Blocks of more than 2,048 symbols
+take rounds with a running carry.
+
 `launch` runs the kernel on validated CUDA tensors; `ops.pack_blocks` is the
 public wrapper (checks, allocation, the CPU plain version, the launch
 count). The reference's default kernel block is kept.

@@ -1,6 +1,15 @@
 """B2: block-local bitstream unpacking on the card (port of
 `repro/kernels/bitunpack.py`; CUDA source `csrc/bitunpack.cu`).
 
+One CTA of 256 threads unpacks one block. Each thread loads the lengths of
+8 consecutive symbols of a round of 2,048 with one speculative 16-byte
+quad of the row; a scan of the lengths in registers and one block scan
+give the offsets, which go to shared memory with the row's live words
+only (the words a window can read); then each thread extracts pairs of
+symbols spread over the threads, so a warp's 16-byte stores of two codes
+are contiguous. Blocks of more than 2,048 symbols take rounds with a
+running carry.
+
 `launch` runs the kernel on validated CUDA tensors; `ops.unpack_blocks` is
 the public wrapper.
 """

@@ -8,8 +8,8 @@ that folded sequence, so the reference functions are compared jitted:
   * decode tables equal the reference's exactly on a grid of (bits, vmax);
   * encoder codes equal the reference's exactly on the paper's Rovio words
     at the codecs' defaults and on every integer delta ADPCM quantizes at
-    its default and ECG-calibrated ranges; at 11 magnitude bits over
-    [0, 2^21] the rate is pinned (XLA's own `log1p` rounds apart);
+    its default and ECG-calibrated ranges, and at 11 magnitude bits over
+    [0, 2^21] (the tables take XLA's own CPU `log1p`, transcribed);
   * the float32 -> uint32 saturation of the reference's `.astype`;
   * each codec's symbols, bitlens, decoded values and state, block after
     block with carried state, on ECG (calibrated) and Rovio (defaults);
@@ -141,6 +141,44 @@ def test_encoder_agreement_rate_at_eleven_magnitude_bits():
     print(f"11 magnitude bits over [0, 2^21]: {int(differ.sum())} of {d.size} codes differ")
     assert differ.sum() <= 1e-5 * d.size, int(differ.sum())
     assert np.abs(ours - theirs).max() <= 1
+
+
+def test_encoder_equals_reference_at_eleven_magnitude_bits():
+    """qbits 12 over [0, 2^21], every integer delta: with XLA's CPU `log1p`
+    transcribed (FMAs included), no code differs (ROADMAP C2)."""
+    d = np.arange(2**21 + 1, dtype=np.float32)
+    ours, theirs = _port_codes(d, 11, 2.0**21), _ref_codes(d, 11, 2.0**21)
+    print(f"11 magnitude bits over [0, 2^21]: {int((ours != theirs).sum())} of {d.size} codes differ")
+    np.testing.assert_array_equal(ours, theirs)
+
+
+def test_log1p_transcription_matches_xla_cpu():
+    """`nuq._xla_log1p_f32` against `jax.jit(jnp.log1p)` bit for bit on
+    10.5M float32: the small branch [0, 0.41421357) (uniform, and bit
+    patterns from 0 so subnormals too), the encoder's range [0, mu], up to
+    and past 2^21, bit patterns up to +inf, negatives down past -1, and the
+    special values."""
+    rng = np.random.default_rng(11)
+
+    def patterns(lo, hi, n):
+        return rng.integers(lo, hi, n, dtype=np.uint32).view(np.float32)
+
+    samples = [
+        rng.uniform(0.0, 0.41421357, 3_000_000).astype(np.float32),
+        patterns(0, 0x3ED413CD, 1_500_000),
+        rng.uniform(0.0, tnuq.DEFAULT_MU, 2_000_000).astype(np.float32),
+        rng.uniform(0.0, 2.0**22, 2_000_000).astype(np.float32),
+        patterns(0x3ED413CC, 0x7F800001, 1_500_000),
+        rng.uniform(-1.5, 0.0, 500_000).astype(np.float32),
+        np.array([0.0, -0.0, 1.1754944e-38, 1e-45, np.inf, -1.0, -2.0, np.nan, 0.41421357,
+                  0.41421354, 2.0**21, tnuq.DEFAULT_MU], np.float32),
+    ]
+    xla = jax.jit(jnp.log1p)
+    assert sum(s.size for s in samples) >= 10_000_000
+    for x in samples:
+        ours = tnuq._xla_log1p_f32(x)
+        theirs = np.asarray(xla(jnp.asarray(x)))
+        np.testing.assert_array_equal(ours.view(np.uint32), theirs.view(np.uint32))
 
 
 @pytest.mark.parametrize("qbits,dmax", [(8, 360.0), (4, 1.0)])
