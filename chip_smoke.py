@@ -20,9 +20,17 @@ Phases, each printing one line per check:
                torch ops) on the tdic32 path's first two chunks of Rovio at
                idx_bits 12, 10 and 4 (collisions), with 4 lanes and lane 0,
                and on 7 blocks of 333 tuples per lane, each in two calls
-               (state carried); B8/B9 (rANS) on
+               (state carried); B3 also with n of 1, 3, 128 and 300 blocks,
+               OW odd and even, zero-width and full blocks, a prefix longer
+               than its row and one past the array (the clipped gather),
+               on inputs 0-3 words off a 16-byte boundary; B8/B9 (rANS) on
                a section whose last chunk is partial and on a constant
-               stream, which never emits; B6/B7 (delta-NUQ) in the Pallas
+               stream, which never emits, and B8's section form
+               (`rans_section_encode`, the one the entropy stage runs) on
+               the same sections against the contract route's states,
+               counts and stream, and on sections of 1, 4,095, 4,096, 4,097
+               and 300,000 bytes (constant, uniform and skewed; two off a
+               16-byte boundary); B6/B7 (delta-NUQ) in the Pallas
                contract at the reference test's shapes and at S=1024,
                T=4096, and in the ADPCM codec's per-lane form (the
                speculative encode, the scan decode and the two serial
@@ -50,7 +58,10 @@ Phases, each printing one line per check:
                compressed and decoded on the card: on Rovio, each roundtrip
                exact, JobSpec() (tcomp32, 4 lanes, 8 KiB micro-batches,
                128-block chunks), the heavy tier JobSpec(codec=
-               "delta_leb128", entropy="rans", egress=True) and
+               "delta_leb128", entropy="rans", egress=True), whose run must
+               launch B1-B4 once per chunk, B8's section form twice (the
+               metadata and payload sections) and the contract kernel
+               never, and
                JobSpec(codec="tdic32"), whose 64 chunks must each launch
                B5's codec form once per direction and B5's probe never
                (no tail block); on ECG, JobSpec(codec="adpcm")
@@ -93,7 +104,9 @@ Phases, each printing one line per check:
                the serial kernels on the adpcm path's first chunk, and both
                encodes on the never-converging ramp at that shape; B5's
                codec form on the tdic32 path's first chunk beside the
-               per-block route it replaced); B10 on
+               per-block route it replaced; B8's section form on the heavy
+               tier's payload section beside the contract kernel, held
+               bit-exact there and on the metadata section too); B10 on
                the full lm path's layer-0
                q, k, v: the tensor-core kernel in bf16 and the FMA kernel on
                the same values in float32, each beside torch's
@@ -126,7 +139,7 @@ from repro_torch.core.algorithms import make_codec  # noqa: E402
 from repro_torch.core.pipeline import CompressionPipeline, DecompressionPipeline  # noqa: E402
 from repro_torch.data import make_dataset  # noqa: E402
 from repro_torch.core import entropy  # noqa: E402
-from repro_torch.kernels import build, delta_nuq, flash_attn, ops, ref  # noqa: E402
+from repro_torch.kernels import build, delta_nuq, flash_attn, ops, rans, ref  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
@@ -174,20 +187,21 @@ FULL_SPECS = {
     "tcomp32": (JobSpec(), B1_B4, "rovio"),
     "heavy": (
         JobSpec(codec="delta_leb128", entropy="rans", egress=True),
-        B1_B4 + ("rans_encode", "rans_decode"), "rovio",
+        B1_B4 + ("rans_section_encode", "rans_decode"), "rovio",
     ),
     "tdic32": (JobSpec(codec="tdic32"), B1_B4 + ("dict_chunk_encode", "dict_chunk_decode"), "rovio"),
     "adpcm": (JobSpec(codec="adpcm"), B1_B4 + ("adpcm_lane_encode", "adpcm_lane_decode"), "ecg"),
 }
 #: kernels no path runs: B6/B7 in the Pallas contract's form, which only the
-#: reference's tests call (the ADPCM codec runs their per-lane form); the
+#: reference's tests call (the ADPCM codec runs their per-lane form); B8 in
+#: the contract's form (the entropy stage runs its section form); the
 #: codec form's serial kernels (the serial encode is the speculative one's
 #: oracle, the serial decode takes parameters outside the scan's integer
 #: rule, which the ECG calibration meets); and B10's FMA kernel, which
 #: takes float32 and the bf16 shapes outside the tensor-core kernel's rule
 #: (the lm path is bf16 at Dh 128)
 OFF_PATH = ("adpcm_encode", "adpcm_decode", "adpcm_lane_encode_serial", "adpcm_lane_decode_serial",
-            "flash_attention_fwd")
+            "rans_encode", "flash_attention_fwd")
 #: B10's kernels, the LM serving path's (the codec paths never launch them)
 LM_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_tc")
 #: kernels the eval paths run and the full paths do not: B5's probe, which
@@ -206,6 +220,7 @@ KERNELS = {
     "dict_chunk_decode": ("src/repro_torch/csrc/dict_chunk.cu",
                           "src/repro/core/algorithms/dictionary.py:130"),
     "rans_encode": ("src/repro_torch/csrc/rans.cu", "src/repro/kernels/rans.py:64"),
+    "rans_section_encode": ("src/repro_torch/csrc/rans_section.cu", "src/repro/kernels/rans.py:64"),
     "rans_decode": ("src/repro_torch/csrc/rans.cu", "src/repro/kernels/rans.py:137"),
     "adpcm_encode": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:86"),
     "adpcm_decode": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:109"),
@@ -251,6 +266,7 @@ LM_PROFILED_STEPS = 8
 #: a 128-block chunk, seconds per call) and run unqueued
 TIMING_ITERS = {
     "rans_encode": (20, 3, False),
+    "rans_section_encode": (20, 3, False),
     "rans_decode": (20, 3, False),
     "adpcm_encode": (20, 3, False),
     "adpcm_decode": (20, 3, False),
@@ -452,6 +468,7 @@ def check_kernels(dev) -> dict:
         torch.cuda.synchronize()
     for name, e in check_bitpack(dev).items():
         err[name] = max(err[name], e)
+    err["compact_blocks"] = max(err["compact_blocks"], check_compact(dev))
     rng = np.random.default_rng(12)
     for lanes, idx_bits in ((1, 12), (4, 12), (1, 10), (4, 10)):
         ts = 1 << idx_bits
@@ -467,11 +484,15 @@ def check_kernels(dev) -> dict:
         err[name] = max(err[name], e)
     ragged = (rng.zipf(1.4, 37 * 4096 - 1234) - 1).clip(0, 255).astype(np.uint8)
     for data in (ragged, np.full(3 * 4096, 9, np.uint8)):
-        e_enc, e_dec, flags = check_rans(data, dev)
+        e_enc, e_dec, e_sec, flags = check_rans(data, dev)
         err["rans_encode"] = max(err["rans_encode"], e_enc)
         err["rans_decode"] = max(err["rans_decode"], e_dec)
+        err["rans_section_encode"] = max(err["rans_section_encode"], e_sec)
         if data.min() == data.max() and flags != 0:
             raise AssertionError(f"a constant stream emitted {flags} u16s")
+    for n, kind, shift in SECTION_CASES:
+        err["rans_section_encode"] = max(err["rans_section_encode"],
+                                         check_section(section_bytes(n, kind), dev, shift))
     for name, e in check_delta_nuq(dev).items():
         err[name] = max(err[name], e)
     return err
@@ -692,14 +713,96 @@ def rans_decode_inputs(data: np.ndarray, dev):
 
 def check_rans(data: np.ndarray, dev):
     """B8 and B9 against their plain versions on one section's bytes; the
-    decode must also return the bytes. (max err enc, max err dec, u16s)."""
+    decode must also return the bytes; B8's section form must give the
+    contract route's states, counts and stream (packed). (max err enc,
+    max err dec, max err section form, u16s)."""
     syms, mask, freqs, enc, stream, off, cap = rans_decode_inputs(data, dev)
     e_enc = max(max_abs_err(a, b) for a, b in zip(enc, ref.rans_encode_ref(syms, mask, freqs)))
     got = ops.rans_decode(stream, freqs, enc[0], off, mask, cap)
     want = ref.rans_decode_ref(stream, cap, freqs, enc[0], off, mask)
     e_dec = max(max_abs_err(got, want), max_abs_err(got, torch.where(mask, syms, 0)))
+    states, counts, words, _ = section_result(ops.rans_section_encode(torch.from_numpy(data).to(dev), freqs))
+    e_sec = max(max_abs_err(states, enc[0]), max_abs_err(counts, enc[1].sum(dim=1, dtype=torch.int32)),
+                max_abs_err(words, rans.packed_words(stream)))
     torch.cuda.synchronize()
-    return e_enc, e_dec, int(enc[1].sum())
+    return e_enc, e_dec, e_sec, int(enc[1].sum())
+
+
+#: B8's section form's edge sections beyond the path's: (bytes, kind, bytes
+#: by which the data starts off a 16-byte boundary, where the staging loads
+#: bytes one by one)
+SECTION_CASES = tuple((n, kind, 0) for n in (1, 4095, 4096, 4097, 300_000)
+                      for kind in ("constant", "uniform", "skewed")) + ((4097, "skewed", 3),
+                                                                        (300_000, "uniform", 5))
+
+
+def section_bytes(n: int, kind: str) -> np.ndarray:
+    rng = np.random.default_rng(n + len(kind))
+    if kind == "constant":
+        return np.full(n, 9, np.uint8)
+    if kind == "uniform":
+        return rng.integers(0, 256, n).astype(np.uint8)
+    return (rng.zipf(1.4, n) - 1).clip(0, 255).astype(np.uint8)
+
+
+def section_result(out: tuple) -> tuple:
+    """B8's section form's outputs with the stream cut to its ceil(E/2)
+    words (the buffer's later words are not part of the result)."""
+    states, counts, words, total = out
+    return states, counts, words[: (int(total) + 1) // 2], total.reshape(1)
+
+
+def check_section(data: np.ndarray, dev, shift: int = 0) -> int:
+    """B8's section form against its plain version on one section's bytes,
+    placed `shift` bytes past a 16-byte boundary; returns the max error."""
+    flat = torch.zeros(data.size + shift, dtype=torch.uint8, device=dev)
+    flat[shift:] = torch.from_numpy(data).to(dev)
+    d = flat[shift:]
+    freqs = entropy.quantize_freqs(torch.bincount(d, minlength=256)).to(torch.int32)
+    got = section_result(ops.rans_section_encode(d, freqs))
+    want = section_result(ref.rans_section_encode_ref(d, freqs))
+    torch.cuda.synchronize()
+    return max(max_abs_err(g, w) for g, w in zip(got, want))
+
+
+#: B3's cases beyond check_kernels' path shapes: (blocks, OW, kind, words by
+#: which the inputs start off a 16-byte boundary); n of 1, 3, 128 and 300
+#: (not a multiple of 4: the scalar count loads), OW even and odd
+COMPACT_CASES = (
+    (1, 4098, "random", 0), (1, 5, "clipped", 2), (3, 4097, "mixed", 1), (3, 33, "over", 3),
+    (128, 4098, "mixed", 2), (128, 4097, "full", 3), (128, 66, "over", 0), (128, 9, "zero", 1),
+    (300, 61, "random", 1), (300, 17, "clipped", 0), (300, 2, "full", 2),
+)
+
+
+def check_compact(dev) -> int:
+    """B3 against its plain version on COMPACT_CASES: random bit counts up
+    to the row, 'zero' (every block zero-width), 'full' (every row live),
+    'mixed' (zero-width and full blocks among random ones), 'over' (a middle
+    block's prefix longer than its row) and 'clipped' (the last block's
+    prefix past the array); returns the max error."""
+    err = 0
+    for i, (n, ow, kind, shift) in enumerate(COMPACT_CASES):
+        rng = np.random.default_rng(100 + i)
+        words = rng.integers(0, 2**32, size=(n, ow), dtype=np.uint64).astype(np.uint32)
+        nbits = rng.integers(0, 32 * ow + 1, size=n)
+        if kind == "zero":
+            nbits[:] = 0
+        elif kind == "full":
+            nbits[:] = 32 * ow
+        elif kind == "mixed":
+            nbits[::3], nbits[1::5] = 0, 32 * ow
+        elif kind == "over":
+            nbits[n // 2] = 32 * (ow + 7) - 5
+        elif kind == "clipped":
+            nbits[-1] = 32 * (ow + 9) - 1
+        w = offset_copy(bits.u32_tensor(words, dev), shift)
+        nb = offset_copy(torch.from_numpy(nbits.astype(np.int32)).to(dev), shift)
+        pay, tot = ops.compact_blocks(w, nb)
+        p_ref, t_ref = ref.compact_blocks_ref(w, nb)
+        err = max(err, max_abs_err(pay, p_ref), abs(int(tot) - int(t_ref)))
+    torch.cuda.synchronize()
+    return err
 
 
 def bound(nbytes: int, nops: int) -> tuple:
@@ -718,9 +821,10 @@ def time_kernels(dev, full_values: dict, heavy_frame: bits.Frame) -> dict:
     table the stream built over the 64 blocks before it, and its codec form
     on the tdic32 path's first chunk (128 blocks) from the cold state, with
     the per-block route on the same chunk (`per_block_ms` unqueued,
-    `per_block_busy_ms` its profiled device time); B8/B9 on the
-    heavy tier's payload section (the 64 MiB delta_leb128 frame's raw
-    payload); B6/B7's codec form (the speculative encode, the scan decode
+    `per_block_busy_ms` its profiled device time); B8 in both forms and
+    B9 on the heavy tier's payload section (the 64 MiB delta_leb128
+    frame's raw payload), the section form also held bit-exact on its
+    metadata section; B6/B7's codec form (the speculative encode, the scan decode
     and the serial kernels, one plain version per direction timed once) on
     the first chunk (128 blocks) of the 64 MiB ECG adpcm path, both encodes
     on the never-converging ramp at that shape (`never_converging_ms`,
@@ -732,8 +836,8 @@ def time_kernels(dev, full_values: dict, heavy_frame: bits.Frame) -> dict:
     Each plan entry holds the bytes and the 32-bit operations the function
     needs on these inputs: B1-B5 at their contracts' widths, with
     operations counted per element from their arithmetic (they are far
-    below the byte bound); B8/B9 at the widths the stage needs, not the
-    kernels' int32 grids: the section's n bytes, the table as 256 u16, the
+    below the byte bound); B8 (both forms) and B9 at the widths the stage
+    needs, not the contract kernels' int32 grids: the section's n bytes, the table as 256 u16, the
     E u16s this data emits, and per (chunk, lane) a u32 state and a u16
     count; per byte 7 operations to encode (renorm shift and compare,
     divide, modulo, shift, two adds) or 6 to decode (mask, shift,
@@ -833,6 +937,14 @@ def time_kernels(dev, full_values: dict, heavy_frame: bits.Frame) -> dict:
         stage_bytes,
         7 * n + 2 * e,
     )
+    # the section form computes the same function from the bytes
+    section_dev = torch.from_numpy(section).to(dev)
+    plan["rans_section_encode"] = (
+        lambda: ops.rans_section_encode(section_dev, freqs),
+        lambda: ref.rans_section_encode_ref(section_dev, freqs),
+        stage_bytes,
+        7 * n + 2 * e,
+    )
     plan["rans_decode"] = (
         lambda: ops.rans_decode(stream, freqs, enc[0], off, mask, cap),
         lambda: ref.rans_decode_ref(stream, cap, freqs, enc[0], off, mask),
@@ -840,6 +952,7 @@ def time_kernels(dev, full_values: dict, heavy_frame: bits.Frame) -> dict:
         6 * n + 3 * e,
     )
     chains = {"rans_encode": syms.shape[1], "rans_decode": syms.shape[1],
+              "rans_section_encode": syms.shape[1],
               # two barriers per block, one after the other in each lane's CTA
               "dict_chunk_encode": 2 * tblocks.shape[0], "dict_chunk_decode": 2 * tblocks.shape[0]}
     ecg = full_values["ecg"]
@@ -903,6 +1016,8 @@ def time_kernels(dev, full_values: dict, heavy_frame: bits.Frame) -> dict:
             plain_runs[plain] = (plain(), *time_ms(plain, plain_iters, cpm, queued=queued))
         want, plain_ms, plain_host_ms = plain_runs[plain]
         got = kern()
+        if name == "rans_section_encode":
+            got, want = section_result(got), section_result(want)
         got, want = (got, want) if isinstance(got, tuple) else ((got,), (want,))
         err = max(max_abs_err(as_bits(g), as_bits(w)) for g, w in zip(got, want))
         ms, host_ms = time_ms(kern, kern_iters, cpm)
@@ -910,6 +1025,10 @@ def time_kernels(dev, full_values: dict, heavy_frame: bits.Frame) -> dict:
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                      "bytes": nbytes, "ops": nops, "chain_steps": chains.get(name),
                      "host_ms": host_ms, "plain_host_ms": plain_host_ms, "max_abs_err": err}
+    # the heavy tier's metadata section, the section form's other input
+    meta = np.ascontiguousarray(heavy_frame.packed_meta, np.uint32).view(np.uint8)
+    out["rans_section_encode"]["max_abs_err"] = max(out["rans_section_encode"]["max_abs_err"],
+                                                    check_section(meta, dev))
     # the per-block route on the same chunk, as tdic32 ran it before B5's
     # codec form: B5's probe and the merge's torch ops, block by block; its
     # thousands of launches run unqueued, so also its device time alone
@@ -1343,6 +1462,11 @@ def run_full(dev, name: str, values: np.ndarray):
         want = {"dict_chunk_encode": n_chunks, "dict_chunk_decode": n_chunks + tails, "dict_probe": tails}
         if {k: launches[k] for k in want} != want:
             raise AssertionError(f"the tdic32 path's {n_chunks} chunks launched "
+                                 f"{ {k: launches[k] for k in want} }, expected {want}")
+    if name == "heavy":  # the entropy stage: one section-form encode per section
+        want = {**{k: n_chunks for k in B1_B4}, "rans_section_encode": 2, "rans_encode": 0}
+        if {k: launches[k] for k in want} != want:
+            raise AssertionError(f"the heavy path's {n_chunks} chunks launched "
                                  f"{ {k: launches[k] for k in want} }, expected {want}")
     if name == "adpcm" and {k: launches[k] for k in LANE_KERNELS} != {
             "adpcm_lane_encode": n_chunks, "adpcm_lane_encode_serial": 0,

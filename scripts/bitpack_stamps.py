@@ -1,21 +1,29 @@
 #!/usr/bin/env python3
-"""Where B1/B2's time goes (`pack_blocks`, `unpack_blocks`), from stamps in
-an instrumented copy of the kernels, on one GPU.
+"""Where B1/B2/B3's and B8's section-form time goes (`pack_blocks`,
+`unpack_blocks`, `compact_blocks`, and `rans_section_encode`'s walk
+kernel), from stamps in an instrumented copy of the kernels, on one GPU.
 
     python3 scripts/bitpack_stamps.py [--out FILE]
 
 It copies this tree's `src/` into `build/stamps/src` (a directory
-`.gitignore` lists), puts stamps into that copy of `csrc/bitpack.cu` and
-`csrc/bitunpack.cu` at fixed lines of their code (it fails if a line is
-missing), builds it, and runs each kernel once, warm, on chip_smoke.py's
-timing-phase inputs (the tcomp32 path's first fused chunk of 64 MiB of
-Rovio, seed 7: 128 blocks x 2,048 symbols, OW 4,098). Thread 0 of every
-CTA writes `%globaltimer` (ns) at entry and exit and `clock64()` (SM
-cycles) at the phase boundaries:
+`.gitignore` lists), puts stamps into that copy of `csrc/bitpack.cu`,
+`csrc/bitunpack.cu`, `csrc/frame_compact.cu` and `csrc/rans_section.cu` at
+fixed lines of their code (it fails if a line is missing), builds it, and
+runs each kernel once, warm, on chip_smoke.py's timing-phase inputs (B1-B3:
+the tcomp32 path's first fused chunk of 64 MiB of Rovio, seed 7: 128
+blocks x 2,048 symbols, OW 4,098; B8: the heavy tier's payload section of
+the same stream). Thread 0 of every CTA writes `%globaltimer` (ns) at entry
+and exit and `clock64()` (SM cycles) at the phase boundaries:
   B1: entry, lengths in (the register scan), block scan done, ORs done
       (after the barrier), row stores issued;
   B2: entry, lengths in, block scan done, row staged (after the barrier),
-      codes stored.
+      codes stored;
+  B3: entry, counts in and scanned (the warp's `all` used), live copy
+      issued, zero fill issued;
+  B8 walk: entry, table built, then for each quarter chunk
+      (rows 384-511 first) the quarter staged and every lane's walk of the
+      quarter before it done (a barrier each), every lane's last walk done
+      (a barrier), thread 0's last quad, state and count stored.
 A phase that ends at a barrier is the slowest thread's; one that does not
 is thread 0's. Prints one JSON line per kernel: the median and max over the
 CTAs of each phase's cycles, the CTAs' start spread and the span from the
@@ -37,7 +45,7 @@ ROOT = Path(__file__).resolve().parents[1]
 COPY = ROOT / "build" / "stamps"
 
 STAMP_DEFS = """
-#define STAMP_SLOTS 8
+#define STAMP_SLOTS 10
 __device__ long long {name}[1024 * STAMP_SLOTS];
 #define STAMP(i) do {{ if (threadIdx.x == 0 && blockIdx.x < 1024) {{ long long t_; \\
   if ((i) == 0 || (i) == STAMP_SLOTS - 1) asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t_)); \\
@@ -63,7 +71,7 @@ PATCHES = {
          "    STAMP(3);\n"),
         ("  __syncthreads();\n\n  // quad q holds", "  __syncthreads();\n  STAMP(4);\n\n  // quad q holds"),
         ("  if (threadIdx.x == 0) nbits[blk] = carry;\n}",
-         "  if (threadIdx.x == 0) nbits[blk] = carry;\n  STAMP(5); STAMP(7);\n}"),
+         "  if (threadIdx.x == 0) nbits[blk] = carry;\n  STAMP(5); STAMP(9);\n}"),
     ]),
     "bitunpack.cu": ("g_unpack_stamps", [
         ("  const bool prefetched = threadIdx.x < nq;", "  STAMP(0); STAMP(1);\n  const bool prefetched = threadIdx.x < nq;"),
@@ -73,12 +81,34 @@ PATCHES = {
          "    const int off = carry + repro::block_exclusive_scan<kThreads>(sum, warp_sums, &round_total);\n"
          "    STAMP(3);\n"),
         ("    __syncthreads();\n\n    // pairs of symbols", "    __syncthreads();\n    STAMP(4);\n\n    // pairs of symbols"),
-        ("      }\n    }\n  }\n}\n", "      }\n    }\n  }\n  STAMP(5); STAMP(7);\n}\n"),
+        ("      }\n    }\n  }\n}\n", "      }\n    }\n  }\n  STAMP(5); STAMP(9);\n}\n"),
+    ]),
+    "frame_compact.cu": ("g_compact_stamps", [
+        ("  const int blk = blockIdx.x, t = threadIdx.x, lane = t & 31;\n",
+         "  const int blk = blockIdx.x, t = threadIdx.x, lane = t & 31;\n  STAMP(0); STAMP(1);\n"),
+        ("  // live words that land", '  asm volatile("mov.b64 %0, %0;" : "+l"(all));\n  STAMP(2);\n'
+         "  // live words that land"),
+        ("  // zeros on [all, cap)", "  STAMP(3);\n  // zeros on [all, cap)"),
+        ("  if (blk == 0 && t == 0) *total_out = static_cast<int>(all);\n}",
+         "  STAMP(4);\n  if (blk == 0 && t == 0) *total_out = static_cast<int>(all);\n  STAMP(9);\n}"),
+    ]),
+    "rans_section.cu": ("g_section_stamps", [
+        ("  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n",
+         "  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;\n  STAMP(0); STAMP(1);\n"),
+        ("  tab[tid] = make_uint4(", "  STAMP(2);\n  tab[tid] = make_uint4("),
+        ("    __syncthreads();\n    const int hi = ", "    __syncthreads();\n    STAMP(6 - part);\n"
+         "    const int hi = "),
+        ("  if (g >= n_streams) return;\n  if (cnt & 7) {", "  STAMP(7);\n  if (g >= n_streams) return;\n"
+         "  if (cnt & 7) {"),
+        ("  counts64[g] = cnt;\n}", "  counts64[g] = cnt;\n  STAMP(8); STAMP(9);\n}"),
     ]),
 }
 PHASES = {
     "pack_blocks": ("lengths_in", "scan", "ors_and_barrier", "row_stores"),
     "unpack_blocks": ("lengths_in", "scan", "staging_and_barrier", "extract_and_stores"),
+    "compact_blocks": ("counts_and_scan", "copy_issued", "fill_issued"),
+    "rans_section_encode": ("table", "quarter3_staged", "walk3_and_quarter2", "walk2_and_quarter1",
+                            "walk1_and_quarter0", "walk0", "last_quad_and_state"),
 }
 
 
@@ -111,7 +141,7 @@ def main() -> int:
     import torch
 
     from repro_torch.api import JobSpec
-    from repro_torch.core import bits
+    from repro_torch.core import bits, entropy
     from repro_torch.core.pipeline import CompressionPipeline
     from repro_torch.data import make_dataset
     from repro_torch.kernels import build, ops
@@ -128,10 +158,16 @@ def main() -> int:
     _, enc = pipe.codec.encode_blocks(pipe.init_state(), blocks)
     c, s = blocks.shape[0], pipe.block_tuples
     codes, blen = enc.codes.reshape(c * s, 2).contiguous(), enc.bitlen.reshape(c * s).contiguous()
-    words, _ = ops.pack_blocks(codes, blen, block=s, out_words=2 * s + 2)
+    words, nbits = ops.pack_blocks(codes, blen, block=s, out_words=2 * s + 2)
+    frame = CompressionPipeline(JobSpec(codec="delta_leb128", entropy="rans", egress=True),
+                                device=dev).compress_to_frame(values)
+    section = torch.from_numpy(np.ascontiguousarray(frame.payload, np.uint32).view(np.uint8)).to(dev)
+    freqs = entropy.quantize_freqs(torch.bincount(section, minlength=256)).to(torch.int32)
     runs = {
         "pack_blocks": (lambda: ops.pack_blocks(codes, blen, block=s, out_words=2 * s + 2), "g_pack_stamps"),
         "unpack_blocks": (lambda: ops.unpack_blocks(words, blen), "g_unpack_stamps"),
+        "compact_blocks": (lambda: ops.compact_blocks(words, nbits), "g_compact_stamps"),
+        "rans_section_encode": (lambda: ops.rans_section_encode(section, freqs), "g_section_stamps"),
     }
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -140,20 +176,21 @@ def main() -> int:
         for _ in range(3):  # warm: the last launch's stamps are read
             fn()
         torch.cuda.synchronize()
-        stamps = np.zeros((1024, 8), np.int64)
+        stamps = np.zeros((1024, 10), np.int64)
         reader = getattr(lib, f"{array}_read")
         reader.argtypes = [ctypes.c_void_p]
         build.check(reader(stamps.ctypes.data), f"{array}_read")
-        st = stamps[:c]
-        cycles = np.diff(st[:, 1:6], axis=1)
+        st = stamps[stamps[:, 0] != 0]  # the CTAs of the launch (at most 1,024)
+        k = len(PHASES[kernel])
+        cycles = np.diff(st[:, 1:k + 2], axis=1)
         line = {
-            "kernel": kernel, "card": card, "ctas": int(c),
+            "kernel": kernel, "card": card, "ctas": int(st.shape[0]),
             "cycles_median": {p: float(statistics.median(cycles[:, i])) for i, p in enumerate(PHASES[kernel])},
             "cycles_max": {p: int(cycles[:, i].max()) for i, p in enumerate(PHASES[kernel])},
-            "cta_cycles_median": float(statistics.median(st[:, 5] - st[:, 1])),
+            "cta_cycles_median": float(statistics.median(st[:, k + 1] - st[:, 1])),
             "start_spread_ns": int(st[:, 0].max() - st[:, 0].min()),
-            "span_ns": int(st[:, 7].max() - st[:, 0].min()),
-            "cta_ns_median": float(statistics.median(st[:, 7] - st[:, 0])),
+            "span_ns": int(st[:, 9].max() - st[:, 0].min()),
+            "cta_ns_median": float(statistics.median(st[:, 9] - st[:, 0])),
         }
         lines.append(line)
         print(json.dumps(line), flush=True)

@@ -14,13 +14,15 @@ The wire layout and the arithmetic are the reference's, byte for byte:
   * a raw fallback (`[0]` + the raw words) when coding would not shrink
     the section.
 
-The device half runs on torch tensors: the chunk scans are the B8/B9
-wrappers (`kernels/ops.py` `rans_encode`/`rans_decode`, one launch for all
-chunks of a section on CUDA; on the CPU their plain versions in
-`kernels/ref.py`, batched over chunks as the reference's `vmap` of
-`encode_rows`/`decode_rows` is). The coder's constants and tables come
-from `kernels/rans.py`. The host half (u16 packing, section and blob
-layout, validation) is numpy.
+The device half runs on torch tensors: the encode is B8's section form
+(`kernels/ops.py` `rans_section_encode`: the section's bytes in, lane
+states, lane counts and the packed u16 stream out; on CUDA two launches
+for the whole section), the decode B9 (`rans_decode`, one launch for all
+chunks); on the CPU their plain versions in `kernels/ref.py`, batched over
+chunks as the reference's `vmap` of `encode_rows`/`decode_rows` is. The
+coder's constants, tables, chunk grid and stream assembly come from
+`kernels/rans.py`. The host half (u16 packing, section and blob layout,
+validation) is numpy.
 """
 from __future__ import annotations
 
@@ -38,7 +40,10 @@ from repro_torch.kernels.rans import (  # noqa: F401  (the coder's constants, re
     PROB_SCALE,
     RANS_L,
     ROWS,
+    assemble_stream,
+    chunk_grid,
     cum_freqs,
+    lane_offsets,
     slot_table,
 )
 
@@ -71,34 +76,20 @@ def quantize_freqs(hist: torch.Tensor) -> torch.Tensor:
 
 
 def _histogram(data: torch.Tensor) -> torch.Tensor:
-    """Byte histogram (int64[256]) of the real bytes; integer bincount,
-    exact on every device."""
-    return torch.bincount(data.to(torch.int64), minlength=256)
+    """Byte histogram (int64[256]) of the real bytes (uint8); integer
+    bincount, exact on every device."""
+    return torch.bincount(data, minlength=256)
 
 
 # ----------------------------------------------------- section (de)coders --
 def section_grid(data: np.ndarray, device: torch.device):
-    """A section's bytes (uint8[n], n > 0) as the coder's chunk grid on
-    `device`: (syms int32[C, ROWS, N_LANES], zero past byte n; mask
+    """A section's bytes (uint8[n], n > 0) as the contract kernel's chunk
+    grid on `device`: (syms int32[C, ROWS, N_LANES], zero past byte n; mask
     bool[C, ROWS, N_LANES], true on the n real bytes; freqs int32[256],
-    one quantized table over all bytes). The reference pads to a
-    power-of-two chunk count; the padding chunks are fully masked, emit
-    nothing and are dropped, so the grid holds only C = ceil(n / 4096)."""
-    n = data.size
-    nchunks = -(-n // CHUNK_BYTES)
-    padded = np.zeros(nchunks * CHUNK_BYTES, np.uint8)
-    padded[:n] = data
-    flat = torch.from_numpy(padded).to(device).to(torch.int32)
-    freqs = quantize_freqs(_histogram(flat[:n])).to(torch.int32)
-    mask = (torch.arange(flat.numel(), device=device) < n).reshape(nchunks, ROWS, N_LANES)
-    return flat.reshape(nchunks, ROWS, N_LANES), mask, freqs
-
-
-def lane_offsets(counts: torch.Tensor) -> torch.Tensor:
-    """Each (chunk, lane) stream's absolute start in the u16 stream, the
-    exclusive cumsum of the lane counts in (chunk, lane) order: int32[C, N]."""
-    cflat = counts.reshape(-1).to(torch.int64)
-    return (torch.cumsum(cflat, 0) - cflat).reshape(counts.shape).to(torch.int32)
+    one quantized table over all bytes), C = ceil(n / 4096)."""
+    dev_bytes = torch.from_numpy(np.ascontiguousarray(data, np.uint8)).to(device)
+    syms, mask = chunk_grid(dev_bytes)
+    return syms, mask, quantize_freqs(_histogram(dev_bytes)).to(torch.int32)
 
 
 def decode_cap(nchunks: int) -> int:
@@ -107,32 +98,20 @@ def decode_cap(nchunks: int) -> int:
     return _next_pow2(nchunks) * CHUNK_BYTES
 
 
-def assemble_stream(flags: torch.Tensor, vals: torch.Tensor):
-    """The u16 stream from B8's per-step outputs (C, T, N): every emission
-    scattered at its lane's offset plus its rank within the lane. Returns
-    (stream int32[total], counts int32[C, N] u16s per lane stream)."""
-    counts = flags.sum(dim=1, dtype=torch.int32)
-    off = lane_offsets(counts).to(torch.int64).unsqueeze(1)
-    rank = torch.cumsum(flags, dim=1).to(torch.int64) - flags
-    spill = flags.numel()  # one slot past any emission, for non-emitters
-    pos = torch.where(flags > 0, off + rank, spill)
-    stream = torch.zeros(spill + 1, dtype=torch.int32, device=flags.device)
-    stream.scatter_(0, pos.reshape(-1), vals.reshape(-1))
-    return stream[: int(counts.sum())], counts
-
-
 def _encode_device(data: np.ndarray, device: torch.device):
-    """Encode a section's bytes (uint8[n], n > 0) on `device`: the chunk
-    grid, all chunks in one B8 call, and the emissions assembled into one
-    u16 stream in (chunk, lane) order."""
-    syms, mask, freqs = section_grid(data, device)
-    states, flags, vals = ops.rans_encode(syms, mask, freqs)
-    stream, counts = assemble_stream(flags, vals)
+    """Encode a section's bytes (uint8[n], n > 0) on `device`: one table
+    over all bytes, then B8's section form for all chunks. Returns (freqs,
+    lane states, lane counts, the packed u16 stream words, its u16 count)."""
+    dev_bytes = torch.from_numpy(np.ascontiguousarray(data, np.uint8)).to(device)
+    freqs = quantize_freqs(_histogram(dev_bytes)).to(torch.int32)
+    states, counts, words, total = ops.rans_section_encode(dev_bytes, freqs)
+    e = int(total)
     return (
         bits.u32_numpy(freqs),
         bits.u32_numpy(states).reshape(-1),
         counts.cpu().numpy().astype(np.uint32).reshape(-1),
-        bits.u32_numpy(stream),
+        bits.u32_numpy(words[: (e + 1) // 2]),
+        e,
     )
 
 
@@ -193,16 +172,16 @@ def encode_section(raw_words: np.ndarray, device: DeviceLike) -> np.ndarray:
     n = 4 * raw_words.size
     if n == 0:
         return raw
-    freqs, states, counts, stream = _encode_device(
+    freqs, states, counts, stream_words, n_u16 = _encode_device(
         _words_to_bytes(raw_words), torch.device(device)
     )
     enc = np.concatenate(
         [
-            np.array([ENTROPY_KIND_RANS, stream.size, -(-n // CHUNK_BYTES)], np.uint32),
+            np.array([ENTROPY_KIND_RANS, n_u16, -(-n // CHUNK_BYTES)], np.uint32),
             _pack_u16(freqs),
             states,
             _pack_u16(counts),
-            _pack_u16(stream),
+            stream_words,
         ]
     )
     return enc if enc.size < raw.size else raw

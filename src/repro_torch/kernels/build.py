@@ -47,6 +47,8 @@ SIGNATURES: Dict[str, List[type]] = {
     "repro_dict_chunk_decode": [_P] * 5 + [_I] * 4 + [_P] * 6,
     "repro_rans_encode": [_P, _P, _P, _P, _I, _I, _P, _P, _P, _P],
     "repro_rans_decode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
+    "repro_rans_section_walk": [_P, _L, _P, _P, _P, _P, _P, _P],
+    "repro_rans_section_copy": [_P, _P, _P, _L, _P, _P],
     "repro_adpcm_tile_encode": [_P, _I, _I, _I, _F, _P, _P, _I, _P, _P],
     "repro_adpcm_tile_decode": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
     "repro_adpcm_lane_encode": [_P, _I, _I, _I, _P, _P, _U, _F, _F, _P, _P, _I, _I, _P, _P, _P, _P],

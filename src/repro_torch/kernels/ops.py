@@ -100,7 +100,9 @@ def compact_blocks(words: torch.Tensor, nbits: torch.Tensor):
     if dev.type == "cpu":
         return ref.compact_blocks_ref(words, nbits)
     payload = torch.empty((n * ow,), dtype=torch.int32, device=dev)
-    total = torch.zeros((1,), dtype=torch.int32, device=dev)
+    if n == 0:
+        return payload, torch.zeros((), dtype=torch.int32, device=dev)
+    total = torch.empty((1,), dtype=torch.int32, device=dev)  # the kernel writes it
     frame_compact.launch_compact(words, nbits, payload, total)
     compact_blocks.launches += 1
     return payload, total[0]
@@ -242,6 +244,34 @@ def rans_encode(syms: torch.Tensor, mask: torch.Tensor, freqs: torch.Tensor):
     rans.launch_encode(syms, mask.view(torch.uint8), freqs, cum, states, flags, vals)
     rans_encode.launches += 1
     return states, flags, vals
+
+
+def rans_section_encode(data: torch.Tensor, freqs: torch.Tensor):
+    """B8's section form: a section's bytes uint8[n] under one frequency
+    table int32[256] -> (states int32[C, 8], counts int32[C, 8], words
+    int32[n // 2 + 1], total int64 0-d tensor), C = ceil(n / 4096): the
+    E = total u16s of the stream, in (chunk, lane) order and each lane's in
+    row order, packed two to a word, low half first, in words[:ceil(E/2)]
+    (the odd pad half zero; words after those are not part of the result).
+    What `assemble_stream(*rans_encode(...))` gives on the section's chunk
+    grid. On CUDA two kernel launches around a `torch.cumsum`, no sync."""
+    dev = data.device
+    _check(data, "data", 1, dev, torch.uint8)
+    _check(freqs, "freqs", 1, dev)
+    if freqs.shape[0] != 256:
+        raise ValueError(f"freqs must have 256 entries, got {tuple(freqs.shape)}")
+    if dev.type == "cpu":
+        return ref.rans_section_encode_ref(data, freqs)
+    n = data.numel()
+    c = -(-n // rans.CHUNK_BYTES)
+    states = torch.empty((c, rans.N_LANES), dtype=torch.int32, device=dev)
+    counts = torch.empty((c, rans.N_LANES), dtype=torch.int32, device=dev)
+    words = torch.empty((rans.section_words(n),), dtype=torch.int32, device=dev)
+    if n == 0:
+        return states, counts, words, torch.zeros((), dtype=torch.int64, device=dev)
+    total = rans.launch_section_encode(data, freqs, states, counts, words)
+    rans_section_encode.launches += 1
+    return states, counts, words, total
 
 
 def rans_decode(stream: torch.Tensor, freqs: torch.Tensor, states: torch.Tensor,
@@ -504,6 +534,7 @@ WRAPPERS = {
     "dict_chunk_encode": dict_chunk_encode,
     "dict_chunk_decode": dict_chunk_decode,
     "rans_encode": rans_encode,
+    "rans_section_encode": rans_section_encode,
     "rans_decode": rans_decode,
     "adpcm_encode": adpcm_encode,
     "adpcm_decode": adpcm_decode,
@@ -547,6 +578,7 @@ __all__ = [
     "pack_meta7_blocks",
     "rans_decode",
     "rans_encode",
+    "rans_section_encode",
     "reset_launches",
     "unpack_blocks",
 ]

@@ -14,7 +14,7 @@ import torch
 from repro_torch.core import bits
 from repro_torch.core.bits import M32
 from repro_torch.core.algorithms import nuq
-from repro_torch.kernels import delta_nuq, dict_hash
+from repro_torch.kernels import delta_nuq, dict_hash, rans
 from repro_torch.kernels.rans import PROB_BITS, PROB_SCALE, RANS_L, cum_freqs, slot_table
 
 
@@ -138,6 +138,25 @@ def rans_encode_ref(syms: torch.Tensor, mask: torch.Tensor, freqs: torch.Tensor)
         x2 = (((x1 // f_safe) << PROB_BITS) + (x1 % f_safe) + cu) & M32
         x = torch.where(mt, x2, x)
     return bits._i32(x), flags, bits._i32(vals)
+
+
+def rans_section_encode_ref(data: torch.Tensor, freqs: torch.Tensor):
+    """B8's section form: a section's bytes uint8[n] under one table int32
+    [256] -> (states int32[C, 8], counts int32[C, 8], words
+    int32[section_words(n)], E int64 0-d): `rans_encode_ref` on the chunk
+    grid, `assemble_stream`, and the E u16s packed two to a word, low half
+    first, in words[:ceil(E/2)] (zeros after)."""
+    n = data.numel()
+    words = torch.zeros(rans.section_words(n), dtype=torch.int32, device=data.device)
+    if n == 0:
+        empty = torch.zeros((0, rans.N_LANES), dtype=torch.int32, device=data.device)
+        return empty, empty.clone(), words, torch.zeros((), dtype=torch.int64, device=data.device)
+    syms, mask = rans.chunk_grid(data)
+    states, flags, vals = rans_encode_ref(syms, mask, freqs)
+    stream, counts = rans.assemble_stream(flags, vals)
+    e = stream.numel()
+    words[: (e + 1) // 2] = rans.packed_words(stream)
+    return states, counts, words, torch.tensor(e, dtype=torch.int64, device=data.device)
 
 
 def _read_stream(stream: torch.Tensor, p: torch.Tensor, cap: int) -> torch.Tensor:
