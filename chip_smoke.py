@@ -9,7 +9,11 @@ Phases, each printing one line per check:
                on the card. B1-B4 at the main path's shapes (128 blocks x
                2048 symbols, OW 4098, bitlens including 0 and 64), on a
                ragged tail block and on the kernel contract
-               pack_blocks(block=256); B1/B2 also on blocks of 333 symbols
+               pack_blocks(block=256), B1 with B4 fused in
+               (`pack_blocks_meta7`, the executor's form) wherever the block
+               is a multiple of 32 symbols, also on blocks of 32, 64, 96,
+               4,096 and 2,080 symbols and off a 16-byte boundary; B1/B2
+               also on blocks of 333 symbols
                (the scalar loads), of 64-bit symbols, of 4,100 symbols (two
                rounds), with rows narrower than the live prefix, on tensors
                that start off a 16-byte boundary, and B2 on random words
@@ -30,7 +34,14 @@ Phases, each printing one line per check:
                the same sections against the contract route's states,
                counts and stream, and on sections of 1, 4,095, 4,096, 4,097
                and 300,000 bytes (constant, uniform and skewed; two off a
-               16-byte boundary); B6/B7 (delta-NUQ) in the Pallas
+               16-byte boundary); B9's section form
+               (`rans_section_decode`, the one the entropy stage runs) on
+               the same sections (two with their stream words off a
+               16-byte boundary) against its plain version, the contract
+               kernel's route and the bytes, and on corrupt sections
+               (random lane states, counts moved between lanes, a non-zero
+               odd pad half, a stream of exactly cap u16s); B6/B7
+               (delta-NUQ) in the Pallas
                contract at the reference test's shapes and at S=1024,
                T=4096, and in the ADPCM codec's per-lane form (the
                speculative encode, the scan decode and the two serial
@@ -59,12 +70,14 @@ Phases, each printing one line per check:
                exact, JobSpec() (tcomp32, 4 lanes, 8 KiB micro-batches,
                128-block chunks), the heavy tier JobSpec(codec=
                "delta_leb128", entropy="rans", egress=True), whose run must
-               launch B1-B4 once per chunk, B8's section form twice (the
-               metadata and payload sections) and the contract kernel
-               never, and
+               launch B8's and B9's section forms twice each (the metadata
+               and payload sections) and their contract kernels never, and
                JobSpec(codec="tdic32"), whose 64 chunks must each launch
                B5's codec form once per direction and B5's probe never
-               (no tail block); on ECG, JobSpec(codec="adpcm")
+               (no tail block); every codec run must launch B1 with B4
+               fused in, B2 and B3 once per chunk, B4 alone never and B1
+               alone only for a tail or flush block (none at 64 MiB); on
+               ECG, JobSpec(codec="adpcm")
                .calibrated(sample), whose card decode is held against the
                CPU path's decode of the first 16 blocks (the CPU's per-lane
                scan is too slow for 64 MiB), and whose 64 chunks must each
@@ -106,7 +119,11 @@ Phases, each printing one line per check:
                codec form on the tdic32 path's first chunk beside the
                per-block route it replaced; B8's section form on the heavy
                tier's payload section beside the contract kernel, held
-               bit-exact there and on the metadata section too); B10 on
+               bit-exact there and on the metadata section too; B9's
+               section form on the same section beside its contract kernel,
+               with the whole decode from host words to host bytes timed
+               against the contract kernel's route it replaced; B1 with B4
+               fused in on the tcomp32 path's first chunk); B10 on
                the full lm path's layer-0
                q, k, v: the tensor-core kernel in bf16 and the FMA kernel on
                the same values in float32, each beside torch's
@@ -181,36 +198,42 @@ PATH_CONFIGS = (
     ("leb128_nuq", dict(codec="leb128_nuq"), None, "rovio"),
     ("uanuq", dict(codec="uanuq"), None, "rovio"),
 )
-B1_B4 = ("pack_blocks", "unpack_blocks", "compact_blocks", "pack_meta7_blocks")
+#: the codec paths' per-chunk kernels: B1 with B4 fused in, B2 and B3
+CHUNK_KERNELS = ("pack_blocks_meta7", "unpack_blocks", "compact_blocks")
 #: the full phase: name -> (JobSpec, kernels its run must launch, dataset)
 FULL_SPECS = {
-    "tcomp32": (JobSpec(), B1_B4, "rovio"),
+    "tcomp32": (JobSpec(), CHUNK_KERNELS, "rovio"),
     "heavy": (
         JobSpec(codec="delta_leb128", entropy="rans", egress=True),
-        B1_B4 + ("rans_section_encode", "rans_decode"), "rovio",
+        CHUNK_KERNELS + ("rans_section_encode", "rans_section_decode"), "rovio",
     ),
-    "tdic32": (JobSpec(codec="tdic32"), B1_B4 + ("dict_chunk_encode", "dict_chunk_decode"), "rovio"),
-    "adpcm": (JobSpec(codec="adpcm"), B1_B4 + ("adpcm_lane_encode", "adpcm_lane_decode"), "ecg"),
+    "tdic32": (JobSpec(codec="tdic32"), CHUNK_KERNELS + ("dict_chunk_encode", "dict_chunk_decode"), "rovio"),
+    "adpcm": (JobSpec(codec="adpcm"), CHUNK_KERNELS + ("adpcm_lane_encode", "adpcm_lane_decode"), "ecg"),
 }
 #: kernels no path runs: B6/B7 in the Pallas contract's form, which only the
-#: reference's tests call (the ADPCM codec runs their per-lane form); B8 in
-#: the contract's form (the entropy stage runs its section form); the
+#: reference's tests call (the ADPCM codec runs their per-lane form); B8 and
+#: B9 in the contract's form (the entropy stage runs their section forms);
+#: B4 alone (the executor packs the 7-bit metadata in B1's launch, and its
+#: blocks of a multiple of 32 symbols are the only ones it packs so); the
 #: codec form's serial kernels (the serial encode is the speculative one's
 #: oracle, the serial decode takes parameters outside the scan's integer
 #: rule, which the ECG calibration meets); and B10's FMA kernel, which
 #: takes float32 and the bf16 shapes outside the tensor-core kernel's rule
 #: (the lm path is bf16 at Dh 128)
 OFF_PATH = ("adpcm_encode", "adpcm_decode", "adpcm_lane_encode_serial", "adpcm_lane_decode_serial",
-            "rans_encode", "flash_attention_fwd")
+            "rans_encode", "rans_decode", "pack_meta7_blocks", "flash_attention_fwd")
 #: B10's kernels, the LM serving path's (the codec paths never launch them)
 LM_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_tc")
 #: kernels the eval paths run and the full paths do not: B5's probe, which
 #: tdic32 takes for a tail block (the 64 MiB stream has none), under the
-#: shared-state strategy and outside `dict_hash.chunk_kernel_for`
-EVAL_ONLY = ("dict_probe",)
+#: shared-state strategy and outside `dict_hash.chunk_kernel_for`; and B1
+#: alone, which packs a tail block and rle's flush block
+EVAL_ONLY = ("dict_probe", "pack_blocks")
 #: kernel -> (CUDA source, the Pallas kernel it replaces)
 KERNELS = {
     "pack_blocks": ("src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/bitpack.py:55"),
+    # B1 with B4 fused in: B4's reference site (B1's is pack_blocks')
+    "pack_blocks_meta7": ("src/repro_torch/csrc/bitpack.cu", "src/repro/kernels/frame_compact.py:100"),
     "unpack_blocks": ("src/repro_torch/csrc/bitunpack.cu", "src/repro/kernels/bitunpack.py:61"),
     "compact_blocks": ("src/repro_torch/csrc/frame_compact.cu", "src/repro/kernels/frame_compact.py:54"),
     "pack_meta7_blocks": ("src/repro_torch/csrc/frame_compact.cu", "src/repro/kernels/frame_compact.py:100"),
@@ -222,6 +245,7 @@ KERNELS = {
     "rans_encode": ("src/repro_torch/csrc/rans.cu", "src/repro/kernels/rans.py:64"),
     "rans_section_encode": ("src/repro_torch/csrc/rans_section.cu", "src/repro/kernels/rans.py:64"),
     "rans_decode": ("src/repro_torch/csrc/rans.cu", "src/repro/kernels/rans.py:137"),
+    "rans_section_decode": ("src/repro_torch/csrc/rans_section_decode.cu", "src/repro/kernels/rans.py:137"),
     "adpcm_encode": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:86"),
     "adpcm_decode": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:109"),
     "adpcm_lane_encode": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:86"),
@@ -268,6 +292,7 @@ TIMING_ITERS = {
     "rans_encode": (20, 3, False),
     "rans_section_encode": (20, 3, False),
     "rans_decode": (20, 3, False),
+    "rans_section_decode": (100, 3, False),
     "adpcm_encode": (20, 3, False),
     "adpcm_decode": (20, 3, False),
     "adpcm_lane_encode": (100, 1, False),
@@ -419,7 +444,7 @@ def check_bitpack(dev) -> dict:
     on random words and bitlens whose offsets run past the row (windows
     clamp to the last word, then zeros); returns the max error per kernel."""
     gen = torch.Generator().manual_seed(13)
-    err = {"pack_blocks": 0, "unpack_blocks": 0}
+    err = {"pack_blocks": 0, "unpack_blocks": 0, "pack_blocks_meta7": 0}
     for nb, s, ow, kind, shift in BITPACK_CASES:
         codes, blen = random_symbols(gen, nb, s, dev)
         if kind == "wide":
@@ -429,6 +454,11 @@ def check_bitpack(dev) -> dict:
         words, nbits = ops.pack_blocks(codes, blen, block=s, out_words=ow)
         w_ref, n_ref = ref.pack_blocks_ref(codes, blen, s, ow)
         err["pack_blocks"] = max(err["pack_blocks"], max_abs_err(words, w_ref), max_abs_err(nbits, n_ref))
+        if s % 32 == 0:  # unaligned inputs: the scalar loads
+            want = (w_ref, n_ref, ref.pack_meta7_ref(blen.view(nb, s)))
+            got = ops.pack_blocks_meta7(codes, blen, block=s, out_words=ow)
+            err["pack_blocks_meta7"] = max(err["pack_blocks_meta7"],
+                                           *(max_abs_err(a, b) for a, b in zip(got, want)))
         rows = offset_copy(words, shift)
         back = ops.unpack_blocks(rows, blen)
         err["unpack_blocks"] = max(err["unpack_blocks"], max_abs_err(back, ref.unpack_blocks_ref(rows, blen)))
@@ -439,8 +469,22 @@ def check_bitpack(dev) -> dict:
         blen = torch.randint(0, 65, (nb * s,), generator=gen, dtype=torch.int32).to(dev)
         got = ops.unpack_blocks(words, blen)
         err["unpack_blocks"] = max(err["unpack_blocks"], max_abs_err(got, ref.unpack_blocks_ref(words, blen)))
+    # the fused 7-bit metadata at every group and round boundary: one and two
+    # groups of 32, one and two rounds of 2,048 symbols, 4-byte offsets
+    for nb, s, shift in META7_CASES:
+        codes, blen = random_symbols(gen, nb, s, dev)
+        codes, blen = offset_copy(codes, 2 * shift), offset_copy(blen, shift)
+        got = ops.pack_blocks_meta7(codes, blen, block=s, out_words=2 * s + 2)
+        want = (*ref.pack_blocks_ref(codes, blen, s, 2 * s + 2), ref.pack_meta7_ref(blen.view(nb, s)))
+        err["pack_blocks_meta7"] = max(err["pack_blocks_meta7"],
+                                       *(max_abs_err(a, b) for a, b in zip(got, want)))
     torch.cuda.synchronize()
     return err
+
+
+#: the fused pack's cases beyond BITPACK_CASES: (blocks, symbols, words by
+#: which the inputs start off a 16-byte boundary)
+META7_CASES = ((5, 32, 0), (3, 64, 0), (2, 4096, 0), (9, 96, 1), (2, 2080, 3))
 
 
 def check_kernels(dev) -> dict:
@@ -465,6 +509,10 @@ def check_kernels(dev) -> dict:
         err["compact_blocks"] = max(err["compact_blocks"], max_abs_err(pay, p_ref), abs(int(tot) - int(t_ref)))
         m = ops.pack_meta7_blocks(blen.view(nb, s))
         err["pack_meta7_blocks"] = max(err["pack_meta7_blocks"], max_abs_err(m, ref.pack_meta7_ref(blen.view(nb, s))))
+        if s % 32 == 0:
+            fused = ops.pack_blocks_meta7(codes, blen, block=s, out_words=ow)
+            err["pack_blocks_meta7"] = max(err["pack_blocks_meta7"],
+                                           *(max_abs_err(a, b) for a, b in zip(fused, (w_ref, n_ref, m))))
         torch.cuda.synchronize()
     for name, e in check_bitpack(dev).items():
         err[name] = max(err[name], e)
@@ -493,6 +541,9 @@ def check_kernels(dev) -> dict:
     for n, kind, shift in SECTION_CASES:
         err["rans_section_encode"] = max(err["rans_section_encode"],
                                          check_section(section_bytes(n, kind), dev, shift))
+        err["rans_section_decode"] = max(err["rans_section_decode"],
+                                         check_section_decode(section_bytes(n, kind), dev, shift // 2))
+    err["rans_section_decode"] = max(err["rans_section_decode"], check_corrupt_sections(dev))
     for name, e in check_delta_nuq(dev).items():
         err[name] = max(err[name], e)
     return err
@@ -765,6 +816,103 @@ def check_section(data: np.ndarray, dev, shift: int = 0) -> int:
     return max(max_abs_err(g, w) for g, w in zip(got, want))
 
 
+def section_decode_args(data: np.ndarray, dev, shift: int = 0):
+    """A section's bytes through B8's section form, as `entropy.encode_section`
+    codes them: (words int32[ceil(E/2)] placed `shift` words past a 16-byte
+    boundary, E, freqs, states, counts, n) for B9's section form."""
+    d = torch.from_numpy(data).to(dev)
+    freqs = entropy.quantize_freqs(torch.bincount(d, minlength=256)).to(torch.int32)
+    states, counts, words, total = ops.rans_section_encode(d, freqs)
+    e = int(total)
+    return offset_copy(words[: (e + 1) // 2], shift), e, freqs, states, counts, data.size
+
+
+def contract_stream(stream_words: np.ndarray, total: int) -> np.ndarray:
+    """The packed u16s unpacked on the host, one per uint32, as the entropy
+    stage did before B9's section form."""
+    w = np.ascontiguousarray(stream_words, np.uint32)
+    stream = np.empty(2 * w.size, np.uint32)
+    stream[0::2], stream[1::2] = w & np.uint32(0xFFFF), w >> np.uint32(16)
+    return stream[:total]
+
+
+def byte_mask(c: int, n: int, dev) -> torch.Tensor:
+    """The contract kernel's byte mask over C chunks' grid: the first n."""
+    return (torch.arange(c * rans.CHUNK_BYTES, device=dev) < n).reshape(c, rans.ROWS, rans.N_LANES)
+
+
+def contract_decode_route(stream_words: np.ndarray, total: int, freqs: np.ndarray,
+                          states: np.ndarray, counts: np.ndarray, n: int, dev) -> np.ndarray:
+    """A section's decode as the entropy stage ran it before B9's section
+    form: the u16s unpacked on the host and uploaded one per int32, the
+    lane offsets, the byte mask over the chunk grid, the contract kernel's
+    int32 symbol grid, narrowed to bytes and fetched."""
+    c = states.shape[0]
+    syms = ops.rans_decode(bits.u32_tensor(contract_stream(stream_words, total), dev),
+                           torch.from_numpy(freqs.astype(np.int32)).to(dev), bits.u32_tensor(states, dev),
+                           rans.lane_offsets(torch.from_numpy(counts.astype(np.int64)).to(dev)),
+                           byte_mask(c, n, dev), rans.decode_cap(c))
+    return syms.reshape(-1)[:n].to(torch.uint8).cpu().numpy()
+
+
+def contract_route(words, total, freqs, states, counts, n) -> torch.Tensor:
+    """B9's section form's arguments through the contract kernel: the u16s
+    unpacked on the card, the lane offsets, the byte mask, the int32 grid
+    narrowed to the n bytes."""
+    c = states.shape[0]
+    syms = ops.rans_decode(ref.unpack_u16(words, total), freqs, states, rans.lane_offsets(counts),
+                           byte_mask(c, n, words.device), rans.decode_cap(c))
+    return syms.reshape(-1)[:n].to(torch.uint8)
+
+
+def check_section_decode(data: np.ndarray, dev, shift: int = 0) -> int:
+    """B9's section form against its plain version, against the contract
+    kernel's route on the unpacked stream and the chunk grid, and against the
+    bytes, on one section (its stream words `shift` words off a 16-byte
+    boundary: the guarded u16 reads); returns the max error."""
+    args = section_decode_args(data, dev, shift)
+    got = ops.rans_section_decode(*args)
+    torch.cuda.synchronize()
+    want = torch.from_numpy(data).to(dev)
+    return max(max_abs_err(got, g) for g in (ref.rans_section_decode_ref(*args), contract_route(*args), want))
+
+
+def corrupt_sections(dev):
+    """(name, args) of sections the decoder accepts but the encoder never
+    wrote: random lane states (lanes read past their runs and past the
+    stream), a non-zero odd pad half, counts moved between lanes (same
+    total) so lanes read their neighbours' u16s, and a stream of exactly
+    cap u16s whose last lanes start at cap (reads clip to its last u16)."""
+    rng = np.random.default_rng(21)
+    data = section_bytes(3 * 4096 + 1001, "skewed")
+    words, e, freqs, states, counts, n = section_decode_args(data, dev)
+    rand_states = bits.u32_tensor(rng.integers(0, 2**32, states.shape, dtype=np.uint64).astype(np.uint32), dev)
+    yield "random_states", (words, e, freqs, rand_states, counts, n)
+    odd = section_decode_args(section_bytes(5000, "skewed"), dev)  # 1,351 u16s
+    assert odd[1] % 2 == 1
+    padded = odd[0].clone()
+    padded[-1] |= bits._i32(torch.tensor(0xABCD0000, dtype=torch.int64)).to(dev)
+    yield "odd_pad_half", (padded, *odd[1:])
+    moved = counts.clone().view(-1)
+    moved[0], moved[1] = moved[0] + moved[1], 0
+    yield "moved_counts", (words, e, freqs, states, moved.view(counts.shape), n)
+    cap = rans.decode_cap(1)
+    full = bits.u32_tensor(rng.integers(0, 2**32, cap // 2, dtype=np.uint64).astype(np.uint32), dev)
+    one_counts = torch.tensor([[cap, 0, 0, 0, 0, 0, 0, 0]], dtype=torch.int32, device=dev)
+    yield "stream_at_cap", (full, cap, freqs, rand_states[:1].contiguous(), one_counts, 3000)
+
+
+def check_corrupt_sections(dev) -> int:
+    """B9's section form against its plain version and the contract
+    kernel's route on `corrupt_sections`; returns the max error."""
+    err = 0
+    for _, args in corrupt_sections(dev):
+        got = ops.rans_section_decode(*args)
+        err = max(err, max_abs_err(got, ref.rans_section_decode_ref(*args)), max_abs_err(got, contract_route(*args)))
+    torch.cuda.synchronize()
+    return err
+
+
 #: B3's cases beyond check_kernels' path shapes: (blocks, OW, kind, words by
 #: which the inputs start off a 16-byte boundary); n of 1, 3, 128 and 300
 #: (not a multiple of 4: the scalar count loads), OW even and odd
@@ -896,6 +1044,13 @@ def time_kernels(dev, full_values: dict, heavy_frame: bits.Frame) -> dict:
             c * s * 4 + c * mw * 4,
             4 * c * s,  # mask, shift, or, and the split across two words
         ),
+        # B1 and B4 in one launch: B1's bytes and B4's words out (the lengths read once)
+        "pack_blocks_meta7": (
+            lambda: ops.pack_blocks_meta7(codes, blen, block=s, out_words=ow),
+            lambda: (*ref.pack_blocks_ref(codes, blen, s, ow), ref.pack_meta7_ref(blen2)),
+            c * s * 12 + c * ow * 4 + c * 4 + c * mw * 4,
+            14 * c * s,
+        ),
     }
     tdic = CompressionPipeline(JobSpec(codec="tdic32"), device=dev)
     tblocks = bits.u32_tensor(tdic.shape_blocks(values[: chunk * tdic.block_tuples]).blocks, dev)
@@ -951,8 +1106,19 @@ def time_kernels(dev, full_values: dict, heavy_frame: bits.Frame) -> dict:
         stage_bytes,
         6 * n + 3 * e,
     )
+    # B9's section form: the same function from the packed stream words
+    d_states, d_counts, d_words, d_total = ops.rans_section_encode(section_dev, freqs)
+    e_sec = int(d_total)
+    d_words = d_words[: (e_sec + 1) // 2]
+    dec_args = (d_words, e_sec, freqs, d_states, d_counts, n)
+    plan["rans_section_decode"] = (
+        lambda: ops.rans_section_decode(*dec_args),
+        lambda: ref.rans_section_decode_ref(*dec_args),
+        stage_bytes,
+        6 * n + 3 * e,
+    )
     chains = {"rans_encode": syms.shape[1], "rans_decode": syms.shape[1],
-              "rans_section_encode": syms.shape[1],
+              "rans_section_encode": syms.shape[1], "rans_section_decode": syms.shape[1],
               # two barriers per block, one after the other in each lane's CTA
               "dict_chunk_encode": 2 * tblocks.shape[0], "dict_chunk_decode": 2 * tblocks.shape[0]}
     ecg = full_values["ecg"]
@@ -1025,10 +1191,24 @@ def time_kernels(dev, full_values: dict, heavy_frame: bits.Frame) -> dict:
         out[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                      "bytes": nbytes, "ops": nops, "chain_steps": chains.get(name),
                      "host_ms": host_ms, "plain_host_ms": plain_host_ms, "max_abs_err": err}
-    # the heavy tier's metadata section, the section form's other input
+    # the heavy tier's metadata section, the section forms' other input
     meta = np.ascontiguousarray(heavy_frame.packed_meta, np.uint32).view(np.uint8)
     out["rans_section_encode"]["max_abs_err"] = max(out["rans_section_encode"]["max_abs_err"],
                                                     check_section(meta, dev))
+    out["rans_section_decode"]["max_abs_err"] = max(out["rans_section_decode"]["max_abs_err"],
+                                                    check_section_decode(meta, dev))
+    # the payload section's whole decode, host words to host bytes: the
+    # entropy stage's route (B9's section form) against the contract
+    # kernel's route it replaced (host u16 unpack, int32 upload, mask, B9 on
+    # the int32 grid, narrowing), each synchronising, so unqueued
+    host = (bits.u32_numpy(d_words), e_sec, bits.u32_numpy(freqs), bits.u32_numpy(d_states),
+            bits.u32_numpy(d_counts), n)
+    new_route, old_route = entropy._decode_device(*host, dev), contract_decode_route(*host, dev)
+    if not (np.array_equal(new_route, section) and np.array_equal(old_route, section)):
+        raise AssertionError("the decode routes did not return the heavy payload section")
+    for key, fn in (("route_ms", lambda: entropy._decode_device(*host, dev)),
+                    ("contract_route_ms", lambda: contract_decode_route(*host, dev))):
+        out["rans_section_decode"][key] = time_ms(fn, 5, cpm, queued=False)[0]
     # the per-block route on the same chunk, as tdic32 ran it before B5's
     # codec form: B5's probe and the merge's torch ops, block by block; its
     # thousands of launches run unqueued, so also its device time alone
@@ -1463,11 +1643,14 @@ def run_full(dev, name: str, values: np.ndarray):
         if {k: launches[k] for k in want} != want:
             raise AssertionError(f"the tdic32 path's {n_chunks} chunks launched "
                                  f"{ {k: launches[k] for k in want} }, expected {want}")
-    if name == "heavy":  # the entropy stage: one section-form encode per section
-        want = {**{k: n_chunks for k in B1_B4}, "rans_section_encode": 2, "rans_encode": 0}
-        if {k: launches[k] for k in want} != want:
-            raise AssertionError(f"the heavy path's {n_chunks} chunks launched "
-                                 f"{ {k: launches[k] for k in want} }, expected {want}")
+    # every chunk packs with B4 in B1's launch; B1 alone only for a tail block and a flush block
+    want = {**{k: n_chunks for k in CHUNK_KERNELS}, "pack_meta7_blocks": 0,
+            "pack_blocks": int(shaped.tail is not None) + int(pipe._has_flush)}
+    if name == "heavy":  # the entropy stage: one section-form encode and decode per section
+        want.update(rans_section_encode=2, rans_encode=0, rans_section_decode=2, rans_decode=0)
+    if {k: launches[k] for k in want} != want:
+        raise AssertionError(f"the {name} path's {n_chunks} chunks launched "
+                             f"{ {k: launches[k] for k in want} }, expected {want}")
     if name == "adpcm" and {k: launches[k] for k in LANE_KERNELS} != {
             "adpcm_lane_encode": n_chunks, "adpcm_lane_encode_serial": 0,
             "adpcm_lane_decode": n_chunks, "adpcm_lane_decode_serial": 0}:
@@ -1574,7 +1757,8 @@ def main() -> int:
             "library_ms": times[name].get("library_ms"), "host_ms": times[name]["host_ms"],
             "chain_steps": times[name]["chain_steps"],
             **{k: times[name][k] for k in ("never_converging_ms", "never_converging_serial_ms",
-                                           "per_block_ms", "per_block_busy_ms") if k in times[name]},
+                                           "per_block_ms", "per_block_busy_ms", "route_ms",
+                                           "contract_route_ms") if k in times[name]},
         }
         for name, (src, replaces) in KERNELS.items()
     ]})

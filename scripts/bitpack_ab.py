@@ -1,35 +1,46 @@
 #!/usr/bin/env python3
-"""Time B1/B2/B3 (`pack_blocks`, `unpack_blocks`, `compact_blocks`) and B8's
-section form (`rans_section_encode`) of this tree against another tree's, on
-the same inputs, on one GPU.
+"""Time B1/B2/B3 (`pack_blocks`, `unpack_blocks`, `compact_blocks`), B1 with
+B4 fused in (`pack_blocks_meta7`), and B8's and B9's section forms
+(`rans_section_encode`, `rans_section_decode`) of this tree against another
+tree's, on the same inputs, on one GPU.
 
     python3 scripts/bitpack_ab.py OTHER_DIR [--iters 100] [--rounds 2]
-        [--kernels pack_blocks,unpack_blocks,compact_blocks,rans_section_encode] [--out FILE]
+        [--kernels pack_blocks,...,rans_section_decode_route] [--out FILE]
 
 OTHER_DIR is the root of another checkout of this repo (the parent commit,
 say, unpacked with `git archive` into a directory `.gitignore` lists). Its
 `src/repro_torch/kernels/build.py`, loaded on its own, builds that tree's
 library into OTHER_DIR/build/; this tree's kernels run through
 `repro_torch.kernels.ops`. The inputs are chip_smoke.py's timing-phase
-inputs: B1-B3 on the tcomp32 path's first fused chunk of 64 MiB of Rovio
-(seed 7), 128 blocks x 2,048 symbols, OW 4,098; B8 on the heavy tier's
-payload section (the 64 MiB delta_leb128 frame's raw payload, ~34.6 MB),
-its table built once for both. B3 is timed kernel against kernel: both
+inputs: B1-B4 on the tcomp32 path's first fused chunk of 64 MiB of Rovio
+(seed 7), 128 blocks x 2,048 symbols, OW 4,098; B8 and B9 on the heavy
+tier's payload section (the 64 MiB delta_leb128 frame's raw payload, ~34.6
+MB), its table built once for all. B3 is timed kernel against kernel: both
 sides allocate `total` with `torch.empty` (a wrapper that zero-fills it
-first adds a launch). The other tree's side of B8 is its own
-section form (`repro_rans_section_walk`/`_copy`) where it has one, else the
-route the entropy stage took before the section form: the bytes widened
-into the (C, 512, 8) int32 grid and its mask, the contract kernel
-`repro_rans_encode` from the other tree's library, and `assemble_stream`
-(whose `int(...)` of the stream length synchronises). Each round times this tree, the other,
-the other, this tree, each with `chip_smoke.time_ms` (CUDA events over
-`--iters` calls queued behind a device sleep; the B8 route, which
-synchronises, unqueued, so its time includes the host's gaps) and, for B8,
-`chip_smoke.device_busy_ms` (profiler device time of one call, and per
-kernel). The two trees' outputs must be equal bit for bit (B8: states,
-counts and the packed stream). Prints one JSON line per timing and a last
-line with each median per tree (ms), next to the card's name and power
-limit as nvidia-smi reports them.
+first adds a launch). The other tree's side of each kernel is its own form
+of it where its library has one, else what the path ran before:
+  * `pack_blocks_meta7`: its `repro_pack_blocks` and `repro_pack_meta7_blocks`,
+    two launches;
+  * `rans_section_encode`: the bytes widened into the (C, 512, 8) int32 grid
+    and its mask, the contract kernel `repro_rans_encode` and
+    `assemble_stream` (whose `int(...)` of the stream length synchronises);
+  * `rans_section_decode`: the contract kernel `repro_rans_decode` alone, on
+    the int32 stream, lane offsets and mask made beforehand (this tree's
+    side includes its `torch.cumsum`);
+  * `rans_section_decode_route`, the decode from host words to host bytes:
+    this tree's `entropy._decode_device` (two uploads, the section form, the
+    fetch of n bytes) against the route it replaced (the u16s unpacked on the
+    host and uploaded one per int32, the offsets, the byte mask, the contract
+    kernel's int32 grid narrowed to bytes, the fetch), or the other tree's
+    section form between the same uploads and fetch.
+Each round times this tree, the other, the other, this tree, each with
+`chip_smoke.time_ms` (CUDA events over `--iters` calls queued behind a
+device sleep; what synchronises, unqueued, so its time includes the host's
+gaps) and, for B8 and B9, `chip_smoke.device_busy_ms` (profiler device time
+of one call, and per kernel). The two trees' outputs must be equal bit for
+bit. Prints one JSON line per timing and a last line with each median per
+tree (ms), next to the card's name and power limit as nvidia-smi reports
+them.
 """
 from __future__ import annotations
 
@@ -51,7 +62,10 @@ import chip_smoke  # noqa: E402
 from chip_smoke import FULL_BYTES, CompressionPipeline, JobSpec, bits, entropy, make_dataset, ops  # noqa: E402
 from repro_torch.kernels import rans  # noqa: E402
 
-KERNELS = ("pack_blocks", "unpack_blocks", "compact_blocks", "rans_section_encode")
+KERNELS = ("pack_blocks", "unpack_blocks", "compact_blocks", "pack_blocks_meta7", "rans_section_encode",
+           "rans_section_decode", "rans_section_decode_route")
+#: what synchronises, and so is timed unqueued: the routes through the host
+UNQUEUED = ("rans_section_decode_route",)
 
 
 def load_build(tree: Path):
@@ -104,7 +118,7 @@ def main() -> int:
     lib = other.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     fns = {}
-    if {"pack_blocks", "unpack_blocks", "compact_blocks"} & set(kernels):
+    if {"pack_blocks", "unpack_blocks", "compact_blocks", "pack_blocks_meta7"} & set(kernels):
         codes, blen, s, ow = path_chunk(dev)
         nb = blen.shape[0] // s
         words, nbits = ops.pack_blocks(codes, blen, block=s, out_words=ow)
@@ -130,10 +144,27 @@ def main() -> int:
                         "compact_blocks")
             return payload, total[0]
 
+        def other_pack_meta7():  # its fused form, or B1 then B4
+            w = torch.empty((nb, ow), dtype=torch.int32, device=dev)
+            n = torch.empty((nb,), dtype=torch.int32, device=dev)
+            meta = torch.empty((nb, 7 * s // 32), dtype=torch.int32, device=dev)
+            if hasattr(lib, "repro_pack_blocks_meta7"):
+                other.check(lib.repro_pack_blocks_meta7(codes.data_ptr(), blen.data_ptr(), nb, s, ow,
+                                                        w.data_ptr(), n.data_ptr(), meta.data_ptr(), stream),
+                            "pack_blocks_meta7")
+            else:
+                other.check(lib.repro_pack_blocks(codes.data_ptr(), blen.data_ptr(), nb, s, ow,
+                                                  w.data_ptr(), n.data_ptr(), stream), "pack_blocks")
+                other.check(lib.repro_pack_meta7_blocks(blen.data_ptr(), nb, s, 7 * s // 32,
+                                                        meta.data_ptr(), stream), "pack_meta7_blocks")
+            return w, n, meta
+
         fns["pack_blocks"] = (lambda: ops.pack_blocks(codes, blen, block=s, out_words=ow), other_pack)
+        fns["pack_blocks_meta7"] = (lambda: ops.pack_blocks_meta7(codes, blen, block=s, out_words=ow),
+                                    other_pack_meta7)
         fns["unpack_blocks"] = (lambda: ops.unpack_blocks(words, blen), other_unpack)
         fns["compact_blocks"] = (lambda: ops.compact_blocks(words, nbits), other_compact)
-    if "rans_section_encode" in kernels:
+    if {"rans_section_encode", "rans_section_decode", "rans_section_decode_route"} & set(kernels):
         data = heavy_section(dev)
         freqs = entropy.quantize_freqs(torch.bincount(data, minlength=256)).to(torch.int32)
         cum = bits._i32(rans.cum_freqs(freqs))
@@ -171,11 +202,69 @@ def main() -> int:
         has_section = hasattr(lib, "repro_rans_section_walk")
         fns["rans_section_encode"] = (lambda: ops.rans_section_encode(data, freqs),
                                       other_section if has_section else other_route)
+
+        # B9: the section's parts as the entropy stage holds them
+        d_states, d_counts, d_words, d_total = ops.rans_section_encode(data, freqs)
+        e, n, c = int(d_total), data.numel(), d_states.shape[0]
+        d_words = d_words[: (e + 1) // 2]
+        dec_args = (d_words, e, freqs, d_states, d_counts, n)
+        host = (bits.u32_numpy(d_words), e, bits.u32_numpy(freqs), bits.u32_numpy(d_states),
+                bits.u32_numpy(d_counts), n)
+        cap = rans.decode_cap(c)
+        has_decode = hasattr(lib, "repro_rans_section_decode")
+
+        def other_decode_kernel(words_, states_, counts_, freqs_):  # its section form, or the contract kernel
+            if has_decode:
+                out = torch.empty((n,), dtype=torch.uint8, device=dev)
+                ends = torch.cumsum(counts_.reshape(-1), 0, dtype=torch.int32)
+                other.check(lib.repro_rans_section_decode(words_.data_ptr(), e, cap, freqs_.data_ptr(),
+                                                          states_.data_ptr(), counts_.data_ptr(),
+                                                          ends.data_ptr(), n, out.data_ptr(), stream),
+                            "rans_section_decode")
+                return out
+            stream16 = bits.u32_tensor(chip_smoke.contract_stream(bits.u32_numpy(words_), e), dev)
+            return contract_kernel(stream16, states_, rans.lane_offsets(counts_), chip_smoke.byte_mask(c, n, dev),
+                                   freqs_)
+
+        # the contract kernel's tables, made once (the wrapper's torch ops per
+        # call would overflow the launch queue behind the timing's sleep)
+        cum_c, lut_c = bits._i32(rans.cum_freqs(freqs)), rans.slot_table(freqs).to(torch.int32)
+
+        def contract_kernel(stream16, states_, off, mask, freqs_):
+            syms = torch.empty(mask.shape, dtype=torch.int32, device=dev)
+            other.check(lib.repro_rans_decode(stream16.data_ptr(), stream16.numel(), cap, freqs_.data_ptr(),
+                                              cum_c.data_ptr(), lut_c.data_ptr(), states_.data_ptr(),
+                                              off.data_ptr(), mask.view(torch.uint8).data_ptr(), c,
+                                              rans.ROWS, syms.data_ptr(), stream), "rans_decode")
+            return syms
+
+        if has_decode:
+            other_dec = lambda: other_decode_kernel(d_words, d_states, d_counts, freqs)  # noqa: E731
+        else:  # the contract kernel alone, its int32 inputs made beforehand
+            pre = (bits.u32_tensor(chip_smoke.contract_stream(host[0], e), dev), d_states,
+                   rans.lane_offsets(d_counts), chip_smoke.byte_mask(c, n, dev), freqs)
+            other_dec = lambda: contract_kernel(*pre)  # noqa: E731
+
+        def other_route():  # host words to host bytes
+            if not has_decode:
+                return chip_smoke.contract_decode_route(*host, dev)
+            small = torch.from_numpy(np.concatenate([host[2].view(np.int32), host[3].view(np.int32).reshape(-1),
+                                                     host[4].view(np.int32).reshape(-1)])).to(dev)
+            tab, st, cnt = small.split([256, 8 * c, 8 * c])
+            out = other_decode_kernel(bits.u32_tensor(host[0], dev), st.view(c, 8), cnt.view(c, 8), tab)
+            return out.cpu().numpy()
+
+        fns["rans_section_decode"] = (lambda: ops.rans_section_decode(*dec_args), other_dec)
+        fns["rans_section_decode_route"] = (lambda: entropy._decode_device(*host, dev), other_route)
     for kernel in kernels:
         a, b = fns[kernel][0](), fns[kernel][1]()
         if kernel == "rans_section_encode":
             a = chip_smoke.section_result(a)[:3]
             b = chip_smoke.section_result(b)[:3] if has_section else (b[0], b[1], rans.packed_words(b[2]))
+        if kernel == "rans_section_decode" and not has_decode:  # the contract kernel's int32 grid
+            b = b.reshape(-1)[: a.numel()].to(torch.uint8)
+        if kernel == "rans_section_decode_route":
+            a, b = torch.from_numpy(a), torch.from_numpy(b)
         a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
         if not all(torch.equal(x, y) for x, y in zip(a, b)):
             raise AssertionError(f"{kernel}: the two trees' outputs differ")
@@ -186,12 +275,14 @@ def main() -> int:
         for kernel in kernels:
             for tree in ("this", "other", "other", "this"):
                 fn = fns[kernel][0 if tree == "this" else 1]
-                queued = not (kernel == "rans_section_encode" and tree == "other" and not has_section)
-                ms, host_ms = chip_smoke.time_ms(fn, args.iters, cycles, queued=queued)
+                queued = not (kernel == "rans_section_encode" and tree == "other" and not has_section
+                              or kernel in UNQUEUED)
+                iters = args.iters if queued else max(3, args.iters // 20)
+                ms, host_ms = chip_smoke.time_ms(fn, iters, cycles, queued=queued)
                 line = {"round": r, "kernel": kernel, "tree": tree, "ms": ms, "host_ms": host_ms,
                         "queued": queued}
                 times.setdefault((kernel, tree, "ms"), []).append(ms)
-                if kernel == "rans_section_encode":
+                if kernel.startswith("rans_section"):
                     busy, top, _ = chip_smoke.device_busy_ms(fn, top=8)
                     line["busy_ms"], line["busy_top"] = busy, top
                     times.setdefault((kernel, tree, "busy_ms"), []).append(busy)

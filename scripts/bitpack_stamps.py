@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Where B1/B2/B3's and B8's section-form time goes (`pack_blocks`,
-`unpack_blocks`, `compact_blocks`, and `rans_section_encode`'s walk
-kernel), from stamps in an instrumented copy of the kernels, on one GPU.
+"""Where B1/B2/B3's, B1-with-B4's and B8's and B9's section-form time goes
+(`pack_blocks`, `unpack_blocks`, `compact_blocks`, `pack_blocks_meta7`,
+`rans_section_encode`'s walk kernel and `rans_section_decode`), from stamps
+in an instrumented copy of the kernels, on one GPU.
 
     python3 scripts/bitpack_stamps.py [--out FILE]
 
@@ -9,13 +10,15 @@ It copies this tree's `src/` into `build/stamps/src` (a directory
 `.gitignore` lists), puts stamps into that copy of `csrc/bitpack.cu`,
 `csrc/bitunpack.cu`, `csrc/frame_compact.cu` and `csrc/rans_section.cu` at
 fixed lines of their code (it fails if a line is missing), builds it, and
-runs each kernel once, warm, on chip_smoke.py's timing-phase inputs (B1-B3:
+runs each kernel once, warm, on chip_smoke.py's timing-phase inputs (B1-B4:
 the tcomp32 path's first fused chunk of 64 MiB of Rovio, seed 7: 128
-blocks x 2,048 symbols, OW 4,098; B8: the heavy tier's payload section of
-the same stream). Thread 0 of every CTA writes `%globaltimer` (ns) at entry
-and exit and `clock64()` (SM cycles) at the phase boundaries:
-  B1: entry, lengths in (the register scan), block scan done, ORs done
-      (after the barrier), row stores issued;
+blocks x 2,048 symbols, OW 4,098; B8 and B9: the heavy tier's payload
+section of the same stream). Thread 0 of every CTA writes `%globaltimer`
+(ns) at entry and exit and `clock64()` (SM cycles) at the phase boundaries:
+  B1, and B1 with B4 fused in (`csrc/rans_section_decode.cu` aside, one
+      stamp array per source): entry, lengths in (the register scan; with
+      B4, its metadata stores issued), block scan done, ORs done (after the
+      barrier), row stores issued;
   B2: entry, lengths in, block scan done, row staged (after the barrier),
       codes stored;
   B3: entry, counts in and scanned (the warp's `all` used), live copy
@@ -23,7 +26,12 @@ and exit and `clock64()` (SM cycles) at the phase boundaries:
   B8 walk: entry, table built, then for each quarter chunk
       (rows 384-511 first) the quarter staged and every lane's walk of the
       quarter before it done (a barrier each), every lane's last walk done
-      (a barrier), thread 0's last quad, state and count stored.
+      (a barrier), thread 0's last quad, state and count stored;
+  B9 section decode: entry (the first quads' copies issued), table built (a
+      barrier), the first quads landed, then thread 0's warp's rows 0-127,
+      128-255, 256-383 and 384-511 walked (tiles stored), the rest (a ragged
+      last chunk) done. A CTA whose thread 0 walks fewer rows (the last
+      chunk's) leaves stamps of an earlier launch and is left out.
 A phase that ends at a barrier is the slowest thread's; one that does not
 is thread 0's. Prints one JSON line per kernel: the median and max over the
 CTAs of each phase's cycles, the CTAs' start spread and the span from the
@@ -103,12 +111,27 @@ PATCHES = {
         ("  counts64[g] = cnt;\n}", "  counts64[g] = cnt;\n  STAMP(8); STAMP(9);\n}"),
     ]),
 }
+PATCHES["rans_section_decode.cu"] = ("g_decode_stamps", [
+    ("  const int lane = threadIdx.x & 31, j = lane & 7;\n",
+     "  const int lane = threadIdx.x & 31, j = lane & 7;\n  STAMP(0); STAMP(1);\n"),
+    ("  build_table(freqs, tab, fr, cu, warp_max);\n", "  build_table(freqs, tab, fr, cu, warp_max);\n  STAMP(2);\n"),
+    ("  d.val = ring[d.r];\n", "  d.val = ring[d.r];\n  STAMP(3);\n"),
+    ("    rows16<false>(d, t0, rows, tab, ring, s, col, piece, out, dst0, n, vec_out);\n",
+     "    rows16<false>(d, t0, rows, tab, ring, s, col, piece, out, dst0, n, vec_out);\n"
+     "    if (((t0 + kTileRows) & 127) == 0) STAMP(3 + ((t0 + kTileRows) >> 7));\n"),
+    ("    rows16<true>(d, t0, rows, tab, ring, s, col, piece, out, dst0, n, vec_out);\n  }\n}",
+     "    rows16<true>(d, t0, rows, tab, ring, s, col, piece, out, dst0, n, vec_out);\n  }\n"
+     "  STAMP(8); STAMP(9);\n}"),
+])
 PHASES = {
     "pack_blocks": ("lengths_in", "scan", "ors_and_barrier", "row_stores"),
+    "pack_blocks_meta7": ("lengths_in_and_meta", "scan", "ors_and_barrier", "row_stores"),
     "unpack_blocks": ("lengths_in", "scan", "staging_and_barrier", "extract_and_stores"),
     "compact_blocks": ("counts_and_scan", "copy_issued", "fill_issued"),
     "rans_section_encode": ("table", "quarter3_staged", "walk3_and_quarter2", "walk2_and_quarter1",
                             "walk1_and_quarter0", "walk0", "last_quad_and_state"),
+    "rans_section_decode": ("table", "first_quads", "rows_0_127", "rows_128_255", "rows_256_383",
+                            "rows_384_511", "ragged_rest"),
 }
 
 
@@ -163,11 +186,17 @@ def main() -> int:
                                 device=dev).compress_to_frame(values)
     section = torch.from_numpy(np.ascontiguousarray(frame.payload, np.uint32).view(np.uint8)).to(dev)
     freqs = entropy.quantize_freqs(torch.bincount(section, minlength=256)).to(torch.int32)
+    d_states, d_counts, d_words, d_total = ops.rans_section_encode(section, freqs)
+    e = int(d_total)
+    dec_args = (d_words[: (e + 1) // 2], e, freqs, d_states, d_counts, section.numel())
     runs = {
         "pack_blocks": (lambda: ops.pack_blocks(codes, blen, block=s, out_words=2 * s + 2), "g_pack_stamps"),
         "unpack_blocks": (lambda: ops.unpack_blocks(words, blen), "g_unpack_stamps"),
         "compact_blocks": (lambda: ops.compact_blocks(words, nbits), "g_compact_stamps"),
+        "pack_blocks_meta7": (lambda: ops.pack_blocks_meta7(codes, blen, block=s, out_words=2 * s + 2),
+                              "g_pack_stamps"),
         "rans_section_encode": (lambda: ops.rans_section_encode(section, freqs), "g_section_stamps"),
+        "rans_section_decode": (lambda: ops.rans_section_decode(*dec_args), "g_decode_stamps"),
     }
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60, check=True).stdout.strip()
@@ -180,8 +209,9 @@ def main() -> int:
         reader = getattr(lib, f"{array}_read")
         reader.argtypes = [ctypes.c_void_p]
         build.check(reader(stamps.ctypes.data), f"{array}_read")
-        st = stamps[stamps[:, 0] != 0]  # the CTAs of the launch (at most 1,024)
         k = len(PHASES[kernel])
+        # the CTAs of the launch (at most 1,024) whose phase stamps all come from it
+        st = stamps[(stamps[:, 0] != 0) & (np.diff(stamps[:, 1:k + 2], axis=1) >= 0).all(axis=1)]
         cycles = np.diff(st[:, 1:k + 2], axis=1)
         line = {
             "kernel": kernel, "card": card, "ctas": int(st.shape[0]),

@@ -11,8 +11,10 @@ process that imports that tree's `repro_torch` and builds its kernels, so
 alternate them (parent, change, change, parent). Every process measures the
 same way, with the code of this script, not of the tree: `--reps` timed
 roundtrips of `JobSpec(codec=...)` (tcomp32 by default, or tdic32; 4
-lanes, 8 KiB micro-batches) on 64 MiB of Rovio (seed 7), each step on the
-host clock, then one pass of each
+lanes, 8 KiB micro-batches), or with `--codec heavy` of the heavy tier
+`JobSpec(codec="delta_leb128", entropy="rans", egress=True)` (its parse
+decodes the rANS blob on the card), on 64 MiB of Rovio (seed 7), each step
+on the host clock, then one pass of each
 direction under `torch.profiler` for the device's busy time. It prints one
 JSON line per roundtrip, then one JSON line per tree with the median, min
 and max of every metric over all its roundtrips. The trees must produce the
@@ -61,7 +63,8 @@ def child(tree: str, reps: int, device: str, mib: int, codec: str) -> None:
             raise SystemExit("torch_ab: no CUDA device is available")
         build.library()
     values = make_dataset("rovio", n_tuples=(mib << 20) // 16, seed=7).stream()
-    spec = JobSpec(codec=codec)
+    spec = (JobSpec(codec="delta_leb128", entropy="rans", egress=True) if codec == "heavy"
+            else JobSpec(codec=codec))
     pipe = CompressionPipeline(spec, device=dev)
     decomp = DecompressionPipeline(spec, device=dev)
     decomp.ingest(pipe.compress_to_frame(values[: 8 * pipe.block_tuples]).to_bytes())
@@ -78,7 +81,7 @@ def child(tree: str, reps: int, device: str, mib: int, codec: str) -> None:
         wire = pipe.frame_from(shaped, res).to_bytes()
         t["frame_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        parsed = bits.parse_frame(wire)
+        parsed = bits.parse_frame(wire, dev)
         t["parse_s"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         dec = decomp.decompress(parsed)
@@ -103,8 +106,8 @@ def main() -> int:
     ap.add_argument("--out", help="also append every JSON line to this file")
     ap.add_argument("--device", default="cuda", help="torch device of the runs")
     ap.add_argument("--mib", type=int, default=64, help="stream size in MiB")
-    ap.add_argument("--codec", default="tcomp32", choices=("tcomp32", "tdic32"),
-                    help="the cell's lossless codec")
+    ap.add_argument("--codec", default="tcomp32", choices=("tcomp32", "tdic32", "heavy"),
+                    help="the cell's lossless codec, or the heavy tier")
     ap.add_argument("--child", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:

@@ -17,12 +17,15 @@ The wire layout and the arithmetic are the reference's, byte for byte:
 The device half runs on torch tensors: the encode is B8's section form
 (`kernels/ops.py` `rans_section_encode`: the section's bytes in, lane
 states, lane counts and the packed u16 stream out; on CUDA two launches
-for the whole section), the decode B9 (`rans_decode`, one launch for all
-chunks); on the CPU their plain versions in `kernels/ref.py`, batched over
-chunks as the reference's `vmap` of `encode_rows`/`decode_rows` is. The
-coder's constants, tables, chunk grid and stream assembly come from
-`kernels/rans.py`. The host half (u16 packing, section and blob layout,
-validation) is numpy.
+for the whole section), the decode B9's section form
+(`rans_section_decode`: the packed stream words as they sit in the frame,
+lane states and lane counts in, the section's bytes out; on CUDA one
+launch after a `torch.cumsum`); on the CPU their plain versions in
+`kernels/ref.py`, batched over chunks as the reference's `vmap` of
+`encode_rows`/`decode_rows` is. The coder's constants, tables, chunk grid
+and stream assembly come from `kernels/rans.py`. The host half (u16
+packing of the table and counts, section and blob layout, validation) is
+numpy.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ from repro_torch.kernels.rans import (  # noqa: F401  (the coder's constants, re
     assemble_stream,
     chunk_grid,
     cum_freqs,
+    decode_cap,
     lane_offsets,
     slot_table,
 )
@@ -50,10 +54,6 @@ from repro_torch.kernels.rans import (  # noqa: F401  (the coder's constants, re
 ENTROPY_KIND_RANS = 1  # blob kind word
 
 DeviceLike = Union[str, torch.device]
-
-
-def _next_pow2(n: int) -> int:
-    return 1 << max(int(n) - 1, 0).bit_length() if n > 1 else 1
 
 
 # ------------------------------------------------------------------ tables --
@@ -92,12 +92,6 @@ def section_grid(data: np.ndarray, device: torch.device):
     return syms, mask, quantize_freqs(_histogram(dev_bytes)).to(torch.int32)
 
 
-def decode_cap(nchunks: int) -> int:
-    """The reference decoder's stream length, `next_pow2(C) * CHUNK_BYTES`
-    u16 entries; reads clip to its last entry."""
-    return _next_pow2(nchunks) * CHUNK_BYTES
-
-
 def _encode_device(data: np.ndarray, device: torch.device):
     """Encode a section's bytes (uint8[n], n > 0) on `device`: one table
     over all bytes, then B8's section form for all chunks. Returns (freqs,
@@ -115,25 +109,23 @@ def _encode_device(data: np.ndarray, device: torch.device):
     )
 
 
-def _decode_device(stream: np.ndarray, freqs: np.ndarray, states: np.ndarray,
+def _decode_device(stream_words: np.ndarray, total: int, freqs: np.ndarray, states: np.ndarray,
                    counts: np.ndarray, n: int, device: torch.device) -> np.ndarray:
-    """Decode `n` bytes of a section on `device`: every (chunk, lane) starts
-    at its exclusive-cumsum offset, all in one B9 call; reads clip to the
-    reference's cap of `next_pow2(nchunks) * CHUNK_BYTES` entries."""
+    """Decode `n` bytes of a section on `device` with B9's section form:
+    the packed stream words uploaded as they are, the table, lane states
+    and lane counts in one more upload; every (chunk, lane) starts at its
+    exclusive-cumsum offset; reads clip to the reference's cap of
+    `next_pow2(nchunks) * CHUNK_BYTES` entries."""
     nchunks = states.shape[0]
-    off = lane_offsets(torch.from_numpy(counts.astype(np.int64)).to(device))
-    mask = (
-        torch.arange(nchunks * CHUNK_BYTES, device=device) < n
-    ).reshape(nchunks, ROWS, N_LANES)
-    syms = ops.rans_decode(
-        bits.u32_tensor(stream, device),
-        torch.from_numpy(freqs.astype(np.int32)).to(device),
-        bits.u32_tensor(states, device),
-        off,
-        mask,
-        decode_cap(nchunks),
+    small = torch.from_numpy(np.concatenate([
+        freqs.astype(np.int32), np.ascontiguousarray(states, np.uint32).view(np.int32).reshape(-1),
+        counts.astype(np.int32).reshape(-1)])).to(device)
+    tab, st, cnt = small.split([256, 8 * nchunks, 8 * nchunks])
+    data = ops.rans_section_decode(
+        bits.u32_tensor(stream_words, device), total, tab,
+        st.view(nchunks, N_LANES), cnt.view(nchunks, N_LANES), n,
     )
-    return syms.reshape(-1)[:n].to(torch.uint8).cpu().numpy()
+    return data.cpu().numpy()
 
 
 def _words_to_bytes(words: np.ndarray) -> np.ndarray:
@@ -229,7 +221,7 @@ def decode_section(section: np.ndarray, raw_word_count: int,
         nchunks, N_LANES
     )
     p += 4 * nchunks
-    stream = _unpack_u16(section[p : p + stream_words], total)
+    stream = section[p : p + stream_words]
     p += stream_words
     if int(counts.sum()) != total:
         raise ValueError(
@@ -237,7 +229,8 @@ def decode_section(section: np.ndarray, raw_word_count: int,
         )
     if nchunks == 0:
         return np.zeros(0, np.uint32), p
-    data = _decode_device(stream, freqs, states, counts, 4 * raw_word_count, torch.device(device))
+    data = _decode_device(stream, total, freqs, states, counts, 4 * raw_word_count,
+                          torch.device(device))
     return _bytes_to_words(data), p
 
 

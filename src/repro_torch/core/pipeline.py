@@ -7,10 +7,12 @@ the resolved execution plan, block shaping and chunking. On top of it:
   * `CompressionPipeline` — encode + bit-pack. Execution paths:
       - **fused** (default for lazy execution): a chunk of C blocks
         `(C, lanes, B)` is encoded on the device in one codec call
-        (`Codec.encode_blocks`), then three kernel launches make its egress
-        wire-shaped: `pack_blocks` writes `(C, OW)` words and `(C,)` bit
-        counts, `compact_blocks` the compacted payload and its word total,
-        `pack_meta7_blocks` the 7-bit metadata. One `.item()` sync per
+        (`Codec.encode_blocks`), then two kernel launches make its egress
+        wire-shaped: `pack_blocks_meta7` writes `(C, OW)` words, `(C,)` bit
+        counts and the 7-bit metadata (`pack_blocks` alone where a block's
+        symbols are not a multiple of 32, and the metadata travels as raw
+        bit lengths), `compact_blocks` the compacted payload and its word
+        total. One `.item()` sync per
         chunk fetches the live prefix, double-buffered so chunk k+1 is
         already enqueued when chunk k syncs.
       - **dispatch** (the `eager` strategy): one step per block.
@@ -32,7 +34,8 @@ handed to the codec's chunk walk as a callable). Stream-scope codecs (rle)
 decode in two passes: every block is unpacked, then one expansion decodes
 the whole symbol stream, flush mini-block included. With
 `entropy="rans"` the marshalled frame carries the rANS blob, coded on the
-pipeline's device (kernels B8/B9), and parsing decodes it there.
+pipeline's device (B8's and B9's section forms), and parsing decodes it
+there.
 
 Every entry point runs on `torch.device("cuda")` unless the caller passes
 `device="cpu"`; with no device and no GPU it raises. On the CPU the kernel
@@ -463,13 +466,18 @@ class CompressionPipeline(BlockedExecutor):
         self._meta7_ok = self.plan.block_tuples % 32 == 0
 
     # -------------------------------------------------------------- core step
-    def _pack(self, enc: Encoded, n_blocks: int):
+    def _pack(self, enc: Encoded, n_blocks: int, meta7: bool = False):
         """Pack `n_blocks` blocks of encoder output (leading dims flatten to
         n_blocks * S symbols) with the B1 kernel at the frame's width
-        OW = 2S+2: (words int32[n, OW], nbits int32[n], bitlen int32[n, S])."""
+        OW = 2S+2: (words int32[n, OW], nbits int32[n], bitlen int32[n, S]).
+        With `meta7` (S % 32 == 0) the same launch also packs the bit
+        lengths at 7 bits (`ops.pack_blocks_meta7`), returned in place of
+        `bitlen` as int32[n, 7S/32]."""
         bitlen = enc.bitlen.reshape(n_blocks, -1).to(torch.int32).contiguous()
         s = bitlen.shape[1]
         codes = enc.codes.reshape(n_blocks * s, 2).contiguous()
+        if meta7:
+            return ops.pack_blocks_meta7(codes, bitlen.reshape(-1), block=s, out_words=2 * s + 2)
         words, nbits = ops.pack_blocks(codes, bitlen.reshape(-1), block=s, out_words=2 * s + 2)
         return words, nbits, bitlen
 
@@ -497,13 +505,20 @@ class CompressionPipeline(BlockedExecutor):
         words, nbits, bitlen = self._pack(enc, blocks.shape[0])
         return state, words, nbits, bitlen
 
+    def _encode_chunk_meta(self, state: Any, blocks: torch.Tensor):
+        """`encode_chunk` with the metadata the frame takes: under
+        `_meta7_ok` the 7-bit packed bit lengths from the same B1 launch
+        (B4 fused in), else the raw int32 bit lengths. Returns (state,
+        words, nbits, meta)."""
+        state, enc = self.codec.encode_blocks(state, blocks, self.merge)
+        return (state, *self._pack(enc, blocks.shape[0], meta7=self._meta7_ok))
+
     def egress_chunk(self, state: Any, blocks: torch.Tensor):
-        """`encode_chunk` + B3 compaction + B4 metadata packing: the chunk's
-        egress leaves the device wire-shaped. Returns (state, nbits,
-        payload int32[C*OW], total, meta)."""
-        state, words, nbits, bitlen = self.encode_chunk(state, blocks)
+        """`encode_chunk` + B3 compaction + B4 metadata packing (in B1's
+        launch): the chunk's egress leaves the device wire-shaped. Returns
+        (state, nbits, payload int32[C*OW], total, meta)."""
+        state, words, nbits, meta = self._encode_chunk_meta(state, blocks)
         payload, total = ops.compact_blocks(words, nbits)
-        meta = ops.pack_meta7_blocks(bitlen) if self._meta7_ok else bitlen
         return state, nbits, payload, total, meta
 
     # ------------------------------------------------------------- finalize
@@ -658,8 +673,7 @@ class CompressionPipeline(BlockedExecutor):
                     )
             else:
                 for i in range(blocks_dev.shape[0]):
-                    state, words, tb, blen = self.encode_chunk(state, blocks_dev[i : i + 1])
-                    meta = ops.pack_meta7_blocks(blen) if self._meta7_ok else blen
+                    state, words, tb, meta = self._encode_chunk_meta(state, blocks_dev[i : i + 1])
                     sink.put_block(
                         tb[0], words[0], meta[0], packed=self._meta7_ok, syms=bt, valid=bt
                     )

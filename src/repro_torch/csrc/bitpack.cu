@@ -33,6 +33,21 @@
 //     registers, and thread 0 stores the bit count.
 // Contributions past `out_words` are dropped, as the reference's
 // `.at[].add(mode="drop")` drops them.
+//
+// With the template flag kMeta the same launch also does B4's work
+// (`src/repro/kernels/frame_compact.py: pack_meta7_blocks`, plain version
+// `kernels/ref.py: pack_meta7_ref`) for blocks of a multiple of 32
+// symbols: the block's bit lengths at 7 bits each (`uint32(n) & 0x7F`,
+// as B4 masks them) into its row of ceil(7S/32) = 7S/32 metadata words.
+// B4 as a launch of its own re-read the lengths this kernel has just loaded
+// and spent ~1.7-1.9 us of its ~2.8 us outside its CTAs. Here each thread
+// forms the 56-bit value of its 8 loaded lengths; 4 consecutive threads
+// hold 32 symbols = 224 bits = exactly 7 words, and thread p of the 4
+// takes its 64-bit window [64p, 64p + 64) of them from its own value and
+// its neighbour's (one shuffle), storing words 2p and 2p + 1 (thread 3
+// only word 6). Round r of a block lands at meta word r*448 (2,048
+// symbols fill 448 words). The stores go out as soon as the lengths are
+// in, with no barrier added. Without the flag the kernel is B1 alone.
 
 #include "common.cuh"
 
@@ -60,11 +75,29 @@ __device__ __forceinline__ void load_codes(const uint2* __restrict__ c, int firs
   }
 }
 
-template <bool kVec>
+// The round's 7-bit metadata from each thread's 8 loaded lengths `n` (of
+// symbols [first, first + 8)), into the block's metadata row `row`.
+__device__ __forceinline__ void store_meta7(const int (&n)[kPer], int first, int symbols,
+                                            uint32_t* __restrict__ row) {
+  uint64_t v = 0;
+#pragma unroll
+  for (int k = 0; k < kPer; ++k) v |= static_cast<uint64_t>(static_cast<uint32_t>(n[k]) & 0x7Fu) << (7 * k);
+  const uint64_t next = __shfl_down_sync(0xFFFFFFFFu, v, 1);  // the group's next thread
+  const int p = threadIdx.x & 3;
+  const int group = first - p * kPer;  // the group's first symbol, a multiple of 32
+  const uint64_t w = (v >> (8 * p)) | (next << (56 - 8 * p));  // group bits [64p, 64p + 64)
+  if (group < symbols) {
+    uint32_t* dst = row + group / 32 * 7 + 2 * p;
+    dst[0] = static_cast<uint32_t>(w);
+    if (p < 3) dst[1] = static_cast<uint32_t>(w >> 32);
+  }
+}
+
+template <bool kVec, bool kMeta>
 __global__ void __launch_bounds__(kThreads)
 pack_blocks_kernel(const uint2* __restrict__ codes, const int* __restrict__ bitlen,
                    int symbols, int out_words, uint32_t* __restrict__ words,
-                   int* __restrict__ nbits) {
+                   int* __restrict__ nbits, uint32_t* __restrict__ meta) {
   extern __shared__ uint4 quads[];  // (out_words + mis + 3) / 4 quads
   __shared__ int warp_sums[kThreads / 32];
   uint32_t* buf = reinterpret_cast<uint32_t*>(quads);
@@ -82,6 +115,7 @@ pack_blocks_kernel(const uint2* __restrict__ codes, const int* __restrict__ bitl
     uint2 code[kPer];
     repro::load_ints<kVec>(bl, first, symbols, n);
     load_codes<kVec>(c, first, symbols, code);
+    if constexpr (kMeta) store_meta7(n, first, symbols, meta + blk * (symbols / 32 * 7));
     if (base == 0) {  // ordered before the ORs by the scan's barriers
       for (int q = threadIdx.x; q < nq; q += kThreads) quads[q] = make_uint4(0u, 0u, 0u, 0u);
     }
@@ -127,6 +161,23 @@ pack_blocks_kernel(const uint2* __restrict__ codes, const int* __restrict__ bitl
   if (threadIdx.x == 0) nbits[blk] = carry;
 }
 
+template <bool kMeta>
+int launch_pack(const void* codes, const void* bitlen, int nblocks, int symbols, int out_words,
+                void* words, void* nbits, void* meta, void* stream) {
+  if (nblocks == 0) return 0;
+  const size_t smem = static_cast<size_t>((out_words + 6) / 4) * sizeof(uint4);
+  const bool vec = symbols % 4 == 0 &&
+                   ((reinterpret_cast<uintptr_t>(codes) | reinterpret_cast<uintptr_t>(bitlen)) & 15) == 0;
+  auto kernel = vec ? pack_blocks_kernel<true, kMeta> : pack_blocks_kernel<false, kMeta>;
+  cudaError_t err = repro::allow_smem(kernel, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<nblocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint2*>(codes), static_cast<const int*>(bitlen), symbols,
+      out_words, static_cast<uint32_t*>(words), static_cast<int*>(nbits),
+      static_cast<uint32_t*>(meta));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // codes uint32[nblocks*symbols, 2], bitlen int32[nblocks*symbols] ->
@@ -134,15 +185,15 @@ pack_blocks_kernel(const uint2* __restrict__ codes, const int* __restrict__ bitl
 extern "C" int repro_pack_blocks(const void* codes, const void* bitlen, int nblocks,
                                  int symbols, int out_words, void* words, void* nbits,
                                  void* stream) {
-  if (nblocks == 0) return 0;
-  const size_t smem = static_cast<size_t>((out_words + 6) / 4) * sizeof(uint4);
-  const bool vec = symbols % 4 == 0 &&
-                   ((reinterpret_cast<uintptr_t>(codes) | reinterpret_cast<uintptr_t>(bitlen)) & 15) == 0;
-  auto kernel = vec ? pack_blocks_kernel<true> : pack_blocks_kernel<false>;
-  cudaError_t err = repro::allow_smem(kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<nblocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint2*>(codes), static_cast<const int*>(bitlen), symbols,
-      out_words, static_cast<uint32_t*>(words), static_cast<int*>(nbits));
-  return static_cast<int>(cudaGetLastError());
+  return launch_pack<false>(codes, bitlen, nblocks, symbols, out_words, words, nbits, nullptr,
+                            stream);
+}
+
+// repro_pack_blocks, and meta uint32[nblocks, 7*symbols/32], the bit lengths
+// at 7 bits each; symbols % 32 == 0.
+extern "C" int repro_pack_blocks_meta7(const void* codes, const void* bitlen, int nblocks,
+                                       int symbols, int out_words, void* words, void* nbits,
+                                       void* meta, void* stream) {
+  return launch_pack<true>(codes, bitlen, nblocks, symbols, out_words, words, nbits, meta,
+                           stream);
 }

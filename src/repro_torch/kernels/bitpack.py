@@ -11,11 +11,18 @@ atomicOr: the fields are disjoint), which goes out with 16-byte stores,
 the zero tail straight from registers. Blocks of more than 2,048 symbols
 take rounds with a running carry.
 
-`launch` runs the kernel on validated CUDA tensors; `ops.pack_blocks` is the
-public wrapper (checks, allocation, the CPU plain version, the launch
-count). The reference's default kernel block is kept.
+With `meta` the same launch also packs the block's bit lengths at 7 bits
+each (B4's work, for blocks of a multiple of 32 symbols): each group of 4
+threads turns its 32 loaded lengths into 7 metadata words by one shuffle.
+
+`launch` runs the kernel on validated CUDA tensors; `ops.pack_blocks` and
+`ops.pack_blocks_meta7` are the public wrappers (checks, allocation, the
+CPU plain version, the launch count). The reference's default kernel block
+is kept.
 """
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -29,12 +36,15 @@ def words_per_block(block: int) -> int:
 
 
 def launch(codes: torch.Tensor, bitlen: torch.Tensor, words: torch.Tensor,
-           nbits: torch.Tensor, block: int) -> None:
+           nbits: torch.Tensor, block: int, meta: Optional[torch.Tensor] = None) -> None:
     """codes int32[N, 2], bitlen int32[N] -> words int32[N/block, OW],
-    nbits int32[N/block] (all contiguous, on one CUDA device)."""
+    nbits int32[N/block] (all contiguous, on one CUDA device); with `meta`
+    (int32[N/block, 7*block/32], block % 32 == 0) also the 7-bit lengths."""
     lib = build.library()
-    err = lib.repro_pack_blocks(
-        codes.data_ptr(), bitlen.data_ptr(), words.shape[0], block, words.shape[1],
-        words.data_ptr(), nbits.data_ptr(), torch.cuda.current_stream(codes.device).cuda_stream,
-    )
-    build.check(err, "pack_blocks")
+    stream = torch.cuda.current_stream(codes.device).cuda_stream
+    args = (codes.data_ptr(), bitlen.data_ptr(), words.shape[0], block, words.shape[1],
+            words.data_ptr(), nbits.data_ptr())
+    if meta is None:
+        build.check(lib.repro_pack_blocks(*args, stream), "pack_blocks")
+    else:
+        build.check(lib.repro_pack_blocks_meta7(*args, meta.data_ptr(), stream), "pack_blocks_meta7")

@@ -39,6 +39,7 @@ _U = ctypes.c_uint
 #: C entry point -> argument types (pointers and the stream as void*)
 SIGNATURES: Dict[str, List[type]] = {
     "repro_pack_blocks": [_P, _P, _I, _I, _I, _P, _P, _P],
+    "repro_pack_blocks_meta7": [_P, _P, _I, _I, _I, _P, _P, _P, _P],
     "repro_unpack_blocks": [_P, _I, _I, _P, _I, _P, _P],
     "repro_compact_blocks": [_P, _P, _I, _I, _P, _P, _P],
     "repro_pack_meta7_blocks": [_P, _I, _I, _I, _P, _P],
@@ -49,6 +50,7 @@ SIGNATURES: Dict[str, List[type]] = {
     "repro_rans_decode": [_P, _L, _L, _P, _P, _P, _P, _P, _P, _I, _I, _P, _P],
     "repro_rans_section_walk": [_P, _L, _P, _P, _P, _P, _P, _P],
     "repro_rans_section_copy": [_P, _P, _P, _L, _P, _P],
+    "repro_rans_section_decode": [_P, _L, _L, _P, _P, _P, _P, _L, _P, _P],
     "repro_adpcm_tile_encode": [_P, _I, _I, _I, _F, _P, _P, _I, _P, _P],
     "repro_adpcm_tile_decode": [_P, _I, _I, _I, _P, _P, _I, _P, _P],
     "repro_adpcm_lane_encode": [_P, _I, _I, _I, _P, _P, _U, _F, _F, _P, _P, _I, _I, _P, _P, _P, _P],

@@ -45,6 +45,37 @@ def pack_blocks(codes: torch.Tensor, bitlen: torch.Tensor,
     word-aligned bitstreams: (words int32[N/block, out_words], nbits
     int32[N/block]). `out_words` defaults to 2*block+1 (the Pallas kernel's
     width); the executor passes lanes*B*2+2 (the frame's `bits.pack_bits`)."""
+    out_words = _check_pack(codes, bitlen, block, out_words)
+    if codes.device.type == "cpu":
+        return ref.pack_blocks_ref(codes, bitlen, block, out_words)
+    words, nbits = _pack_outputs(codes, block, out_words)
+    bitpack.launch(codes, bitlen, words, nbits, block)
+    pack_blocks.launches += 1
+    return words, nbits
+
+
+def pack_blocks_meta7(codes: torch.Tensor, bitlen: torch.Tensor, block: int,
+                      out_words: Optional[int] = None):
+    """`pack_blocks` and `pack_meta7_blocks` of the same bit lengths in one
+    launch: (words int32[N/block, out_words], nbits int32[N/block], meta
+    int32[N/block, 7*block/32]). `block` must be a multiple of 32, so that
+    each block's metadata row is whole words (the executor's `_meta7_ok`)."""
+    out_words = _check_pack(codes, bitlen, block, out_words)
+    if block % 32:
+        raise ValueError(f"block={block} must be a multiple of 32")
+    rows = bitlen.view(-1, block)
+    if codes.device.type == "cpu":
+        return (*ref.pack_blocks_ref(codes, bitlen, block, out_words), ref.pack_meta7_ref(rows))
+    words, nbits = _pack_outputs(codes, block, out_words)
+    meta = torch.empty((rows.shape[0], 7 * block // 32), dtype=torch.int32, device=codes.device)
+    bitpack.launch(codes, bitlen, words, nbits, block, meta)
+    pack_blocks_meta7.launches += 1
+    return words, nbits, meta
+
+
+def _check_pack(codes: torch.Tensor, bitlen: torch.Tensor, block: int,
+                out_words: Optional[int]) -> int:
+    """B1's input checks; returns the row width."""
     dev = codes.device
     _check(codes, "codes", 2, dev)
     _check(bitlen, "bitlen", 1, dev)
@@ -56,13 +87,13 @@ def pack_blocks(codes: torch.Tensor, bitlen: torch.Tensor,
     out_words = bitpack.words_per_block(block) if out_words is None else out_words
     if out_words < 1:
         raise ValueError(f"out_words must be >= 1, got {out_words}")
-    if dev.type == "cpu":
-        return ref.pack_blocks_ref(codes, bitlen, block, out_words)
-    words = torch.empty((n // block, out_words), dtype=torch.int32, device=dev)
-    nbits = torch.empty((n // block,), dtype=torch.int32, device=dev)
-    bitpack.launch(codes, bitlen, words, nbits, block)
-    pack_blocks.launches += 1
-    return words, nbits
+    return out_words
+
+
+def _pack_outputs(codes: torch.Tensor, block: int, out_words: int):
+    nb = codes.shape[0] // block
+    return (torch.empty((nb, out_words), dtype=torch.int32, device=codes.device),
+            torch.empty((nb,), dtype=torch.int32, device=codes.device))
 
 
 def unpack_blocks(words: torch.Tensor, bitlen: torch.Tensor, block: Optional[int] = None):
@@ -304,6 +335,45 @@ def rans_decode(stream: torch.Tensor, freqs: torch.Tensor, states: torch.Tensor,
     return syms
 
 
+def rans_section_decode(words: torch.Tensor, total: int, freqs: torch.Tensor,
+                        states: torch.Tensor, counts: torch.Tensor, n: int) -> torch.Tensor:
+    """B9's section form: a section's packed stream words int32[ceil(total
+    / 2)] (two u16 to a word, low half first, as in the frame), its table
+    int32[256], lane states and lane counts int32[C, 8] -> its n bytes
+    uint8[n], C = ceil(n / 4096). Each lane starts at the exclusive sum of
+    the counts before it; reads behave as over the `total` u16s zero-padded
+    to `rans.decode_cap(C)` entries (so the odd pad half reads 0). What
+    `rans_decode` gives on the unpacked stream and the section's chunk grid,
+    narrowed to bytes. The table must be one the decoder accepts
+    (non-negative, summing to 4096), as `entropy.decode_section` checks. On
+    CUDA one kernel launch after a `torch.cumsum`, no sync."""
+    dev = words.device
+    _check(words, "words", 1, dev)
+    _check(freqs, "freqs", 1, dev)
+    _check(states, "states", 2, dev)
+    _check(counts, "counts", 2, dev)
+    total, n = int(total), int(n)
+    c = -(-n // rans.CHUNK_BYTES)
+    if n < 0 or states.shape != (c, rans.N_LANES) or counts.shape != states.shape:
+        raise ValueError(f"states {tuple(states.shape)} and counts {tuple(counts.shape)} must be "
+                         f"({c}, {rans.N_LANES}) for n={n}")
+    if freqs.shape[0] != 256:
+        raise ValueError(f"freqs must have 256 entries, got {tuple(freqs.shape)}")
+    if total < 0 or words.numel() != (total + 1) // 2:
+        raise ValueError(f"words has {words.numel()} entries for a stream of {total} u16s")
+    cap = rans.decode_cap(c)
+    if total > cap:
+        raise ValueError(f"a stream of {total} u16s exceeds the decoder's {cap} entries for {c} chunks")
+    if dev.type == "cpu":
+        return ref.rans_section_decode_ref(words, total, freqs, states, counts, n)
+    out = torch.empty((n,), dtype=torch.uint8, device=dev)
+    if n == 0:
+        return out
+    rans.launch_section_decode(words, total, freqs, states, counts, out)
+    rans_section_decode.launches += 1
+    return out
+
+
 def _check_qbits(qbits: int) -> None:
     top = nuq.MAX_TABLE_BITS + 1
     if not 2 <= qbits <= top:
@@ -527,6 +597,7 @@ def flash_attention_fwd_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 #: the kernel wrappers, by kernel name
 WRAPPERS = {
     "pack_blocks": pack_blocks,
+    "pack_blocks_meta7": pack_blocks_meta7,
     "unpack_blocks": unpack_blocks,
     "compact_blocks": compact_blocks,
     "pack_meta7_blocks": pack_meta7_blocks,
@@ -536,6 +607,7 @@ WRAPPERS = {
     "rans_encode": rans_encode,
     "rans_section_encode": rans_section_encode,
     "rans_decode": rans_decode,
+    "rans_section_decode": rans_section_decode,
     "adpcm_encode": adpcm_encode,
     "adpcm_decode": adpcm_decode,
     "adpcm_lane_encode": adpcm_lane_encode,
@@ -575,9 +647,11 @@ __all__ = [
     "flash_attention_fwd_tc",
     "launch_counts",
     "pack_blocks",
+    "pack_blocks_meta7",
     "pack_meta7_blocks",
     "rans_decode",
     "rans_encode",
+    "rans_section_decode",
     "rans_section_encode",
     "reset_launches",
     "unpack_blocks",

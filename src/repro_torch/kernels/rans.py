@@ -8,14 +8,18 @@
     runs: a section's bytes to lane states, lane counts and the packed u16
     stream, in two launches around a `torch.cumsum` of the counts.
   * `launch_decode` — the forward decode, each lane from its absolute
-    offset into the shared u16 stream.
+    offset into the shared u16 stream (the Pallas contract's int32 grids).
+  * `launch_section_decode` — B9's section form, what the entropy stage
+    runs: a section's packed stream words, lane states and lane counts to
+    its bytes, in one launch after a `torch.cumsum` of the counts.
 
 The coder's constants, its two tables (`cum_freqs`, `slot_table`), the
-section's chunk grid (`chunk_grid`) and the stream assembly from per-step
-emissions (`assemble_stream`, `lane_offsets`) live here, below the wrappers
+section's chunk grid (`chunk_grid`), the decoder's stream length
+(`decode_cap`) and the stream assembly from per-step emissions
+(`assemble_stream`, `lane_offsets`) live here, below the wrappers
 (`kernels/ops.py`), the plain versions (`kernels/ref.py`) and the section
 coder (`core/entropy.py`). The public wrappers are `ops.rans_encode`,
-`ops.rans_section_encode` and `ops.rans_decode`.
+`ops.rans_section_encode`, `ops.rans_decode` and `ops.rans_section_decode`.
 """
 from __future__ import annotations
 
@@ -87,6 +91,12 @@ def packed_words(stream: torch.Tensor) -> torch.Tensor:
     return (u[0::2] | (u[1::2] << 16)).to(torch.int32)
 
 
+def decode_cap(nchunks: int) -> int:
+    """The reference decoder's stream length, `next_pow2(C) * CHUNK_BYTES`
+    u16 entries; reads clip to its last entry."""
+    return (1 << max(nchunks - 1, 0).bit_length()) * CHUNK_BYTES
+
+
 def section_words(n: int) -> int:
     """Words of the section form's stream buffer for n bytes: room for one
     u16 per byte, the most a section can emit, and the odd pad half."""
@@ -148,3 +158,20 @@ def launch_decode(stream: torch.Tensor, cap: int, freqs: torch.Tensor, cums: tor
         t_rows, syms.data_ptr(), torch.cuda.current_stream(mask.device).cuda_stream,
     )
     build.check(err, "rans_decode")
+
+
+def launch_section_decode(words: torch.Tensor, total: int, freqs: torch.Tensor,
+                          states: torch.Tensor, counts: torch.Tensor, out: torch.Tensor) -> None:
+    """words int32[ceil(total/2)] (the packed stream), freqs int32[256],
+    states/counts int32[C, 8] -> out uint8[n], C = ceil(n / 4096); reads as
+    over the stream zero-padded to `decode_cap(C)` entries. `torch.cumsum`
+    gives the lanes' ends in int32, as the reference's decoder takes them,
+    and the kernel each lane's offset from its end."""
+    lib = build.library()
+    ends = torch.cumsum(counts.reshape(-1), 0, dtype=torch.int32)
+    err = lib.repro_rans_section_decode(
+        words.data_ptr(), total, decode_cap(states.shape[0]), freqs.data_ptr(), states.data_ptr(),
+        counts.data_ptr(), ends.data_ptr(), out.numel(), out.data_ptr(),
+        torch.cuda.current_stream(out.device).cuda_stream,
+    )
+    build.check(err, "rans_section_decode")

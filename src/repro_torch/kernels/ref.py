@@ -200,6 +200,26 @@ def rans_decode_ref(stream: torch.Tensor, cap: int, freqs: torch.Tensor,
     return out
 
 
+def unpack_u16(words: torch.Tensor, total: int) -> torch.Tensor:
+    """The first `total` u16s of words packed two to a word, low half
+    first: int32[total] (values 0..65535)."""
+    u = bits._u(words)
+    return torch.stack([u & 0xFFFF, u >> 16], dim=1).reshape(-1)[:total].to(torch.int32)
+
+
+def rans_section_decode_ref(words: torch.Tensor, total: int, freqs: torch.Tensor,
+                            states: torch.Tensor, counts: torch.Tensor, n: int) -> torch.Tensor:
+    """B9's section form: the u16s unpacked from the packed words, the
+    section's chunk-grid mask, `rans_decode_ref` from the lanes' exclusive
+    offsets with `cap = decode_cap(C)`, the n bytes narrowed to uint8[n]."""
+    c = states.shape[0]
+    mask = (torch.arange(c * rans.CHUNK_BYTES, device=words.device) < n).reshape(
+        c, rans.ROWS, rans.N_LANES)
+    syms = rans_decode_ref(unpack_u16(words, total), rans.decode_cap(c), freqs, states,
+                           rans.lane_offsets(counts), mask)
+    return syms.reshape(-1)[:n].to(torch.uint8)
+
+
 # ---------------------------------------------------------------- delta_nuq --
 def _quantize(d: torch.Tensor, thr: torch.Tensor, dec: torch.Tensor):
     """Signed mu-law quantization of float32 deltas on the magnitude tables

@@ -14,7 +14,11 @@ shared row that holds row word i at index i + mis and its quad-wise store
 with the zero tail; B2's speculative first quads, the staging of the words
 a window can read (unstaged shared words hold a sentinel, so a read of one
 shows), its extraction by pairs of symbols spread over the threads (a
-length as the difference of two offsets) and the window's edge rule. Inputs come from numpy with a seed.
+length as the difference of two offsets) and the window's edge rule. B1's
+launch with B4 fused in (`ops.pack_blocks_meta7`) is emulated the same way:
+each thread's 8 loaded lengths as one 56-bit value, each group of 4 threads
+turning its 224 bits into 7 words by one shuffle from the next thread, round
+r of a block at metadata word r*448. Inputs come from numpy with a seed.
 Tests marked `cuda` run the kernels themselves on the same shapes."""
 import numpy as np
 import pytest
@@ -273,6 +277,80 @@ def test_unpack_emulation_random_words_past_the_row(reference, nb, s, ow):
     _check_unpack_symbols(reference, words, blen, got)
 
 
+def emulate_meta7(blen, symbols, base_mis=0):
+    """B4 in B1's launch on int32[nb*S] lengths (S % 32 == 0) -> uint32[nb,
+    7S/32]: thread t's 56-bit value of its 8 lengths (each `uint32(n) &
+    0x7F`), the next thread's by `__shfl_down_sync` (a warp's last lane gets
+    its own), thread p of a group of 4 storing words 2p and 2p + 1 (p = 3:
+    word 6) of the group's 7 from its 64-bit window [64p, 64p + 64); groups
+    past the block store nothing. Every word is stored exactly once."""
+    nb = blen.size // symbols
+    mw = 7 * symbols // 32
+    meta = np.full((nb, mw), SENTINEL, np.uint64)
+    writes = np.zeros((nb, mw), np.int64)
+    vec = symbols % 4 == 0 and base_mis == 0
+    t = np.arange(THREADS)
+    p = (t & 3).astype(np.uint64)
+    for blk in range(nb):
+        for base in range(0, symbols, ROUND):
+            first, _, n = _round_lengths(blen, blk * symbols, base, symbols, vec)
+            fields = (n.astype(np.int64) & 0xFFFFFFFF & 0x7F).astype(np.uint64)
+            v = (fields << (7 * np.arange(PER, dtype=np.uint64))[None, :]).sum(axis=1).astype(np.uint64)
+            nxt = np.where(t % 32 < 31, np.roll(v, -1), v)
+            w = ((v >> (np.uint64(8) * p)) | (nxt << (np.uint64(56) - np.uint64(8) * p))) & np.uint64(2**64 - 1)
+            group = first[:, 0] - (t & 3) * PER
+            for i in np.flatnonzero(group < symbols):
+                dst = group[i] // 32 * 7 + 2 * (i & 3)
+                for k, word in enumerate((w[i] & M32, w[i] >> np.uint64(32))[: 1 if i & 3 == 3 else 2]):
+                    meta[blk, dst + k] = word
+                    writes[blk, dst + k] += 1
+    assert (writes == 1).all()
+    return meta.astype(np.uint32)
+
+
+# (nblocks, symbols, kind): one and two groups of 32, a block of 3 groups,
+# the path's chunk rows, two rounds, a round and a partial one, 64-bit and
+# zero-width symbols
+META7_CASES = [
+    (4, 32, "random"), (3, 64, "random"), (3, 96, "zero"), (2, 2048, "path"),
+    (2, 4096, "random"), (2, 2080, "random"), (2, 2048, "wide"),
+]
+
+
+@pytest.mark.parametrize("base_mis", [0, 1])
+@pytest.mark.parametrize("nb,s,kind", META7_CASES)
+def test_fused_meta7_emulation_matches_plain_version_and_reference(reference, nb, s, kind, base_mis):
+    """The fused form's 7-bit rows against `pack_meta7_ref`, the reference's
+    `bits.pack_meta7` per row and its Pallas `pack_meta7_blocks` in interpret
+    mode; lengths 0..64 and, in the random cases, out-of-range lengths (B4
+    masks every length to 7 bits)."""
+    jnp, rbits, rops, _ = reference
+    _, blen = _symbols(s * nb + 7, nb, s, kind)
+    if kind == "random":
+        blen[[5, 9, 13, 17, 21]] = [-3, 70, 127, 200, -1]
+    got = emulate_meta7(blen, s, base_mis)
+    np.testing.assert_array_equal(got, tbits.u32_numpy(ref.pack_meta7_ref(_t(blen).view(nb, s))))
+    for b in range(nb):
+        row = jnp.asarray(blen[b * s:(b + 1) * s])
+        np.testing.assert_array_equal(got[b], np.asarray(rbits.pack_meta7(row)))
+    np.testing.assert_array_equal(got, np.asarray(rops.pack_meta7(jnp.asarray(blen.reshape(nb, s)))))
+
+
+def test_fused_pack_plain_version_and_checks():
+    """`ops.pack_blocks_meta7` on the CPU is `pack_blocks` plus
+    `pack_meta7_blocks`, refuses blocks that are not a multiple of 32
+    symbols, and counts nothing."""
+    codes, blen = _symbols(3, 4, 64)
+    ops.reset_launches()
+    words, nbits, meta = ops.pack_blocks_meta7(_t(codes), _t(blen), block=64, out_words=130)
+    w_ref, n_ref = ops.pack_blocks(_t(codes), _t(blen), block=64, out_words=130)
+    assert torch.equal(words, w_ref) and torch.equal(nbits, n_ref)
+    assert torch.equal(meta, ops.pack_meta7_blocks(_t(blen).view(4, 64)))
+    with pytest.raises(ValueError, match="multiple of 32"):
+        ops.pack_blocks_meta7(_t(codes), _t(blen), block=16)
+    assert ops.launch_counts()["pack_blocks_meta7"] == 0
+
+
 # ---------------------------------------------------------------- on the card --
 @pytest.fixture
 def cuda():
@@ -315,3 +393,19 @@ def test_cuda_unpack_random_words_past_the_row(cuda, nb, s, ow):
     words = _t(rng.integers(0, 2**32, size=(nb, ow), dtype=np.uint64).astype(np.uint32)).to(cuda)
     blen = _t(rng.integers(0, 65, size=nb * s).astype(np.int32)).to(cuda)
     assert torch.equal(ops.unpack_blocks(words, blen), ref.unpack_blocks_ref(words, blen))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shift", [0, 1])
+@pytest.mark.parametrize("nb,s,kind", META7_CASES)
+def test_cuda_fused_pack_matches_plain_versions(cuda, nb, s, kind, shift):
+    codes, blen = _symbols(s * nb + 7, nb, s, kind)
+    c, b = _offset_view(_t(codes).to(cuda), 2 * shift), _offset_view(_t(blen).to(cuda), shift)
+    ops.reset_launches()
+    words, nbits, meta = ops.pack_blocks_meta7(c, b, block=s, out_words=2 * s + 2)
+    w_ref, n_ref = ref.pack_blocks_ref(c, b, s, 2 * s + 2)
+    assert torch.equal(words, w_ref) and torch.equal(nbits, n_ref)
+    assert torch.equal(meta, ref.pack_meta7_ref(b.view(nb, s)))
+    np.testing.assert_array_equal(tbits.u32_numpy(meta.cpu()), emulate_meta7(blen, s, shift))
+    counts = ops.launch_counts()
+    assert counts["pack_blocks_meta7"] == 1 and counts["pack_blocks"] == 0

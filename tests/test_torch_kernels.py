@@ -233,6 +233,7 @@ def test_wrappers_check_inputs_and_do_not_count_cpu_calls():
     with pytest.raises(ValueError, match="dims"):
         ops.pack_meta7_blocks(blen)
     ops.pack_blocks(codes, blen, block=32)
+    ops.pack_blocks_meta7(codes, blen, block=32)
     ops.dict_probe(codes[:2].contiguous(), torch.zeros((2, 16), dtype=torch.int32),
                    torch.zeros((2, 16), dtype=torch.uint8), idx_bits=4)
     dstate = (torch.zeros((2, 16), dtype=torch.int32), torch.zeros((2, 16), dtype=torch.uint8),
@@ -244,7 +245,10 @@ def test_wrappers_check_inputs_and_do_not_count_cpu_calls():
     freqs[0] = 4096
     states, flags, _ = ops.rans_encode(grid, grid.bool(), freqs)
     ops.rans_decode(torch.zeros(0, dtype=torch.int32), freqs, states, states * 0, grid.bool(), 1)
-    ops.rans_section_encode(torch.zeros(5000, dtype=torch.uint8), freqs)
+    sec_states, sec_counts, sec_words, sec_total = ops.rans_section_encode(
+        torch.zeros(5000, dtype=torch.uint8), freqs)
+    ops.rans_section_decode(sec_words[: (int(sec_total) + 1) // 2], int(sec_total), freqs,
+                            sec_states, sec_counts, 5000)
     ops.adpcm_decode(ops.adpcm_encode(torch.zeros((8, 128))))
     lane = torch.zeros((1, 4, 8), dtype=torch.int32)
     xhat, init = torch.zeros(4), torch.zeros(4, dtype=torch.bool)
@@ -255,9 +259,10 @@ def test_wrappers_check_inputs_and_do_not_count_cpu_calls():
     ops.flash_attention_fwd_tc(*(torch.zeros(s, dtype=torch.bfloat16)
                                  for s in ((1, 8, 4, 16), (1, 8, 2, 16), (1, 8, 2, 16))))
     assert ops.launch_counts() == {
-        "pack_blocks": 0, "unpack_blocks": 0, "compact_blocks": 0, "pack_meta7_blocks": 0,
-        "dict_probe": 0, "dict_chunk_encode": 0, "dict_chunk_decode": 0, "rans_encode": 0,
-        "rans_section_encode": 0, "rans_decode": 0, "adpcm_encode": 0,
+        "pack_blocks": 0, "pack_blocks_meta7": 0, "unpack_blocks": 0, "compact_blocks": 0,
+        "pack_meta7_blocks": 0, "dict_probe": 0, "dict_chunk_encode": 0, "dict_chunk_decode": 0,
+        "rans_encode": 0, "rans_section_encode": 0, "rans_decode": 0, "rans_section_decode": 0,
+        "adpcm_encode": 0,
         "adpcm_decode": 0, "adpcm_lane_encode": 0, "adpcm_lane_encode_serial": 0,
         "adpcm_lane_decode": 0, "adpcm_lane_decode_serial": 0,
         "flash_attention_fwd": 0, "flash_attention_fwd_tc": 0,
