@@ -24,7 +24,10 @@ Phases, each printing one line per check:
                torch ops) on the tdic32 path's first two chunks of Rovio at
                idx_bits 12, 10 and 4 (collisions), with 4 lanes and lane 0,
                and on 7 blocks of 333 tuples per lane, each in two calls
-               (state carried); B3 also with n of 1, 3, 128 and 300 blocks,
+               (state carried), two of the cases also from a state seeded
+               by a dictionary trained on the same values (valid slots
+               stamped 0, empty ones -1, as `TrainedDict.seed_state` gives
+               them); B3 also with n of 1, 3, 128 and 300 blocks,
                OW odd and even, zero-width and full blocks, a prefix longer
                than its row and one past the array (the clipped gather),
                on inputs 0-3 words off a 16-byte boundary; B8/B9 (rANS) on
@@ -86,7 +89,31 @@ Phases, each printing one line per check:
                read just after it; each run must launch its kernels. Then
                the codec form's new kernels against the serial ones over
                all 64 chunks of the ECG stream, state carried;
-  5. flash   — B10 (flash attention forward) against its plain version (a
+  5. api     — the job API (`repro_torch.cstream`) on the same 64 MiB
+               Rovio stream, pushed as eight 8 MiB segments, each a push
+               and a flush with egress (8 chunks of 128 blocks a segment):
+               api/tdic32-dict, a tdic32 job seeded from a dictionary
+               trained on the stream's first 262,144 values and published
+               as rovio v1 in a registry under a temporary directory, hot-
+               swapped to v2 (trained on the next 262,144) after the fourth
+               flush, beside a cold tdic32 job over the same segments; and
+               api/adaptive, a tcomp32 job on the tier ladder under a
+               scripted schedule that visits every rung twice or more, then
+               under the default controller. Each job's handle window (its
+               pushes and flushes, with the in-memory roundtrip) and the
+               collector window (every frame's wire bytes ingested by a
+               pipeline of the frame's codec) have their launch counts set
+               to 0 just before and read just after: B5's codec form runs
+               once per chunk and direction in the handle window from the
+               seeded table and once per chunk in the collector's decode,
+               B5's probe never; B8's section form runs twice per heavy
+               segment in the handle window and B9's twice per heavy frame
+               in the collector's, the contract kernels never. Frames must
+               carry their dictionary ids and rungs, every roundtrip must be
+               exact, and the first two segments' frames (and the tier
+               logs) must equal those of the same handles opened with
+               device="cpu";
+  6. flash   — B10 (flash attention forward) against its plain version (a
                dense float32 softmax) on every case of FLASH_CASES, each
                through `ops.flash_attention_fwd`, which sends bf16 with Dh %
                16 == 0 to the tensor-core kernel and the rest to the FMA
@@ -102,7 +129,7 @@ Phases, each printing one line per check:
                the outputs a torch emulation of that kernel's numerics puts
                outside the rule with p@v taking p as one, two and three bf16
                terms (the kernel takes three);
-  6. lm      — qwen3-1.7b served through `repro_torch.launch.serve.serve`:
+  7. lm      — qwen3-1.7b served through `repro_torch.launch.serve.serve`:
                first at full width and 2 layers, 2 requests x 256 tokens and
                4 generated, the same weights and prompts on the card and on
                the CPU (prefill logits, cache codes and generated tokens
@@ -112,7 +139,7 @@ Phases, each printing one line per check:
                set to 0 just before and read just after (B10's tensor-core
                kernel must launch once per layer, its FMA kernel never), and
                one profiled prefill and decode for the device's busy time;
-  7. timing  — each kernel and its plain version timed with CUDA events on
+  8. timing  — each kernel and its plain version timed with CUDA events on
                the main paths' own inputs (B6/B7's codec form: the new and
                the serial kernels on the adpcm path's first chunk, and both
                encodes on the never-converging ramp at that shape; B5's
@@ -142,6 +169,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -150,9 +178,10 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import cstream  # noqa: E402
 from repro_torch.api import JobSpec  # noqa: E402
-from repro_torch.core import bits  # noqa: E402
-from repro_torch.core.algorithms import make_codec  # noqa: E402
+from repro_torch.core import bits, dictstore  # noqa: E402
+from repro_torch.core.algorithms import WIRE_CODEC_NAMES, make_codec  # noqa: E402
 from repro_torch.core.pipeline import CompressionPipeline, DecompressionPipeline  # noqa: E402
 from repro_torch.data import make_dataset  # noqa: E402
 from repro_torch.core import entropy  # noqa: E402
@@ -303,18 +332,21 @@ TIMING_ITERS = {
     "dict_chunk_decode": (100, 3, False),
 }
 #: B5's codec form in phase `kernels`: (stream, idx_bits, lanes, tuples per
-#: lane, blocks per call); each case runs two calls, the state carried. The
-#: Rovio cases are the tdic32 path's first two 128-block chunks (4 lanes x
-#: 512 tuples), or lane 0 of them; "ragged" cuts the same values into 333
-#: tuples per lane and 7 blocks, a last chunk's shape
+#: lane, blocks per call, seeded); each case runs two calls, the state
+#: carried from a cold start or, seeded, from a dictionary trained on the
+#: case's values. The Rovio cases are the tdic32 path's first two 128-block
+#: chunks (4 lanes x 512 tuples), or lane 0 of them; "ragged" cuts the same
+#: values into 333 tuples per lane and 7 blocks, a last chunk's shape
 DICT_CHUNK_CASES = (
-    ("rovio", 12, 4, 512, 128),
-    ("rovio", 12, 1, 512, 128),
-    ("rovio", 10, 4, 512, 128),
-    ("rovio", 10, 1, 512, 128),
-    ("rovio", 4, 4, 512, 128),  # 16 slots: collisions in every block
-    ("ragged", 12, 4, 333, 7),
-    ("ragged", 4, 1, 333, 7),
+    ("rovio", 12, 4, 512, 128, False),
+    ("rovio", 12, 1, 512, 128, False),
+    ("rovio", 10, 4, 512, 128, False),
+    ("rovio", 10, 1, 512, 128, False),
+    ("rovio", 4, 4, 512, 128, False),  # 16 slots: collisions in every block
+    ("ragged", 12, 4, 333, 7, False),
+    ("ragged", 4, 1, 333, 7, False),
+    ("rovio", 12, 4, 512, 128, True),
+    ("rovio", 4, 4, 512, 128, True),  # every seeded slot overwritten
 )
 DICT_CHUNK_KERNELS = ("dict_chunk_encode", "dict_chunk_decode")
 def adversarial_stream(name: str, n: int):
@@ -556,7 +588,7 @@ def state_err(a: tuple, b: tuple) -> int:
 
 def check_dict_chunk(dev) -> dict:
     """B5's codec form on every DICT_CHUNK_CASES case, two calls with the
-    state carried from a cold start: the kernels (through the codec's
+    state carried from a cold or a seeded start: the kernels (through the codec's
     `encode_blocks`/`decode_blocks`, one launch per call and direction)
     against their plain versions and against the per-block route on the
     card (`encode_each_block`/`decode_each_block`: B5's probe and the merge
@@ -566,14 +598,16 @@ def check_dict_chunk(dev) -> dict:
     pipe = CompressionPipeline(JobSpec(codec="tdic32"), device=dev)
     rovio = bits.u32_tensor(pipe.shape_blocks(values).blocks, dev)
     err = dict.fromkeys(DICT_CHUNK_KERNELS, 0)
-    for stream, idx_bits, lanes, b, c in DICT_CHUNK_CASES:
+    for stream, idx_bits, lanes, b, c, seeded in DICT_CHUNK_CASES:
         if stream == "rovio":
             data = rovio[: 2 * c].view(2, c, rovio.shape[1], b)[:, :, :lanes]
         else:
             data = bits.u32_tensor(values[: 2 * c * 4 * b].reshape(2, c, 4, b), dev)[:, :, :lanes]
         codec = make_codec("tdic32", idx_bits=idx_bits)
-        cold = codec.init_state(lanes, dev)
-        enc = {"kernel": cold, "plain": codec.kernel_state(cold), "each": cold}
+        if seeded:
+            codec.seed_dictionary(dictstore.train_dict(bits.u32_numpy(data), idx_bits=idx_bits))
+        start = codec.init_state(lanes, dev)
+        enc = {"kernel": start, "plain": codec.kernel_state(start), "each": start}
         dec = dict(enc)
         for part in data:
             part = part.contiguous()
@@ -1677,6 +1711,211 @@ def run_full(dev, name: str, values: np.ndarray):
     return launches, frame
 
 
+#: the api phase: the 64 MiB Rovio stream as eight 8 MiB segments (each
+#: 1,024 blocks of JobSpec()'s 2,048 tuples, 8 chunks, no tail), the
+#: dictionaries' training sample, the scripted tier schedule (every rung at
+#: least twice), and the segments held against the CPU path
+API_SEGMENTS = 8
+API_TRAIN = 262_144
+API_SCHEDULE = ("bypass", "cheap", "heavy", "cheap", "heavy", "bypass", "heavy", "cheap")
+API_CPU_SEGMENTS = 2
+#: the contract kernels the api phase must never launch
+API_NEVER = ("dict_probe", "pack_blocks", "pack_meta7_blocks", "rans_encode", "rans_decode")
+
+
+def api_drive(handle, segments, swap=None) -> list:
+    """Push and flush each segment (the host wall of each, synced); `swap`
+    is (index, fn): before segment `index`, `handle.swap_dictionary(fn())`."""
+    walls = []
+    for i, seg in enumerate(segments):
+        if swap is not None and i == swap[0]:
+            handle.swap_dictionary(swap[1]())
+        t0 = time.perf_counter()
+        handle.push(seg)
+        handle.flush()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    return walls
+
+
+def api_collect(frames, segments, dev, params=None) -> None:
+    """The collector window: every frame's wire bytes ingested on the card
+    by a pipeline of the frame's own codec (default parameters, or
+    `params`), which must return the segment exactly."""
+    pipes = {}
+    for frame, seg in zip(frames, segments):
+        name = WIRE_CODEC_NAMES[frame.codec_id]
+        if name not in pipes:
+            pipes[name] = DecompressionPipeline(JobSpec(codec=name, params=params or {}), device=dev)
+        if not np.array_equal(pipes[name].ingest(frame.to_bytes()).values, seg):
+            raise AssertionError(f"api: a {name} frame's wire roundtrip on the card is not exact")
+
+
+def api_window(fn) -> dict:
+    """Launch counts of one window: set to 0 just before `fn`, read after."""
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    fn()
+    torch.cuda.synchronize()
+    return ops.launch_counts()
+
+
+def api_check_launches(job: str, window: str, got: dict, want: dict) -> None:
+    want = {**{k: 0 for k in API_NEVER}, **want}
+    if {k: got[k] for k in want} != want:
+        raise AssertionError(f"api/{job}, {window} window launched {({k: got[k] for k in want})}, "
+                             f"expected {want}")
+
+
+def api_roundtrips_exact(handle, segments, job: str) -> None:
+    rep = handle.report()
+    if rep.n_frames != len(segments) or not all(
+            np.array_equal(rt.values, seg) for rt, seg in zip(rep.roundtrips, segments)):
+        raise AssertionError(f"api/{job}: a segment's roundtrip is not exact")
+
+
+def api_cpu_frames_equal(cpu_handle, segments, frames, job: str) -> None:
+    """The same job on the CPU over the first API_CPU_SEGMENTS segments:
+    byte-identical frames."""
+    api_drive(cpu_handle, segments[:API_CPU_SEGMENTS])
+    if [f.to_bytes() for f in cpu_handle.frames()] != [f.to_bytes() for f in frames[:API_CPU_SEGMENTS]]:
+        raise AssertionError(f"api/{job}: the card's frames differ from the CPU path's")
+
+
+def api_busy_share(spec, segment, walls, dev, controller=None) -> dict:
+    """Device time of one more segment on a fresh handle, profiled, beside
+    the unprofiled segments' median host wall."""
+    handle = cstream.open(spec, controller=controller, device=dev)
+    busy = device_busy_ms(lambda: api_drive(handle, [segment]))
+    wall_ms = float(np.median(walls)) * 1e3
+    return {"busy_ms": busy, "median_segment_ms": wall_ms,
+            "share": None if busy is None else busy / wall_ms}
+
+
+def api_line(job: str, segments, report, walls, **extra) -> dict:
+    nbytes = sum(int(s.nbytes) for s in segments)
+    return {"phase": "api", "job": job, "segments": len(segments),
+            "tuples": sum(int(s.size) for s in segments), "input_bytes": nbytes,
+            "wire_bytes": report.wire_bytes, "ratio": nbytes / report.wire_bytes,
+            "segment_s": walls, "MBps": nbytes / 1e6 / sum(walls), **extra}
+
+
+def run_api_dict(dev, values: np.ndarray) -> dict:
+    """api/tdic32-dict: a collector's per-topic dictionary, hot-swapped
+    after the fourth flush. Returns the launches of both windows."""
+    t_job = time.perf_counter()
+    segments = np.split(values, API_SEGMENTS)
+    with tempfile.TemporaryDirectory() as root:
+        prev = dictstore.set_default_registry(dictstore.DictRegistry(root=root))
+        try:
+            reg = dictstore.default_registry()
+            v1 = reg.publish(dictstore.train_dict(values[:API_TRAIN], idx_bits=12, topic="rovio"))
+            spec = cstream.JobSpec(codec="tdic32", egress=True, dictionary="rovio:latest")
+            handle = cstream.open(spec, device=dev)
+            cpu_handle = cstream.open(spec, device="cpu")  # negotiated on v1 too
+            v2 = {}
+
+            def publish_v2():
+                v2["art"] = reg.publish(dictstore.train_dict(
+                    values[API_TRAIN: 2 * API_TRAIN], idx_bits=12, topic="rovio"))
+                return v2["art"]
+
+            walls = []
+            handle_counts = api_window(
+                lambda: walls.extend(api_drive(handle, segments, swap=(4, publish_v2))))
+            frames = handle.frames()
+            collector_counts = api_window(lambda: api_collect(frames, segments, dev))
+            ids = [f.dict_id for f in frames]
+            if ids != [("rovio", 1)] * 4 + [("rovio", 2)] * 4:
+                raise AssertionError(f"api/tdic32-dict: frames carry dict ids {ids}")
+            api_roundtrips_exact(handle, segments, "tdic32-dict")
+            chunks = API_SEGMENTS * 8
+            codec_chunks = {"pack_blocks_meta7": chunks, "compact_blocks": chunks, "unpack_blocks": chunks}
+            api_check_launches("tdic32-dict", "handle", handle_counts, {
+                **codec_chunks, "dict_chunk_encode": chunks, "dict_chunk_decode": chunks})
+            api_check_launches("tdic32-dict", "collector", collector_counts, {
+                "pack_blocks_meta7": 0, "compact_blocks": 0, "unpack_blocks": chunks,
+                "dict_chunk_encode": 0, "dict_chunk_decode": chunks})
+            api_cpu_frames_equal(cpu_handle, segments, frames, "tdic32-dict")
+            cold = cstream.open(cstream.JobSpec(codec="tdic32", egress=True), device=dev)
+            cold_walls = api_drive(cold, segments)
+            cold_rep = cold.close()
+            busy = api_busy_share(spec, segments[0], walls, dev)
+            rep = handle.close()
+        finally:
+            dictstore.set_default_registry(prev)
+    emit(api_line(
+        "tdic32-dict", segments, rep, walls, spec=spec.to_dict(),
+        dict_ids=[list(i) for i in ids],
+        dictionaries={f"v{a.version}": {"entries": a.n_entries, "hash": a.content_hash}
+                      for a in (v1, v2["art"])},
+        cold={"wire_bytes": cold_rep.wire_bytes, "ratio": values.nbytes / cold_rep.wire_bytes,
+              "segment_s": cold_walls},
+        device_busy=busy, frames_equal_cpu=True, cpu_segments=API_CPU_SEGMENTS,
+        launches={"handle": {k: n for k, n in handle_counts.items() if n},
+                  "collector": {k: n for k, n in collector_counts.items() if n}},
+        seconds=time.perf_counter() - t_job,
+    ))
+    return {k: handle_counts[k] + collector_counts[k] for k in handle_counts}
+
+
+def run_api_adaptive(dev, values: np.ndarray) -> dict:
+    """api/adaptive: the tier ladder under API_SCHEDULE, then under the
+    default controller. Returns the scripted job's launches."""
+    t_job = time.perf_counter()
+    segments = np.split(values, API_SEGMENTS)
+    spec = cstream.JobSpec(codec="tcomp32", egress=True, adaptive=True)
+    plan = cstream.negotiate(spec, device=dev)
+    ladder = tuple(t for t, _ in plan.tiers)
+    rung = {t.name: t for t in ladder}
+    handle = cstream.open(spec, controller=cstream.ScriptedController(ladder, API_SCHEDULE), device=dev)
+    walls = []
+    handle_counts = api_window(lambda: walls.extend(api_drive(handle, segments)))
+    frames = handle.frames()
+    collector_counts = api_window(lambda: api_collect(frames, segments, dev))
+    if handle.tier_log != list(API_SCHEDULE):
+        raise AssertionError(f"api/adaptive ran rungs {handle.tier_log}, scripted {API_SCHEDULE}")
+    for frame, name in zip(frames, handle.tier_log):
+        if (WIRE_CODEC_NAMES[frame.codec_id], frame.entropy is not None) != (
+                rung[name].codec, rung[name].entropy == "rans"):
+            raise AssertionError(f"api/adaptive: a {name} segment's frame is "
+                                 f"{WIRE_CODEC_NAMES[frame.codec_id]}, entropy {frame.entropy is not None}")
+    api_roundtrips_exact(handle, segments, "adaptive")
+    heavy = 2 * API_SCHEDULE.count("heavy")
+    chunks = API_SEGMENTS * 8
+    api_check_launches("adaptive", "handle", handle_counts, {
+        "pack_blocks_meta7": chunks, "compact_blocks": chunks, "unpack_blocks": chunks,
+        "rans_section_encode": heavy, "rans_section_decode": 0})
+    api_check_launches("adaptive", "collector", collector_counts, {
+        "pack_blocks_meta7": 0, "unpack_blocks": chunks,
+        "rans_section_encode": 0, "rans_section_decode": heavy})
+    cpu = cstream.open(spec, controller=cstream.ScriptedController(ladder, API_SCHEDULE), device="cpu")
+    api_cpu_frames_equal(cpu, segments, frames, "adaptive")
+    if cpu.tier_log != handle.tier_log[:API_CPU_SEGMENTS]:
+        raise AssertionError("api/adaptive: the CPU run's tier log differs from the card's")
+    auto = cstream.open(spec, device=dev)
+    auto_walls = api_drive(auto, segments)
+    auto_rep = auto.report()
+    api_roundtrips_exact(auto, segments, "adaptive/default")
+    auto_cpu = cstream.open(spec, device="cpu")
+    api_cpu_frames_equal(auto_cpu, segments, auto.frames(), "adaptive/default")
+    if auto_cpu.tier_log != auto.tier_log[:API_CPU_SEGMENTS]:
+        raise AssertionError("api/adaptive/default: the CPU run's tier log differs from the card's")
+    busy = api_busy_share(spec, segments[API_SCHEDULE.index("heavy")], walls, dev,
+                          controller=cstream.ScriptedController(ladder, ["heavy"]))
+    emit(api_line(
+        "adaptive", segments, handle.report(), walls, spec=spec.to_dict(),
+        tier_log=handle.tier_log, rung_codecs={t.name: [t.codec, t.entropy] for t in ladder},
+        default_controller={"tier_log": auto.tier_log, "wire_bytes": auto_rep.wire_bytes,
+                            "ratio": values.nbytes / auto_rep.wire_bytes, "segment_s": auto_walls},
+        device_busy_heavy_segment=busy, frames_equal_cpu=True, cpu_segments=API_CPU_SEGMENTS,
+        launches={"handle": {k: n for k, n in handle_counts.items() if n},
+                  "collector": {k: n for k, n in collector_counts.items() if n}},
+        seconds=time.perf_counter() - t_job,
+    ))
+    return {k: handle_counts[k] + collector_counts[k] for k in handle_counts}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1724,6 +1963,11 @@ def main() -> int:
             launches[k] += n
     for k, e in check_lane_kernels_full(dev, full_values["ecg"]).items():
         err[k] = max(err[k], e)
+    t0 = time.perf_counter()
+    for run in (run_api_dict, run_api_adaptive):
+        for k, n in run(dev, full_values["rovio"]).items():
+            launches[k] += n
+    emit({"phase": "api", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     check_lm_card_vs_cpu(dev)
     lm_launches, model, prompts = run_lm(dev)

@@ -22,8 +22,10 @@ Two execution fidelities, as in the reference:
 Symbol format (LSB-first): flag bit (1 = hit) then either the table index
 (idx_bits) or the 32-bit literal. The state is uint32 table words (int32
 bits), a bool valid mask, int32 write timestamps for the shared-state
-merge, and an int32 per-lane clock. Trained-dictionary seeding
-(`seed_dictionary`, FEATURE_DICT) waits for ROADMAP A8.
+merge, and an int32 per-lane clock. `seed_dictionary` starts every stream
+from a trained per-topic table (`core/dictstore.py`): seeded slots enter
+valid with write stamp 0, so the first write to one wins as it would on an
+empty slot, and a slot never written keeps its seed.
 """
 from __future__ import annotations
 
@@ -57,8 +59,48 @@ class Tdic32(Codec):
         self.table_size = 1 << idx_bits
         self.mode = mode
 
+    def seed_dictionary(self, trained) -> "Tdic32":
+        """Start every stream from a trained per-topic table (dictstore).
+
+        The seed arrays (numpy, as the reference keeps them) and the id
+        become instance attributes, so a dispatch signature over
+        `vars(codec)` separates seeded codecs by dictionary content, and an
+        unseeded codec keeps its attributes and signature unchanged."""
+        if trained.idx_bits != self.idx_bits:
+            raise ValueError(
+                f"trained dictionary '{trained.ref}' was built with "
+                f"idx_bits={trained.idx_bits}, codec has idx_bits={self.idx_bits}"
+            )
+        self.dict_topic = trained.topic
+        self.dict_version = int(trained.version)
+        self.dict_id = trained.ref
+        self.dict_hash = trained.content_hash
+        self._seed_table = trained.table
+        self._seed_valid = trained.valid
+        self._seed_ts = trained.ts
+        return self
+
     def init_state(self, lanes: int, device: torch.device):
-        """The cold state: empty table, clock 0."""
+        """The stream's first state: the seed table broadcast over the
+        lanes (valid and stamps from the artifact, clock 0), or the cold
+        state for an unseeded codec."""
+        seed = getattr(self, "_seed_table", None)
+        if seed is None:
+            return self.cold_state(lanes, device)
+
+        def lanes_of(a: np.ndarray, dtype: torch.dtype) -> torch.Tensor:
+            row = torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+            return row.to(device, dtype).expand(lanes, self.table_size).contiguous()
+
+        return {
+            "table": lanes_of(seed, torch.int32),
+            "valid": lanes_of(self._seed_valid, torch.bool),
+            "ts": lanes_of(self._seed_ts, torch.int32),
+            "clock": torch.zeros((lanes,), dtype=torch.int32, device=device),
+        }
+
+    def cold_state(self, lanes: int, device: torch.device):
+        """The unseeded state: empty table, clock 0."""
         return {
             "table": torch.zeros((lanes, self.table_size), dtype=torch.int32, device=device),
             "valid": torch.zeros((lanes, self.table_size), dtype=torch.bool, device=device),

@@ -492,9 +492,8 @@ def _check_crc(section: str, stored: int, data: bytes) -> None:
 #
 # All serialization is host-side numpy on explicit little-endian uint32
 # words; device code only ever sees the unpacked arrays. The port writes
-# and reads the CRC and entropy features; the rANS stage itself
-# (`core/entropy.py`) runs on a device. It refuses FEATURE_DICT frames
-# (ROADMAP A8) with a FrameFeatureError.
+# and reads the dict-id, CRC and entropy features; the rANS stage itself
+# (`core/entropy.py`) runs on a device.
 # ======================================================================
 
 FRAME_MAGIC = 0x43535746  # "CSWF"
@@ -514,6 +513,36 @@ _KNOWN_FEATURES = FEATURE_ENTROPY | FEATURE_DICT | FEATURE_CRC
 _CRC_SECTIONS = ("header", "counts", "dict", "meta", "payload")
 _CRC_TRAILER_WORDS = len(_CRC_SECTIONS)
 INTEGRITY_KINDS = ("crc32c",)
+
+
+def _pack_dict_id(dict_id: Tuple[str, int]) -> np.ndarray:
+    """Serialize (topic, version) as uint32 words: [nwords, version,
+    topic_len, topic utf-8 zero-padded to word alignment]. Self-sizing via
+    word 0, so the section can grow without a frame version bump."""
+    topic, version = dict_id
+    tb = topic.encode("utf-8")
+    pad_words = (len(tb) + 3) // 4
+    words = np.zeros(3 + pad_words, np.uint32)
+    words[0] = 3 + pad_words
+    words[1] = version
+    words[2] = len(tb)
+    if tb:
+        words[3:] = np.frombuffer(tb + b"\x00" * (4 * pad_words - len(tb)), "<u4")
+    return words
+
+
+def _unpack_dict_id(words: np.ndarray) -> Tuple[str, int]:
+    """Inverse of `_pack_dict_id`; the caller has validated the size."""
+    tlen = int(words[2])
+    topic = words[3:].astype("<u4").tobytes()[:tlen].decode("utf-8")
+    return (topic, int(words[1]))
+
+
+def _dict_id_words(dict_id: Optional[Tuple[str, int]]) -> int:
+    """Serialized word count of the dict-id section (0 when absent)."""
+    if dict_id is None:
+        return 0
+    return 3 + (len(dict_id[0].encode("utf-8")) + 3) // 4
 
 
 def _pack_bitlens(bitlen: np.ndarray) -> np.ndarray:
@@ -581,13 +610,20 @@ class Frame:
     #: the in-memory fields above always stay in raw form so decoders and
     #: the executor never see entropy-coded bytes.
     entropy: Optional[np.ndarray] = None
+    #: trained-dictionary reference `(topic, version)`. When set, the frame
+    #: raises FEATURE_DICT and carries a self-sizing dict-id section right
+    #: after the block counts (outside the entropy blob); decode seeds the
+    #: codec state from the registry's matching TrainedDict instead of the
+    #: cold table. `None` keeps the frame byte-identical to frames without
+    #: a dictionary.
+    dict_id: Optional[Tuple[str, int]] = None
     #: integrity kind ("crc32c" or None). When set, the frame raises
     #: FEATURE_CRC and `to_bytes` appends a 5-word trailer of per-section
-    #: CRC32C checksums (header, counts, dict-id, meta/blob, payload; the
-    #: dict-id section is always empty here and checksums as 0); `from_bytes`
-    #: verifies every section before trusting the body and re-stamps the
-    #: field so reserialization round-trips. `None` keeps the frame
-    #: byte-identical to integrity-off builds.
+    #: CRC32C checksums (header, counts, dict-id, meta/blob, payload; an
+    #: absent section checksums as 0); `from_bytes` verifies every section
+    #: before trusting the body and re-stamps the field so reserialization
+    #: round-trips. `None` keeps the frame byte-identical to integrity-off
+    #: builds.
     integrity: Optional[str] = None
 
     # ------------------------------------------------------------ shapes --
@@ -622,11 +658,14 @@ class Frame:
     def wire_bytes(self) -> int:
         """Total serialized size (header + metadata + payload, or header +
         entropy blob), computed in O(1) — must equal len(self.to_bytes())."""
+        dw = _dict_id_words(self.dict_id)
         cw = _CRC_TRAILER_WORDS if self.integrity is not None else 0
         if self.entropy is not None:
-            return 4 * (_HDR_WORDS + 2 * self.n_blocks + self.entropy.size + cw)
+            return 4 * (_HDR_WORDS + 2 * self.n_blocks + dw + self.entropy.size + cw)
         meta_words = (7 * self.n_symbols + 31) // 32
-        return 4 * (_HDR_WORDS + 2 * self.n_blocks + meta_words + self.payload.size + cw)
+        return 4 * (
+            _HDR_WORDS + 2 * self.n_blocks + dw + meta_words + self.payload.size + cw
+        )
 
     # ------------------------------------------------------- entropy stage --
     def apply_entropy(self, device: Union[None, str, torch.device] = None) -> "Frame":
@@ -653,13 +692,18 @@ class Frame:
     def _section_bytes(self) -> Tuple[bytes, bytes, bytes, bytes, bytes]:
         """The five serialized sections (header, counts, dict, meta/blob,
         payload) as little-endian bytes; absent sections are empty."""
+        dict_sec = (
+            b"" if self.dict_id is None
+            else _pack_dict_id(self.dict_id).astype("<u4").tobytes()
+        )
+        dict_bit = FEATURE_DICT if self.dict_id is not None else 0
         crc_bit = FEATURE_CRC if self.integrity is not None else 0
         counts_sec = (
             np.ascontiguousarray(self.block_bits, np.uint32).astype("<u4").tobytes()
             + np.ascontiguousarray(self.block_valid, np.uint32).astype("<u4").tobytes()
         )
         if self.entropy is not None:
-            feature_bits = FEATURE_ENTROPY | crc_bit
+            feature_bits = FEATURE_ENTROPY | dict_bit | crc_bit
             meta_size, payload_size = self.entropy.size, 0
             meta_sec = np.ascontiguousarray(self.entropy, np.uint32).astype("<u4").tobytes()
             payload_sec = b""
@@ -667,7 +711,7 @@ class Frame:
             meta = self.packed_meta
             if meta is None:
                 meta = _pack_bitlens(self.bitlen)
-            feature_bits = crc_bit
+            feature_bits = dict_bit | crc_bit
             meta_size, payload_size = meta.size, self.payload.size
             meta_sec = meta.astype("<u4").tobytes()
             payload_sec = np.ascontiguousarray(self.payload, np.uint32).astype("<u4").tobytes()
@@ -688,7 +732,7 @@ class Frame:
             ],
             np.uint32,
         )
-        return (header.astype("<u4").tobytes(), counts_sec, b"", meta_sec, payload_sec)
+        return (header.astype("<u4").tobytes(), counts_sec, dict_sec, meta_sec, payload_sec)
 
     def to_bytes(self) -> bytes:
         if self.integrity is not None and self.integrity not in INTEGRITY_KINDS:
@@ -731,12 +775,8 @@ class Frame:
                 f"build understands 0x{_KNOWN_FEATURES:08x}: entropy, dict, "
                 "crc); decode with a newer build"
             )
-        if features & FEATURE_DICT:
-            raise FrameFeatureError(
-                "frame uses FEATURE_DICT (trained dictionary), which the torch "
-                "port does not decode yet (ROADMAP A8); decode it with repro"
-            )
         has_entropy = bool(features & FEATURE_ENTROPY)
+        has_dict = bool(features & FEATURE_DICT)
         has_crc = bool(features & FEATURE_CRC)
         dev = resolve_device(device) if has_entropy else None
         nb, meta_words, payload_words = int(head[9]), int(head[10]), int(head[11])
@@ -760,10 +800,24 @@ class Frame:
                 "frame header inconsistent: entropy frames carry no raw "
                 "payload section"
             )
-        if sec_words != 2 * nb + meta_words + payload_words:
+        dict_id: Optional[Tuple[str, int]] = None
+        dict_words = 0
+        if has_dict:
+            # the dict-id section self-sizes via its leading word, between
+            # the block counts and the meta/blob sections
+            if sec_words < 2 * nb + 3:
+                raise FrameTruncatedError(
+                    "frame length mismatch: body too short for the declared "
+                    "dict-id section"
+                )
+            dict_words = int(body[2 * nb])
+            tlen = int(body[2 * nb + 2])
+            if dict_words < 3 or dict_words != 3 + (tlen + 3) // 4:
+                raise FrameHeaderError("frame header inconsistent: dict-id section")
+        if sec_words != 2 * nb + dict_words + meta_words + payload_words:
             raise FrameTruncatedError(
                 f"frame length mismatch: body carries {sec_words} words, the "
-                f"header declares {2 * nb + meta_words + payload_words}; "
+                f"header declares {2 * nb + dict_words + meta_words + payload_words}; "
                 "the frame was truncated or the stream lost sync"
             )
         if has_crc:
@@ -772,11 +826,20 @@ class Frame:
             trailer = body[sec_words:]
             off = 4 * _HDR_WORDS
             for name, words, stored in zip(
-                _CRC_SECTIONS[1:], [2 * nb, 0, meta_words, payload_words], trailer[1:]
+                _CRC_SECTIONS[1:], [2 * nb, dict_words, meta_words, payload_words], trailer[1:]
             ):
                 _check_crc(name, int(stored), buf[off : off + 4 * words])
                 off += 4 * words
-        meta = body[2 * nb : 2 * nb + meta_words].astype(np.uint32)
+        if has_dict:
+            try:
+                dict_id = _unpack_dict_id(body[2 * nb : 2 * nb + dict_words])
+            except UnicodeDecodeError as exc:
+                raise FrameHeaderError(
+                    "frame header inconsistent: dict-id topic is not valid "
+                    "utf-8; the frame is corrupt — discard it and resync"
+                ) from exc
+        meta_at = 2 * nb + dict_words
+        meta = body[meta_at : meta_at + meta_words].astype(np.uint32)
         frame = cls(
             codec_id=int(head[2]),
             lanes=int(head[3]),
@@ -788,7 +851,8 @@ class Frame:
             block_bits=body[:nb].astype(np.uint32),
             block_valid=body[nb : 2 * nb].astype(np.uint32),
             bitlen=np.zeros(0, np.int32),
-            payload=body[2 * nb + meta_words : sec_words].astype(np.uint32),
+            payload=body[meta_at + meta_words : sec_words].astype(np.uint32),
+            dict_id=dict_id,
             integrity="crc32c" if has_crc else None,
         )
         # header self-consistency: every derived size must match the declared

@@ -37,10 +37,15 @@ the whole symbol stream, flush mini-block included. With
 pipeline's device (B8's and B9's section forms), and parsing decodes it
 there.
 
+A codec seeded with a trained dictionary stamps its `(topic, version)` on
+every frame it marshals (FEATURE_DICT), and decode seeds its state from the
+dictionary the frame names, resolved through `core/dictstore.py`.
+
 Every entry point runs on `torch.device("cuda")` unless the caller passes
 `device="cpu"`; with no device and no GPU it raises. On the CPU the kernel
 wrappers run their plain versions; on the card they launch the CUDA kernels.
-Gang execution waits for ROADMAP A6.
+Gang execution waits for ROADMAP A6; `dispatch_signature`, the key a gang
+would stack streams by, is here already for the job API's `Plan`.
 """
 from __future__ import annotations
 
@@ -75,10 +80,10 @@ from repro_torch.kernels import ops
 _FORCED_FUSE_CHUNK = 128
 
 #: spec fields that name features this port does not have yet:
-#: (field, is-requested test, what it needs)
+#: (field, is-requested test, what it needs). `adaptive` and `dictionary`
+#: are not read here, as in the reference: the job API's `negotiate` builds
+#: the seeded codec and the tier plans
 _UNPORTED_FIELDS = (
-    ("adaptive", bool, "the adaptive tier ladder (ROADMAP A8)"),
-    ("dictionary", lambda v: v is not None, "trained dictionaries (ROADMAP A8)"),
     ("gang", bool, "gang execution (ROADMAP A6)"),
     ("devices", lambda v: v > 0, "sharded fleets (ROADMAP A9)"),
 )
@@ -101,6 +106,36 @@ def codec_align(codec: Codec) -> int:
 
     PLA fits superwindows of 2W tuples; every other codec packs any shape."""
     return 2 * codec.window if codec.name == "pla" else 1
+
+
+def dispatch_signature(
+    codec: Codec,
+    lanes: int,
+    per_lane: int,
+    dtype: str = "uint32",
+    entropy: str = "none",
+    integrity: str = "none",
+) -> Tuple[Any, ...]:
+    """Gang dispatch signature: streams stack into one dispatch only when
+    codec (resolved and calibrated parameters included), block geometry,
+    dtype, entropy stage and integrity mode all match. Array-valued codec
+    attributes (numpy or torch) hash by (dtype, shape, bytes), as the
+    reference hashes its arrays, so the tuple equals the reference's."""
+    parts: List[Any] = [codec.name, lanes, per_lane, dtype, entropy, integrity]
+    for k, v in sorted(vars(codec).items()):
+        if isinstance(v, (bool, int, float, str)):
+            parts.append((k, v))
+        elif isinstance(v, (np.ndarray, torch.Tensor)):
+            a = v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v
+            parts.append((k, (str(a.dtype), a.shape, a.tobytes())))
+        else:
+            # refuse rather than hash object identity: a repr/pointer key
+            # would make identical streams silently never gang
+            raise TypeError(
+                f"codec param {k!r} of {codec.name!r} has unhashable type "
+                f"{type(v).__name__} for gang signatures"
+            )
+    return tuple(parts)
 
 
 # ------------------------------------------------------- shared-state merge --
@@ -741,10 +776,13 @@ class CompressionPipeline(BlockedExecutor):
 
     def _apply_wire_features(self, frame: bits.Frame) -> bits.Frame:
         """Apply the wire stages this pipeline negotiated to a marshalled
-        frame: the rANS blob (coded on this pipeline's device), then the
-        integrity flag, whose CRCs `to_bytes` computes over the final,
-        post-entropy sections. The frame keeps its raw fields; only
-        serialization changes."""
+        frame: the dict id of a seeded codec, the rANS blob (coded on this
+        pipeline's device), then the integrity flag, whose CRCs `to_bytes`
+        computes over the final, post-entropy sections. The frame keeps its
+        raw fields; only serialization changes."""
+        topic = getattr(self.codec, "dict_topic", None)
+        if topic is not None:
+            frame.dict_id = (topic, self.codec.dict_version)
         if self.entropy == "rans":
             frame.apply_entropy(self.device)
         if self.integrity == "crc32c":
@@ -956,7 +994,7 @@ class DecompressionPipeline(BlockedExecutor):
             extras.append((bits.u32_tensor(words, self.device), torch.from_numpy(bl).to(self.device)))
 
         t0 = time.perf_counter()
-        outs = self._run_blocks(frame.lanes, full, extras)
+        outs = self._run_blocks(self._initial_state(frame, frame.lanes), frame.lanes, full, extras)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         wall = time.perf_counter() - t0
@@ -964,14 +1002,52 @@ class DecompressionPipeline(BlockedExecutor):
         values = self._assemble(frame, shapes, outs)
         return DecompressionResult(values=values, wall_s=wall, n_tuples=frame.n_valid)
 
-    def _run_blocks(self, lanes: int, full, extras):
-        """One decode pass over the staged blocks (the timed region). Each
+    def _initial_state(self, frame: bits.Frame, lanes: int) -> Any:
+        """Decode-side state from the frame's declared dictionary.
+
+        A FEATURE_DICT frame names the `(topic, version)` its encoder was
+        seeded with, so decode replays from the same table whichever
+        dictionary (if any) this pipeline's codec carries. A plain frame
+        decodes cold, so segments on both sides of a hot swap each get the
+        seed their own header declares."""
+        did = frame.dict_id
+        codec_did = getattr(self.codec, "dict_topic", None)
+        if did is None:
+            if codec_did is not None:
+                return self.codec.cold_state(lanes, self.device)
+            return self.init_state(lanes)
+        if codec_did == did[0] and getattr(self.codec, "dict_version", None) == did[1]:
+            return self.init_state(lanes)  # the codec already carries this seed
+        from repro_torch.core import dictstore
+
+        try:
+            trained = dictstore.resolve(did[0], did[1])
+        except KeyError as e:
+            raise bits.FrameDecodeError(
+                f"frame references trained dictionary '{did[0]}:v{did[1]}' "
+                f"which this registry cannot resolve ({e.args[0]}); publish it "
+                f"or point CSTREAM_DICT_ROOT at the collector's registry"
+            ) from e
+        if self.codec.meta.state_kind != "dictionary":
+            raise bits.FrameDecodeError(
+                f"frame references trained dictionary '{trained.ref}' but "
+                f"pipeline codec {self.codec.name!r} takes no dictionary"
+            )
+        if trained.idx_bits != self.codec.idx_bits:
+            raise bits.FrameDecodeError(
+                f"frame dictionary '{trained.ref}' has idx_bits="
+                f"{trained.idx_bits}, decode codec has idx_bits={self.codec.idx_bits}"
+            )
+        return trained.seed_state(lanes, self.device)
+
+    def _run_blocks(self, state: Any, lanes: int, full, extras):
+        """One decode pass over the staged blocks (the timed region) from
+        `state`, the codec's state before the frame's first block. Each
         unit (a chunk of full blocks, or one extra block) is unpacked by the
         B2 kernel. Block-scope codecs decode it right away, replaying state
         (and the shared merge) block after block: a list of int32[C, L, B].
         Stream-scope codecs collect every unit's symbols in temporal order
         per lane and expand them in one decode: int32[L, total slots]."""
-        state = self.init_state(lanes)
         stream_scope = self.codec.meta.scope == "stream"
         units = []
         if full is not None:

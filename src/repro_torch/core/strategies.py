@@ -1,6 +1,8 @@
 """Parallelization strategies (paper §3.4): execution, state management,
 scheduling — plus the cache-aware micro-batch planner (port of
-`repro/core/strategies.py`; gang and fleet plans wait for ROADMAP A6/A9)."""
+`repro/core/strategies.py`). The gang and fleet plans are planning records
+the job API's `Plan` carries; gang and fleet execution wait for ROADMAP A6
+and A9."""
 from __future__ import annotations
 
 import dataclasses
@@ -151,6 +153,85 @@ def plan_execution(
         per_lane=per_lane,
         lanes=config.lanes,
         scan_chunk=scan_chunk,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class GangPlan:
+    """Resolved inter-stream gang batching decisions.
+
+    `max_gang` streams with the same dispatch signature would stack along a
+    leading stream axis into ONE codec dispatch; `quantum_s` is the
+    scheduling quantum a server collects flushes over before firing gangs;
+    `budget` is the per-signature admission budget, past which a queue
+    forces an immediate gang dispatch (backpressure)."""
+
+    max_gang: int
+    quantum_s: float
+    budget: int
+    block_bytes: int  # one gang member's micro-batch footprint
+    cache_bytes: int  # budget the gang working set was sized against
+
+
+#: never stack more streams than this in one dispatch, regardless of cache
+#: headroom
+_GANG_MAX = 64
+
+
+def plan_gang(
+    plan: ExecutionPlan,
+    profile: energy_mod.HardwareProfile = None,
+    flush_timeout_s: float = 0.25,
+) -> GangPlan:
+    """Size the gang for one dispatch signature (paper §3.4 applied ACROSS
+    streams): stack streams while (a) the stacked working set stays inside
+    the cache-aware byte budget (Fig 11's rule, applied to the gang), and
+    (b) the modeled amortized makespan of scheduling the members' blocks
+    over the asymmetric profile keeps improving."""
+    profile = profile or energy_mod.PROFILES["rk3399_amp"]
+    block_bytes = plan.block_tuples * 4
+    cache_bytes = cache_aware_batch_bytes(profile)
+    cache_cap = max(1, cache_bytes // max(block_bytes, 1))
+    best_g, best_amortized = 1, None
+    for g in range(1, min(cache_cap, _GANG_MAX) + 1):
+        _, _, makespan = schedule_blocks(
+            [1.0] * g, profile.speeds, SchedulingStrategy.ASYMMETRIC
+        )
+        amortized = makespan / g
+        if best_amortized is None or amortized <= best_amortized:
+            best_g, best_amortized = g, amortized
+    return GangPlan(
+        max_gang=best_g,
+        # half a timeout: a quantum never delays a flush past the point
+        # where its successor batch would also be due
+        quantum_s=flush_timeout_s / 2.0,
+        budget=2 * best_g,
+        block_bytes=block_bytes,
+        cache_bytes=cache_bytes,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetPlan:
+    """A signature's GangPlan scaled out over a device mesh: one sharded
+    wave covers `max_wave = devices x max_gang` streams, and the admission
+    budget scales the same way."""
+
+    devices: int
+    max_wave: int  # streams per sharded dispatch
+    budget: int  # fleet-wide per-signature backpressure budget
+    quantum_s: float
+
+
+def plan_fleet(gang: GangPlan, devices: int) -> FleetPlan:
+    """Scale one dispatch signature's gang sizing across `devices` shards."""
+    if devices < 1:
+        raise ValueError(f"fleet needs >= 1 device, got {devices}")
+    return FleetPlan(
+        devices=devices,
+        max_wave=gang.max_gang * devices,
+        budget=gang.budget * devices,
+        quantum_s=gang.quantum_s,
     )
 
 

@@ -293,10 +293,11 @@ def test_frame_error_classes():
 
 
 def test_unported_features_raise_feature_error_naming_roadmap():
-    """A reference frame with a dictionary id (A8) is refused with a
-    FrameFeatureError, not mis-parsed. The entropy stage (once A7) is
-    ported: a reference entropy frame parses here, on the named device, and
-    reserializes byte-identically; with no device and no GPU it raises."""
+    """Wire features parse here once their ROADMAP item is ported. The
+    entropy stage (A7): a reference entropy frame parses here, on the named
+    device, and reserializes byte-identically; with no device and no GPU it
+    raises. Dictionary ids (A8): a reference frame with a `dict_id` parses
+    without a device and reserializes byte-identically, id included."""
     _, fr = _frame_pair(None)
     fr.apply_entropy()
     buf = fr.to_bytes()
@@ -308,8 +309,35 @@ def test_unported_features_raise_feature_error_naming_roadmap():
             tbits.parse_frame(buf)
     _, fr = _frame_pair(None)
     fr.dict_id = ("sensors", 3)
-    with pytest.raises(tbits.FrameFeatureError, match="A8"):
-        tbits.parse_frame(fr.to_bytes())
+    buf = fr.to_bytes()
+    back = tbits.parse_frame(buf)
+    assert back.dict_id == ("sensors", 3)
+    assert back.to_bytes() == buf and back.wire_bytes == len(buf)
+    np.testing.assert_array_equal(back.payload, fr.payload)
+
+
+@pytest.mark.parametrize("corruption", ["length_word", "topic_length", "truncated", "utf8"])
+def test_corrupt_dict_id_sections_raise_as_the_reference(corruption):
+    """A damaged dict-id section raises the reference's FrameError class
+    and text, never a raw numpy or unicode error."""
+    _, fr = _frame_pair(None)
+    fr.dict_id = ("sensors", 3)
+    buf = bytearray(fr.to_bytes())
+    off = 4 * (12 + 2 * fr.n_blocks)  # the section's first word
+    if corruption == "length_word":
+        buf[off : off + 4] = (2).to_bytes(4, "little")
+    elif corruption == "topic_length":
+        buf[off + 8 : off + 12] = (40).to_bytes(4, "little")
+    elif corruption == "truncated":
+        buf = buf[: off + 8]
+    else:
+        buf[off + 12] = 0xFF
+    with pytest.raises(tbits.FrameError) as ours:
+        tbits.parse_frame(bytes(buf))
+    with pytest.raises(rbits.FrameError) as theirs:
+        rbits.parse_frame(bytes(buf))
+    assert (type(ours.value).__name__, str(ours.value)) == (type(theirs.value).__name__,
+                                                            str(theirs.value))
 
 
 @pytest.mark.parametrize("integrity", [None, "crc32c"])

@@ -10,6 +10,8 @@ import pytest
 import torch
 
 from repro_torch.core import bits as tbits
+from repro_torch.core import dictstore
+from repro_torch.core.algorithms import make_codec
 from repro_torch.kernels import ops, ref
 
 RNG_SEED = 11
@@ -336,6 +338,34 @@ def test_cuda_dict_chunk_kernels_match_plain_versions(cuda, lanes, idx_bits, b, 
         assert all(torch.equal(g, w) for g, w in zip(dec["card"], dec["plain"]))
     counts = ops.launch_counts()
     assert (counts["dict_chunk_encode"], counts["dict_chunk_decode"], counts["dict_probe"]) == (2, 2, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("idx_bits,b,c", [(12, 512, 128), (8, 333, 7)])
+def test_cuda_seeded_dict_chunk_kernels_match_plain_versions(cuda, idx_bits, b, c):
+    """B5's codec form from a seeded state, as `TrainedDict.seed_state`
+    gives it, against its plain versions over a full chunk: symbols,
+    values and every state tensor; one launch per direction."""
+    rng = np.random.default_rng(idx_bits + b)
+
+    def zipf(n):
+        return ((rng.zipf(1.3, size=n) - 1) % 2000).astype(np.uint32) * np.uint32(1007)
+
+    art = dictstore.train_dict(zipf(20000), idx_bits=idx_bits)
+    codec = make_codec("tdic32", idx_bits=idx_bits).seed_dictionary(art)
+    state = codec.kernel_state(art.seed_state(4, cuda))
+    blocks = tbits.u32_tensor(zipf(c * 4 * b).reshape(c, 4, b), cuda)
+    ops.reset_launches()
+    codes, bitlen, *enc = ops.dict_chunk_encode(blocks, *state, idx_bits)
+    p_codes, p_bitlen, *p_enc = ref.dict_chunk_encode_ref(blocks, *state, idx_bits)
+    assert torch.equal(codes, p_codes) and torch.equal(bitlen, p_bitlen)
+    assert all(torch.equal(g, w) for g, w in zip(enc, p_enc))
+    x, *dec = ops.dict_chunk_decode(codes, *state, idx_bits)
+    p_x, *p_dec = ref.dict_chunk_decode_ref(codes, *state, idx_bits)
+    assert torch.equal(x, p_x) and torch.equal(x, blocks)
+    assert all(torch.equal(g, w) for g, w in zip(dec, p_dec))
+    counts = ops.launch_counts()
+    assert (counts["dict_chunk_encode"], counts["dict_chunk_decode"]) == (1, 1)
 
 
 @pytest.mark.cuda
