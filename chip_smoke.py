@@ -113,7 +113,28 @@ Phases, each printing one line per check:
                exact, and the first two segments' frames (and the tier
                logs) must equal those of the same handles opened with
                device="cpu";
-  6. flash   — B10 (flash attention forward) against its plain version (a
+  6. gang    — gang execution and the serving runtime: each 64 MiB stream
+               (Rovio for JobSpec(codec="tcomp32") and JobSpec(codec=
+               "tdic32"), ECG for JobSpec(codec="adpcm") calibrated on its
+               first 8,192 tuples) split into 16 contiguous 4 MiB members
+               through `cstream.gang_compress(..., emit_frames=True)`: the
+               16 members fold into 64 lanes, so each of the 4 gang chunks
+               (128, 64, 512) is one launch of B1+B4, of B3 and of the
+               codec's chunk kernel (B5's codec form, B6) for all members,
+               against 64 of each for the 16 solo `run_compress` runs;
+               every member's frame equals its solo card frame, members 0-1
+               the CPU path's. Then `cstream.Dispatcher(gang=True)` with 16
+               sessions (8 tcomp32, 8 tdic32, egress), each topic fed its
+               own 4 MiB of the Rovio stream at the paper's 16 MB/s under
+               zipf 0.7 bursts (512 full flushes a topic), against
+               Dispatcher(gang=False): equal `FlushRecord.key()` lists and
+               byte-identical frames per topic, two topics alone on a CPU
+               dispatcher equal too; one B1+B4 launch per wave or solo
+               flush and one B5 probe per tdic32 one. Walls on the host
+               clock (gang against the solo sum; the replay's host time
+               apart from the summed wave walls), signature statistics and
+               device busy shares;
+  7. flash   — B10 (flash attention forward) against its plain version (a
                dense float32 softmax) on every case of FLASH_CASES, each
                through `ops.flash_attention_fwd`, which sends bf16 with Dh %
                16 == 0 to the tensor-core kernel and the rest to the FMA
@@ -129,7 +150,7 @@ Phases, each printing one line per check:
                the outputs a torch emulation of that kernel's numerics puts
                outside the rule with p@v taking p as one, two and three bf16
                terms (the kernel takes three);
-  7. lm      — qwen3-1.7b served through `repro_torch.launch.serve.serve`:
+  8. lm      — qwen3-1.7b served through `repro_torch.launch.serve.serve`:
                first at full width and 2 layers, 2 requests x 256 tokens and
                4 generated, the same weights and prompts on the card and on
                the CPU (prefill logits, cache codes and generated tokens
@@ -139,7 +160,7 @@ Phases, each printing one line per check:
                set to 0 just before and read just after (B10's tensor-core
                kernel must launch once per layer, its FMA kernel never), and
                one profiled prefill and decode for the device's busy time;
-  8. timing  — each kernel and its plain version timed with CUDA events on
+  9. timing  — each kernel and its plain version timed with CUDA events on
                the main paths' own inputs (B6/B7's codec form: the new and
                the serial kernels on the adpcm path's first chunk, and both
                encodes on the never-converging ramp at that shape; B5's
@@ -1751,13 +1772,20 @@ def api_collect(frames, segments, dev, params=None) -> None:
             raise AssertionError(f"api: a {name} frame's wire roundtrip on the card is not exact")
 
 
-def api_window(fn) -> dict:
-    """Launch counts of one window: set to 0 just before `fn`, read after."""
+def counted_window(fn) -> tuple:
+    """(launch counts, host wall, result) of `fn`: the counts set to 0
+    just before it and read just after, the wall synchronized."""
     torch.cuda.synchronize()
     ops.reset_launches()
-    fn()
+    t0 = time.perf_counter()
+    out = fn()
     torch.cuda.synchronize()
-    return ops.launch_counts()
+    return ops.launch_counts(), time.perf_counter() - t0, out
+
+
+def api_window(fn) -> dict:
+    """Launch counts of one window: set to 0 just before `fn`, read after."""
+    return counted_window(fn)[0]
 
 
 def api_check_launches(job: str, window: str, got: dict, want: dict) -> None:
@@ -1916,6 +1944,201 @@ def run_api_adaptive(dev, values: np.ndarray) -> dict:
     return {k: handle_counts[k] + collector_counts[k] for k in handle_counts}
 
 
+#: the gang phase, offline: each 64 MiB stream split into 16 contiguous 4 MiB
+#: members of 1,048,576 values (512 blocks of JobSpec()'s geometry, four
+#: 128-block chunks, so a gang chunk is (128, 64 lanes, 512)); members 0-1
+#: are held against the CPU path. name -> (JobSpec, dataset, the codec's
+#: chunk kernel or None)
+GANG_MEMBERS = 16
+GANG_CPU_MEMBERS = 2
+GANG_JOBS = {
+    "tcomp32": (JobSpec(codec="tcomp32"), "rovio", None),
+    "tdic32": (JobSpec(codec="tdic32"), "rovio", "dict_chunk_encode"),
+    "adpcm": (JobSpec(codec="adpcm"), "ecg", "adpcm_lane_encode"),
+}
+#: the gang phase, serving: 16 topics (8 tcomp32, 8 tdic32, egress on),
+#: each fed its own contiguous 4 MiB of the 64 MiB Rovio stream (512 flushes
+#: of a 2,048-tuple micro-batch) at the paper's 16 MB/s per topic under
+#: zipf 0.7 bursts; two topics replayed on the CPU
+SERVE_TOPICS = 16
+SERVE_TUPLES = 1_048_576
+SERVE_CPU_TOPICS = ("t00", "t08")
+
+
+def run_gang_offline(dev, name: str, values: np.ndarray) -> dict:
+    """`cstream.gang_compress` over the 16 members against 16 solo
+    `run_compress` runs on the card: byte-identical frames, one launch of
+    each chunk kernel per gang chunk for all members. Returns the gang
+    run's launches."""
+    t_job = time.perf_counter()
+    spec, dataset, codec_kernel = GANG_JOBS[name]
+    if dataset == "ecg":
+        spec = spec.calibrated(values[:CALIBRATION_TUPLES])
+    members = np.split(values, GANG_MEMBERS)
+    plan = cstream.negotiate(spec, device=dev)
+    pipe = CompressionPipeline(plan.spec, codec=plan.codec, plan=plan.execution, device=dev)
+    # one profiled gang run first: the device time, and the allocator warm
+    # at the gang's shapes before the timed runs
+    busy = device_busy_ms(lambda: cstream.gang_compress(spec, members, emit_frames=True, device=dev))
+    gang_counts, gang_wall, res = counted_window(
+        lambda: cstream.gang_compress(spec, members, emit_frames=True, device=dev))
+    solo_walls = []
+
+    def solo():
+        out = []
+        for m in members:
+            t0 = time.perf_counter()
+            out.append(cstream.run_compress(pipe, plan.spec, m, emit_frame=True))
+            torch.cuda.synchronize()
+            solo_walls.append(time.perf_counter() - t0)
+        return out
+
+    solo_counts, solo_wall, solos = counted_window(solo)
+    gang_bytes = [r.frame.to_bytes() for r in res.results]
+    if gang_bytes != [r.frame.to_bytes() for r in solos]:
+        raise AssertionError(f"gang/{name}: a member's gang frame differs from its solo frame")
+    cpu = cstream.gang_compress(spec, members[:GANG_CPU_MEMBERS], emit_frames=True, device="cpu")
+    if [r.frame.to_bytes() for r in cpu.results] != gang_bytes[:GANG_CPU_MEMBERS]:
+        raise AssertionError(f"gang/{name}: the card's frames differ from the CPU path's")
+    n_chunks = len(pipe._chunks(len(pipe.shape_blocks(members[0]).blocks)))
+    kernels = ("pack_blocks_meta7", "compact_blocks") + ((codec_kernel,) if codec_kernel else ())
+    never = ("pack_blocks", "pack_meta7_blocks", "dict_probe", "adpcm_lane_encode_serial")
+    for window, counts, per in (("gang", gang_counts, 1), ("solo", solo_counts, GANG_MEMBERS)):
+        want = {**{k: n_chunks * per for k in kernels}, **{k: 0 for k in never}}
+        if {k: counts[k] for k in want} != want:
+            raise AssertionError(f"gang/{name}, {window} runs launched "
+                                 f"{ {k: counts[k] for k in want} }, expected {want}")
+    emit({
+        "phase": "gang", "job": f"gang/{name}", "spec": spec.to_dict(), "members": GANG_MEMBERS,
+        "member_tuples": int(members[0].size), "chunks": n_chunks,
+        "gang_chunk": [pipe.plan.scan_chunk, GANG_MEMBERS * spec.lanes, pipe.block_tuples // spec.lanes],
+        "wire_bytes": sum(len(b) for b in gang_bytes),
+        "gang_wall_s": gang_wall, "gang_loop_s": res.wall_s, "solo_walls_s": solo_walls,
+        "solo_sum_s": sum(solo_walls), "speedup": sum(solo_walls) / gang_wall,
+        "gang_MBps": values.nbytes / 1e6 / gang_wall,
+        "device_busy": {"busy_ms": busy, "share": None if busy is None else busy / (gang_wall * 1e3)},
+        "frames_equal_solo": True, "frames_equal_cpu": True, "cpu_members": GANG_CPU_MEMBERS,
+        "launches": {"gang": {k: n for k, n in gang_counts.items() if n},
+                     "solo": {k: n for k, n in solo_counts.items() if n}},
+        "seconds": time.perf_counter() - t_job,
+    })
+    return gang_counts
+
+
+def serve_spec(topic: str) -> JobSpec:
+    return JobSpec(codec="tcomp32" if int(topic[1:]) < SERVE_TOPICS // 2 else "tdic32", egress=True)
+
+
+def serve_feeds(values: np.ndarray, n: int) -> dict:
+    """topic -> (its contiguous piece of the stream, zipf 0.7 arrivals at
+    the paper's 16 MB/s, seeded by the topic's index)."""
+    from repro_torch.data.stream import rate_for_dataset, zipf_timestamps
+
+    rate = rate_for_dataset(1)
+    return {f"t{i:02d}": (values[i * n: (i + 1) * n], zipf_timestamps(n, rate, zipf_factor=0.7, seed=i))
+            for i in range(SERVE_TOPICS)}
+
+
+def serve_replay(dev, feeds: dict, gang: bool, topics=None) -> tuple:
+    """Open one session per topic on a Dispatcher and replay the feeds:
+    (dispatcher, report, host wall of the replay, launches)."""
+    d = cstream.Dispatcher(gang=gang, device=dev)
+    for t in topics or sorted(feeds):
+        d.open(serve_spec(t), topic=t).push(*feeds[t])
+    counts, wall, rep = counted_window(d.run)
+    return d, rep, wall, counts
+
+
+def serve_keys_frames(d) -> tuple:
+    return ({t: [f.key() for f in s.flushes] for t, s in d.sessions.items()},
+            {t: s.egress_frame().to_bytes() for t, s in d.sessions.items()})
+
+
+def profiled_wave(dev, codec: str, values: np.ndarray, n: int) -> dict:
+    """One gang wave of n members on a fresh pipeline: its wall (synced)
+    and the device time the profiler sees in it."""
+    pipe = CompressionPipeline(JobSpec(codec=codec, egress=True), device=dev)
+    lanes, per_lane = pipe.config.lanes, pipe.block_tuples // pipe.config.lanes
+    blocks = bits.u32_tensor(values[: n * pipe.block_tuples].reshape(n, lanes, per_lane), dev)
+    masks = torch.ones(blocks.shape, dtype=torch.bool, device=dev)
+    states = pipe.stack_states([pipe.init_state() for _ in range(n)])
+    pipe.gang_step(states, blocks, masks, meta7=True)  # warm
+    walls = []
+    busy = device_busy_ms(lambda: walls.append(pipe.gang_step(states, blocks, masks, meta7=True)[-1]))
+    return {"members": n, "wall_ms": walls[0] * 1e3, "busy_ms": busy,
+            "share": None if busy is None else busy / (walls[0] * 1e3)}
+
+
+def run_gang_serve(dev, values: np.ndarray) -> dict:
+    """The serving runtime on the card: 16 topics through Dispatcher(gang=
+    True) against Dispatcher(gang=False), equal records and frames; two
+    topics alone on the CPU; one B1+B4 launch per wave or solo flush, one
+    dict_probe per tdic32 one. Returns the gang replay's launches."""
+    t_job = time.perf_counter()
+    feeds = serve_feeds(values, SERVE_TUPLES)
+    g, g_rep, g_wall, g_counts = serve_replay(dev, feeds, gang=True)
+    s, s_rep, s_wall, s_counts = serve_replay(dev, feeds, gang=False)
+    g_keys, g_frames = serve_keys_frames(g)
+    s_keys, s_frames = serve_keys_frames(s)
+    if g_keys != s_keys or g_frames != s_frames:
+        bad = sorted(t for t in g_keys if g_keys[t] != s_keys[t] or g_frames[t] != s_frames[t])
+        raise AssertionError(f"serve: gang and solo servers differ on topics {bad}")
+    c, _, _, _ = serve_replay(torch.device("cpu"), feeds, gang=True, topics=SERVE_CPU_TOPICS)
+    c_keys, c_frames = serve_keys_frames(c)
+    if any(c_keys[t] != g_keys[t] or c_frames[t] != g_frames[t] for t in SERVE_CPU_TOPICS):
+        raise AssertionError(f"serve: topics {SERVE_CPU_TOPICS} on the CPU differ from the card's")
+    for t, r in g_rep.sessions.items():
+        full = sum(not f.timeout for f in g.sessions[t].flushes)
+        if not (r.fidelity.bit_exact and r.n_tuples == SERVE_TUPLES and full >= 8):
+            raise AssertionError(f"serve/{t}: exact {r.fidelity.bit_exact}, {r.n_tuples} tuples, "
+                                 f"{full} full flushes")
+    stats = {k: v for k, v in g_rep.dispatch_stats.items()}
+    dispatches = sum(v.n_waves + v.n_solo for v in stats.values())
+    tdic = sum(v.n_waves + v.n_solo for v in stats.values() if v.codec == "tdic32")
+    want = {"pack_blocks_meta7": dispatches, "dict_probe": tdic, "pack_blocks": 0, "pack_meta7_blocks": 0}
+    if {k: g_counts[k] for k in want} != want:
+        raise AssertionError(f"serve: the gang replay launched { {k: g_counts[k] for k in want} }, "
+                             f"expected {want} (one B1+B4 per wave or solo flush)")
+    solo_flushes = sum(r.n_flushes for r in s_rep.sessions.values())
+    if s_counts["pack_blocks_meta7"] != solo_flushes:
+        raise AssertionError(f"serve: the solo replay launched {s_counts['pack_blocks_meta7']} B1+B4 "
+                             f"for {solo_flushes} flushes")
+    decode_s = {n: sum(r.decode_s for r in rep.sessions.values()) for n, rep in (("gang", g_rep), ("solo", s_rep))}
+    emit({
+        "phase": "gang", "job": "serve/16-topics", "topics": SERVE_TOPICS, "tuples_per_topic": SERVE_TUPLES,
+        "input_bytes": SERVE_TOPICS * SERVE_TUPLES * 4,
+        "flushes": sum(r.n_flushes for r in g_rep.sessions.values()),
+        "timeout_flushes": sum(r.n_timeout_flushes for r in g_rep.sessions.values()),
+        "signatures": {k: {"sessions": v.n_sessions, "waves": v.n_waves, "solo": v.n_solo,
+                           "max_wave": v.max_wave, "mean_wave": v.mean_wave, "occupancy": v.occupancy}
+                       for k, v in stats.items()},
+        "gang": {"replay_s": g_wall, "waves_s": g_rep.compute_s, "decode_s": decode_s["gang"],
+                 "host_s": g_wall - g_rep.compute_s - decode_s["gang"], "n_dispatches": g_rep.n_dispatches},
+        "solo": {"replay_s": s_wall, "flushes_s": s_rep.compute_s, "decode_s": decode_s["solo"],
+                 "host_s": s_wall - s_rep.compute_s - decode_s["solo"], "n_dispatches": s_rep.n_dispatches},
+        "wire_bytes": sum(r.wire_bytes for r in g_rep.sessions.values()),
+        "ratio": g_rep.ratio,
+        "profiled_wave": {c: profiled_wave(dev, c, values, SERVE_TOPICS // 2) for c in ("tcomp32", "tdic32")},
+        "records_equal_solo": True, "frames_equal_solo": True, "cpu_topics": list(SERVE_CPU_TOPICS),
+        "launches": {"gang": {k: n for k, n in g_counts.items() if n},
+                     "solo": {k: n for k, n in s_counts.items() if n}},
+        "seconds": time.perf_counter() - t_job,
+    })
+    return g_counts
+
+
+def run_gang(dev, full_values: dict) -> dict:
+    """Phase gang: the offline gang jobs, then the serving runtime. Returns
+    the summed launches of the gang runs and the gang replay."""
+    launches = {k: 0 for k in KERNELS}
+    for name, (_, dataset, _) in GANG_JOBS.items():
+        for k, n in run_gang_offline(dev, name, full_values[dataset]).items():
+            launches[k] += n
+    for k, n in run_gang_serve(dev, full_values["rovio"]).items():
+        launches[k] += n
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -1968,6 +2191,10 @@ def main() -> int:
         for k, n in run(dev, full_values["rovio"]).items():
             launches[k] += n
     emit({"phase": "api", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    for k, n in run_gang(dev, full_values).items():
+        launches[k] += n
+    emit({"phase": "gang", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     check_lm_card_vs_cpu(dev)
     lm_launches, model, prompts = run_lm(dev)

@@ -15,21 +15,26 @@
     ladder (`controller`), turning every invalid combination into the
     reference's single-line `NegotiationError`.
   * `StreamHandle` — `open(spec)`: push/flush/frames/report/close over
-    independent segments, with `swap_dictionary` and the adaptive ladder.
-  * `run_compress` / `run_roundtrip` — one offline compression run, and
-    compress -> frame -> decompress with the fidelity check.
+    independent segments, with `swap_dictionary` and the adaptive ladder;
+    or `Dispatcher.open(spec)`: a server session whose timestamped feed
+    `Dispatcher.run()` replays (size-or-timeout flushes, optional gang
+    dispatch, `topic:latest` hot swaps on publish).
+  * `run_compress` / `run_roundtrip` / `run_gang_compress` — one offline
+    compression run, compress -> frame -> decompress with the fidelity
+    check, and S same-geometry streams through one gang execution
+    (`gang_compress`, `negotiate_gang`).
 
-Negotiation, handles and pipelines run on the card unless the caller passes
-`device="cpu"` (a keyword the reference does not have). Not here yet, and
-refused naming their ROADMAP item: dispatcher-bound handles, `Dispatcher`,
-`negotiate_gang` and `gang_compress` (A6), and device meshes,
-`JobSpec.devices >= 1` (A9, the one refusal whose text differs from the
-reference's).
+Negotiation, handles, dispatchers and pipelines run on the card unless the
+caller passes `device="cpu"` (a keyword the reference does not have). Not
+here yet, and refused naming ROADMAP A9: device meshes, `JobSpec.devices >=
+1` (the one refusal whose text differs from the reference's) and a
+`Dispatcher(mesh=...)` wider than one device.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Mapping, Optional, Tuple, Union
+import warnings
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,7 +59,7 @@ from repro_torch.core.controller import (
     TierSpec,
     resolve_ladder,
 )
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import DeviceLike, resolve_device
 from repro_torch.core.dictstore import (
     DictRegistry,
     TrainedDict,
@@ -83,6 +88,13 @@ from repro_torch.core.strategies import (
     resolve_capacity,
     schedule_blocks,
 )
+from repro_torch.runtime.server import (
+    ServerCore,
+    ServerReport,
+    SessionReport,
+    SignatureStats,
+    StreamSession,
+)
 
 __all__ = [
     "JobSpec",
@@ -98,29 +110,36 @@ __all__ = [
     "parse_dict_ref",
     "NegotiationError",
     "negotiate",
+    "negotiate_gang",
     "capability",
     "capabilities",
     "open",
+    "gang_compress",
     "AdaptiveController",
     "ModeledLink",
     "ScriptedController",
     "TierSpec",
     "StreamHandle",
+    "Dispatcher",
     "JobReport",
     "CompressResult",
+    "GangCompressResult",
     "RoundtripResult",
     "queueing_delay_s",
     "run_compress",
+    "run_gang_compress",
     "run_roundtrip",
     "ExecutionStrategy",
     "StateStrategy",
     "SchedulingStrategy",
+    "SessionReport",
+    "ServerReport",
+    "SignatureStats",
 ]
 
 #: scalar parameter types a JobSpec may carry (hashable, JSON-serializable)
 _SCALAR = (bool, int, float, str)
 _PaperNameByCodec = {v: k for k, v in PAPER_TABLE1.items()}
-DeviceLike = Union[None, str, torch.device]
 
 
 class NegotiationError(ValueError):
@@ -129,13 +148,6 @@ class NegotiationError(ValueError):
 
 def _err(msg: str) -> "NegotiationError":
     return NegotiationError(" ".join(msg.split()))
-
-
-def _not_here(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what}, which repro_torch does not have yet (ROADMAP {item}); "
-        "run this job on repro"
-    )
 
 
 # ------------------------------------------------------------------ JobSpec --
@@ -168,11 +180,12 @@ class JobSpec:
     #: heavy} per flush; `codec` names the CHEAP rung, bypass is raw32 and
     #: heavy is delta_leb128 + rANS. Requires egress; `entropy` stays None
     adaptive: bool = False
-    #: gang dispatch (ROADMAP A6: negotiated as a plan, refused to run)
+    #: gang dispatch: the job's flushes may share one launch of each kernel
+    #: with same-signature sessions of a `Dispatcher(gang=True)`
     gang: bool = False
     #: arrival rate for the end-to-end latency model (paper §4.1)
     arrival_rate_tps: Optional[float] = None
-    #: device-mesh width (ROADMAP A9; > 0 refused by the port's pipelines)
+    #: device-mesh width (ROADMAP A9; >= 1 refused by negotiation)
     devices: int = 0
     #: trained per-topic dictionary: "topic" / "topic:latest" (the
     #: registry's pinned or newest version at negotiation) or "topic:v3";
@@ -748,6 +761,30 @@ def _negotiate_tiers(
     return tuple(out)
 
 
+def negotiate_gang(specs: Sequence[JobSpec], device: DeviceLike = None) -> List[Plan]:
+    """Negotiate a set of specs that must gang into ONE dispatch on
+    `device` (CUDA when None, or raise).
+
+    Members gang only when codec (including resolved parameters), block
+    geometry and dtype agree — a mismatch is a NegotiationError naming the
+    first divergent member, not a silent fall-back to solo dispatch."""
+    if not specs:
+        raise _err("negotiate_gang needs at least one JobSpec")
+    plans = [negotiate(s if s.gang else s.replace(gang=True), device=device) for s in specs]
+    ref = plans[0]
+    for i, p in enumerate(plans[1:], start=1):
+        if p.signature != ref.signature:
+            raise _err(
+                f"gang members disagree on dispatch signature: spec[0] "
+                f"({ref.spec.codec!r}, params {ref.spec.codec_kwargs}, "
+                f"capacity {ref.capacity}x{ref.spec.lanes} lanes) vs spec[{i}] "
+                f"({p.spec.codec!r}, params {p.spec.codec_kwargs}, capacity "
+                f"{p.capacity}x{p.spec.lanes} lanes); codec, resolved params, "
+                "block geometry and dtype must all match"
+            )
+    return plans
+
+
 # ------------------------------------------------------------- result types --
 @dataclasses.dataclass
 class CompressResult:
@@ -760,6 +797,23 @@ class CompressResult:
     blocked_s: float  # dispatch/sync overhead (paper Fig 10b 'blocked time')
     running_s: float  # pure compression time
     frame: Optional[bits.Frame] = None  # wire-format payload (emit_frame=True)
+
+
+@dataclasses.dataclass
+class GangCompressResult:
+    """Offline gang run over S same-config streams (DESIGN.md §11).
+
+    `results` has one CompressResult per stream; `wall_s` is the SHARED
+    gang wall (the streams moved through one sequence of launches, so
+    per-stream `stats.wall_s` is the even split); `dispatches` counts the
+    gang's chunk and tail dispatches — compare against S x the solo count."""
+
+    results: List[CompressResult]
+    n_streams: int
+    wall_s: float
+    dispatches: int
+    makespan_s: float  # all streams' blocks scheduled together
+    energy_j: float
 
 
 @dataclasses.dataclass
@@ -788,13 +842,19 @@ def run_compress(
     spec: JobSpec,
     values: np.ndarray,
     arrival_rate_tps: Optional[float] = None,
+    max_blocks: Optional[int] = None,
+    breakdown: bool = False,
     emit_frame: bool = False,
+    compact: bool = True,
 ) -> CompressResult:
     """One offline compression run: executor + schedule + latency layers.
-    With `emit_frame` the egress takes the device compaction path."""
-    shaped = pipe.shape_blocks(np.asarray(values, np.uint32))
+    With `emit_frame` the egress takes the device compaction path;
+    `compact=False` replays the legacy worst-case-buffer collection. With
+    `breakdown` a per-block-dispatch plan is replayed fused to split the
+    wall into running and blocked time (paper Fig 10b)."""
+    shaped = pipe.shape_blocks(np.asarray(values, np.uint32), max_blocks=max_blocks)
 
-    res = pipe.execute(shaped, collect_payload=emit_frame)
+    res = pipe.execute(shaped, collect_payload=emit_frame, compact=compact)
     wall = res.wall_s
     per_block_bits = res.per_block_bits
     total_bits = float(per_block_bits.sum())
@@ -829,7 +889,14 @@ def run_compress(
         latency_s=latency,
         energy_j=energy,
     )
-    running = min(per_block_cost * n_blocks, wall)
+    if breakdown and pipe.plan.scan_chunk <= 1:
+        # per-block-dispatch timed run: measure 'running' by force-fusing
+        # the same blocks
+        running = min(pipe.execute(shaped, fused=True).wall_s, wall)
+    elif breakdown:
+        running = wall  # the timed run already WAS the fused replay
+    else:
+        running = min(per_block_cost * n_blocks, wall)
     return CompressResult(
         stats=stats,
         total_bits=total_bits,
@@ -843,17 +910,88 @@ def run_compress(
     )
 
 
+def run_gang_compress(
+    pipe: CompressionPipeline,
+    spec: JobSpec,
+    streams: Sequence[np.ndarray],
+    emit_frames: bool = False,
+    compact: bool = True,
+) -> GangCompressResult:
+    """Offline gang execution over S same-geometry streams (DESIGN.md §11):
+    each chunk is one launch of each kernel for all S streams. Shared by
+    `gang_compress` and the `CStreamEngine.gang_compress` shim."""
+    if not streams:
+        raise _err("gang compression needs at least one stream")
+    shaped = [pipe.shape_blocks(np.asarray(v, np.uint32)) for v in streams]
+    d0 = pipe.dispatches
+    exec_results, wall = pipe.execute_gang(
+        shaped, collect_payload=emit_frames, compact=compact
+    )
+    dispatches = pipe.dispatches - d0
+
+    profile = spec.hardware()
+    spin = spec.scheduling == SchedulingStrategy.UNIFORM
+    all_costs: List[float] = []
+    results: List[CompressResult] = []
+    for sh, res in zip(shaped, exec_results):
+        per_block_bits = res.per_block_bits
+        total_bits = float(per_block_bits.sum())
+        costs = block_costs(res.wall_s, per_block_bits)
+        all_costs.extend(costs)
+        _, busy, makespan = schedule_blocks(costs, profile.speeds, spec.scheduling)
+        energy = edge_energy_j(profile, busy, makespan, spin_wait=spin)
+        input_bytes = res.n_tuples * 4
+        stats = metrics.RunStats(
+            name=f"{pipe.codec.name}/gang/{spec.state.value}/{spec.scheduling.value}",
+            input_bytes=input_bytes,
+            output_bytes=total_bits / 8.0,
+            wall_s=res.wall_s,
+            ratio=metrics.compression_ratio(input_bytes * 8, total_bits),
+            latency_s=None,
+            energy_j=energy,
+        )
+        results.append(
+            CompressResult(
+                stats=stats,
+                total_bits=total_bits,
+                n_tuples=res.n_tuples,
+                per_block_bits=per_block_bits,
+                makespan_s=makespan,
+                busy_s=busy,
+                blocked_s=0.0,
+                running_s=res.wall_s,
+                frame=pipe.frame_from(sh, res) if emit_frames else None,
+            )
+        )
+    _, gang_busy, gang_makespan = schedule_blocks(
+        all_costs, profile.speeds, spec.scheduling
+    )
+    gang_energy = edge_energy_j(profile, gang_busy, gang_makespan, spin_wait=spin)
+    return GangCompressResult(
+        results=results,
+        n_streams=len(streams),
+        wall_s=wall,
+        dispatches=dispatches,
+        makespan_s=gang_makespan,
+        energy_j=gang_energy,
+    )
+
+
 def run_roundtrip(
     pipe: CompressionPipeline,
     decomp: DecompressionPipeline,
     spec: JobSpec,
     values: np.ndarray,
     arrival_rate_tps: Optional[float] = None,
+    max_blocks: Optional[int] = None,
 ) -> RoundtripResult:
     """Compress to the wire frame, decode it back, check fidelity: lossless
     codecs must come back bit-exact."""
     values = np.asarray(values, np.uint32).ravel()
-    res = run_compress(pipe, spec, values, arrival_rate_tps=arrival_rate_tps, emit_frame=True)
+    res = run_compress(
+        pipe, spec, values,
+        arrival_rate_tps=arrival_rate_tps, max_blocks=max_blocks, emit_frame=True,
+    )
     dec = decomp.decompress(res.frame)
     fid = metrics.fidelity(
         values[: dec.n_tuples], dec.values, bound=pipe.codec.error_bound()
@@ -887,32 +1025,49 @@ class JobReport:
     wire_bytes: Optional[int] = None
     segments: List[CompressResult] = dataclasses.field(default_factory=list)
     roundtrips: List[RoundtripResult] = dataclasses.field(default_factory=list)
+    session: Optional[SessionReport] = None  # dispatcher-bound handles only
 
 
 # -------------------------------------------------------------- StreamHandle --
 class StreamHandle:
     """One stream driven through a negotiated plan: push/flush/frames/
-    report/close (the reference's offline handle; dispatcher-bound handles
-    wait for ROADMAP A6).
+    report/close — offline compression, a wire roundtrip, a server session
+    or a gang-dispatched session.
 
-    `push` buffers values; each `flush` compresses everything buffered as
-    one independent segment (fresh codec state per segment). With
-    `spec.egress` every segment also carries its wire frame and a decoded
-    roundtrip fidelity check. With `spec.adaptive` the controller picks each
-    segment's rung before it compresses, and the segment runs under that
-    rung's own plan. The pipelines run on `device` (the plan's when None)."""
+    * Standalone (`cstream.open(spec)`): `push` buffers values; each `flush`
+      compresses everything buffered as one independent segment (fresh
+      codec state per segment). With `spec.egress` every segment also
+      carries its wire frame and a decoded roundtrip fidelity check. With
+      `spec.adaptive` the controller picks each segment's rung before it
+      compresses, and the segment runs under that rung's own plan. The
+      pipelines run on `device` (the plan's when None).
+    * Dispatcher-bound (`Dispatcher.open(spec)`): `push(values, timestamps)`
+      stages an arrival feed; `Dispatcher.run()` replays all handles' feeds
+      in merged time order through the serving runtime (size-or-timeout
+      flushes, optional cross-session gang dispatch). Codec state persists
+      across flushes, as a session demands.
+    """
 
     def __init__(
         self,
         spec: JobSpec,
         plan: Plan,
+        session: Optional[StreamSession] = None,
+        dispatcher: Optional["Dispatcher"] = None,
         controller: Any = None,
         device: DeviceLike = None,
     ):
         self.spec = spec
         self.plan = plan
-        self.device = resolve_device(device if device is not None else plan.device)
+        self._session = session
+        self._dispatcher = dispatcher
         self._closed = False
+        if session is not None:
+            self.device = session.device
+            self._staged_values: List[np.ndarray] = []
+            self._staged_ts: List[np.ndarray] = []
+            return
+        self.device = resolve_device(device if device is not None else plan.device)
         self._buffer: List[np.ndarray] = []
         self._segments: List[CompressResult] = []
         self._roundtrips: List[RoundtripResult] = []
@@ -951,15 +1106,23 @@ class StreamHandle:
 
     # ----------------------------------------------------------- dictionary
     def swap_dictionary(self, trained: TrainedDict) -> "StreamHandle":
-        """Compress the following segments under a newer trained
-        dictionary. Decode needs no coordination: every frame declares the
-        `(topic, version)` it was encoded under."""
+        """Hot-swap to a newer trained dictionary at the next flush boundary.
+
+        Dispatcher-bound handles seal the current segment and open the next
+        flush under the new version (the registry's publish subscription
+        calls this for "topic:latest" jobs); offline handles compress the
+        following segments under the new seed. Decode needs no
+        coordination: every frame declares the `(topic, version)` it was
+        encoded under."""
         self._check_open()
         if self.plan.dictionary is None:
             raise _err(
                 "this job negotiated no trained dictionary; set "
                 "JobSpec.dictionary='topic[:vN|:latest]' and reopen"
             )
+        if self._session is not None:
+            self._session.swap_dictionary(trained)
+            return self
         self._pipe = self._pipeline(
             CompressionPipeline, self.plan, codec=_seeded_codec(self.spec, trained)
         )
@@ -968,12 +1131,21 @@ class StreamHandle:
 
     # ------------------------------------------------------------- plumbing
     @property
+    def topic(self) -> Optional[str]:
+        return self._session.topic if self._session is not None else None
+
+    @property
     def pipeline(self) -> CompressionPipeline:
-        return self._pipe
+        return self._pipe if self._session is None else self._session.pipeline
 
     @property
     def decompressor(self) -> DecompressionPipeline:
         """Lazily built egress executor sharing this handle's plan codec."""
+        if self._session is not None:
+            raise _err(
+                "dispatcher-bound handles decode through the session's egress "
+                "path; use frames()/report() instead"
+            )
         if self._decomp is None:
             self._decomp = self._pipeline(DecompressionPipeline, self.plan)
         return self._decomp
@@ -986,23 +1158,50 @@ class StreamHandle:
     def push(
         self, values: np.ndarray, timestamps: Optional[np.ndarray] = None
     ) -> "StreamHandle":
-        """Buffer tuples until `flush`. Arrival timestamps belong to
-        dispatcher-bound handles (ROADMAP A6)."""
+        """Feed tuples. Offline handles buffer them until `flush`;
+        dispatcher-bound handles stage an (values, arrival-timestamps) feed
+        that `Dispatcher.run()` replays in merged time order."""
         self._check_open()
-        if timestamps is not None:
+        values = np.ascontiguousarray(values, np.uint32).ravel()
+        if self._session is None:
+            if timestamps is not None:
+                raise _err(
+                    "arrival timestamps only apply to dispatcher-bound "
+                    "handles; open this spec via Dispatcher.open for a "
+                    "timestamped session"
+                )
+            self._buffer.append(values)
+            return self
+        if timestamps is None:
             raise _err(
-                "arrival timestamps only apply to dispatcher-bound handles, "
-                "which repro_torch does not have yet (ROADMAP A6); push "
-                "values alone"
+                f"session handle {self.topic!r} needs arrival timestamps: "
+                "push(values, timestamps) — the serving runtime replays "
+                "them for size-or-timeout flushing"
             )
-        self._buffer.append(np.ascontiguousarray(values, np.uint32).ravel())
+        ts = np.asarray(timestamps, np.float64).ravel()
+        if len(ts) != len(values):
+            raise _err(
+                f"session handle {self.topic!r}: {len(values)} values vs "
+                f"{len(ts)} timestamps"
+            )
+        self._staged_values.append(values)
+        self._staged_ts.append(ts)
         return self
 
     # ---------------------------------------------------------------- flush
     def flush(self) -> Optional[CompressResult]:
-        """Compress everything buffered as one segment and return its
-        CompressResult (None if nothing is buffered)."""
+        """Offline: compress everything buffered as one segment and return
+        its CompressResult (None if nothing is buffered). Dispatcher-bound:
+        replay any staged feed now and drain the session's partial batch."""
         self._check_open()
+        if self._session is not None:
+            self._dispatcher.run()  # replay staged feeds (all handles)
+            s = self._session
+            deadline = s.flush_deadline
+            if deadline is not None:
+                s.flush(now=deadline)
+            self._dispatcher._drain_gang()
+            return None
         if not self._buffer:
             return None
         values = np.concatenate(self._buffer)
@@ -1042,15 +1241,38 @@ class StreamHandle:
 
     # ---------------------------------------------------------------- frames
     def frames(self) -> List[bits.Frame]:
-        """Wire-format frames this handle produced (egress specs only), one
-        per segment. Readable after `close`."""
+        """Wire-format frames this handle produced (egress specs only): one
+        per offline segment, or the session's sealed tier/dictionary
+        segments plus its closing frame. Readable after `close`."""
         if not self.spec.egress:
             return []
-        return [rt.compress.frame for rt in self._roundtrips]
+        if self._session is None:
+            return [rt.compress.frame for rt in self._roundtrips]
+        if not self._session.flushes:
+            return []
+        return self._session.egress_frames()
 
     # ---------------------------------------------------------------- report
     def report(self) -> JobReport:
-        """Aggregate job metrics; egress jobs carry the fidelity contract."""
+        """Aggregate job metrics; egress jobs carry the fidelity contract,
+        dispatcher-bound jobs embed their SessionReport."""
+        if self._session is not None:
+            server_rep = self._dispatcher.report()
+            sess = server_rep.sessions[self._session.topic]
+            return JobReport(
+                spec=self.spec,
+                n_tuples=sess.n_tuples,
+                total_bits=sess.output_bytes * 8.0,
+                ratio=sess.ratio,
+                wall_s=sess.compute_s,
+                makespan_s=server_rep.makespan_s,
+                energy_j=sess.energy_j,
+                latency_s=sess.mean_latency_s,
+                n_frames=self._session.n_segments if self.spec.egress else 0,
+                fidelity=sess.fidelity,
+                wire_bytes=sess.wire_bytes,
+                session=sess,
+            )
         segs = self._segments
         n_tuples = sum(r.n_tuples for r in segs)
         total_bits = sum(r.total_bits for r in segs)
@@ -1087,7 +1309,11 @@ class StreamHandle:
         """Flush anything pending, return the final report, seal the handle."""
         if self._closed:
             raise _err("StreamHandle is already closed")
-        if self._buffer:
+        pending = (
+            bool(self._buffer) if self._session is None
+            else bool(self._staged_values) or bool(self._session.buffered)
+        )
+        if pending:
             self.flush()
         rep = self.report()
         self._closed = True
@@ -1100,12 +1326,21 @@ class StreamHandle:
         if not self._closed and exc_type is None:
             self.close()
 
+    # dispatcher plumbing ----------------------------------------------------
+    def _take_staged(self) -> Optional[Tuple[np.ndarray, np.ndarray]]:
+        if self._session is None or not self._staged_values:
+            return None
+        feed = (np.concatenate(self._staged_values), np.concatenate(self._staged_ts))
+        self._staged_values.clear()
+        self._staged_ts.clear()
+        return feed
+
 
 # --------------------------------------------------------------------- open --
 def open(
     spec: JobSpec,
     sample: Optional[np.ndarray] = None,
-    dispatcher: Any = None,
+    dispatcher: Optional["Dispatcher"] = None,
     topic: Optional[str] = None,
     controller: Any = None,
     device: DeviceLike = None,
@@ -1114,20 +1349,332 @@ def open(
     `device` (CUDA when None, or raise).
 
     `sample` bakes calibration into the spec first (`JobSpec.calibrated`).
-    `controller` overrides the adaptive tier controller (spec.adaptive=True
-    only; default is an `AdaptiveController` over the negotiated ladder).
-    A `dispatcher` and `topic`, and a gang spec, need the serving runtime
-    (ROADMAP A6)."""
-    if dispatcher is not None or topic is not None:
-        raise _not_here("open(dispatcher=...) binds a handle to a server session", "A6")
+    With `dispatcher` the handle is a server session on that dispatcher,
+    on the dispatcher's device — sugar for `dispatcher.open(spec, topic,
+    sample)`. `controller` overrides the adaptive tier controller
+    (spec.adaptive=True only; default is an `AdaptiveController` over the
+    negotiated ladder)."""
+    if dispatcher is not None:
+        return dispatcher.open(spec, topic=topic, sample=sample, controller=controller)
     if sample is not None:
         spec = spec.calibrated(sample)
     plan = negotiate(spec, device=device)
     if spec.gang:
-        raise _not_here("spec.gang=True needs a shared gang dispatcher", "A6")
+        raise _err(
+            "spec.gang=True needs a shared dispatcher: use "
+            "Dispatcher(gang=True).open(spec) (or gang_compress for offline "
+            "same-geometry streams)"
+        )
     if controller is not None and not spec.adaptive:
         raise _err(
             "a tier controller only applies to adaptive jobs; set "
             "JobSpec.adaptive=True (or drop controller)"
         )
     return StreamHandle(spec, plan, controller=controller)
+
+
+def gang_compress(
+    spec: JobSpec,
+    streams: Sequence[np.ndarray],
+    sample: Optional[np.ndarray] = None,
+    emit_frames: bool = False,
+    device: DeviceLike = None,
+) -> GangCompressResult:
+    """Offline gang: S same-geometry streams through one launch of each
+    kernel per chunk on `device` (CUDA when None, or raise), bit-identical
+    to solo runs (frames/records)."""
+    if sample is not None:
+        spec = spec.calibrated(sample)
+    plan = negotiate(spec.replace(gang=True), device=device)
+    pipe = CompressionPipeline(
+        plan.spec, codec=plan.codec, plan=plan.execution, device=plan.device
+    )
+    return run_gang_compress(pipe, plan.spec, streams, emit_frames=emit_frames)
+
+
+# --------------------------------------------------------------- Dispatcher --
+class Dispatcher:
+    """Shared serving runtime behind dispatcher-bound StreamHandles.
+
+    Wraps the multi-stream server core (runtime/server.py): admission cap,
+    size-or-timeout flushing over merged arrival order, worker scheduling
+    over the hardware profile, and — with `gang=True` — the cross-session
+    gang dispatcher (DESIGN.md §11) that folds same-signature flushes into
+    one launch of each kernel. `StreamServer` is the deprecated shim over
+    the same core. Sessions run on `device` (CUDA when None, or raise).
+
+    Flush policy is per-JOB: `open(spec)` applies the spec's
+    `flush_tuples`/`flush_timeout_s` to its session; the constructor's
+    `flush_timeout_s` is only the core default for legacy `admit` paths.
+
+    `fault_injector`/`heartbeat` wire the chaos-drill and liveness hooks
+    through to the server core, and `breaker` (True, or CircuitBreaker
+    kwargs) turns on per-signature admission breakers (DESIGN.md §18).
+    `mesh` wider than one device (sharded waves, DESIGN.md §14) waits for
+    ROADMAP A9."""
+
+    def __init__(
+        self,
+        profile: str = "rk3399_amp",
+        scheduling: SchedulingStrategy = SchedulingStrategy.ASYMMETRIC,
+        max_sessions: int = 16,
+        flush_timeout_s: float = 0.25,
+        gang: bool = False,
+        gang_quantum_s: Optional[float] = None,
+        max_gang: Optional[int] = None,
+        gang_budget: Optional[int] = None,
+        mesh: Optional[int] = None,
+        fault_injector: Any = None,
+        heartbeat: Any = None,
+        breaker: Any = None,
+        device: DeviceLike = None,
+    ):
+        if profile not in PROFILES:
+            raise _err(
+                f"unknown hardware profile {profile!r}; "
+                f"available: {', '.join(sorted(PROFILES))}"
+            )
+        try:
+            self._core = ServerCore(
+                profile=profile,
+                scheduling=SchedulingStrategy(scheduling),
+                max_sessions=max_sessions,
+                flush_timeout_s=flush_timeout_s,
+                gang=gang,
+                gang_quantum_s=gang_quantum_s,
+                max_gang=max_gang,
+                gang_budget=gang_budget,
+                mesh=mesh,
+                fault_injector=fault_injector,
+                heartbeat=heartbeat,
+                breaker=breaker,
+                device=device,
+            )
+        except NegotiationError:
+            raise
+        except ValueError as exc:  # core mesh validation -> negotiation error
+            raise _err(str(exc)) from exc
+        self._handles: Dict[str, StreamHandle] = {}
+        #: live "topic:latest" registry subscriptions; dropped on close
+        self._subscriptions: List[Tuple[DictRegistry, str, Any]] = []
+
+    @property
+    def device(self) -> torch.device:
+        return self._core.device
+
+    @property
+    def gang(self) -> bool:
+        return self._core.gang
+
+    @property
+    def devices(self) -> int:
+        """Fleet mesh width (1: device-local dispatch)."""
+        return 1
+
+    @property
+    def sessions(self) -> Dict[str, StreamSession]:
+        return self._core.sessions
+
+    # ----------------------------------------------------------------- open
+    def open(
+        self,
+        spec: JobSpec,
+        topic: Optional[str] = None,
+        sample: Optional[np.ndarray] = None,
+        controller: Any = None,
+    ) -> StreamHandle:
+        """Admit a session for this spec and return its StreamHandle.
+        `controller` overrides the adaptive tier controller (adaptive
+        specs only)."""
+        if sample is not None:
+            spec = spec.calibrated(sample)
+        return self._open_negotiated(
+            spec, negotiate(spec, device=self.device), topic, controller
+        )
+
+    def open_many(
+        self,
+        spec: JobSpec,
+        count: Optional[int] = None,
+        topics: Optional[Sequence[str]] = None,
+        sample: Optional[np.ndarray] = None,
+    ) -> List[StreamHandle]:
+        """Admit many same-spec sessions with ONE negotiation; they share
+        the signature owner's pipeline (codec state stays per-session).
+        Pass `count` for auto-named topics or an explicit `topics` list
+        (exactly one of the two)."""
+        if (count is None) == (topics is None):
+            raise _err(
+                "open_many needs exactly one of count= (auto-named topics) "
+                "or topics= (explicit names)"
+            )
+        if topics is None:
+            if count < 1:
+                raise _err(f"open_many count must be >= 1, got {count}")
+            names: List[str] = []
+            n = len(self._core.sessions)
+            while len(names) < count:
+                candidate = f"job-{n}"
+                n += 1
+                if candidate not in self._core.sessions:
+                    names.append(candidate)
+            topics = names
+        if sample is not None:
+            spec = spec.calibrated(sample)
+        plan = negotiate(spec, device=self.device)
+        return [self._open_negotiated(spec, plan, t) for t in topics]
+
+    def _open_negotiated(
+        self,
+        spec: JobSpec,
+        plan: Plan,
+        topic: Optional[str],
+        controller: Any = None,
+    ) -> StreamHandle:
+        if controller is not None and not spec.adaptive:
+            raise _err(
+                "a tier controller only applies to adaptive jobs; set "
+                "JobSpec.adaptive=True (or drop controller)"
+            )
+        if spec.gang and not self._core.gang:
+            raise _err(
+                "spec.gang=True but this dispatcher was built with gang=False; "
+                "construct Dispatcher(gang=True) to gang-dispatch sessions"
+            )
+        if topic is None:
+            n = len(self._core.sessions)
+            topic = f"job-{n}"
+            while topic in self._core.sessions:  # user-supplied names may clash
+                n += 1
+                topic = f"job-{n}"
+        admit_spec, admit_codec, admit_plan = spec, plan.codec, plan.execution
+        tiers = active_tier = None
+        if spec.adaptive:
+            # the controller picks the starting rung; the session admits ON
+            # that rung's negotiated plan, carrying the whole ladder for
+            # flush-boundary switches (runtime/server.py, DESIGN.md §16)
+            if controller is None:
+                controller = AdaptiveController(
+                    ladder=tuple(t for t, _ in plan.tiers), profile=spec.profile
+                )
+            by_name = {t.name: p for t, p in plan.tiers}
+            active_tier = controller.decide().name
+            start = by_name[active_tier]
+            admit_spec, admit_codec, admit_plan = start.spec, start.codec, start.execution
+            tiers = {name: (p.spec, p.codec, p.execution) for name, p in by_name.items()}
+        session = self._core.admit(
+            topic,
+            admit_spec,
+            flush_tuples=spec.flush_tuples,
+            flush_timeout_s=spec.flush_timeout_s,
+            egress=spec.egress,
+            codec=admit_codec,
+            plan=admit_plan,
+            controller=controller if spec.adaptive else None,
+            tiers=tiers,
+            active_tier=active_tier,
+        )
+        handle = StreamHandle(spec, plan, session=session, dispatcher=self)
+        if plan.dictionary is not None and plan.dictionary.follow_latest:
+            # "topic:latest" jobs track the registry: a publish hot-swaps the
+            # session at its next flush boundary (sealed segment + new seed)
+            reg = default_registry()
+            dict_topic = plan.dictionary.topic
+
+            def _on_publish(trained: TrainedDict, _s: StreamSession = session) -> None:
+                _s.swap_dictionary(trained)
+
+            reg.subscribe(dict_topic, _on_publish)
+            self._subscriptions.append((reg, dict_topic, _on_publish))
+        self._handles[topic] = handle
+        return handle
+
+    def open_gang(
+        self,
+        specs: Sequence[JobSpec],
+        topics: Optional[Sequence[str]] = None,
+        samples: Optional[Sequence[Optional[np.ndarray]]] = None,
+    ) -> List[StreamHandle]:
+        """Open a set of sessions that MUST share one gang signature
+        (`negotiate_gang` rejects mismatches with an actionable error)."""
+        if not self._core.gang:
+            raise _err("open_gang needs Dispatcher(gang=True)")
+        if topics is not None and len(topics) != len(specs):
+            raise _err(
+                f"open_gang got {len(specs)} specs but {len(topics)} topics; "
+                "pass one topic per spec (or none)"
+            )
+        if samples is not None:
+            if len(samples) != len(specs):
+                raise _err(
+                    f"open_gang got {len(specs)} specs but {len(samples)} "
+                    "samples; pass one sample per spec (or none)"
+                )
+            specs = [
+                s if smp is None else s.calibrated(smp)
+                for s, smp in zip(specs, samples)
+            ]
+        # one negotiation per member: signature agreement or a single-line
+        # error, and the same Plans drive admission (no re-negotiation)
+        plans = negotiate_gang([s.replace(gang=True) for s in specs], device=self.device)
+        topic_list = list(topics) if topics is not None else [None] * len(plans)
+        return [
+            self._open_negotiated(p.spec, p, t) for p, t in zip(plans, topic_list)
+        ]
+
+    # ------------------------------------------------------------------ run
+    def run(self) -> Optional[ServerReport]:
+        """Replay every handle's staged feed in merged arrival order through
+        the serving runtime; returns the ServerReport (None if nothing was
+        staged). Identical semantics to `StreamServer.run(feeds)`."""
+        feeds: Dict[str, Tuple[np.ndarray, np.ndarray]] = {}
+        for topic, h in self._handles.items():
+            staged = h._take_staged()
+            if staged is not None:
+                feeds[topic] = staged
+        if not feeds:
+            return None
+        return self._core.run(feeds)
+
+    def report(self) -> ServerReport:
+        """Schedule-layer report over all sessions (makespan/energy/ratio)."""
+        return self._core.report()
+
+    def _drain_gang(self) -> None:
+        if self._core.gang:
+            self._core._dispatch_all()
+
+    def close(self) -> ServerReport:
+        """Run any staged feeds, drain every session, and report."""
+        self.run()
+        for s in self._core.sessions.values():
+            deadline = s.flush_deadline
+            if deadline is not None:
+                s.flush(now=deadline)
+        self._drain_gang()
+        for reg, dict_topic, fn in self._subscriptions:
+            reg.unsubscribe(dict_topic, fn)
+        self._subscriptions.clear()
+        return self.report()
+
+    def __enter__(self) -> "Dispatcher":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> None:
+        if exc_type is None:
+            self.close()
+
+    def __iter__(self) -> Iterator[StreamHandle]:
+        return iter(self._handles.values())
+
+
+# ------------------------------------------------------------- deprecation --
+def warn_deprecated_shim(old: str, new: str) -> None:
+    """One warning per call site for the legacy surface (DESIGN.md §12:
+    shims stay bit-identical for two release cycles, then go)."""
+    warnings.warn(
+        f"{old} is deprecated; use {new} (repro_torch.cstream) instead — "
+        "see DESIGN.md §12 for the migration table",
+        DeprecationWarning,
+        stacklevel=3,
+    )

@@ -10,8 +10,11 @@ from typing import Union
 
 import torch
 
+#: what an entry point's `device` keyword takes (None: the card)
+DeviceLike = Union[None, str, torch.device]
 
-def resolve_device(device: Union[None, str, torch.device]) -> torch.device:
+
+def resolve_device(device: DeviceLike) -> torch.device:
     """The device an entry point runs on: CUDA unless the caller names one.
     There is no silent CPU fallback."""
     if device is None:

@@ -41,15 +41,26 @@ A codec seeded with a trained dictionary stamps its `(topic, version)` on
 every frame it marshals (FEATURE_DICT), and decode seeds its state from the
 dictionary the frame names, resolved through `core/dictstore.py`.
 
+Gang execution (`execute_gang`, `gang_step`) runs S same-geometry streams
+or sessions through one launch of each kernel. Every codec's state is per
+lane (leading dim `lanes`), so the S member states concatenate along dim 0
+into one state of S*L lanes (`stack_states`), a wave's blocks `(S, L, B)`
+fold to `(S*L, B)` and a gang chunk `(C, S, L, B)` to `(C, S*L, B)`. One
+codec call encodes them all; the codes come out lane-major, so each
+member's L lanes are contiguous and the B1 launch packs S (or C*S) blocks,
+each exactly the member's solo block. The shared-state merge runs per
+session on an `(S, L, TS)` view (`merge_shared_dictionary(state, lanes)`),
+so tables never mix across members. Sharded fleets (`mesh=`) wait for
+ROADMAP A9.
+
 Every entry point runs on `torch.device("cuda")` unless the caller passes
 `device="cpu"`; with no device and no GPU it raises. On the CPU the kernel
 wrappers run their plain versions; on the card they launch the CUDA kernels.
-Gang execution waits for ROADMAP A6; `dispatch_signature`, the key a gang
-would stack streams by, is here already for the job API's `Plan`.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
@@ -84,7 +95,6 @@ _FORCED_FUSE_CHUNK = 128
 #: are not read here, as in the reference: the job API's `negotiate` builds
 #: the seeded codec and the tier plans
 _UNPORTED_FIELDS = (
-    ("gang", bool, "gang execution (ROADMAP A6)"),
     ("devices", lambda v: v > 0, "sharded fleets (ROADMAP A9)"),
 )
 
@@ -142,31 +152,47 @@ def dispatch_signature(
 def lww_select(tables: torch.Tensor, valids: torch.Tensor, tss: torch.Tensor):
     """Last-writer-wins slot selection over group axis 0.
 
-    Given per-group dictionary views `(G, TS)`, returns the merged
-    `(table, valid, ts)` rows `(TS,)`: each slot takes the entry with the
-    newest write timestamp (invalid slots never win). Equal timestamps are
-    common (every lane shares one clock), so ties go to the LOWEST group,
-    as the reference's `jnp.argmax` does; the tie-break is spelled out as a
-    min over the tied groups rather than left to an argmax."""
+    Given per-group dictionary views `(G, ..., TS)`, returns the merged
+    `(table, valid, ts)` rows `(..., TS)`: each slot takes the entry with
+    the newest write timestamp (invalid slots never win). Equal timestamps
+    are common (every lane shares one clock), so ties go to the LOWEST
+    group, as the reference's `jnp.argmax` does; the tie-break is spelled
+    out as a min over the tied groups rather than left to an argmax."""
     key = torch.where(valids, tss, torch.full_like(tss, -1))
-    groups = torch.arange(key.shape[0], device=key.device)[:, None]
+    g = key.shape[0]
+    groups = torch.arange(g, device=key.device).view(g, *([1] * (key.dim() - 1)))
     tied = key == key.max(dim=0, keepdim=True).values
-    best = torch.where(tied, groups, key.shape[0]).amin(dim=0)
-    slot = torch.arange(key.shape[1], device=key.device)
-    return tables[best, slot], valids.any(dim=0), key[best, slot]
+    best = torch.where(tied, groups, g).amin(dim=0, keepdim=True)
+    return tables.gather(0, best)[0], valids.any(dim=0), key.gather(0, best)[0]
 
 
-def merge_shared_dictionary(state: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+def merge_shared_dictionary(
+    state: Dict[str, torch.Tensor], lanes: Optional[int] = None
+) -> Dict[str, torch.Tensor]:
     """Deterministic cross-lane dictionary merge (shared-state strategy):
     every lane converges to the last-writer-wins table and the newest
-    clock after every micro-batch block. Decoder-replayable."""
-    lanes, ts_size = state["table"].shape
-    table, valid, ts = lww_select(state["table"], state["valid"], state["ts"])
+    clock after every micro-batch block. Decoder-replayable.
+
+    `lanes` is one session's lane count: a gang's folded state of S*lanes
+    rows merges each run of `lanes` rows on its own, so the lowest-lane
+    tie-break and the clock stay within a session. None merges all rows."""
+    n, ts_size = state["table"].shape
+    lanes = n if lanes is None else lanes
+    s = n // lanes
+
+    def per_session(t: torch.Tensor) -> torch.Tensor:  # (lanes, s, TS)
+        return t.view(s, lanes, ts_size).transpose(0, 1)
+
+    table, valid, ts = lww_select(*(per_session(state[k]) for k in ("table", "valid", "ts")))
+
+    def spread(t: torch.Tensor) -> torch.Tensor:  # (s, ...) -> (n, ...)
+        return t[:, None].expand(s, lanes, *t.shape[1:]).reshape(n, *t.shape[1:]).contiguous()
+
     return {
-        "table": table.expand(lanes, ts_size).contiguous(),
-        "valid": valid.expand(lanes, ts_size).contiguous(),
-        "ts": ts.expand(lanes, ts_size).contiguous(),
-        "clock": state["clock"].max().expand(lanes).contiguous(),
+        "table": spread(table),
+        "valid": spread(valid),
+        "ts": spread(ts),
+        "clock": spread(state["clock"].view(s, lanes).amax(dim=1)),
     }
 
 
@@ -408,13 +434,17 @@ class BlockedExecutor:
             plan if plan is not None else plan_execution(config, codec_align=align)
         )
         self._align = align
+        #: kernel dispatches issued on timed paths (chunks, per-block steps,
+        #: gang steps and chunks), as the reference counts them
+        self.dispatches: int = 0
         #: stage-2 entropy coder applied at frame marshal ("none" | "rans")
         self.entropy: str = getattr(config, "entropy", None) or "none"
         #: wire integrity stamped at frame marshal ("none" | "crc32c")
         self.integrity: str = getattr(config, "integrity", None) or "none"
-        #: the per-block state merge of the shared-state strategy, or None
+        #: the per-block state merge of the shared-state strategy, or None;
+        #: it merges each session's lanes apart, so folded gang states too
         self.merge: Optional[Callable[[Any], Any]] = (
-            merge_shared_dictionary
+            functools.partial(merge_shared_dictionary, lanes=config.lanes)
             if config.state == StateStrategy.SHARED
             and self.codec.meta.state_kind == "dictionary"
             else None
@@ -447,16 +477,19 @@ class BlockedExecutor:
             build.library()
 
     # --------------------------------------------------------------- shaping
-    def shape_blocks(self, values: np.ndarray) -> ShapedStream:
+    def shape_blocks(self, values: np.ndarray, max_blocks: Optional[int] = None) -> ShapedStream:
         """Cut a flat uint32 stream into (lanes, B) blocks.
 
         The tail that does not fill a whole block becomes a smaller aligned
         block, edge-padded (repeat of the last value) with a mask marking the
-        real tuples."""
+        real tuples. `max_blocks` keeps only the first full blocks."""
         values = np.ascontiguousarray(values, np.uint32).ravel()
         bt = self.block_tuples
         lanes = self.config.lanes
         n_full = len(values) // bt
+        if max_blocks is not None and n_full >= max_blocks:
+            n_full = max_blocks
+            values = values[: n_full * bt]
         blocks = values[: n_full * bt].reshape(n_full, lanes, bt // lanes)
         rem = len(values) - n_full * bt
         if rem == 0:
@@ -525,19 +558,42 @@ class CompressionPipeline(BlockedExecutor):
         when the codec allows it (`meta.maskable`); non-maskable codecs ship
         their pad symbols so the decoder's state replay stays exact.
         Returns (state, words int32[OW], nbits, bitlen int32[lanes*B])."""
-        state, enc = self.codec.encode(state, block)
-        state = self._merge_if_shared(state)
-        if mask is not None and self.codec.meta.maskable:
-            enc = Encoded(enc.codes, torch.where(mask, enc.bitlen, torch.zeros_like(enc.bitlen)))
-        words, nbits, bitlen = self._pack(enc, 1)
+        state, words, nbits, bitlen = self._wave_step(
+            state, block[None], None if mask is None else mask[None]
+        )
         return state, words[0], nbits[0], bitlen[0]
+
+    def masked_step_meta7(self, state: Any, block: torch.Tensor, mask: Optional[torch.Tensor]):
+        """`masked_step` with the bit lengths packed at 7 bits in the same
+        B1 launch (B4 fused in; lanes*B % 32 == 0): the serving runtime's
+        egress flush, whose outputs are already wire-shaped."""
+        state, words, nbits, meta = self._wave_step(
+            state, block[None], None if mask is None else mask[None], meta7=True
+        )
+        return state, words[0], nbits[0], meta[0]
+
+    def _wave_step(self, state: Any, blocks: torch.Tensor,
+                   masks: Optional[torch.Tensor], meta7: bool = False):
+        """Encode one block from each of S members, `blocks` (S, L, B) under
+        `masks` (S, L, B) or None, from the folded state of S*L lanes: one
+        codec call over `(S*L, B)`, the per-session merge, and one B1 launch
+        over S blocks. Returns (state, words int32[S, OW], nbits int32[S],
+        bitlen int32[S, L*B] or, with `meta7`, its 7-bit packing)."""
+        n, lanes, b = blocks.shape
+        state, enc = self.codec.encode(state, blocks.reshape(n * lanes, b))
+        state = self._merge_if_shared(state)
+        if masks is not None and self.codec.meta.maskable:
+            keep = masks.reshape(n * lanes, b)
+            enc = Encoded(enc.codes, torch.where(keep, enc.bitlen, torch.zeros_like(enc.bitlen)))
+        return (state, *self._pack(enc, n, meta7=meta7))
 
     def encode_chunk(self, state: Any, blocks: torch.Tensor):
         """Encode and pack C full blocks `(C, lanes, B)` in one codec call and
         one B1 launch: (state, words int32[C, OW], nbits int32[C],
-        bitlen int32[C, lanes*B])."""
+        bitlen int32[C, lanes*B]). A gang chunk `(C, S*lanes, B)` gives C*S
+        blocks, position-major."""
         state, enc = self.codec.encode_blocks(state, blocks, self.merge)
-        words, nbits, bitlen = self._pack(enc, blocks.shape[0])
+        words, nbits, bitlen = self._pack(enc, self._n_blocks(blocks))
         return state, words, nbits, bitlen
 
     def _encode_chunk_meta(self, state: Any, blocks: torch.Tensor):
@@ -546,7 +602,12 @@ class CompressionPipeline(BlockedExecutor):
         (B4 fused in), else the raw int32 bit lengths. Returns (state,
         words, nbits, meta)."""
         state, enc = self.codec.encode_blocks(state, blocks, self.merge)
-        return (state, *self._pack(enc, blocks.shape[0], meta7=self._meta7_ok))
+        return (state, *self._pack(enc, self._n_blocks(blocks), meta7=self._meta7_ok))
+
+    def _n_blocks(self, blocks: torch.Tensor) -> int:
+        """Blocks in a chunk `(C, S*L, B)`: C positions of S members (S = 1
+        outside a gang), each member's L lanes one block."""
+        return blocks.shape[0] * (blocks.shape[1] // self.config.lanes)
 
     def egress_chunk(self, state: Any, blocks: torch.Tensor):
         """`encode_chunk` + B3 compaction + B4 metadata packing (in B1's
@@ -560,9 +621,24 @@ class CompressionPipeline(BlockedExecutor):
     def _pack_flush(self, state: Any):
         """Pack the codec's trailing state symbols (`Codec.flush`):
         (words int32[OW], nbits, bitlen int32[lanes, slots])."""
-        enc = self.codec.flush(state)
-        words, nbits, _ = self._pack(enc, 1)
-        return words[0], nbits[0], enc.bitlen
+        words, nbits, bitlen = self._pack_flush_gang(state, 1)
+        return words[0], nbits[0], bitlen[0]
+
+    def _pack_flush_gang(self, states: Any, n: int):
+        """The flush mini-blocks of `n` members from their folded state, in
+        one B1 launch: (words int32[n, OW], nbits int32[n], bitlen
+        int32[n, lanes, slots]). The one definition of the flush block's
+        layout, so solo and gang frames cannot drift apart."""
+        enc = self.codec.flush(states)
+        words, nbits, _ = self._pack(enc, n)
+        return words, nbits, enc.bitlen.reshape(n, -1, enc.bitlen.shape[-1])
+
+    def flush_block_entry(self, state: Any):
+        """Pack `Codec.flush`'s trailing symbols for a frame; None if the
+        codec has no trailing state. Does not mutate `state`."""
+        if not self._has_flush:
+            return None
+        return self._flush_entry(self._pack_flush(state))
 
     @property
     def flush_slots(self) -> int:
@@ -575,6 +651,7 @@ class CompressionPipeline(BlockedExecutor):
         """Chunked execution: (state, per-chunk bits, words, bitlens)."""
         bits_out, words_out, blen_out = [], [], []
         for start, length in self._chunks(blocks_dev.shape[0], chunk):
+            self.dispatches += 1
             state, words, tb, blen = self.encode_chunk(state, blocks_dev[start : start + length])
             bits_out.append(tb)
             words_out.append(words)
@@ -585,11 +662,284 @@ class CompressionPipeline(BlockedExecutor):
         """Per-block dispatch loop (eager strategy / Fig 10b baseline)."""
         bits_out, words_out, blen_out = [], [], []
         for i in range(blocks_dev.shape[0]):
+            self.dispatches += 1
             state, words, tb, blen = self.step(state, blocks_dev[i])
             bits_out.append(tb)
             words_out.append(words)
             blen_out.append(blen)
         return state, bits_out, words_out, blen_out
+
+    # -------------------------------------------------------- gang execution
+    @staticmethod
+    def stack_states(states: List[Any]) -> Any:
+        """Fold S member states into one state of S*L lanes: every codec's
+        state is a dict of per-lane tensors, so the members concatenate
+        along dim 0 (member i owns rows [i*L, (i+1)*L)). A stateless codec's
+        `None` states fold to `None`."""
+        if states[0] is None:
+            return None
+        return {k: torch.cat([st[k] for st in states]) for k in states[0]}
+
+    def unstack_state(self, states: Any, i: int) -> Any:
+        """Member i's state out of a folded one: rows [i*L, (i+1)*L)."""
+        if states is None:
+            return None
+        lanes = self.config.lanes
+        return {k: v[i * lanes : (i + 1) * lanes] for k, v in states.items()}
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def gang_step(
+        self,
+        states: Any,
+        blocks: torch.Tensor,
+        masks: torch.Tensor,
+        meta7: bool = False,
+        mesh: Any = None,
+    ):
+        """One timed gang dispatch over a wave of S members' micro-batches.
+
+        Args: folded states (`stack_states`), blocks int32[S, L, B], masks
+        bool[S, L, B]. Returns (states, words int32[S, OW], nbits int32[S],
+        meta[S, ...], wall_s): `meta` is raw bitlens int32[S, L*B], or with
+        `meta7` their 7-bit packing from the same B1 launch. One codec call
+        and one B1 launch for the whole wave; the wall ends after a device
+        synchronize, so it covers the work and not only its enqueueing."""
+        if mesh is not None and getattr(mesh, "size", 1) > 1:
+            raise NotImplementedError(
+                "gang_step(mesh=...) shards a wave over a device mesh, which "
+                "repro_torch does not have yet (ROADMAP A9); run it on repro"
+            )
+        self.warmup()
+        t0 = time.perf_counter()
+        self.dispatches += 1
+        states, words, nbits, meta = self._wave_step(states, blocks, masks, meta7=meta7)
+        self._sync()
+        return states, words, nbits, meta, time.perf_counter() - t0
+
+    def _stage_gang(self, shaped_list: List[ShapedStream]):
+        """Members' blocks on the device, folded: full blocks int32[n, S*L, B],
+        the tails int32[S, L, Bt] and their masks."""
+        ref = shaped_list[0]
+        n_full, lanes = len(ref.blocks), self.config.lanes
+        blocks_dev = tail_dev = mask_dev = None
+        if n_full:
+            stacked = np.stack([sh.blocks for sh in shaped_list], axis=1)
+            blocks_dev = bits.u32_tensor(
+                stacked.reshape(n_full, len(shaped_list) * lanes, -1), self.device
+            )
+        if ref.tail is not None:
+            tail_dev = bits.u32_tensor(np.stack([sh.tail for sh in shaped_list]), self.device)
+            mask_dev = torch.from_numpy(np.stack([sh.tail_mask for sh in shaped_list])).to(self.device)
+        return blocks_dev, tail_dev, mask_dev
+
+    def execute_gang(
+        self,
+        shaped_list: List[ShapedStream],
+        states: Optional[List[Any]] = None,
+        chunk: Optional[int] = None,
+        finalize: bool = True,
+        collect_payload: bool = False,
+        compact: bool = True,
+    ) -> Tuple[List[ExecutionResult], float]:
+        """Run S same-geometry streams through one gang-batched execution.
+
+        Each chunk of C stream positions of EVERY member is one codec call
+        over `(C, S*L, B)` and one B1 launch over its C*S blocks, carrying
+        all members' states folded. Members must share block geometry
+        (full-block count, tail shape); their values, masks and states are
+        independent. Returns (per-member ExecutionResults, gang wall
+        seconds); each member's `wall_s` is the gang wall split evenly.
+
+        `collect_payload=True` defaults to the compacted egress
+        (`_execute_gang_egress`, one B3 launch per chunk for all members);
+        `compact=False` keeps the legacy copy-everything collection."""
+        S = len(shaped_list)
+        if S == 0:
+            return [], 0.0
+        ref = shaped_list[0]
+        for s in shaped_list[1:]:
+            same_tail = (s.tail is None) == (ref.tail is None) and (
+                s.tail is None or s.tail.shape == ref.tail.shape
+            )
+            if len(s.blocks) != len(ref.blocks) or not same_tail:
+                raise ValueError(
+                    "gang members must share block geometry "
+                    f"({len(ref.blocks)} full + tail {None if ref.tail is None else ref.tail.shape}"
+                    f" vs {len(s.blocks)} full + tail {None if s.tail is None else s.tail.shape})"
+                )
+        n_full = len(ref.blocks)
+        self.warmup()
+        blocks_dev, tail_dev, mask_dev = self._stage_gang(shaped_list)
+        if states is None:
+            states = [self.init_state() for _ in range(S)]
+        stacked = self.stack_states(states)
+        if collect_payload and compact:
+            return self._execute_gang_egress(
+                shaped_list, stacked, blocks_dev, tail_dev, mask_dev, chunk, finalize, n_full
+            )
+
+        bits_acc: List[torch.Tensor] = []  # each (C, S) / (S,)
+        words_acc: List[torch.Tensor] = []  # each (C, S, OW) / (S, OW)
+        blen_acc: List[torch.Tensor] = []  # each (C, S, L*B) / (S, L*B)
+        flush_out = None
+        t0 = time.perf_counter()
+        if blocks_dev is not None:
+            for start, length in self._chunks(n_full, chunk):
+                self.dispatches += 1
+                stacked, words, nbits, blen = self.encode_chunk(
+                    stacked, blocks_dev[start : start + length]
+                )
+                bits_acc.append(nbits.view(length, S))
+                words_acc.append(words.view(length, S, -1))
+                blen_acc.append(blen.view(length, S, -1))
+        if tail_dev is not None:
+            self.dispatches += 1
+            stacked, twords, tb, tblen = self._wave_step(stacked, tail_dev, mask_dev)
+            bits_acc.append(tb)
+            words_acc.append(twords)
+            blen_acc.append(tblen)
+        if finalize and self._has_flush:
+            flush_out = self._pack_flush_gang(stacked, S)
+            bits_acc.append(flush_out[1])
+        host_bits = [b.cpu().numpy().astype(np.float64) for b in bits_acc]
+        wall = time.perf_counter() - t0
+
+        flush_slots = self.flush_slots if flush_out is not None else 0
+        results = []
+        for i in range(S):
+            per_block = (
+                np.concatenate([np.atleast_1d(b[..., i]) for b in host_bits])
+                if host_bits
+                else np.zeros(0, np.float64)
+            )
+            payload = None
+            if collect_payload:
+                payload = self._collect_payload(
+                    shaped_list[i],
+                    [w[:, i] if w.dim() == 3 else w[i] for w in words_acc],
+                    [b[:, i] if b.dim() == 3 else b[i] for b in blen_acc],
+                    per_block,
+                    None if flush_out is None else tuple(t[i] for t in flush_out),
+                )
+            results.append(
+                ExecutionResult(
+                    per_block_bits=per_block,
+                    wall_s=wall / S,
+                    n_tuples=shaped_list[i].n_valid,
+                    state=self.unstack_state(stacked, i),
+                    legacy_payload=payload,
+                    flush_slots=flush_slots,
+                )
+            )
+        return results, wall
+
+    def _execute_gang_egress(
+        self,
+        shaped_list: List[ShapedStream],
+        stacked: Any,
+        blocks_dev: Optional[torch.Tensor],
+        tail_dev: Optional[torch.Tensor],
+        mask_dev: Optional[torch.Tensor],
+        chunk: Optional[int],
+        finalize: bool,
+        n_full: int,
+    ) -> Tuple[List[ExecutionResult], float]:
+        """Gang execution with per-member device compaction: each chunk's
+        words are reordered member-major `(S, C, OW)` and compacted by ONE
+        B3 launch over all S*C blocks, so each member's payload is one
+        contiguous slice whose bounds come from the per-block bit counts.
+        One host fetch per chunk, double-buffered: chunk k+1 (and the
+        tail/flush launches) are enqueued before chunk k syncs."""
+        S = len(shaped_list)
+        bt = self.block_tuples
+        lanes = self.config.lanes
+        sinks = [_EgressSink() for _ in range(S)]
+        pending = None
+
+        def fetch(item) -> None:
+            nbits, payload, total, meta, n_chunk = item
+            tw = int(total.item())  # syncs THIS chunk only
+            host = bits.u32_numpy(payload[:tw])
+            tbh = nbits.cpu().numpy().astype(np.int64).reshape(S, n_chunk)
+            meta_np = _EgressSink._meta_np(meta, self._meta7_ok).reshape(S, n_chunk, -1)
+            ends = np.cumsum(((tbh + 31) // 32).sum(axis=1))
+            starts = ends - ((tbh + 31) // 32).sum(axis=1)
+            for s in range(S):
+                sinks[s].add_unit(
+                    host[starts[s] : ends[s]],
+                    tbh[s],
+                    [bt] * n_chunk,
+                    bt,
+                    meta=meta_np[s] if self._meta7_ok else None,
+                    raw=None if self._meta7_ok else meta_np[s],
+                    extra_bytes=4 * n_chunk + 4,
+                )
+
+        t0 = time.perf_counter()
+        if blocks_dev is not None:
+            for start, length in self._chunks(n_full, chunk):
+                self.dispatches += 1
+                stacked, words, nbits, meta = self._encode_chunk_meta(
+                    stacked, blocks_dev[start : start + length]
+                )
+                # (C, S, ·) -> (S, C, ·): compaction and metadata per member
+                words = words.view(length, S, -1).transpose(0, 1).reshape(S * length, -1)
+                nbits = nbits.view(length, S).t().reshape(-1)
+                meta = meta.view(length, S, -1).transpose(0, 1).reshape(S * length, -1)
+                payload, total = ops.compact_blocks(words, nbits)
+                prev, pending = pending, (nbits, payload, total, meta, length)
+                if prev is not None:
+                    fetch(prev)  # overlaps the chunk just enqueued
+        tail_out = None
+        if tail_dev is not None:
+            self.dispatches += 1
+            stacked, twords, tbv, tblen = self._wave_step(stacked, tail_dev, mask_dev)
+            tail_out = (twords, tbv, tblen)
+        flush_out = None
+        if finalize and self._has_flush:
+            flush_out = self._pack_flush_gang(stacked, S)
+        if pending is not None:
+            fetch(pending)  # overlaps the tail/flush launches
+        if tail_out is not None:
+            twords, tbv, tblen = tail_out
+            tbh = tbv.cpu().numpy().astype(np.int64)
+            tblen_np = tblen.cpu().numpy()
+            tail_syms = int(tail_dev.shape[1] * tail_dev.shape[2])
+            for s in range(S):
+                rem = shaped_list[s].n_valid - n_full * bt
+                seg = bits.u32_numpy(twords[s, : (int(tbh[s]) + 31) // 32])
+                sinks[s].add_unit(
+                    seg, [int(tbh[s])], [rem], tail_syms, raw=tblen_np[s], extra_bytes=4,
+                )
+        if flush_out is not None:
+            fw, fb, fblen = flush_out
+            fbh = fb.cpu().numpy().astype(np.int64)
+            fblen_np = fblen.cpu().numpy()
+            for s in range(S):
+                seg = bits.u32_numpy(fw[s, : (int(fbh[s]) + 31) // 32])
+                sinks[s].add_unit(
+                    seg, [int(fbh[s])], [0], lanes * self._flush_slots,
+                    raw=fblen_np[s], extra_bytes=4,
+                )
+        comps = [sk.finish() for sk in sinks]
+        wall = time.perf_counter() - t0
+
+        flush_slots = self.flush_slots if flush_out is not None else 0
+        results = [
+            ExecutionResult(
+                per_block_bits=c.block_bits.astype(np.float64),
+                wall_s=wall / S,
+                n_tuples=shaped_list[i].n_valid,
+                state=self.unstack_state(stacked, i),
+                compacted=c,
+                flush_slots=flush_slots,
+            )
+            for i, c in enumerate(comps)
+        ]
+        return results, wall
 
     def _stage(self, shaped: ShapedStream):
         blocks_dev = bits.u32_tensor(shaped.blocks, self.device) if len(shaped.blocks) else None
@@ -646,6 +996,7 @@ class CompressionPipeline(BlockedExecutor):
             else:
                 state, bits_acc, words_acc, blen_acc = self.run_dispatch(blocks_dev, state)
         if tail_dev is not None:
+            self.dispatches += 1
             state, twords, tb, tblen = self.masked_step(state, tail_dev, mask_dev)
             bits_acc.append(tb)
             words_acc.append(twords)
@@ -699,6 +1050,7 @@ class CompressionPipeline(BlockedExecutor):
         if blocks_dev is not None:
             if fused:
                 for start, length in self._chunks(blocks_dev.shape[0], chunk):
+                    self.dispatches += 1
                     state, tb, payload, total, meta = self.egress_chunk(
                         state, blocks_dev[start : start + length]
                     )
@@ -708,11 +1060,13 @@ class CompressionPipeline(BlockedExecutor):
                     )
             else:
                 for i in range(blocks_dev.shape[0]):
+                    self.dispatches += 1
                     state, words, tb, meta = self._encode_chunk_meta(state, blocks_dev[i : i + 1])
                     sink.put_block(
                         tb[0], words[0], meta[0], packed=self._meta7_ok, syms=bt, valid=bt
                     )
         if tail_dev is not None:
+            self.dispatches += 1
             state, twords, tb, tblen = self.masked_step(state, tail_dev, mask_dev)
             sink.put_block(
                 tb, twords, tblen, packed=False,

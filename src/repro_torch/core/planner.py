@@ -1,12 +1,12 @@
 """Solution-space planner (port of `repro/core/planner.py`; paper §5.1,
 Fig 4).
 
-Filters candidate configurations by the user's constraints (min ratio, max
+Enumerates (codec x strategy x hardware-knob) candidates, measures each on a
+sample window through the `CStreamEngine` shim (`evaluate`,
+`enumerate_solutions`), filters by the user's constraints (min ratio, max
 NRMSE, energy budget) and picks by lexicographic priority; the adaptive
 tier controller (`core/controller.py`) ranks its ladder through
-`choose_tier`. Measuring candidates on a sample window (`evaluate`,
-`enumerate_solutions`) runs through the reference's `CStreamEngine` shim,
-which waits for ROADMAP A6 here.
+`choose_tier`. Measuring runs on `device` (CUDA when None, or raise).
 """
 from __future__ import annotations
 
@@ -15,7 +15,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from repro_torch.core.strategies import EngineConfig
+from repro_torch.core import energy as energy_mod
+from repro_torch.core.device import DeviceLike
+
+# NOTE: repro_torch.core.engine is imported lazily inside `evaluate`: the
+# engine is the legacy shim over repro_torch.api, and api imports the
+# adaptive controller, which imports this planner
+from repro_torch.core.strategies import (
+    EngineConfig,
+    ExecutionStrategy,
+    SchedulingStrategy,
+    StateStrategy,
+    cache_aware_batch_bytes,
+)
 
 
 @dataclasses.dataclass
@@ -43,26 +55,76 @@ class SolutionPoint:
         )
 
 
-_ENGINE_A6 = (
-    "measures candidates through the CStreamEngine shim, which repro_torch "
-    "does not have yet (ROADMAP A6); run it on repro"
-)
+DEFAULT_CANDIDATES: List[Dict] = [
+    {"codec": "pla", "codec_kwargs": {"window": 16}},
+    {"codec": "pla", "codec_kwargs": {"window": 8}},
+    {"codec": "uanuq", "codec_kwargs": {"qbits": 12}},
+    {"codec": "uaadpcm", "codec_kwargs": {"qbits": 8}},
+    {"codec": "adpcm"},
+    {"codec": "leb128_nuq"},
+    {"codec": "delta_leb128"},
+    {"codec": "tcomp32"},
+    {"codec": "tdic32"},
+    {"codec": "leb128"},
+    {"codec": "rle"},
+]
 
 
 def evaluate(
-    cfg: EngineConfig, stream: np.ndarray, arrival_rate_tps: float, max_blocks: int = 16
+    cfg: EngineConfig,
+    stream: np.ndarray,
+    arrival_rate_tps: float,
+    max_blocks: int = 16,
+    device: DeviceLike = None,
 ) -> SolutionPoint:
-    raise NotImplementedError(f"planner.evaluate {_ENGINE_A6}")
+    """Measure one candidate on the stream: ratio, throughput over the
+    modeled makespan, latency and energy from one `compress` of at most
+    `max_blocks` blocks, NRMSE from a framed roundtrip of four blocks
+    (lossy codecs only)."""
+    from repro_torch.core.engine import CStreamEngine
+
+    engine = CStreamEngine(cfg, sample=stream[: 1 << 14], device=device)
+    res = engine.compress(stream, arrival_rate_tps=arrival_rate_tps, max_blocks=max_blocks)
+    err = engine.roundtrip_nrmse(stream[: engine._block_tuples() * 4]) if engine.codec.meta.lossy else 0.0
+    mb = res.stats.input_bytes / 1e6
+    return SolutionPoint(
+        config=cfg,
+        ratio=res.stats.ratio,
+        nrmse=err,
+        throughput_mbps=res.stats.input_bytes / 1e6 / max(res.makespan_s, 1e-12),
+        latency_s=res.stats.latency_s or 0.0,
+        energy_j_per_mb=(res.stats.energy_j or 0.0) / max(mb, 1e-12),
+    )
 
 
 def enumerate_solutions(
     stream: np.ndarray,
     arrival_rate_tps: float,
     constraints: Constraints,
-    candidates: Sequence[Dict] = (),
+    candidates: Sequence[Dict] = tuple(DEFAULT_CANDIDATES),
     lanes: int = 4,
+    device: DeviceLike = None,
 ) -> List[SolutionPoint]:
-    raise NotImplementedError(f"planner.enumerate_solutions {_ENGINE_A6}")
+    """`evaluate` over every candidate at the profile's cache-aware block
+    size; candidates the codec refuses (ValueError) are skipped."""
+    profile = energy_mod.PROFILES[constraints.profile]
+    points = []
+    for cand in candidates:
+        cfg = EngineConfig(
+            codec=cand["codec"],
+            codec_kwargs=cand.get("codec_kwargs", {}),
+            execution=ExecutionStrategy.LAZY,
+            micro_batch_bytes=cache_aware_batch_bytes(profile),
+            lanes=lanes,
+            state=StateStrategy.PRIVATE,
+            scheduling=SchedulingStrategy.ASYMMETRIC,
+            profile=constraints.profile,
+        )
+        try:
+            points.append(evaluate(cfg, stream, arrival_rate_tps, device=device))
+        except ValueError:
+            continue
+    return points
 
 
 def _config_key(cfg: EngineConfig) -> Tuple:

@@ -10,7 +10,10 @@
         report = h.report()
 
 Declarative `JobSpec` in, capability-negotiated `Plan` out (`negotiate`),
-one `StreamHandle` for offline compression and wire roundtrips (`open`).
+one `StreamHandle` for offline compression, wire roundtrips, server
+sessions and gang dispatch (`open` / `Dispatcher`, `gang_compress`). The
+pre-API entry points (`CStreamEngine`, `StreamServer`) are deprecated shims
+over this surface; importing this module never emits a DeprecationWarning.
 """
 from __future__ import annotations
 

@@ -5,11 +5,11 @@
     `integrity`, `dictionary`, each rung of `tiers`, the signature element
     by element), or the same `NegotiationError` text. The intended
     differences are listed in `PORT_ONLY`: `devices >= 1` names ROADMAP A9
-    (the reference counts jax devices and names an XLA flag), and what needs
-    a dispatcher names ROADMAP A6;
+    (the reference counts jax devices and names an XLA flag);
   * `capabilities()` record for record;
   * `JobSpec.from_engine_config` on the paper's three configurations;
-  * offline handles: frames byte-identical and `JobReport` equal.
+  * offline and dispatcher-bound handles: frames byte-identical and
+    `JobReport` equal, and what `open` refuses with the reference's text.
 """
 import dataclasses
 
@@ -186,24 +186,47 @@ def test_offline_handle_matches_reference(kw):
 
 
 def test_open_refusals():
+    """What `open` and the handles refuse, with the reference's text; and
+    what they accept now that the serving runtime is ported: `open(...,
+    dispatcher=...)` binds a session handle whose timestamped feed gives
+    the reference's frames and report."""
     spec = tcs.JobSpec(codec="tcomp32")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tcs.open(spec, dispatcher=object(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tcs.open(spec.replace(gang=True), device="cpu")
-    with pytest.raises(api.NegotiationError) as ours:
-        tcs.open(spec, controller=object(), device="cpu")
-    with pytest.raises(rcs.NegotiationError) as theirs:
-        rcs.open(rcs.JobSpec(codec="tcomp32"), controller=object())
-    assert str(ours.value) == str(theirs.value)
+    rspec = rcs.JobSpec(codec="tcomp32")
+
+    def same_error(ours_fn, theirs_fn):
+        with pytest.raises(api.NegotiationError) as ours:
+            ours_fn()
+        with pytest.raises(rcs.NegotiationError) as theirs:
+            theirs_fn()
+        assert str(ours.value) == str(theirs.value)
+
+    same_error(lambda: tcs.open(spec.replace(gang=True), device="cpu"),
+               lambda: rcs.open(rspec.replace(gang=True)))
+    same_error(lambda: tcs.open(spec, controller=object(), device="cpu"),
+               lambda: rcs.open(rspec, controller=object()))
+    v, ts = _walk(3, 1500), np.arange(1500) * 1e-4
+    th = tcs.open(spec.replace(egress=True, flush_tuples=512),
+                  dispatcher=tcs.Dispatcher(device="cpu"), topic="t")
+    rh = rcs.open(rspec.replace(egress=True, flush_tuples=512), dispatcher=rcs.Dispatcher(), topic="t")
+    assert th.topic == rh.topic == "t" and th.device == torch.device("cpu")
+    same_error(lambda: th.push(v), lambda: rh.push(v))
+    same_error(lambda: th.push(v, ts[:10]), lambda: rh.push(v, ts[:10]))
+    th.push(v, ts)
+    rh.push(v, ts)
+    rep_t, rep_r = th.close(), rh.close()
+    assert [f.to_bytes() for f in th.frames()] == [f.to_bytes() for f in rh.frames()]
+    for k in ("n_tuples", "total_bits", "ratio", "n_frames", "wire_bytes"):
+        assert getattr(rep_t, k) == getattr(rep_r, k), k
+    assert [f.key() for f in th._session.flushes] == [f.key() for f in rh._session.flushes]
     h = tcs.open(spec, device="cpu")
-    with pytest.raises(api.NegotiationError, match="ROADMAP A6"):
-        h.push(np.zeros(4, np.uint32), np.zeros(4))
+    same_error(lambda: h.push(np.zeros(4, np.uint32), np.zeros(4)),
+               lambda: rcs.open(rspec).push(np.zeros(4, np.uint32), np.zeros(4)))
     with pytest.raises(api.NegotiationError, match="no trained dictionary"):
         h.swap_dictionary(tds.train_dict(np.arange(10), idx_bits=12))
     assert h.flush() is None and h.close().n_frames == 0
     if not torch.cuda.is_available():
-        for call in (lambda: tcs.negotiate(spec), lambda: tcs.open(spec)):
+        for call in (lambda: tcs.negotiate(spec), lambda: tcs.open(spec),
+                     lambda: tcs.Dispatcher(), lambda: tcs.gang_compress(spec, [v])):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call()
 

@@ -3,6 +3,7 @@
 modeled, never timed, so they must match the reference's exactly:
   * `resolve_ladder` (rungs and refusal texts), `tier_point`, `choose` and
     `choose_tier`, `probe_bits_from_wire`, and a controller's decision log;
+  * `planner.evaluate` on a rung's configuration (ratio and NRMSE);
   * an `AdaptiveController` handle's `tier_log` over a drifting stream;
   * the tier-switch frames of a `ScriptedController` schedule, byte-identical
     and decoding across both ways.
@@ -15,6 +16,7 @@ import pytest
 from repro import cstream as rcs
 from repro.core import controller as rctl
 from repro.core import planner as rplan
+from repro.core import strategies as rstrat
 from repro.core.pipeline import DecompressionPipeline as RefDecompression
 from repro_torch import cstream as tcs
 from repro_torch.core import controller as tctl
@@ -65,8 +67,14 @@ def test_tier_points_and_choice_match_reference():
                 t_pick = tplan.choose(tp, c)
                 assert (t_pick is None) == (r_pick is None)
                 assert t_pick is None or _point(t_pick) == _point(r_pick)
-    with pytest.raises(NotImplementedError, match="ROADMAP A6"):
-        tplan.evaluate(tp[0].config, np.zeros(8, np.uint32), 1e5)
+    # measuring a candidate runs through the ported engine: the timing-free
+    # fields of the point equal the reference's (the walls are measurement)
+    stream = (np.arange(20_000, dtype=np.uint32) * 2654435761 % 977).astype(np.uint32)
+    cfg = tp[0].config
+    t_pt = tplan.evaluate(cfg, stream, 1e5, device="cpu")
+    r_pt = rplan.evaluate(rstrat.EngineConfig(**dataclasses.asdict(cfg)), stream, 1e5)
+    assert (t_pt.ratio, t_pt.nrmse) == (r_pt.ratio, r_pt.nrmse)
+    assert t_pt.config is cfg and t_pt.throughput_mbps > 0 and t_pt.energy_j_per_mb > 0
 
 
 def _decision_log(mod, seed: int):

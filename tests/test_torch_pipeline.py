@@ -233,8 +233,19 @@ def test_unported_spec_features_are_refused(field, value, item):
     `entropy="rans"` (A7) frames carry the blob and decode; `adaptive` and
     `dictionary` (A8) are not read by the pipelines, as in the reference,
     whose job API builds the tier plans and the seeded codec, so a pipeline
-    built straight from such a spec gives the reference's frame."""
+    built straight from such a spec gives the reference's frame; a `gang`
+    spec (A6) builds a pipeline whose `execute_gang` gives each member the
+    reference's solo frame."""
     spec = api.JobSpec(**{field: value})
+    if item == "A6":
+        pipe = CompressionPipeline(spec, device="cpu")
+        streams = [_values(k, 3 * pipe.block_tuples // 2) for k in (2, 3)]
+        shaped = [pipe.shape_blocks(v) for v in streams]
+        results, _ = pipe.execute_gang(shaped, collect_payload=True)
+        for v, sh, res in zip(streams, shaped, results):
+            ref = RefCompression(cstream.JobSpec(**{field: value})).compress_to_frame(v)
+            assert pipe.frame_from(sh, res).to_bytes() == ref.to_bytes()
+        return
     if item in ("A7", "A8"):
         v = _values(2, 300)
         frame = CompressionPipeline(spec, device="cpu").compress_to_frame(v)
