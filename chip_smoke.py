@@ -134,7 +134,26 @@ Phases, each printing one line per check:
                clock (gang against the solo sum; the replay's host time
                apart from the summed wave walls), signature statistics and
                device busy shares;
-  7. flash   — B10 (flash attention forward) against its plain version (a
+  7. fleet   — the sharded serving fleet (`runtime/elastic.py`,
+               `gang_step(mesh=...)`): the serving cell's 16 topics through
+               Dispatcher(gang=True, mesh=ElasticSession(4, profile=
+               "cstream", devices=[cuda:(i % device_count)])) (on one card
+               all four slots are that card): flush keys and frames equal
+               the gang phase's unsharded Dispatcher(gang=True); each wave
+               pads to a multiple of 4 by replicating member 0 and launches
+               B1+B4 (and, for tdic32, B5's probe) once per shard, a solo
+               flush once; then the chaos run on the first 1 MiB of each
+               topic, slot 2 lost during wave 1 and slot 0 during wave 3
+               (4 -> 3 -> 2 slots), frames equal to the unsharded gang's at
+               that volume; a mixed [cuda:0, cpu] mesh over t00, t01, t08
+               and t09 at 1 MiB each (two topics a signature, so waves of
+               two shard one member to each slot): frames equal, every
+               tensor of a shard on its slot's device, only the card's
+               shard launching; and `engine.sharded_compress_fn` over 4
+               slots on 16 lanes x 128 blocks of 2,048 Rovio tuples
+               (tdic32 shared, tcomp32 private): the card's words, bit
+               totals and state equal 4 CPU slots';
+  8. flash   — B10 (flash attention forward) against its plain version (a
                dense float32 softmax) on every case of FLASH_CASES, each
                through `ops.flash_attention_fwd`, which sends bf16 with Dh %
                16 == 0 to the tensor-core kernel and the rest to the FMA
@@ -150,7 +169,7 @@ Phases, each printing one line per check:
                the outputs a torch emulation of that kernel's numerics puts
                outside the rule with p@v taking p as one, two and three bf16
                terms (the kernel takes three);
-  8. lm      — qwen3-1.7b served through `repro_torch.launch.serve.serve`:
+  9. lm      — qwen3-1.7b served through `repro_torch.launch.serve.serve`:
                first at full width and 2 layers, 2 requests x 256 tokens and
                4 generated, the same weights and prompts on the card and on
                the CPU (prefill logits, cache codes and generated tokens
@@ -160,7 +179,7 @@ Phases, each printing one line per check:
                set to 0 just before and read just after (B10's tensor-core
                kernel must launch once per layer, its FMA kernel never), and
                one profiled prefill and decode for the device's busy time;
-  9. timing  — each kernel and its plain version timed with CUDA events on
+  10. timing — each kernel and its plain version timed with CUDA events on
                the main paths' own inputs (B6/B7's codec form: the new and
                the serial kernels on the adpcm path's first chunk, and both
                encodes on the never-converging ramp at that shape; B5's
@@ -186,6 +205,7 @@ nothing of jax or of the reference package `repro`.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -205,7 +225,9 @@ from repro_torch.core import bits, dictstore  # noqa: E402
 from repro_torch.core.algorithms import WIRE_CODEC_NAMES, make_codec  # noqa: E402
 from repro_torch.core.pipeline import CompressionPipeline, DecompressionPipeline  # noqa: E402
 from repro_torch.data import make_dataset  # noqa: E402
-from repro_torch.core import entropy  # noqa: E402
+from repro_torch.core import engine, entropy  # noqa: E402
+from repro_torch.runtime.elastic import ElasticSession  # noqa: E402
+from repro_torch.runtime.fault import DeviceLossInjector  # noqa: E402
 from repro_torch.kernels import build, delta_nuq, flash_attn, ops, rans, ref  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
@@ -2069,11 +2091,12 @@ def profiled_wave(dev, codec: str, values: np.ndarray, n: int) -> dict:
             "share": None if busy is None else busy / (walls[0] * 1e3)}
 
 
-def run_gang_serve(dev, values: np.ndarray) -> dict:
+def run_gang_serve(dev, values: np.ndarray) -> tuple:
     """The serving runtime on the card: 16 topics through Dispatcher(gang=
     True) against Dispatcher(gang=False), equal records and frames; two
     topics alone on the CPU; one B1+B4 launch per wave or solo flush, one
-    dict_probe per tdic32 one. Returns the gang replay's launches."""
+    dict_probe per tdic32 one. Returns the gang replay's launches and its
+    (keys, frames, report)."""
     t_job = time.perf_counter()
     feeds = serve_feeds(values, SERVE_TUPLES)
     g, g_rep, g_wall, g_counts = serve_replay(dev, feeds, gang=True)
@@ -2124,18 +2147,251 @@ def run_gang_serve(dev, values: np.ndarray) -> dict:
                      "solo": {k: n for k, n in s_counts.items() if n}},
         "seconds": time.perf_counter() - t_job,
     })
-    return g_counts
+    return g_counts, (g_keys, g_frames, g_rep)
 
 
-def run_gang(dev, full_values: dict) -> dict:
+def run_gang(dev, full_values: dict) -> tuple:
     """Phase gang: the offline gang jobs, then the serving runtime. Returns
-    the summed launches of the gang runs and the gang replay."""
+    the summed launches of the gang runs and the gang replay, and the gang
+    replay's (keys, frames, report), the fleet phase's oracle."""
     launches = {k: 0 for k in KERNELS}
     for name, (_, dataset, _) in GANG_JOBS.items():
         for k, n in run_gang_offline(dev, name, full_values[dataset]).items():
             launches[k] += n
-    for k, n in run_gang_serve(dev, full_values["rovio"]).items():
+    counts, serve_gang = run_gang_serve(dev, full_values["rovio"])
+    for k, n in counts.items():
         launches[k] += n
+    return launches, serve_gang
+
+
+#: the fleet phase: mesh width, the chaos drill's losses (wave -> slot) and
+#: its volume a topic (1 MiB), the mixed mesh's topics (two a signature),
+#: and sharded_compress_fn's geometry (lanes, blocks, tuples a block)
+FLEET_SLOTS = 4
+FLEET_CHAOS = {1: 2, 3: 0}
+FLEET_SMALL_TUPLES = 262_144
+FLEET_MIXED_TOPICS = ("t00", "t01", "t08", "t09")
+SHARDED_LANES, SHARDED_BLOCKS, SHARDED_BLOCK_TUPLES = 16, 128, 2048
+
+
+def fleet_session(slots) -> ElasticSession:
+    return ElasticSession(len(slots), profile="cstream", devices=list(slots))
+
+
+def card_slots(n: int = FLEET_SLOTS) -> list:
+    """n mesh slots over the visible cards, round-robin."""
+    return [torch.device("cuda", i % torch.cuda.device_count()) for i in range(n)]
+
+
+def mixed_slots() -> list:
+    """The mixed mesh: the first card, then the CPU."""
+    return [card_slots(1)[0], torch.device("cpu")]
+
+
+def launches_on(slot: str) -> bool:
+    """Whether a shard on this slot launches kernels (a CPU slot runs the
+    plain versions)."""
+    return slot.startswith("cuda")
+
+
+@contextlib.contextmanager
+def shard_log():
+    """Record, while open, each `gang_step` call: its codec, mesh width and
+    slots, and the devices of every tensor each of its `_wave_step` calls
+    (one per shard) took and gave."""
+    log = {"waves": []}
+    gang_step, wave_step = CompressionPipeline.gang_step, CompressionPipeline._wave_step
+    shards: list = []
+
+    def logged_gang(self, states, blocks, masks, meta7=False, mesh=None):
+        shards.clear()
+        out = gang_step(self, states, blocks, masks, meta7=meta7, mesh=mesh)
+        log["waves"].append({"codec": self.codec.name, "width": 1 if mesh is None else mesh.size,
+                             "slots": [] if mesh is None else [str(d) for d in mesh.devices],
+                             "shards": list(shards)})
+        shards.clear()
+        return out
+
+    def logged_wave(self, state, blocks, masks, meta7=False):
+        out = wave_step(self, state, blocks, masks, meta7=meta7)
+        tensors = [blocks, masks, *(state or {}).values(), *(out[0] or {}).values(), *out[1:]]
+        shards.append(sorted({str(t.device) for t in tensors if t is not None}))
+        return out
+
+    CompressionPipeline.gang_step, CompressionPipeline._wave_step = logged_gang, logged_wave
+    try:
+        yield log
+    finally:
+        CompressionPipeline.gang_step, CompressionPipeline._wave_step = gang_step, wave_step
+
+
+def fleet_replay(dev, feeds: dict, mesh, topics=None, fault=None) -> tuple:
+    """serve_replay on a fleet Dispatcher: (dispatcher, report, host wall,
+    launches, shard log)."""
+    d = cstream.Dispatcher(gang=True, mesh=mesh, fault_injector=fault, device=dev)
+    for t in topics or sorted(feeds):
+        d.open(serve_spec(t), topic=t).push(*feeds[t])
+    with shard_log() as log:
+        counts, wall, rep = counted_window(d.run)
+    return d, rep, wall, counts, log
+
+
+def fleet_check(name: str, rep, counts: dict, log: dict) -> dict:
+    """Launches of a fleet replay against its shard log and report: one
+    B1+B4 per card shard of a wave and per solo flush (solo flushes run on
+    the server's card), one B5 probe per card shard or solo flush of
+    tdic32; every tensor of a shard on its slot's device. Returns the
+    per-signature stats."""
+    stats = rep.dispatch_stats
+    waves = log["waves"]
+    if len(waves) != sum(v.n_waves for v in stats.values()):
+        raise AssertionError(f"{name}: {len(waves)} gang steps for "
+                             f"{sum(v.n_waves for v in stats.values())} waves in the report")
+    for w in waves:
+        if w["width"] > 1 and w["shards"] != [[slot] for slot in w["slots"]]:
+            raise AssertionError(f"{name}: a wave on slots {w['slots']} ran shards on {w['shards']}")
+    solo = {c: sum(v.n_solo for v in stats.values() if v.codec == c) for c in ("tcomp32", "tdic32")}
+
+    def card_shards(codec=None):
+        return sum(sum(launches_on(s) for s in w["slots"]) if w["width"] > 1 else 1
+                   for w in waves if codec in (None, w["codec"]))
+
+    want = {"pack_blocks_meta7": card_shards() + sum(solo.values()),
+            "dict_probe": card_shards("tdic32") + solo["tdic32"], "pack_blocks": 0, "pack_meta7_blocks": 0}
+    if {k: counts[k] for k in want} != want:
+        raise AssertionError(f"{name}: launched { {k: counts[k] for k in want} }, expected {want}")
+    return {k: {"sessions": v.n_sessions, "waves": v.n_waves, "solo": v.n_solo, "max_wave": v.max_wave,
+                "mean_wave": v.mean_wave, "padded_slots": v.padded_slots, "occupancy": v.occupancy}
+            for k, v in stats.items()}
+
+
+def fleet_frames_equal(name: str, got, want, topics) -> None:
+    bad = sorted(t for t in topics if got[0][t] != want[0][t] or got[1][t] != want[1][t])
+    if bad:
+        raise AssertionError(f"{name}: keys or frames differ from the unsharded gang's on {bad}")
+
+
+def run_sharded_compress(dev, values: np.ndarray) -> dict:
+    """`engine.sharded_compress_fn` over 4 card slots against 4 CPU slots,
+    block by block with the state carried: equal words, bit totals and
+    final state; one B1 launch per card slot and block, and one B5 probe
+    too for tdic32. Returns the card runs' launches."""
+    per_lane = SHARDED_BLOCK_TUPLES // SHARDED_LANES
+    n = SHARDED_BLOCKS * SHARDED_BLOCK_TUPLES
+    blocks = values[:n].view(np.int32).reshape(SHARDED_BLOCKS, SHARDED_LANES, per_lane).copy()
+    launches = {k: 0 for k in KERNELS}
+    out = {}
+    for codec, shared in (("tdic32", True), ("tcomp32", False)):
+        runs = {}
+        for where, slots in (("card", card_slots()), ("cpu", [torch.device("cpu")] * FLEET_SLOTS)):
+            fn = engine.sharded_compress_fn(codec, fleet_session(slots).mesh, shared_state=shared)
+            home = slots[0]
+            blk = torch.from_numpy(blocks).to(home)
+
+            def loop():
+                state = make_codec(codec).init_state(SHARDED_LANES, home)
+                words, total = [], []
+                for i in range(SHARDED_BLOCKS):
+                    state, w, tb = fn(state, blk[i])
+                    words.append(w)
+                    total.append(tb)
+                return state, torch.stack(words).cpu(), torch.stack(total).cpu()
+
+            counts, wall, res = counted_window(loop)
+            runs[where] = (res, wall, counts)
+        (c_state, c_words, c_bits), c_wall, c_counts = runs["card"]
+        (p_state, p_words, p_bits), p_wall, _ = runs["cpu"]
+        if not (torch.equal(c_words, p_words) and torch.equal(c_bits, p_bits)) or (
+                c_state is not None and any(not torch.equal(c_state[k].cpu(), p_state[k]) for k in c_state)):
+            raise AssertionError(f"sharded_compress_fn/{codec}: the card's output differs from the CPU's")
+        want = {"pack_blocks": FLEET_SLOTS * SHARDED_BLOCKS,
+                "dict_probe": FLEET_SLOTS * SHARDED_BLOCKS if codec == "tdic32" else 0}
+        if {k: c_counts[k] for k in want} != want:
+            raise AssertionError(f"sharded_compress_fn/{codec}: launched "
+                                 f"{ {k: c_counts[k] for k in want} }, expected {want}")
+        for k, v in c_counts.items():
+            launches[k] += v
+        out[codec] = {"shared": shared, "card_s": c_wall, "cpu_s": p_wall,
+                      "total_bits": int(c_bits.sum()), "launches": {k: v for k, v in c_counts.items() if v}}
+    emit({"phase": "fleet", "job": "sharded_compress_fn", "slots": [str(d) for d in card_slots()],
+          "lanes": SHARDED_LANES, "blocks": SHARDED_BLOCKS, "block_tuples": SHARDED_BLOCK_TUPLES,
+          "card_equals_cpu": True, **out})
+    return launches
+
+
+def run_fleet(dev, values: np.ndarray, serve_gang: tuple) -> dict:
+    """Phase fleet: the 4-slot replay of the serving cell against the gang
+    phase's unsharded replay, the chaos drill and the mixed mesh at 1 MiB a
+    topic against an unsharded replay at that volume, and the sharded
+    compression step. Returns the summed launches of its card runs."""
+    launches = {k: 0 for k in KERNELS}
+
+    def add(counts):
+        for k, n in counts.items():
+            launches[k] += n
+
+    t_job = time.perf_counter()
+    g_keys, g_frames, g_rep = serve_gang
+    slots = card_slots()
+    feeds = serve_feeds(values, SERVE_TUPLES)
+    d, rep, wall, counts, log = fleet_replay(dev, feeds, fleet_session(slots))
+    fleet_frames_equal("fleet/16-topics-4-slots", serve_keys_frames(d), (g_keys, g_frames), feeds)
+    if rep.devices != FLEET_SLOTS or not all(r.fidelity.bit_exact for r in rep.sessions.values()):
+        raise AssertionError(f"fleet/16-topics-4-slots: devices {rep.devices}, or a topic not exact")
+    stats = fleet_check("fleet/16-topics-4-slots", rep, counts, log)
+    add(counts)
+    decode_s = sum(r.decode_s for r in rep.sessions.values())
+    emit({
+        "phase": "fleet", "job": "fleet/16-topics-4-slots", "slots": [str(s) for s in slots],
+        "topics": SERVE_TOPICS, "tuples_per_topic": SERVE_TUPLES, "input_bytes": SERVE_TOPICS * SERVE_TUPLES * 4,
+        "devices": rep.devices, "replay_s": wall, "waves_s": rep.compute_s, "decode_s": decode_s,
+        "host_s": wall - rep.compute_s - decode_s, "device_makespan_s": rep.device_makespan_s,
+        "fleet_mbps": rep.fleet_mbps, "n_dispatches": rep.n_dispatches,
+        "gang_replay": {"waves_s": g_rep.compute_s, "signatures": {
+            k: {"waves": v.n_waves, "solo": v.n_solo, "mean_wave": v.mean_wave}
+            for k, v in g_rep.dispatch_stats.items()}},
+        "signatures": stats, "frames_equal_gang": True,
+        "launches": {k: n for k, n in counts.items() if n},
+        "seconds": time.perf_counter() - t_job,
+    })
+
+    t_job = time.perf_counter()
+    small = {t: (v[:FLEET_SMALL_TUPLES], ts[:FLEET_SMALL_TUPLES]) for t, (v, ts) in feeds.items()}
+    base_d, base_rep, base_wall, base_counts = serve_replay(dev, small, gang=True)
+    base = serve_keys_frames(base_d)
+    add(base_counts)
+    d, rep, wall, counts, log = fleet_replay(dev, small, fleet_session(slots),
+                                             fault=DeviceLossInjector(dict(FLEET_CHAOS)))
+    fleet_frames_equal("fleet/chaos", serve_keys_frames(d), base, small)
+    events = [e["n_devices"] for e in rep.fault_events]
+    if events != [3, 2] or rep.devices != 2:
+        raise AssertionError(f"fleet/chaos: fault events {rep.fault_events}, devices {rep.devices}")
+    widths = sorted({w["width"] for w in log["waves"]})
+    stats = fleet_check("fleet/chaos", rep, counts, log)
+    add(counts)
+    emit({"phase": "fleet", "job": "fleet/chaos", "slots": [str(s) for s in slots],
+          "tuples_per_topic": FLEET_SMALL_TUPLES, "losses": {str(k): v for k, v in FLEET_CHAOS.items()},
+          "fault_events": rep.fault_events, "devices": rep.devices, "wave_widths": widths,
+          "replay_s": wall, "gang_replay_s": base_wall, "waves_s": rep.compute_s,
+          "signatures": stats, "frames_equal_gang": True,
+          "launches": {k: n for k, n in counts.items() if n}, "seconds": time.perf_counter() - t_job})
+
+    t_job = time.perf_counter()
+    mixed = mixed_slots()
+    d, rep, wall, counts, log = fleet_replay(dev, small, fleet_session(mixed), topics=FLEET_MIXED_TOPICS)
+    fleet_frames_equal("fleet/mixed", serve_keys_frames(d), base, FLEET_MIXED_TOPICS)
+    stats = fleet_check("fleet/mixed", rep, counts, log)
+    if not any(w["width"] == 2 for w in log["waves"]):
+        raise AssertionError("fleet/mixed: no wave was sharded over the card and the CPU")
+    add(counts)
+    emit({"phase": "fleet", "job": "fleet/mixed", "slots": [str(s) for s in mixed],
+          "topics": list(FLEET_MIXED_TOPICS), "tuples_per_topic": FLEET_SMALL_TUPLES,
+          "sharded_waves": sum(w["width"] == 2 for w in log["waves"]),
+          "shards_on_their_slots": True, "replay_s": wall, "waves_s": rep.compute_s, "signatures": stats,
+          "frames_equal_gang": True, "launches": {k: n for k, n in counts.items() if n},
+          "seconds": time.perf_counter() - t_job})
+
+    add(run_sharded_compress(dev, values))
     return launches
 
 
@@ -2192,9 +2448,14 @@ def main() -> int:
             launches[k] += n
     emit({"phase": "api", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
-    for k, n in run_gang(dev, full_values).items():
+    gang_launches, serve_gang = run_gang(dev, full_values)
+    for k, n in gang_launches.items():
         launches[k] += n
     emit({"phase": "gang", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    for k, n in run_fleet(dev, full_values["rovio"], serve_gang).items():
+        launches[k] += n
+    emit({"phase": "fleet", "seconds": time.perf_counter() - t0})
     t0 = time.perf_counter()
     check_lm_card_vs_cpu(dev)
     lm_launches, model, prompts = run_lm(dev)

@@ -25,16 +25,17 @@
     (`gang_compress`, `negotiate_gang`).
 
 Negotiation, handles, dispatchers and pipelines run on the card unless the
-caller passes `device="cpu"` (a keyword the reference does not have). Not
-here yet, and refused naming ROADMAP A9: device meshes, `JobSpec.devices >=
-1` (the one refusal whose text differs from the reference's) and a
-`Dispatcher(mesh=...)` wider than one device.
+caller passes `device="cpu"` (a keyword the reference does not have).
+`JobSpec.devices >= 1` and `Dispatcher(mesh=...)` count the devices visible
+on that device's type (`core/device.py` `visible_devices`); the one refusal
+whose text differs from the reference's is a mesh wider than that count,
+which names the visible device count where the reference names an XLA flag.
 """
 from __future__ import annotations
 
 import dataclasses
 import warnings
-from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -59,7 +60,7 @@ from repro_torch.core.controller import (
     TierSpec,
     resolve_ladder,
 )
-from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.device import DeviceLike, resolve_device, visible_devices
 from repro_torch.core.dictstore import (
     DictRegistry,
     TrainedDict,
@@ -84,10 +85,12 @@ from repro_torch.core.strategies import (
     StateStrategy,
     block_costs,
     plan_execution,
+    plan_fleet,
     plan_gang,
     resolve_capacity,
     schedule_blocks,
 )
+from repro_torch.runtime.elastic import ElasticSession
 from repro_torch.runtime.server import (
     ServerCore,
     ServerReport,
@@ -185,7 +188,9 @@ class JobSpec:
     gang: bool = False
     #: arrival rate for the end-to-end latency model (paper §4.1)
     arrival_rate_tps: Optional[float] = None
-    #: device-mesh width (ROADMAP A9; >= 1 refused by negotiation)
+    #: minimum device-mesh width this job's waves must shard over
+    #: (0 = wherever the dispatcher runs; >1 requires gang=True and a
+    #: Dispatcher(mesh=...) at least that wide — DESIGN.md §14)
     devices: int = 0
     #: trained per-topic dictionary: "topic" / "topic:latest" (the
     #: registry's pinned or newest version at negotiation) or "topic:v3";
@@ -486,8 +491,7 @@ class Plan:
     capacity: int  # session flush capacity in tuples (unit-rounded)
     signature: Tuple[Any, ...]  # gang dispatch signature (codec+params+geometry)
     notes: Tuple[str, ...] = ()  # non-fatal negotiation outcomes
-    #: fleet wave sizing for a device mesh; always None here, since
-    #: `devices >= 1` is refused (ROADMAP A9)
+    #: fleet wave sizing when the spec asked for a device mesh (devices >= 1)
     fleet: Optional[FleetPlan] = None
     #: resolved stage-2 entropy coder (spec.entropy="rans"); None = off
     entropy: Optional[EntropyCapability] = None
@@ -516,8 +520,9 @@ def negotiate(
 
     `registry` overrides the process default dictstore registry for
     `spec.dictionary` resolution. Every rejected combination raises the
-    reference's single-line `NegotiationError`, except `devices >= 1`,
-    which names ROADMAP A9."""
+    reference's single-line `NegotiationError`; `devices` beyond the
+    devices visible on `device`'s type names that count instead of the
+    reference's XLA flag."""
     dev = resolve_device(device)
     names = codec_names()
     if spec.codec not in names:
@@ -607,13 +612,14 @@ def negotiate(
             "dispatch; set gang=True (and open on a Dispatcher(mesh=...))"
         )
     if spec.devices >= 1:
-        # the reference checks the visible device count here; the port has
-        # no device mesh to shard over yet
-        raise _err(
-            f"JobSpec.devices={spec.devices} shards gang waves over a device "
-            "mesh, which repro_torch does not have yet (ROADMAP A9); drop "
-            "devices or run this job on repro"
-        )
+        avail = len(visible_devices(dev))
+        if spec.devices > avail:
+            raise _err(
+                f"JobSpec.devices={spec.devices} exceeds the {avail} visible "
+                f"device(s) of type {dev.type}; open it on a Dispatcher(gang="
+                "True, mesh=ElasticSession(..., devices=[...])) that names "
+                "its slots (or shrink devices)"
+            )
 
     dict_cap: Optional[DictCapability] = None
     if spec.dictionary is not None:
@@ -684,6 +690,7 @@ def negotiate(
         capacity=capacity,
         signature=signature,
         notes=tuple(notes),
+        fleet=plan_fleet(gang_plan, spec.devices) if spec.devices >= 1 else None,
         entropy=(
             EntropyCapability(
                 kind="rans",
@@ -736,6 +743,12 @@ def _negotiate_tiers(
         raise _err(
             f"JobSpec.adaptive=True owns the entropy stage (the heavy tier "
             f"applies rans per flush); drop entropy={spec.entropy!r}"
+        )
+    if spec.devices >= 1:
+        raise _err(
+            f"JobSpec.adaptive=True cannot shard over a device mesh yet "
+            f"(fleet wave replay assumes a stable dispatch signature); drop "
+            f"devices={spec.devices}"
         )
     try:
         ladder = resolve_ladder(cheap=spec.codec)
@@ -1410,8 +1423,15 @@ class Dispatcher:
     `fault_injector`/`heartbeat` wire the chaos-drill and liveness hooks
     through to the server core, and `breaker` (True, or CircuitBreaker
     kwargs) turns on per-signature admission breakers (DESIGN.md §18).
-    `mesh` wider than one device (sharded waves, DESIGN.md §14) waits for
-    ROADMAP A9."""
+
+    `mesh=N` (requires `gang=True`) shards every gang wave over the first N
+    devices visible on `device`'s type, as a pure-data device mesh
+    (DESIGN.md §14); `mesh=ElasticSession(N, profile="cstream",
+    devices=[...])` names each slot's device (a device may fill several
+    slots). One wave covers N x max_gang sessions, one launch of each
+    kernel per shard, and a device loss mid-wave re-meshes onto the
+    survivors and replays the wave from its members' last committed
+    FlushRecords."""
 
     def __init__(
         self,
@@ -1423,7 +1443,7 @@ class Dispatcher:
         gang_quantum_s: Optional[float] = None,
         max_gang: Optional[int] = None,
         gang_budget: Optional[int] = None,
-        mesh: Optional[int] = None,
+        mesh: Union[None, int, ElasticSession] = None,
         fault_injector: Any = None,
         heartbeat: Any = None,
         breaker: Any = None,
@@ -1468,8 +1488,10 @@ class Dispatcher:
 
     @property
     def devices(self) -> int:
-        """Fleet mesh width (1: device-local dispatch)."""
-        return 1
+        """Current fleet mesh width (1 = device-local dispatch; shrinks
+        when a device loss re-meshes onto the survivors)."""
+        fleet = self._core.fleet
+        return fleet.n_devices if fleet is not None else 1
 
     @property
     def sessions(self) -> Dict[str, StreamSession]:
@@ -1540,6 +1562,13 @@ class Dispatcher:
             raise _err(
                 "spec.gang=True but this dispatcher was built with gang=False; "
                 "construct Dispatcher(gang=True) to gang-dispatch sessions"
+            )
+        if spec.devices > self.devices:
+            raise _err(
+                f"JobSpec.devices={spec.devices} but this dispatcher runs a "
+                f"{self.devices}-device mesh; construct "
+                f"Dispatcher(gang=True, mesh={spec.devices}) (or lower "
+                "spec.devices)"
             )
         if topic is None:
             n = len(self._core.sessions)

@@ -15,13 +15,15 @@ Migration (see DESIGN.md §12 for the full table):
     CStreamEngine(cfg).gang_compress(vs)     -> cstream.gang_compress(spec, vs)
 
 The engine runs on `device` (CUDA when None, or raise). `sharded_compress_fn`
-(the reference's scale-out step over a device mesh) waits for ROADMAP A9.
+is the scale-out step over a device mesh (`runtime/elastic.py`): each mesh
+slot encodes and packs its own lane group on its own device.
 """
 from __future__ import annotations
 
-from typing import Any, List, Optional
+from typing import Any, Callable, List, Optional
 
 import numpy as np
+import torch
 
 from repro_torch import api
 from repro_torch.api import (  # noqa: F401  (canonical homes are repro_torch.api / cstream)
@@ -31,10 +33,12 @@ from repro_torch.api import (  # noqa: F401  (canonical homes are repro_torch.ap
     queueing_delay_s,
 )
 from repro_torch.core import bits
-from repro_torch.core.device import DeviceLike
+from repro_torch.core.algorithms import make_codec
+from repro_torch.core.device import DeviceLike, on_device
 from repro_torch.core.pipeline import (
     CompressionPipeline,
     DecompressionPipeline,
+    lww_select,
     merge_shared_dictionary,
 )
 from repro_torch.core.strategies import (  # noqa: F401  (re-exported for callers)
@@ -45,6 +49,7 @@ from repro_torch.core.strategies import (  # noqa: F401  (re-exported for caller
     block_costs,
     schedule_blocks,
 )
+from repro_torch.kernels import ops
 
 # the merge's older private name, kept for callers of the reference's alias
 _merge_shared_dictionary = merge_shared_dictionary
@@ -159,11 +164,75 @@ def sharded_compress_fn(
     axis: str = "data",
     shared_state: bool = False,
     **codec_kwargs: Any,
-):
-    """The reference's compression step distributed over a device mesh
-    axis (private lanes per device, or shared tables merged across devices
-    every block). Not here yet: it needs the sharded fleet of ROADMAP A9."""
-    raise NotImplementedError(
-        "sharded_compress_fn distributes compression over a device mesh, "
-        "which repro_torch does not have yet (ROADMAP A9); run it on repro"
-    )
+) -> Callable[[Any, torch.Tensor], tuple]:
+    """A compression step distributed over a device mesh (a
+    `runtime/elastic.py` `DeviceMesh` whose only axis wider than one is
+    `axis`).
+
+    The returned callable takes `(state, block)`: the per-lane state of all
+    L lanes (None for a stateless codec) and a block int32[L, B]. The lanes
+    split into `mesh.size` contiguous groups, group k on `mesh.devices[k]`,
+    where it is encoded and packed (one B1 launch per slot, a block of
+    L/size * B symbols). Private mode (default): each slot owns its lanes'
+    codec state, and the only cross-slot step is the bit-count sum. Shared
+    mode (dictionary codecs): each slot merges its lanes' tables, then the
+    slots' merged rows meet in one `lww_select` (ties to the lowest slot),
+    the result and the slots' newest clock go back to every lane of every
+    slot. Returns (state, words int32[size * OW], total_bits), in the
+    reference's layout: state and words are the slots' rows concatenated in
+    slot order, on the block's device, and total_bits is the sum."""
+    names = tuple(mesh.axis_names)
+    if axis not in names or mesh.size != mesh.shape[names.index(axis)]:
+        raise ValueError(
+            f"sharded_compress_fn splits lanes over mesh axis {axis!r}; the "
+            f"mesh {dict(zip(names, mesh.shape))} must have no other axis "
+            "wider than one"
+        )
+    codec = make_codec(codec_name, **codec_kwargs)
+    slots = tuple(mesh.devices)
+    merge = shared_state and codec.meta.state_kind == "dictionary"
+
+    def step(state: Any, block: torch.Tensor):
+        lanes, b = block.shape
+        if lanes % len(slots):
+            raise ValueError(f"{lanes} lanes do not split over the {len(slots)}-device mesh")
+        local = lanes // len(slots)
+        states, words, nbits = [], [], []
+        for k, dev in enumerate(slots):
+            rows = slice(k * local, (k + 1) * local)
+            st = None if state is None else {key: v[rows].to(dev) for key, v in state.items()}
+            with on_device(dev):
+                st, enc = codec.encode(st, block[rows].to(dev))
+                if merge:
+                    st = merge_shared_dictionary(st)  # lanes within the slot
+                w, nb = ops.pack_blocks(
+                    enc.codes.reshape(local * b, 2).to(torch.int32).contiguous(),
+                    enc.bitlen.reshape(local * b).to(torch.int32).contiguous(),
+                    block=local * b, out_words=local * b * 2 + 2,
+                )
+            states.append(st)
+            words.append(w[0])
+            nbits.append(nb)
+        out = block.device
+        if merge:
+            # cross-slot last-writer-wins over the slots' merged rows: the
+            # reference's all-gather, lww_select and pmax
+            table, valid, ts = lww_select(*(
+                torch.stack([st[key][0].to(out) for st in states]) for key in ("table", "valid", "ts")
+            ))
+            clock = torch.stack([st["clock"][0].to(out) for st in states]).amax()
+            ts_size = table.shape[-1]
+            state = {
+                "table": table.expand(lanes, ts_size).contiguous(),
+                "valid": valid.expand(lanes, ts_size).contiguous(),
+                "ts": ts.expand(lanes, ts_size).contiguous(),
+                "clock": clock.expand(lanes).contiguous(),
+            }
+        elif states[0] is not None:
+            state = {key: torch.cat([st[key].to(out) for st in states]) for key in states[0]}
+        else:
+            state = None
+        total_bits = torch.cat([n.to(out) for n in nbits]).sum().to(torch.int32)
+        return state, torch.cat([w.to(out) for w in words]), total_bits
+
+    return step

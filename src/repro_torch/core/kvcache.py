@@ -13,8 +13,8 @@ vmax 1.0) (`core/algorithms/nuq.py`, ROADMAP C2), which follows the
 reference's jitted quantizer; the dequantization table is the reference's
 own float64 construction, copied. Writes update the cache tensors in place.
 Only the single-view decode is ported: the reference's shard_map branch of
-`decode_attend_dlse` (the ring sharded over a model axis) needs a mesh
-(ROADMAP A9).
+`decode_attend_dlse` (the ring sharded over a model axis) runs only inside
+the reference's dry run, under a model-axis mesh (ROADMAP A10).
 """
 from __future__ import annotations
 

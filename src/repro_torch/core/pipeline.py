@@ -50,8 +50,10 @@ codec call encodes them all; the codes come out lane-major, so each
 member's L lanes are contiguous and the B1 launch packs S (or C*S) blocks,
 each exactly the member's solo block. The shared-state merge runs per
 session on an `(S, L, TS)` view (`merge_shared_dictionary(state, lanes)`),
-so tables never mix across members. Sharded fleets (`mesh=`) wait for
-ROADMAP A9.
+so tables never mix across members. A sharded wave (`gang_step(mesh=...)`,
+DESIGN.md §14) splits the S members into `mesh.size` contiguous shards of
+whole members (slices of the S*L lane rows) and runs each shard on its
+mesh slot's device: one codec call and one B1 launch per shard.
 
 Every entry point runs on `torch.device("cuda")` unless the caller passes
 `device="cpu"`; with no device and no GPU it raises. On the CPU the kernel
@@ -62,7 +64,7 @@ from __future__ import annotations
 import dataclasses
 import functools
 import time
-from typing import Any, Callable, Dict, List, Optional, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -76,7 +78,7 @@ from repro_torch.core.algorithms import (
     make_codec,
 )
 from repro_torch.core.calibration import calibrated_kwargs
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import on_device, resolve_device
 from repro_torch.core.strategies import (
     ExecutionPlan,
     ExecutionStrategy,
@@ -89,27 +91,6 @@ from repro_torch.kernels import ops
 #: scan length used when force-fusing a stream whose plan is per-block
 #: dispatch (the eager Fig 10b breakdown replay)
 _FORCED_FUSE_CHUNK = 128
-
-#: spec fields that name features this port does not have yet:
-#: (field, is-requested test, what it needs). `adaptive` and `dictionary`
-#: are not read here, as in the reference: the job API's `negotiate` builds
-#: the seeded codec and the tier plans
-_UNPORTED_FIELDS = (
-    ("devices", lambda v: v > 0, "sharded fleets (ROADMAP A9)"),
-)
-
-
-def refuse_unported(config: SpecLike) -> None:
-    """Raise a one-line NotImplementedError naming the ROADMAP item when a
-    spec asks for a feature the port does not have yet."""
-    for field, requested, what in _UNPORTED_FIELDS:
-        value = getattr(config, field, None)
-        if value is not None and requested(value):
-            raise NotImplementedError(
-                f"JobSpec.{field}={value!r} needs {what}, which repro_torch "
-                "does not have yet; run this job on repro"
-            )
-
 
 def codec_align(codec: Codec) -> int:
     """Per-lane tuple alignment a codec requires (policy input).
@@ -419,7 +400,6 @@ class BlockedExecutor:
         surface — `EngineConfig` or `repro_torch.api.JobSpec`. A given
         `plan`/`codec` is consumed as-is; otherwise both are derived here.
         `device` defaults to CUDA (and raises without a GPU)."""
-        refuse_unported(config)
         self.device = resolve_device(device)
         self.config = config
         if codec is None:
@@ -468,10 +448,11 @@ class BlockedExecutor:
     def _merge_if_shared(self, state: Any) -> Any:
         return state if self.merge is None else self.merge(state)
 
-    def warmup(self) -> None:
+    def warmup(self, devices: Sequence[torch.device] = ()) -> None:
         """Build and load the CUDA kernels before a timed region (a no-op
-        on the CPU): the first call compiles them with nvcc."""
-        if self.device.type == "cuda":
+        on the CPU): the first call compiles them with nvcc. `devices` are
+        the mesh slots a sharded wave runs on, besides the pipeline's."""
+        if any(d.type == "cuda" for d in (self.device, *devices)):
             from repro_torch.kernels import build
 
             build.library()
@@ -706,18 +687,59 @@ class CompressionPipeline(BlockedExecutor):
         meta[S, ...], wall_s): `meta` is raw bitlens int32[S, L*B], or with
         `meta7` their 7-bit packing from the same B1 launch. One codec call
         and one B1 launch for the whole wave; the wall ends after a device
-        synchronize, so it covers the work and not only its enqueueing."""
-        if mesh is not None and getattr(mesh, "size", 1) > 1:
-            raise NotImplementedError(
-                "gang_step(mesh=...) shards a wave over a device mesh, which "
-                "repro_torch does not have yet (ROADMAP A9); run it on repro"
+        synchronize, so it covers the work and not only its enqueueing.
+
+        With `mesh` (a pure `("data",)` fleet mesh, `runtime/elastic.py`)
+        the wave shards over the mesh slots: one codec call and one B1
+        launch per shard, on the slot's device (`_sharded_wave_step`). The
+        caller pads S to a multiple of `mesh.size` (the fleet dispatcher
+        replicates a member into the pad slots and discards their outputs)."""
+        if mesh is not None and mesh.size <= 1:
+            mesh = None  # a one-slot mesh IS the plain dispatch
+        if mesh is not None and blocks.shape[0] % mesh.size != 0:
+            raise ValueError(
+                f"sharded gang wave of {blocks.shape[0]} sessions does not "
+                f"divide the {mesh.size}-device mesh; pad the wave first"
             )
-        self.warmup()
+        slots = () if mesh is None else tuple(mesh.devices)
+        self.warmup(slots)
         t0 = time.perf_counter()
         self.dispatches += 1
-        states, words, nbits, meta = self._wave_step(states, blocks, masks, meta7=meta7)
-        self._sync()
-        return states, words, nbits, meta, time.perf_counter() - t0
+        if mesh is None:
+            out = self._wave_step(states, blocks, masks, meta7=meta7)
+            self._sync()
+        else:
+            out = self._sharded_wave_step(states, blocks, masks, meta7, slots)
+        return (*out, time.perf_counter() - t0)
+
+    def _sharded_wave_step(self, states: Any, blocks: torch.Tensor, masks: torch.Tensor,
+                           meta7: bool, slots: Sequence[torch.device]):
+        """`_wave_step` over contiguous shards of whole members, shard k on
+        `slots[k]`: its blocks, masks and state rows move to that device,
+        where the codec call, the per-session merge and the B1 launch run
+        (a CUDA slot launches under its own device; a CPU slot runs the
+        plain versions). Every slot is enqueued before any is waited on;
+        then the outputs gather back in member order on the pipeline's
+        device, after every slot's device has synchronized."""
+        per = blocks.shape[0] // len(slots)
+        rows = per * self.config.lanes
+        outs = []
+        for k, dev in enumerate(slots):
+            state = None if states is None else {
+                key: v[k * rows:(k + 1) * rows].to(dev) for key, v in states.items()
+            }
+            members = slice(k * per, (k + 1) * per)
+            with on_device(dev):
+                outs.append(self._wave_step(state, blocks[members].to(dev),
+                                            masks[members].to(dev), meta7=meta7))
+        for dev in dict.fromkeys(d for d in slots if d.type == "cuda"):
+            torch.cuda.synchronize(dev)
+
+        def gather(parts):
+            return torch.cat([t.to(self.device) for t in parts])
+
+        state = None if states is None else {key: gather([o[0][key] for o in outs]) for key in states}
+        return (state, *(gather([o[i] for o in outs]) for i in (1, 2, 3)))
 
     def _stage_gang(self, shaped_list: List[ShapedStream]):
         """Members' blocks on the device, folded: full blocks int32[n, S*L, B],

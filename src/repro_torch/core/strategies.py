@@ -1,8 +1,8 @@
 """Parallelization strategies (paper §3.4): execution, state management,
 scheduling — plus the cache-aware micro-batch planner (port of
 `repro/core/strategies.py`). The gang plan sizes the serving runtime's
-gang waves; the fleet plan is a planning record the job API's `Plan`
-carries, whose execution over a device mesh waits for ROADMAP A9."""
+gang waves; the fleet plan scales it over a device mesh (the job API's
+`Plan.fleet` and the fleet server's per-signature wave caps and budgets)."""
 from __future__ import annotations
 
 import dataclasses

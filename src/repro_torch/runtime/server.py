@@ -25,12 +25,17 @@ policy (core/strategies.py `plan_execution`) layers:
     bit-identical to solo runs. Per-signature queues buffer flush snapshots
     between quantum edges, and a queue that exceeds its admission budget
     dispatches immediately (backpressure).
+  * **Fleet dispatcher** (`mesh=`, DESIGN.md §14) — gang waves shard over a
+    pure ("data",) device mesh (`runtime/elastic.py`): a wave is padded to
+    a multiple of the mesh width by replicating member 0, each mesh slot
+    compresses its contiguous shard of whole members on its own device,
+    and a device lost mid-wave re-meshes onto the survivors and replays the
+    wave from its members' last committed FlushRecords.
 
 Arrival replay is a simulation driven by `data/stream.py` timestamps — the
 wall clock measures only compression compute, never the synthetic waiting;
 every flush's wall ends after a device synchronize. Sessions run on
 `torch.device("cuda")` unless the server or session is given `device="cpu"`.
-Sharded fleets (a `mesh` wider than one device) wait for ROADMAP A9.
 """
 from __future__ import annotations
 
@@ -38,14 +43,14 @@ import dataclasses
 import heapq
 import time
 import warnings
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from repro_torch.core import bits, metrics
 from repro_torch.core.algorithms import Codec
-from repro_torch.core.device import DeviceLike, resolve_device
+from repro_torch.core.device import DeviceLike, resolve_device, visible_devices
 from repro_torch.core.energy import PROFILES, edge_energy_j
 from repro_torch.core.pipeline import (
     CompressionPipeline,
@@ -56,9 +61,11 @@ from repro_torch.core.pipeline import (
 from repro_torch.core.strategies import (
     EngineConfig,  # noqa: F401  (re-exported for legacy callers)
     ExecutionPlan,
+    FleetPlan,
     GangPlan,
     SchedulingStrategy,
     SpecLike,
+    plan_fleet,
     plan_gang,
     resolve_capacity,
     schedule_blocks,
@@ -69,7 +76,7 @@ from repro_torch.runtime.fault import (
     HeartbeatMonitor,
     with_backoff,
 )
-
+from repro_torch.runtime.elastic import ElasticSession
 
 
 @dataclasses.dataclass
@@ -923,7 +930,7 @@ class ServerCore:
         gang_quantum_s: Optional[float] = None,
         max_gang: Optional[int] = None,
         gang_budget: Optional[int] = None,
-        mesh: Any = None,
+        mesh: Union[None, int, ElasticSession] = None,
         fault_injector: Any = None,
         heartbeat: Optional[HeartbeatMonitor] = None,
         breaker: Any = None,
@@ -954,7 +961,12 @@ class ServerCore:
         #: attribute moves when an adaptive owner switches tiers
         self._gang_pipelines: Dict[tuple, CompressionPipeline] = {}
         self._gang_plans: Dict[tuple, GangPlan] = {}
-        # ---- fault handling (DESIGN.md §14) --------------------------------
+        # ---- fleet dispatcher state (DESIGN.md §14) ------------------------
+        #: `mesh` shards gang waves over a pure ("data",) device mesh: an int
+        #: builds an ElasticSession over the first N devices visible on the
+        #: server's device type; a prebuilt cstream-profile ElasticSession
+        #: (which may name its slots' devices) is consumed as-is
+        self.fleet: Optional[ElasticSession] = None
         #: injector with a `maybe_fail(wave)` raising DeviceLoss (chaos
         #: drills); real device loss surfaces the same way once mapped
         self.fault_injector = fault_injector
@@ -964,6 +976,7 @@ class ServerCore:
         self.fault_events: List[dict] = []
         self._wave_counter = 0
         self._device_busy_s = 0.0
+        self._fleet_plans: Dict[tuple, FleetPlan] = {}
         self._stats: Dict[tuple, SignatureStats] = {}
         # ---- circuit-breaker admission (DESIGN.md §18) ---------------------
         #: `breaker` turns on per-signature admission breakers: True uses
@@ -979,24 +992,32 @@ class ServerCore:
         else:
             self._breaker_cfg = dict(breaker)
         self._breakers: Dict[tuple, CircuitBreaker] = {}
-        #: width of the fleet mesh the server was given: None without one.
-        #: A one-device mesh is the local device (its waves run unsharded,
-        #: as the reference's do); wider meshes wait for ROADMAP A9
-        self._mesh_width: Optional[int] = None
         if mesh is not None:
             if not gang:
                 raise ValueError(
                     "mesh shards gang waves over devices; construct the "
                     "server with gang=True to use a fleet mesh"
                 )
-            if isinstance(mesh, int) and mesh < 1:
-                raise ValueError(f"mesh must be >= 1 device, got {mesh}")
-            if mesh != 1:
-                raise NotImplementedError(
-                    f"mesh={mesh!r} shards gang waves over a device mesh, which "
-                    "repro_torch does not have yet (ROADMAP A9); run it on repro"
+            if isinstance(mesh, ElasticSession):
+                self.fleet = mesh
+            else:
+                n = int(mesh)
+                avail = len(visible_devices(self.device))
+                if n < 1:
+                    raise ValueError(f"mesh must be >= 1 device, got {n}")
+                if n > avail:
+                    raise ValueError(
+                        f"mesh={n} exceeds the {avail} visible device(s) of "
+                        f"type {self.device.type}; pass ElasticSession({n}, "
+                        "profile='cstream', devices=[...]) naming each slot's "
+                        "device, or shrink the mesh"
+                    )
+                self.fleet = ElasticSession(n_devices=n, profile="cstream", device=self.device)
+            if tuple(self.fleet.mesh.axis_names) != ("data",):
+                raise ValueError(
+                    "fleet mesh must be a pure ('data',) axis — build it "
+                    "with ElasticSession(profile='cstream')"
                 )
-            self._mesh_width = 1
 
     # ------------------------------------------------------ gang dispatcher
     def _enqueue_flush(self, session: StreamSession, req: FlushRequest) -> None:
@@ -1011,6 +1032,8 @@ class ServerCore:
         q.append((session, req))
         if self.gang_budget is not None:
             budget = self.gang_budget
+        elif sig in self._fleet_plans:
+            budget = self._fleet_plans[sig].budget
         else:
             budget = self._gang_plans[sig].budget
         if len(q) >= budget:
@@ -1034,6 +1057,9 @@ class ServerCore:
             return
         plan = self._gang_plans[sig]
         cap = self.max_gang if self.max_gang is not None else plan.max_gang
+        if self.fleet is not None:
+            # one sharded wave carries max_gang sessions PER DEVICE
+            cap *= self.fleet.n_devices
         breaker = self._breakers.get(sig)
         while q:
             # breaker admission gate: an open breaker parks the queue in
@@ -1105,15 +1131,32 @@ class ServerCore:
                     return False
 
     def _on_device_loss(self, loss: DeviceLoss) -> None:
-        """A device loss on the server's mesh. Without a mesh, or when the
-        lost slot is the one device, there is nothing to re-mesh onto and
-        the loss propagates, as in the reference; a report of a slot past
-        the mesh is stale and ignored (the caller retries the wave from its
-        members' last committed FlushRecords). Re-meshing a wider fleet
-        onto its survivors waits for ROADMAP A9."""
-        if self._mesh_width is not None and loss.device_index >= self._mesh_width:
+        """Re-mesh onto the surviving devices and re-plan wave sizing.
+
+        The lost wave's members replay from their last committed
+        FlushRecord (the caller retries the wave); fleet budgets/caps
+        shrink with the mesh so backpressure keeps holding. `device` in
+        the fault event is the lost slot's `str(torch.device)`."""
+        if self.fleet is None:
+            raise loss  # not a fleet server: nothing to re-mesh
+        devs = list(self.fleet.mesh.devices)
+        if loss.device_index >= len(devs):
             return  # stale report: that mesh slot is already gone
-        raise loss
+        healthy = [d for i, d in enumerate(devs) if i != loss.device_index]
+        if not healthy:
+            raise loss  # no survivors to re-admit the orphans onto
+        self.fault_events.append(
+            {
+                "wave": loss.wave,
+                "device": str(devs[loss.device_index]),
+                "n_devices": len(healthy),
+            }
+        )
+        self.fleet.resize(len(healthy), devices=healthy)
+        for s, gp in self._gang_plans.items():
+            self._fleet_plans[s] = plan_fleet(gp, self.fleet.n_devices)
+        if self.heartbeat is not None:
+            self.heartbeat.beat()  # recovery progress counts as liveness
 
     def _run_wave(
         self, sig: tuple, wave: List[Tuple[StreamSession, FlushRequest]]
@@ -1123,6 +1166,11 @@ class ServerCore:
         scatter states, bitstreams and flush records back per member.
         Degenerate single-member waves take the inline solo path — exactly
         what a non-gang server would have run.
+
+        On a fleet server the wave additionally shards over the mesh: it is
+        padded to a multiple of the mesh width by replicating member 0 (pad
+        outputs are discarded before commit, so member 0 advances once),
+        and each slot compresses its contiguous shard on its own device.
 
         Egress scatter is compacted (DESIGN.md §13): only the per-member
         bit counts always cross device->host; each egress member's commit
@@ -1142,17 +1190,26 @@ class ServerCore:
         pipe = self._gang_pipelines[sig]
         lanes = wave[0][0].lanes  # the signature fixes (lanes, per_lane)
         meta7 = any(s.egress and s._meta_packed for s, _ in wave)
-        states = pipe.stack_states([s.state for s, _ in wave])
+        mesh = None
+        members = wave
+        pad = 0
+        if self.fleet is not None and self.fleet.n_devices > 1:
+            mesh = self.fleet.mesh
+            pad = (-len(wave)) % self.fleet.n_devices
+            members = wave + [wave[0]] * pad
+        states = pipe.stack_states([s.state for s, _ in members])
         blocks = bits.u32_tensor(
-            np.stack([req.values.reshape(lanes, -1) for _, req in wave]), pipe.device
+            np.stack([req.values.reshape(lanes, -1) for _, req in members]), pipe.device
         )
         masks = torch.from_numpy(
-            np.stack([req.mask.reshape(lanes, -1) for _, req in wave])
+            np.stack([req.mask.reshape(lanes, -1) for _, req in members])
         ).to(pipe.device)
-        states, words, tbs, metas, wall = pipe.gang_step(states, blocks, masks, meta7=meta7)
+        states, words, tbs, metas, wall = pipe.gang_step(
+            states, blocks, masks, meta7=meta7, mesh=mesh
+        )
         tb_np = tbs.cpu().numpy()
         cost = wall / len(wave)  # the dispatch is shared; so is its cost
-        for i, (s, req) in enumerate(wave):
+        for i, (s, req) in enumerate(wave):  # pad slots sit past len(wave)
             s.commit(
                 req,
                 pipe.unstack_state(states, i),
@@ -1162,11 +1219,16 @@ class ServerCore:
                 cost,
                 meta_packed=meta7,
             )
-        self._device_busy_s += wall
+        # modeled per-device time: the measured wall covers ALL padded
+        # slots' work serialized; one device carried slots/mesh-width of it
+        total_slots = len(members)
+        shard_slots = total_slots // mesh.size if mesh is not None else total_slots
+        self._device_busy_s += wall * (shard_slots / total_slots)
         if stats is not None:
             stats.n_waves += 1
             stats.sessions_dispatched += len(wave)
             stats.max_wave = max(stats.max_wave, len(wave))
+            stats.padded_slots += pad
 
     # -------------------------------------------------------------- admit
     def admit(
@@ -1263,6 +1325,10 @@ class ServerCore:
                 lanes=session.lanes,
                 per_lane=session.capacity // session.lanes,
             )
+            if self.fleet is not None:
+                self._fleet_plans[sig] = plan_fleet(
+                    self._gang_plans[sig], self.fleet.n_devices
+                )
             if self._breaker_cfg is not None:
                 self._breakers[sig] = CircuitBreaker(**self._breaker_cfg)
         self._stats[sig].n_sessions += 1
@@ -1428,8 +1494,8 @@ class ServerCore:
             if br is not None:
                 breakers[label] = br.snapshot()
         # fleet throughput model: per-device busy time accumulated at wave
-        # execution. Without a mesh it is the summed wave walls, which is
-        # compute_s exactly.
+        # execution (wall x shard/padded slots). On a 1-device mesh (or no
+        # mesh) it is the summed wave walls, which is compute_s exactly.
         device_makespan = self._device_busy_s if self.gang else total_cost
         return ServerReport(
             sessions=reports,
@@ -1444,7 +1510,7 @@ class ServerCore:
             energy_j=energy,
             aggregate_mbps=input_bytes / 1e6 / max(makespan, 1e-12),
             n_dispatches=n_dispatches,
-            devices=1,
+            devices=self.fleet.n_devices if self.fleet is not None else 1,
             dispatch_stats=dispatch_stats,
             fault_events=list(self.fault_events),
             device_makespan_s=device_makespan,

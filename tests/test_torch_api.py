@@ -3,9 +3,11 @@
   * `negotiate` over a grid of specs: equal `Plan` fields (`cap`,
     `execution`, `gang`, `fleet`, `align`, `capacity`, `notes`, `entropy`,
     `integrity`, `dictionary`, each rung of `tiers`, the signature element
-    by element), or the same `NegotiationError` text. The intended
-    differences are listed in `PORT_ONLY`: `devices >= 1` names ROADMAP A9
-    (the reference counts jax devices and names an XLA flag);
+    by element), or the same `NegotiationError` text; and `devices >= 1`
+    (`DEVICE_SPECS`): the fleet plan, or the reference's text. The intended
+    difference is listed in `PORT_ONLY`: `devices` past the visible devices
+    names their count (the reference counts jax devices and names an XLA
+    flag);
   * `capabilities()` record for record;
   * `JobSpec.from_engine_config` on the paper's three configurations;
   * offline and dispatcher-bound handles: frames byte-identical and
@@ -63,11 +65,16 @@ SPECS = {
     "adaptive_lossy_cheap": dict(codec="adpcm", adaptive=True, egress=True),
     "adaptive_capacity": dict(codec="pla", adaptive=True, egress=True, micro_batch_bytes=1000),
 }
-#: the intended differences: spec -> what the port's refusal names
+#: device-mesh specs (one device is visible to both packages here)
+DEVICE_SPECS = {
+    "devices_one": dict(devices=1, gang=True),
+    "devices_two": dict(devices=2, gang=True),
+    "adaptive_devices": dict(adaptive=True, egress=True, devices=1),
+}
+#: the intended differences: spec -> what the port's refusal names, and the
+#: reference's
 PORT_ONLY = {
-    "devices_one": (dict(devices=1, gang=True), "ROADMAP A9"),
-    "devices_two": (dict(devices=2, gang=True), "ROADMAP A9"),
-    "adaptive_devices": (dict(adaptive=True, egress=True, devices=1), "ROADMAP A9"),
+    "devices_two": ("exceeds the 1 visible device\\(s\\) of type cpu", "XLA_FLAGS"),
 }
 
 
@@ -122,15 +129,31 @@ def test_negotiate_matches_reference(registries, name):
     assert tp.device == torch.device("cpu")
 
 
-@pytest.mark.parametrize("name", sorted(PORT_ONLY))
-def test_negotiate_refuses_device_meshes_naming_a9(registries, name):
-    """The one intended text difference: the reference checks
-    `jax.device_count()` for `devices >= 1` (its text names an XLA flag);
-    the port refuses it naming ROADMAP A9."""
-    kw, item = PORT_ONLY[name]
-    with pytest.raises(api.NegotiationError, match=item) as ours:
-        tcs.negotiate(tcs.JobSpec(**kw), device="cpu")
-    assert "\n" not in str(ours.value)
+@pytest.mark.parametrize("name", sorted(DEVICE_SPECS))
+def test_negotiate_device_meshes(registries, name):
+    """`devices >= 1` counts the devices visible on the CPU (one, as jax's
+    CPU devices here): within it the plan carries the reference's
+    `FleetPlan`, and an adaptive spec is refused with the reference's text;
+    past it is the one intended text difference (`PORT_ONLY`)."""
+    kw = DEVICE_SPECS[name]
+    if name in PORT_ONLY:
+        ours_text, theirs_text = PORT_ONLY[name]
+        with pytest.raises(api.NegotiationError, match=ours_text) as ours:
+            tcs.negotiate(tcs.JobSpec(**kw), device="cpu")
+        with pytest.raises(rcs.NegotiationError, match=theirs_text):
+            rcs.negotiate(rcs.JobSpec(**kw))
+        assert "\n" not in str(ours.value)
+        return
+    try:
+        rp = rcs.negotiate(rcs.JobSpec(**kw))
+    except rcs.NegotiationError as exc:
+        with pytest.raises(api.NegotiationError) as ours:
+            tcs.negotiate(tcs.JobSpec(**kw), device="cpu")
+        assert str(ours.value) == str(exc) and "adaptive" in str(exc)
+        return
+    tp = tcs.negotiate(tcs.JobSpec(**kw), device="cpu")
+    _assert_plans_equal(tp, rp)
+    assert tp.fleet.devices == kw["devices"] and tp.fleet.max_wave == tp.gang.max_gang
 
 
 def test_capabilities_match_reference():

@@ -6,22 +6,33 @@ planner's measured candidates (`core/planner.py` `evaluate`,
     `roundtrip_nrmse`, and the shim's `gang_compress`;
   * `evaluate` / `enumerate_solutions`: the timing-free fields (ratio,
     NRMSE, the configuration) equal the reference's, never the walls;
-  * `sharded_compress_fn` refused naming ROADMAP A9.
+  * `sharded_compress_fn`: over one mesh slot, words, total bits and state
+    equal the reference's over its one-device mesh (private and shared);
+    over 2 and 4 CPU slots, private mode equals the reference run on each
+    lane group apart, and shared mode the reference's `lww_select` of the
+    groups' merged tables, broadcast to every lane.
 """
 import dataclasses
 import warnings
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro import compat
 from repro.core import engine as rengine
+from repro.core import pipeline as rpipe
+from repro.core.algorithms import make_codec as rmake
 from repro.core import planner as rplan
 from repro.core import strategies as rstrat
 from repro_torch.core import engine as tengine
 from repro_torch.core import planner as tplan
 from repro_torch.core import strategies as tstrat
+from repro_torch.core.algorithms import make_codec as tmake
+from repro_torch.core.algorithms import state_from_numpy
 from repro_torch.data import make_dataset
+from repro_torch.runtime.elastic import ElasticSession
 
 #: name -> EngineConfig fields (4 lanes, 2 KiB micro-batches)
 CONFIGS = {
@@ -101,9 +112,100 @@ def test_engine_shim_warns_and_needs_a_device():
                 tengine.CStreamEngine(_cfg(tstrat, "tcomp32"))
 
 
-def test_sharded_compress_fn_refused_naming_a9():
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        tengine.sharded_compress_fn("tdic32", mesh=None, shared_state=True)
+#: (codec, shared_state) cases of the sharded step; tdic32 at idx_bits 8
+SHARDED = [("tcomp32", False), ("tdic32", False), ("tdic32", True)]
+
+
+def _sharded_blocks(n_blocks: int = 3, lanes: int = 8, b: int = 64) -> np.ndarray:
+    vals = _stream(n_blocks * lanes * b, seed=11)
+    return np.ascontiguousarray(vals[: n_blocks * lanes * b], np.uint32).reshape(n_blocks, lanes, b)
+
+
+def _ref_np(state):
+    return None if state is None else {k: np.asarray(v) for k, v in state.items()}
+
+
+def _assert_state(codec, ours, ref_np):
+    want = state_from_numpy(codec, ref_np, torch.device("cpu"))
+    assert (ours is None) == (want is None)
+    for k in want or {}:
+        assert torch.equal(ours[k], want[k]), k
+
+
+def _kw(codec: str) -> dict:
+    return {"idx_bits": 8} if codec == "tdic32" else {}
+
+
+@pytest.mark.parametrize("codec,shared", SHARDED)
+def test_sharded_compress_fn_one_slot_matches_reference(codec, shared):
+    """One mesh slot against the reference over its one-device mesh, three
+    blocks with the state carried: words, total bits and state equal."""
+    ours = tengine.sharded_compress_fn(
+        codec, ElasticSession(1, profile="cstream", device="cpu").mesh, shared_state=shared, **_kw(codec))
+    theirs = rengine.sharded_compress_fn(
+        codec, compat.make_mesh((1,), ("data",)), shared_state=shared, **_kw(codec))
+    tc = tmake(codec, **_kw(codec))
+    ts, rs = tc.init_state(8, torch.device("cpu")), rmake(codec, **_kw(codec)).init_state(8)
+    for blk in _sharded_blocks():
+        rs, rw, rtb = theirs(rs, jnp.asarray(blk))
+        ts, tw, ttb = ours(ts, torch.from_numpy(blk.view(np.int32)))
+        np.testing.assert_array_equal(tw.numpy().view(np.uint32), np.asarray(rw))
+        assert int(ttb) == int(rtb)
+        _assert_state(tc, ts, _ref_np(rs))
+
+
+@pytest.mark.parametrize("slots", [2, 4])
+@pytest.mark.parametrize("codec,shared", SHARDED)
+def test_sharded_compress_fn_over_slots(codec, shared, slots):
+    """2 and 4 CPU slots over 8 lanes: each slot's words are the reference's
+    over that slot's lane group, the total bits their sum; the state is the
+    groups' states in slot order (private) or, shared, the reference's
+    `lww_select` over the groups' merged rows with the newest clock, on
+    every lane."""
+    mesh = ElasticSession(slots, profile="cstream", devices=["cpu"] * slots).mesh
+    ours = tengine.sharded_compress_fn(codec, mesh, shared_state=shared, **_kw(codec))
+    theirs = rengine.sharded_compress_fn(
+        codec, compat.make_mesh((1,), ("data",)), shared_state=shared, **_kw(codec))
+    tc, rc = tmake(codec, **_kw(codec)), rmake(codec, **_kw(codec))
+    local = 8 // slots
+    ts = tc.init_state(8, torch.device("cpu"))
+    groups = [rc.init_state(local) for _ in range(slots)]
+    for blk in _sharded_blocks():
+        outs = [theirs(groups[g], jnp.asarray(blk[g * local:(g + 1) * local])) for g in range(slots)]
+        ts, tw, ttb = ours(ts, torch.from_numpy(blk.view(np.int32)))
+        np.testing.assert_array_equal(
+            tw.numpy().view(np.uint32), np.concatenate([np.asarray(w) for _, w, _ in outs]))
+        assert int(ttb) == sum(int(tb) for _, _, tb in outs)
+        states = [_ref_np(st) for st, _, _ in outs]
+        if shared:
+            table, valid, tss = rpipe.lww_select(*(
+                jnp.stack([st[k][0] for st in states]) for k in ("table", "valid", "ts")))
+            clock = max(int(st["clock"][0]) for st in states)
+            merged = {"table": np.asarray(table), "valid": np.asarray(valid), "ts": np.asarray(tss)}
+            groups = [{**{k: np.broadcast_to(v, (local, v.shape[-1])) for k, v in merged.items()},
+                       "clock": np.full(local, clock, np.int32)} for _ in range(slots)]
+        else:
+            groups = states
+        want = None if groups[0] is None else {
+            k: np.concatenate([g[k] for g in groups]) for k in groups[0]}
+        _assert_state(tc, ts, want)
+
+
+def test_sharded_compress_fn_refuses_other_axes():
+    """An lm mesh whose model axis is one wide splits lanes like the data
+    axis alone; a split over another axis, or lanes that do not divide the
+    slots, is refused."""
+    blk = torch.from_numpy(_sharded_blocks(1)[0].view(np.int32))
+    lm = ElasticSession(1, profile="lm", device="cpu").mesh
+    one = ElasticSession(1, profile="cstream", device="cpu").mesh
+    (_, w_lm, tb_lm), (_, w_one, tb_one) = (tengine.sharded_compress_fn("tcomp32", m)(None, blk)
+                                            for m in (lm, one))
+    assert torch.equal(w_lm, w_one) and int(tb_lm) == int(tb_one)
+    wide = ElasticSession(2, profile="cstream", devices=["cpu"] * 2).mesh
+    with pytest.raises(ValueError, match="must have no other axis"):
+        tengine.sharded_compress_fn("tcomp32", wide, axis="model")
+    with pytest.raises(ValueError, match="do not split"):
+        tengine.sharded_compress_fn("tcomp32", wide)(None, torch.zeros((3, 8), dtype=torch.int32))
 
 
 def _point(p) -> tuple:

@@ -20,6 +20,7 @@ import warnings
 
 import numpy as np
 import pytest
+import torch
 
 from repro import cstream as rcs
 from repro.core.pipeline import CompressionPipeline as RefPipe
@@ -31,6 +32,7 @@ from repro_torch.core.pipeline import CompressionPipeline, merge_shared_dictiona
 from repro_torch.core.strategies import EngineConfig
 from repro_torch.data import make_dataset
 from repro_torch.data import stream as tstream
+from repro_torch.runtime.elastic import ElasticSession
 from repro_torch.runtime.server import StreamServer
 
 #: stateful codecs (rle: carried runs, stream-scope decode; adpcm: predictor
@@ -219,8 +221,8 @@ def test_gang_compress_matches_reference_and_solo(name):
 
 def test_execute_gang_states_scatter_per_member():
     """A folded state unstacks into each member's solo state (tdic32 shared:
-    the merge never mixes two members' tables), and `gang_step` refuses a
-    device mesh naming ROADMAP A9."""
+    the merge never mixes two members' tables), and `gang_step` over a
+    three-slot mesh gives the unsharded step's outputs."""
     spec = tcs.JobSpec(codec="tdic32", state="shared", params={"idx_bits": 8}, lanes=4, micro_batch_bytes=2048)
     pipe = CompressionPipeline(spec, device="cpu")
     streams = _gang_streams("tdic32", pipe.block_tuples)
@@ -237,9 +239,12 @@ def test_execute_gang_states_scatter_per_member():
         assert all(np.array_equal(pipe.unstack_state(merged, i)[k].numpy(), res.state[k].numpy())
                    for k in res.state)
     assert CompressionPipeline.stack_states([None, None]) is None and pipe.unstack_state(None, 1) is None
-    masks = np.ones((2, 4, pipe.block_tuples // 4), bool)
-    with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-        pipe.gang_step(folded, None, masks, mesh=type("Mesh", (), {"size": 2})())
+    blocks = torch.from_numpy(np.stack([sh.blocks[0] for sh in shaped]).view(np.int32))
+    masks = torch.ones(blocks.shape, dtype=torch.bool)
+    mesh = ElasticSession(3, profile="cstream", devices=["cpu"] * 3).mesh
+    plain, sharded = (pipe.gang_step(folded, blocks, masks, mesh=m) for m in (None, mesh))
+    assert all(torch.equal(plain[0][k], sharded[0][k]) for k in plain[0])
+    assert all(torch.equal(a, b) for a, b in zip(plain[1:4], sharded[1:4]))
 
 
 def test_execute_gang_rejects_mismatched_geometry():

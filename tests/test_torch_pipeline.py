@@ -228,14 +228,14 @@ def test_jobspec_validation_matches_reference(bad):
     ("gang", True, "A6"), ("devices", 2, "A9"),
 ])
 def test_unported_spec_features_are_refused(field, value, item):
-    """Features the port does not have yet are refused, naming their ROADMAP
-    item. A case turns into an acceptance check once its item is ported:
-    `entropy="rans"` (A7) frames carry the blob and decode; `adaptive` and
-    `dictionary` (A8) are not read by the pipelines, as in the reference,
-    whose job API builds the tier plans and the seeded codec, so a pipeline
-    built straight from such a spec gives the reference's frame; a `gang`
-    spec (A6) builds a pipeline whose `execute_gang` gives each member the
-    reference's solo frame."""
+    """Spec features the port refused, naming their ROADMAP item, until the
+    item was ported; each case is now an acceptance check. `entropy="rans"`
+    (A7) frames carry the blob and decode; `adaptive` and `dictionary` (A8)
+    and `devices` (A9) are not read by the pipelines, as in the reference,
+    whose job API builds the tier plans, the seeded codec and the fleet
+    plan, so a pipeline built straight from such a spec gives the
+    reference's frame; a `gang` spec (A6) builds a pipeline whose
+    `execute_gang` gives each member the reference's solo frame."""
     spec = api.JobSpec(**{field: value})
     if item == "A6":
         pipe = CompressionPipeline(spec, device="cpu")
@@ -246,21 +246,16 @@ def test_unported_spec_features_are_refused(field, value, item):
             ref = RefCompression(cstream.JobSpec(**{field: value})).compress_to_frame(v)
             assert pipe.frame_from(sh, res).to_bytes() == ref.to_bytes()
         return
-    if item in ("A7", "A8"):
-        v = _values(2, 300)
-        frame = CompressionPipeline(spec, device="cpu").compress_to_frame(v)
-        back = DecompressionPipeline(spec, device="cpu").ingest(frame.to_bytes())
-        np.testing.assert_array_equal(back.values, v)
-        if field == "entropy":
-            assert frame.entropy is not None
-        else:
-            ref = RefCompression(cstream.JobSpec(**{field: value})).compress_to_frame(v)
-            assert frame.to_bytes() == ref.to_bytes()
-        return
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        CompressionPipeline(spec, device="cpu")
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        DecompressionPipeline(spec, device="cpu")
+    assert item in ("A7", "A8", "A9")
+    v = _values(2, 300)
+    frame = CompressionPipeline(spec, device="cpu").compress_to_frame(v)
+    back = DecompressionPipeline(spec, device="cpu").ingest(frame.to_bytes())
+    np.testing.assert_array_equal(back.values, v)
+    if field == "entropy":
+        assert frame.entropy is not None
+    else:
+        ref = RefCompression(cstream.JobSpec(**{field: value})).compress_to_frame(v)
+        assert frame.to_bytes() == ref.to_bytes()
 
 
 def test_decoder_quarantine_latch():

@@ -4,7 +4,8 @@ the CPU: session batching, timeout flushes stamped at the deadline,
 admission control, state carried across flushes, determinism across repeats
 and feed order (gang off and on), mixed codecs under bursty arrivals, an
 adaptive session's tier history and sealed frames, a `topic:latest`
-session hot-swapped on publish, and the A9 refusals. Flush records
+session hot-swapped on publish, and fleet servers (a one-device mesh and
+four CPU slots) with the reference's mesh refusals. Flush records
 (`FlushRecord.key()`), egress frames and the timing-free fields of
 `SessionReport`/`ServerReport` equal the reference's; walls are measured,
 never compared."""
@@ -28,6 +29,7 @@ from repro_torch.core import dictstore as tds
 from repro_torch.core.pipeline import CompressionPipeline
 from repro_torch.core.strategies import EngineConfig
 from repro_torch.data import make_dataset
+from repro_torch.runtime.elastic import ElasticSession
 from repro_torch.runtime.server import ServerCore, StreamServer, StreamSession
 
 #: codec chosen per dataset (paper Fig 5: no codec wins everywhere)
@@ -331,26 +333,42 @@ def test_topic_latest_session_hot_swapped_on_publish(registries):
     assert got[0][0] == [("sensor", 1), ("sensor", 2)] and got[0][2] == 1 and got[0][3]
 
 
-def test_mesh_refused_naming_a9():
-    """A mesh wider than one device waits for ROADMAP A9; a mesh without
-    gang, or under one device, is refused with the reference's text; a
-    one-device mesh is the local device."""
-    for mesh in (2, 4):
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            ServerCore(gang=True, mesh=mesh, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP A9"):
-            tcs.Dispatcher(gang=True, mesh=mesh, device="cpu")
+def test_mesh_refusals_match_reference():
+    """A mesh without gang, or under one device, is refused with the
+    reference's text; a mesh wider than the visible devices names their
+    count where the reference names an XLA flag (the intended difference)."""
     for kw in (dict(mesh=1), dict(gang=True, mesh=0)):
         with pytest.raises(tcs.NegotiationError) as ours:
             tcs.Dispatcher(device="cpu", **kw)
         with pytest.raises(rcs.NegotiationError) as theirs:
             rcs.Dispatcher(**kw)
         assert str(ours.value) == str(theirs.value)
-    one, ref = ServerCore(gang=True, mesh=1, device="cpu"), RefCore(gang=True, mesh=1)
-    for srv, config_cls in ((one, EngineConfig), (ref, RefConfig)):
-        srv.admit("t", _cfg(config_cls, "tcomp32"))
-    feed = {"t": (np.arange(5000, dtype=np.uint32), np.arange(5000) * 1e-5)}
-    _assert_reports_equal(one.run(feed), ref.run(feed))
+    for mesh in (2, 4):
+        with pytest.raises(ValueError, match=f"mesh={mesh} exceeds the 1 visible device"):
+            ServerCore(gang=True, mesh=mesh, device="cpu")
+        with pytest.raises(tcs.NegotiationError, match="visible device"):
+            tcs.Dispatcher(gang=True, mesh=mesh, device="cpu")
+        with pytest.raises(rcs.NegotiationError, match="XLA_FLAGS"):
+            rcs.Dispatcher(gang=True, mesh=mesh)
+
+
+@pytest.mark.parametrize("slots", [1, 4])
+def test_fleet_server_matches_reference_gang(slots):
+    """A one-device mesh, and four CPU slots (`ElasticSession(4, profile=
+    "cstream", devices=[cpu] * 4)`), give the reference's unsharded gang
+    records and report (the mesh width apart)."""
+    mesh = 1 if slots == 1 else ElasticSession(4, profile="cstream", devices=["cpu"] * 4)
+    ours, ref = ServerCore(gang=True, mesh=mesh, device="cpu"), RefCore(gang=True)
+    for srv, config_cls in ((ours, EngineConfig), (ref, RefConfig)):
+        for t in ("a", "b", "c"):
+            srv.admit(t, _cfg(config_cls, "tcomp32"))
+    feed = {t: (np.arange(5000, dtype=np.uint32) * (i + 1), np.arange(5000) * 1e-5)
+            for i, t in enumerate("abc")}
+    rep, ref_rep = ours.run(feed), ref.run(feed)
+    assert rep.devices == slots and ref_rep.devices == 1
+    rep.devices = 1
+    _assert_reports_equal(rep, ref_rep)
+    assert _records(ours) == _records(ref)
 
 
 def test_stream_server_shim_and_devices():
