@@ -168,7 +168,13 @@ Phases, each printing one line per check:
                elementwise. For the tensor-core cases the line also counts
                the outputs a torch emulation of that kernel's numerics puts
                outside the rule with p@v taking p as one, two and three bf16
-               terms (the kernel takes three);
+               terms (the kernel takes three). Each case also runs B10's
+               form that writes each row's log-sum-exp
+               (`ops.flash_attention_fwd_lse`, one launch on the counter
+               of that kernel's lse form: `flash_attention_fwd_lse` for
+               the tensor-core kernel, `flash_attention_fwd_lse_fma` for
+               the FMA kernel): out bit for bit the plain form's, lse
+               within 1e-4 + 1e-5 |plain| of the plain version's;
   9. lm      — qwen3-1.7b served through `repro_torch.launch.serve.serve`:
                first at full width and 2 layers, 2 requests x 256 tokens and
                4 generated, the same weights and prompts on the card and on
@@ -179,7 +185,28 @@ Phases, each printing one line per check:
                set to 0 just before and read just after (B10's tensor-core
                kernel must launch once per layer, its FMA kernel never), and
                one profiled prefill and decode for the device's busy time;
-  10. timing — each kernel and its plain version timed with CUDA events on
+  10. train  — qwen3-1.7b trained through `repro_torch.launch.train`: at
+               full width and 2 layers from the same numpy weights and
+               tokens on the card and on the CPU, float32 and bf16 (loss,
+               every parameter's gradient and one AdamW step on those
+               gradients compared, tolerances in `TRAIN_CHECK`); the
+               compressed feed at the full run's 4 x 1,025 tokens (four
+               batches decoded on the card equal to the source's tokens,
+               and B2's codes over each batch's one block equal to its
+               plain version's on the same words); the gradient
+               codec (`core/gradient.py`) on 64M floats at qbits 4 and 8
+               (codes, scales and dequantized values equal); `train()` at
+               full width and depth, 8 steps of 4 x 1,024 tokens from the
+               compressed feed, with the launch counts set to 0 just
+               before and read just after (B10's lse form twice per layer
+               and step, the forward and full remat's recompute; B2 once
+               per step; no other form of B10), finite losses, the last
+               below the first, then one profiled step for the busy share;
+               and the fault drill on the reduced config (12 steps,
+               checkpoints every 4 under build/, a fault at step 6: one
+               restart, final step 12) with a card checkpoint loaded on
+               the CPU (`like=`), leaves equal;
+  11. timing — each kernel and its plain version timed with CUDA events on
                the main paths' own inputs (B6/B7's codec form: the new and
                the serial kernels on the adpcm path's first chunk, and both
                encodes on the never-converging ramp at that shape; B5's
@@ -195,7 +222,12 @@ Phases, each printing one line per check:
                q, k, v: the tensor-core kernel in bf16 and the FMA kernel on
                the same values in float32, each beside torch's
                scaled_dot_product_attention on its inputs (`library_ms`, a
-               yardstick the port never calls).
+               yardstick the port never calls); B10's lse forms on the
+               training path's layer-0 q, k, v (4 x 1,024): the
+               tensor-core kernel's in bf16 beside torch's
+               `_scaled_dot_product_flash_attention` (out and lse) and the
+               plain flash backward's time, the FMA kernel's in float32
+               beside `_scaled_dot_product_efficient_attention`.
 Then one JSON line of per-kernel numbers, the card's name and power limit as
 nvidia-smi reports them, and a last JSON line with the device.
 
@@ -208,6 +240,8 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -233,7 +267,15 @@ from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
 from repro_torch.models import layers  # noqa: E402
 from repro_torch.models.convert import params_to_numpy  # noqa: E402
-from repro_torch.models.transformer import _round_window, decode_step, init_params, prefill  # noqa: E402
+from repro_torch.models.transformer import _round_window, decode_step, init_params, loss_fn, prefill  # noqa: E402
+from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
+from repro_torch.checkpoint.manager import tree_flatten  # noqa: E402
+from repro_torch.core.gradient import GradCompressionConfig, dequantize_tensor, quantize_tensor  # noqa: E402
+from repro_torch.data.pipeline import CompressedFeed, zipf_token_stream  # noqa: E402
+from repro_torch.launch.steps import make_train_step  # noqa: E402
+from repro_torch.launch.train import restore_state, state_like, state_tree, train  # noqa: E402
+from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, adamw, apply_updates_  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, 700 W), for the bounds: the
 #: device-memory rate, and the 32-bit scalar rate outside the tensor cores
@@ -291,11 +333,18 @@ FULL_SPECS = {
 #: oracle, the serial decode takes parameters outside the scan's integer
 #: rule, which the ECG calibration meets); and B10's FMA kernel, which
 #: takes float32 and the bf16 shapes outside the tensor-core kernel's rule
-#: (the lm path is bf16 at Dh 128)
+#: (the lm and train paths are bf16 at Dh 128), in both forms
 OFF_PATH = ("adpcm_encode", "adpcm_decode", "adpcm_lane_encode_serial", "adpcm_lane_decode_serial",
-            "rans_encode", "rans_decode", "pack_meta7_blocks", "flash_attention_fwd")
-#: B10's kernels, the LM serving path's (the codec paths never launch them)
-LM_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_tc")
+            "rans_encode", "rans_decode", "pack_meta7_blocks", "flash_attention_fwd",
+            "flash_attention_fwd_lse_fma")
+#: B10's kernels, the LM paths' (the codec paths never launch them): the FMA
+#: and tensor-core kernels as the serving prefill runs them, and each in the
+#: form that also writes each row's log-sum-exp, which training runs (bf16:
+#: the tensor-core kernel's; float32: the FMA kernel's)
+LM_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_tc", "flash_attention_fwd_lse",
+              "flash_attention_fwd_lse_fma")
+#: B10's kernel -> its lse form's wrapper
+LSE_FORM = {flash_attn.TENSOR_CORE: "flash_attention_fwd_lse", flash_attn.FMA: "flash_attention_fwd_lse_fma"}
 #: kernels the eval paths run and the full paths do not: B5's probe, which
 #: tdic32 takes for a tail block (the 64 MiB stream has none), under the
 #: shared-state strategy and outside `dict_hash.chunk_kernel_for`; and B1
@@ -326,6 +375,9 @@ KERNELS = {
     "adpcm_lane_decode_serial": ("src/repro_torch/csrc/delta_nuq.cu", "src/repro/kernels/delta_nuq.py:109"),
     "flash_attention_fwd": ("src/repro_torch/csrc/flash_attn.cu", "src/repro/kernels/flash_attn.py:84"),
     "flash_attention_fwd_tc": ("src/repro_torch/csrc/flash_attn_tc.cu", "src/repro/kernels/flash_attn.py:84"),
+    # the training forward's forms with lse: bf16 on the tensor cores, float32 on the FMA kernel
+    "flash_attention_fwd_lse": ("src/repro_torch/csrc/flash_attn_tc.cu", "src/repro/kernels/flash_attn.py:84"),
+    "flash_attention_fwd_lse_fma": ("src/repro_torch/csrc/flash_attn.cu", "src/repro/kernels/flash_attn.py:84"),
 }
 #: B10's cases: (B, Sq, Sk, H, K, Dh, window, causal, dtype); the first is
 #: the serving path's prefill shape. bf16 with Dh % 16 == 0 runs on the
@@ -349,6 +401,13 @@ FLASH_CASES = (
     (1, 200, 200, 4, 2, 40, None, True, torch.bfloat16),  # Dh 40: the FMA kernel in bf16
 )
 FLASH_F32_TOL = 2e-4
+#: B10's log-sum-exp against its plain version's (`torch.logsumexp` of the
+#: dense float32 scores): |d| <= 1e-4 + 1e-5 |plain|. Both are float32 sums
+#: of the same exponentials in another order (the tensor-core kernel's by
+#: `ex2.approx`, ~2 ulp a term), so a row's sum agrees to ~1e-6 relative
+#: and its log to ~1e-6 absolute; the bound leaves 100x for rows of
+#: thousands of keys
+LSE_TOL = (1e-4, 1e-5)
 #: the LM path: qwen3-1.7b, 4 requests x 2,048 prompt tokens, 32 generated
 LM_ARCH, LM_BATCH, LM_PROMPT, LM_GEN = "qwen3-1.7b", 4, 2048, 32
 #: decode steps in the profiled pass (its busy share is taken against the
@@ -1408,8 +1467,9 @@ def split_emulation(q, k, v, window, causal, terms: int) -> torch.Tensor:
 
 
 def check_flash(dev) -> dict:
-    """Phase 5: B10 against its plain version on every case of FLASH_CASES;
-    returns the largest max-abs error of each of its two kernels."""
+    """Phase 5: B10 against its plain version on every case of FLASH_CASES,
+    in both forms; returns the largest max-abs error of out for each of its
+    two kernels in each form (the lse form's out is the plain form's)."""
     gen = torch.Generator(device=dev).manual_seed(21)
     worst = {k: 0.0 for k in LM_KERNELS}
     for case in FLASH_CASES:
@@ -1438,7 +1498,35 @@ def check_flash(dev) -> dict:
             raise AssertionError(f"B10 ({expected}) disagrees with its plain version at {case}: "
                                  f"max abs err {err}, finite {finite}")
         worst[expected] = max(worst[expected], err)
+        lse_err = check_flash_lse(q, k, v, window, causal, got, LSE_FORM[expected])
+        emit({"phase": "flash", "case": {"B": b, "Sq": sq, "Sk": sk, "H": h, "K": kh, "Dh": dh,
+                                         "window": window, "causal": causal, "dtype": str(dt)},
+              "kernel": [LSE_FORM[expected]], "out_bit_identical": True, "lse_max_abs_err": lse_err,
+              "lse_tolerance": "|d| <= 1e-4 + 1e-5 |plain|"})
+        worst[LSE_FORM[expected]] = max(worst[LSE_FORM[expected]], err)
     return worst
+
+
+def check_flash_lse(q, k, v, window, causal, out, form: str) -> float:
+    """B10's log-sum-exp form on the same inputs: one launch counted as
+    `form` (the lse form of the kernel that made `out`) and none
+    elsewhere, `out` bit for bit the plain form's `out`, lse within LSE_TOL
+    of the plain version's. Returns lse's max-abs error."""
+    before = ops.launch_counts()
+    got, lse = ops.flash_attention_fwd_lse(q, k, v, window=window, causal=causal)
+    after = ops.launch_counts()
+    ran = {n: after[n] - before[n] for n in LM_KERNELS if after[n] != before[n]}
+    _, want = ref.flash_reference_lse(q, k, v, window=window, causal=causal)
+    torch.cuda.synchronize()
+    if ran != {form: 1}:
+        raise AssertionError(f"the lse form launched {ran}, expected {form}")
+    if not torch.equal(got, out):
+        raise AssertionError("B10's out differs with lse written beside it")
+    atol, rtol = LSE_TOL
+    d = (lse - want).abs()
+    if not bool((d <= atol + rtol * want.abs()).all()):
+        raise AssertionError(f"B10's lse disagrees with its plain version: max abs err {d.max().item()}")
+    return d.max().item()
 
 
 #: the reduced-depth card-vs-CPU check: full width, 2 layers, 2 x 256 + 4;
@@ -1631,6 +1719,370 @@ def time_flash(dev, model, prompts, cycles_per_ms: float) -> dict:
                      "dtype": str(dtype), "shape": [b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
                      "tflops": nops / (ms * 1e-3) / 1e12}
         del got, want, qd, kd, vd, qt, kt, vt
+    return out
+
+
+#: the train phase's full-depth run: qwen3-1.7b at full width and all 28
+#: layers, 4 x 1,024 tokens a step from the compressed feed, 8 steps from
+#: random weights (the reference trainer's defaults otherwise: lr 3e-4,
+#: warmup-cosine, full remat, one microbatch), no checkpoints
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 1024, 8
+#: the card-vs-CPU training check: full width, 2 layers, 2 x 128 tokens, the
+#: same numpy weights and tokens, float32 masters, one AdamW step at lr
+#: 1e-3 (no clipping: the step follows each gradient's own sign). Per
+#: compute dtype: the loss within `loss_rel` of the CPU's; every
+#: parameter's gradient within `grad_rel` in relative norm; every
+#: parameter's AdamW update (the parameters after the step less before)
+#: within `update_rel` in relative norm. An early step's update is about
+#: -lr * sign(g), so an element whose gradient is near 0 flips its update
+#: when the two devices' sums differ in sign: `update_rel` counts those
+#: flips. float32 sums in another order on the card (and B10 against its
+#: dense plain version within 2e-4): loss 1e-5, gradients 1e-3, updates
+#: 0.1 (measured on the H100: loss equal, 4.8e-6, 1.1e-3). bfloat16
+#: rounds each matrix product's output, at other ties on the card: loss
+#: 1e-2, gradients 0.1, updates 0.5 (measured 3.1e-5, 0.016, 0.18)
+TRAIN_CHECK = dict(
+    layers=2, batch=2, seq=128, lr=1e-3,
+    float32=dict(loss_rel=1e-5, grad_rel=1e-3, update_rel=0.1),
+    bfloat16=dict(loss_rel=1e-2, grad_rel=0.1, update_rel=0.5),
+)
+#: the fault drill: the reduced qwen3-1.7b config, 12 steps of 4 x 64,
+#: checkpoints every 4 steps under build/, an injected fault at step 6
+TRAIN_DRILL = dict(steps=12, batch=4, seq=64, checkpoint_every=4, fail_at=(6,))
+#: float32 elements of the gradient codec's card-vs-CPU check
+GRAD_CODEC_ELEMENTS = 64 << 20
+#: batches of the feed's check at the full run's shape
+FEED_CHECK_BATCHES = 4
+
+
+def rel_norm(a: torch.Tensor, b: torch.Tensor) -> float:
+    """||a - b|| / ||b|| in float64 (0 when both are 0)."""
+    a, b = a.double(), b.double()
+    den = b.norm().item()
+    num = (a - b).norm().item()
+    return num / den if den else num
+
+
+def train_card_vs_cpu(dev, tree: dict, tokens: np.ndarray, dtype: str) -> dict:
+    """One dtype of `check_train_card_vs_cpu`: on the card and on the CPU,
+    the loss and every parameter's gradient (`loss_fn` under the config's
+    full remat, and autograd), then one AdamW step on those gradients
+    (`adamw`'s update, added in place as `make_train_step` adds it; the
+    step's own plumbing runs on the card in `run_train`); each device's
+    (loss, grads, updates) moved to the CPU."""
+    c = TRAIN_CHECK
+    cfg = dataclasses.replace(get_arch(LM_ARCH).model, n_layers=c["layers"], dtype=dtype)
+    batch = {"inputs": tokens[:, :-1], "labels": tokens[:, 1:]}
+    opt_init, opt_update = adamw(AdamWConfig(lr=c["lr"], clip_norm=None))
+    got = {}
+    for d in (dev, torch.device("cpu")):
+        model = params_from_numpy(tree, cfg, d, param_dtype="float32")
+        b = {k: torch.from_numpy(v).to(d) for k, v in batch.items()}
+        params = dict(model.named_parameters())
+        before = {k: p.detach().clone() for k, p in params.items()}
+        loss, _ = loss_fn(model, cfg, b)
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+        with torch.no_grad():
+            updates, _, _ = opt_update(grads, opt_init(params), params)
+            apply_updates_(params, updates)
+        got[d.type] = (loss.item(), {k: g.float().cpu() for k, g in grads.items()},
+                       {k: (p.detach() - before[k]).float().cpu() for k, p in params.items()})
+        del model, params, before, grads, updates
+    return got
+
+
+def check_train_card_vs_cpu(dev) -> dict:
+    """Phase 10, first part: training at qwen3-1.7b's full width and 2
+    layers on the card and on the CPU from the same numpy weights and
+    tokens, in float32 and in bf16, held to TRAIN_CHECK."""
+    c = TRAIN_CHECK
+    cfg = dataclasses.replace(get_arch(LM_ARCH).model, n_layers=c["layers"])
+    tree = params_to_numpy(init_params(cfg, seed=0, device="cpu", param_dtype="float32"))
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (c["batch"], c["seq"] + 1)).astype(np.int32)
+    bad, out = [], {}
+    for dtype in ("float32", "bfloat16"):
+        t0 = time.perf_counter()
+        got = train_card_vs_cpu(dev, tree, tokens, dtype)
+        (lc, gc, uc), (lp, gp, up) = got["cuda"], got["cpu"]
+        grad_rel = {k: rel_norm(gc[k], gp[k]) for k in gp}
+        update_rel = {k: rel_norm(uc[k], up[k]) for k in up}
+        tol = c[dtype]
+        r = {"loss_card": lc, "loss_cpu": lp, "loss_rel": abs(lc - lp) / abs(lp),
+             "grad_rel_max": max(grad_rel.values()), "grad_rel_worst": max(grad_rel, key=grad_rel.get),
+             "update_rel_max": max(update_rel.values()), "update_rel_worst": max(update_rel, key=update_rel.get),
+             "params_after_max_abs_err": max((uc[k] - up[k]).abs().max().item() for k in up),
+             "finite": all(bool(torch.isfinite(g).all()) for g in gc.values()) and math.isfinite(lc),
+             "tolerance": tol, "seconds": time.perf_counter() - t0}
+        out[dtype] = r
+        emit({"phase": "train", "path": "card_vs_cpu", "dtype": dtype,
+              "config": {k: c[k] for k in ("layers", "batch", "seq", "lr")}, **r})
+        if not r["finite"]:
+            bad.append(f"{dtype}: non-finite loss or gradients on the card")
+        if r["loss_rel"] > tol["loss_rel"]:
+            bad.append(f"{dtype}: loss {lc} on the card against {lp}")
+        if r["grad_rel_max"] > tol["grad_rel"]:
+            bad.append(f"{dtype}: gradient of {r['grad_rel_worst']} differs by {r['grad_rel_max']}")
+        if r["update_rel_max"] > tol["update_rel"]:
+            bad.append(f"{dtype}: update of {r['update_rel_worst']} differs by {r['update_rel_max']}")
+    if bad:
+        raise AssertionError("card and CPU training disagree: " + "; ".join(bad))
+    return out
+
+
+def check_train_feed(dev) -> dict:
+    """Phase 10: the compressed feed at the full run's shape, TRAIN_BATCH x
+    TRAIN_SEQ Zipf tokens over qwen3-1.7b's vocabulary. FEED_CHECK_BATCHES
+    batches through `next_batch` (B2 over the whole stream as one block,
+    then delta_leb128's decode, on the card) equal the source's tokens bit
+    for bit, one B2 launch each. Then each of those batches packed again on
+    the host and its words and bit lengths uploaded: B2's codes equal its
+    plain version's (`ref.unpack_blocks_ref`) on the same words, and the
+    feed's decode of them equals the tokens."""
+    vocab = get_arch(LM_ARCH).model.vocab_size
+    t0 = time.perf_counter()
+    source = zipf_token_stream(vocab, TRAIN_BATCH, TRAIN_SEQ, seed=11)
+    feed = CompressedFeed(zipf_token_stream(vocab, TRAIN_BATCH, TRAIN_SEQ, seed=11), device=dev).start()
+    batches = []
+    try:
+        for i in range(FEED_CHECK_BATCHES):
+            before = ops.launch_counts()["unpack_blocks"]
+            b = feed.next_batch()
+            got = torch.cat([b["inputs"], b["labels"][:, -1:]], dim=1).cpu().numpy()
+            launched = ops.launch_counts()["unpack_blocks"] - before
+            batches.append(next(source))
+            if launched != 1 or not np.array_equal(got, batches[-1]):
+                raise AssertionError(f"feed batch {i} on the card: {launched} B2 launches, tokens equal "
+                                     f"{np.array_equal(got, batches[-1])}")
+    finally:
+        feed.stop()
+    words_per_batch = []
+    for i, tokens in enumerate(batches):
+        payload, shape = feed._pack(tokens)
+        words = torch.from_numpy(payload["words"])
+        bitlen = torch.from_numpy(payload["bitlen"]).reshape(-1).to(torch.int32)
+        tail = torch.from_numpy(payload["tail"].view(np.int32))
+        n = bitlen.numel()
+        codes = ops.unpack_blocks(words.to(dev)[None], bitlen.to(dev), block=n)
+        want = ref.unpack_blocks_ref(words[None], bitlen)
+        decoded = feed._decode(words.to(dev), bitlen.to(dev), tail.to(dev), n // feed.lanes)
+        if not torch.equal(codes.cpu(), want):
+            raise AssertionError(f"B2 disagrees with its plain version on feed batch {i} "
+                                 f"({words.numel()} words, one block of {n} symbols)")
+        if not np.array_equal(decoded.cpu().numpy().reshape(shape), tokens):
+            raise AssertionError(f"the feed's decode of batch {i}'s words differs from its tokens")
+        words_per_batch.append(words.numel())
+    out = {"phase": "train", "path": "feed", "batches": FEED_CHECK_BATCHES, "shape": [TRAIN_BATCH, TRAIN_SEQ + 1],
+           "block_symbols": n, "words": words_per_batch, "b2_codes_equal": True, "tokens_equal": True,
+           "ratio": feed.stats.ratio, "seconds": time.perf_counter() - t0}
+    emit(out)
+    return out
+
+
+def check_grad_codec(dev) -> dict:
+    """Phase 10: the gradient codec (`core/gradient.py`) on GRAD_CODEC_ELEMENTS
+    float32 values at qbits 4 and 8: codes, scales and the dequantized
+    values equal on the card and on the CPU."""
+    x = torch.from_numpy(np.random.default_rng(3).normal(0, 0.02, GRAD_CODEC_ELEMENTS).astype(np.float32))
+    xd = x.to(dev)
+    out = {}
+    for qbits in (4, 8):
+        cfg = GradCompressionConfig(qbits=qbits)
+        t0 = time.perf_counter()
+        codes, scales, n = quantize_tensor(xd, cfg)
+        back = dequantize_tensor(codes, scales, n, xd.shape, cfg)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        codes_c, scales_c, _ = quantize_tensor(x, cfg)
+        back_c = dequantize_tensor(codes_c, scales_c, n, x.shape, cfg)
+        cpu_s = time.perf_counter() - t0
+        same = {"codes": torch.equal(codes.cpu(), codes_c), "scales": torch.equal(scales.cpu(), scales_c),
+                "dequantized": torch.equal(back.cpu(), back_c)}
+        out[qbits] = {**same, "card_s": card_s, "cpu_s": cpu_s, "wire_bytes": codes.numel() + 4 * scales.numel(),
+                      "rel_err": rel_norm(back_c, x)}
+        if not all(same.values()):
+            raise AssertionError(f"the gradient codec at qbits {qbits} differs on the card: {same}")
+    emit({"phase": "train", "path": "grad_codec", "elements": GRAD_CODEC_ELEMENTS, "qbits": out})
+    return out
+
+
+def time_train_flash(dev, model, batch: dict, cycles_per_ms: float) -> dict:
+    """B10's lse forms on the training path's layer-0 q, k, v (4 x 1,024):
+    the tensor-core kernel's in bf16, the path's own, and the FMA kernel's
+    on the same values in float32, each timed with CUDA events beside its
+    plain version and a torch call that returns out and the log-sum-exp
+    (the library yardstick; the port never calls it): the flash
+    `_scaled_dot_product_flash_attention` in bf16, the memory-efficient
+    `_scaled_dot_product_efficient_attention` in float32 (the flash one
+    takes no float32), k/v repeated to 16 heads. In bf16 also the flash
+    backward (`layers.flash_backward`, plain torch, `plain_backward_ms`).
+    Bound: the band's operations at the peak rate for the inputs' type
+    (bf16 tensor cores; float32 outside them) against q, k, v read and out
+    and lse written once."""
+    cfg = model.cfg
+    with torch.no_grad():
+        blk = model.layers[0]
+        b, s = batch["inputs"].shape
+        pos = torch.arange(s, dtype=torch.int32, device=dev)[None].expand(b, s)
+        x = layers.rms_norm(model.embedding(batch["inputs"]), blk.p("attn_norm"))
+        q0, k0, v0 = (t.contiguous() for t in layers.attention_qkv(blk.attn.params(), cfg, x, pos))
+    nops = flash_attn.flops(b, s, s, cfg.n_heads, cfg.head_dim, None, True)
+    g = cfg.n_heads // cfg.n_kv_heads
+    out = {}
+    for form, dtype, ops_per_s, iters in (("flash_attention_fwd_lse", torch.bfloat16, BF16_TENSOR_OPS_PER_S, 50),
+                                          ("flash_attention_fwd_lse_fma", torch.float32, SCALAR_OPS_PER_S, 10)):
+        with torch.no_grad():
+            q, k, v = (t.to(dtype) for t in (q0, k0, v0))
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
+            wrapper = getattr(ops, form)
+            before = ops.launch_counts()[form]
+            got, lse = wrapper(q, k, v)
+            if ops.launch_counts()[form] != before + 1:
+                raise AssertionError(f"the {dtype} training-shape call did not run {form}")
+            want, want_lse = ref.flash_reference_lse(q, k, v)
+            ok, tol = flash_within(got, want)
+            err = (got.float() - want.float()).abs().max().item()
+            lse_err = (lse - want_lse).abs().max().item()
+            if not (ok and lse_err <= LSE_TOL[0] + LSE_TOL[1] * want_lse.abs().max().item()):
+                raise AssertionError(f"{form} disagrees on the training path's inputs: {err}, lse {lse_err}")
+
+            if dtype == torch.bfloat16:
+                def library():
+                    return torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
+            else:
+                def library():
+                    return torch.ops.aten._scaled_dot_product_efficient_attention(qt, kt, vt, None, True, 0.0, True)
+
+            lib = library()
+            lib_lse_err = (lib[1][..., :s].float() - want_lse).abs().max().item()
+            ms, host_ms = time_ms(lambda: wrapper(q, k, v), iters, cycles_per_ms)
+            plain_ms, plain_host_ms = time_ms(lambda: ref.flash_reference_lse(q, k, v), 5, cycles_per_ms)
+            library_ms, _ = time_ms(library, 50, cycles_per_ms)
+            extra = {}
+            if dtype == torch.bfloat16:
+                dout = torch.randn(got.shape, generator=torch.Generator(device=dev).manual_seed(2),
+                                   device=dev).to(dtype)
+                extra["plain_backward_ms"], _ = time_ms(
+                    lambda: layers.flash_backward(q, k, v, got, lse, dout, None, True), 10, cycles_per_ms)
+        nbytes = 2 * (q.numel() * q.element_size() + k.numel() * k.element_size()) + lse.numel() * 4
+        by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        by_ops = nops / ops_per_s * 1e3
+        bound_ms, bound_by = (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+        out[form] = {
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "bytes": nbytes, "ops": nops, "chain_steps": None, "host_ms": host_ms,
+            "plain_host_ms": plain_host_ms, "max_abs_err": err, "lse_max_abs_err": lse_err,
+            "library_lse_max_abs_err": lib_lse_err, "tolerance": tol, **extra,
+            "dtype": str(dtype), "shape": [b, s, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+            "tflops": nops / (ms * 1e-3) / 1e12,
+        }
+        del got, lse, want, want_lse, lib, q, k, v, qt, kt, vt
+    return out
+
+
+def run_train(dev, cycles_per_ms: float):
+    """Phase 10, the main path: `launch.train.train` on qwen3-1.7b at full
+    width and depth, TRAIN_STEPS steps of TRAIN_BATCH x TRAIN_SEQ, with the
+    launch counts set to 0 just before and read just after (B10's lse form
+    twice per layer and step: the forward and full remat's recompute; B2
+    once per step, the feed's decode; no other form of B10). Then, on a
+    fresh model, one warm step, one timed step and one profiled step (the
+    device's busy share), and B10's lse form timed on that model's layer 0.
+    Returns (launches, the lse form's times)."""
+    cfg = get_arch(LM_ARCH).model
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    run = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ, device=dev, log_every=TRAIN_STEPS)
+    train_s = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {"flash_attention_fwd_lse": 2 * cfg.n_layers * TRAIN_STEPS, "unpack_blocks": TRAIN_STEPS,
+            "flash_attention_fwd_tc": 0, "flash_attention_fwd": 0, "flash_attention_fwd_lse_fma": 0}
+    wrong = {k: launches[k] for k, n in want.items() if launches[k] != n}
+    checks = {
+        "steps": run.final_step == TRAIN_STEPS and len(run.losses) == TRAIN_STEPS and run.restarts == 0,
+        "losses_finite": all(math.isfinite(x) for x in run.losses),
+        "loss_fell": run.losses[-1] < run.losses[0],
+        "launches": not wrong,
+    }
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    steady = sorted(run.step_s[1:])[len(run.step_s[1:]) // 2]
+    emit({
+        "phase": "train", "path": "full", "arch": LM_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": cfg.param_count(), "batch": TRAIN_BATCH, "seq": TRAIN_SEQ, "steps": TRAIN_STEPS,
+        "remat": cfg.remat, "dtype": cfg.dtype, "param_dtype": cfg.param_dtype, "losses": run.losses,
+        "step_s": run.step_s, "wall_s": run.wall_s, "tokens_per_s": run.tokens_per_s,
+        "steady_step_s": steady, "steady_tokens_per_s": tokens / steady, "feed_ratio": run.feed_ratio,
+        "peak_memory_allocated": peak, "launches": launches, "launches_expected": want,
+        "checks": checks, "train_call_s": train_s,
+    })
+    if not all(checks.values()):
+        raise AssertionError(f"the train path fails its checks: {checks}; launches off: {wrong}")
+    t0 = time.perf_counter()
+    init_fn, train_step = make_train_step(cfg, AdamWConfig(lr=3e-4), device=dev)
+    model, opt_state = init_fn(1)
+    feed = CompressedFeed(zipf_token_stream(cfg.vocab_size, TRAIN_BATCH, TRAIN_SEQ, seed=1), device=dev).start()
+    try:
+        model, opt_state, _ = train_step(model, opt_state, feed.next_batch())
+        b = feed.next_batch()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        model, opt_state, _ = train_step(model, opt_state, b)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - t1) * 1e3
+        b = feed.next_batch()
+        busy, top, host_ops = device_busy_ms(lambda: train_step(model, opt_state, b), top=12)
+        times = time_train_flash(dev, model, b, cycles_per_ms)
+    finally:
+        feed.stop()
+    del model, opt_state
+    emit({"phase": "train", "path": "profiled_step", "timed_step_ms": step_ms, "device_busy_ms": busy,
+          "busy_share": busy / step_ms if busy else None, "top_kernels_ms": top, "host_ops_per_step": host_ops,
+          "seconds": time.perf_counter() - t0})
+    return launches, times
+
+
+def run_train_drill(dev) -> dict:
+    """Phase 10: the fault drill (a reduced qwen3-1.7b config on the card,
+    TRAIN_DRILL: an injected fault restarts from the step-4 checkpoint and
+    the run ends at step 12), then a checkpoint of a card model's training
+    state after one step loaded on the CPU (`like=`): every leaf equal, and
+    the state restored into a CPU model equal to the card's."""
+    d = TRAIN_DRILL
+    cfg = get_arch(LM_ARCH).model.reduced()
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_train"
+    shutil.rmtree(root, ignore_errors=True)
+    t0 = time.perf_counter()
+    run = train(cfg, steps=d["steps"], batch=d["batch"], seq=d["seq"], checkpoint_dir=str(root / "drill"),
+                checkpoint_every=d["checkpoint_every"], fail_at=d["fail_at"], device=dev, log_every=100)
+    drill_s = time.perf_counter() - t0
+    init_fn, train_step = make_train_step(cfg, AdamWConfig(), device=dev)
+    model, opt_state = init_fn(0)
+    feed = CompressedFeed(zipf_token_stream(cfg.vocab_size, d["batch"], d["seq"], seed=2), device=dev).start()
+    try:
+        model, opt_state, _ = train_step(model, opt_state, feed.next_batch())
+    finally:
+        feed.stop()
+    tree = state_tree(model, opt_state)
+    save_checkpoint(str(root / "card"), 1, tree)
+    got = load_checkpoint(str(root / "card"), 1, device="cpu", like=state_like(model))
+    leaves_equal = all(torch.equal(a, b) for a, b in zip(tree_flatten(got), tree_flatten(tree)))
+    cpu_model, _ = make_train_step(cfg, AdamWConfig(), device="cpu")[0](7)
+    cpu_state = restore_state(cpu_model, load_checkpoint(str(root / "card"), 1, like=state_like(cpu_model)))
+    restored = (all(torch.equal(p.cpu(), q) for p, q in zip(model.parameters(), cpu_model.parameters()))
+                and int(cpu_state.step) == int(opt_state.step) == 1)
+    checks = {"restarts": run.restarts == 1, "final_step": run.final_step == d["steps"],
+              "losses_finite": all(math.isfinite(x) for x in run.losses),
+              "card_checkpoint_on_cpu": leaves_equal, "restored_on_cpu": restored}
+    out = {"phase": "train", "path": "fault_drill", "config": {**d, "d_model": cfg.d_model, "n_layers": cfg.n_layers},
+           "restarts": run.restarts, "final_step": run.final_step, "losses": run.losses,
+           "checks": checks, "drill_s": drill_s, "seconds": time.perf_counter() - t0}
+    emit(out)
+    shutil.rmtree(root, ignore_errors=True)
+    if not all(checks.values()):
+        raise AssertionError(f"the fault drill fails its checks: {checks}")
     return out
 
 
@@ -2462,6 +2914,15 @@ def main() -> int:
     for k, n in lm_launches.items():
         launches[k] += n
     emit({"phase": "lm", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    check_train_card_vs_cpu(dev)
+    check_train_feed(dev)
+    check_grad_codec(dev)
+    train_launches, train_times = run_train(dev, sleep_cycles_per_ms())
+    for k, n in train_launches.items():
+        launches[k] += n
+    run_train_drill(dev)
+    emit({"phase": "train", "seconds": time.perf_counter() - t0})
     missing = [k for k, n in launches.items() if n == 0 and k not in OFF_PATH + EVAL_ONLY]
     if missing:
         raise AssertionError(f"the main paths did not launch: {missing}")
@@ -2474,6 +2935,7 @@ def main() -> int:
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions at the main paths' shapes: {bad}")
     times.update(time_flash(dev, model, prompts, sleep_cycles_per_ms()))
+    times.update(train_times)
     for k in LM_KERNELS:
         err[k] = max(err[k], times[k]["max_abs_err"])
     del model, prompts
@@ -2490,7 +2952,8 @@ def main() -> int:
             "chain_steps": times[name]["chain_steps"],
             **{k: times[name][k] for k in ("never_converging_ms", "never_converging_serial_ms",
                                            "per_block_ms", "per_block_busy_ms", "route_ms",
-                                           "contract_route_ms") if k in times[name]},
+                                           "contract_route_ms", "lse_max_abs_err",
+                                           "plain_backward_ms") if k in times[name]},
         }
         for name, (src, replaces) in KERNELS.items()
     ]})

@@ -1,0 +1,7 @@
+"""Checkpointing (port of `repro/checkpoint`)."""
+from repro_torch.checkpoint.manager import (  # noqa: F401
+    CheckpointManager,
+    latest_step,
+    load_checkpoint,
+    save_checkpoint,
+)

@@ -41,6 +41,13 @@ def visible_devices(device: DeviceLike = None) -> List[torch.device]:
     return [torch.device(dev.type)]
 
 
+def synchronize(device: torch.device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU), before a
+    host clock is read."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
 def on_device(device: torch.device) -> ContextManager:
     """The context a mesh slot's launches run under: its card made current
     (kernels launch on the current device's stream), nothing on the CPU."""

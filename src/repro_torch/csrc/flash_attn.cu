@@ -85,8 +85,8 @@ __host__ __device__ __forceinline__ int smem_floats(int dh) {
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ o, int Sq, int Sk, int H, int K, int Dh, int window,
-                 int causal, float scale) {
+                 T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int K,
+                 int Dh, int window, int causal, float scale) {
   extern __shared__ float4 smem4[];
   const int dpad = round4(Dh);
   const int qk = dpad + 4;  // padded row: float4 reads of 4 rows hit 4 bank groups
@@ -261,6 +261,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     const int g = static_cast<int>(gr - pos * G);
     T* orow = o + ((b * Sq + pos) * H + kv * G + g) * static_cast<long long>(Dh);
     const float den = fmaxf(l[i], 1e-30f);
+    // the row's log-sum-exp for the backward, (B, H, Sq): one lane of its 8
+    if (lse != nullptr && tx == 0) lse[(b * H + kv * G + g) * Sq + pos] = m[i] + logf(den);
 #pragma unroll
     for (int jj = 0; jj < kAccPerRow / 4; ++jj) {
 #pragma unroll
@@ -273,8 +275,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 }
 
 template <typename T>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
-           int K, int Dh, int window, int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Sk,
+           int H, int K, int Dh, int window, int causal, float scale, cudaStream_t stream) {
   const size_t bytes = static_cast<size_t>(smem_floats(Dh)) * sizeof(float);
   cudaError_t err = repro::allow_smem(flash_fwd_kernel<T>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -282,7 +284,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   const dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows), K, B);
   flash_fwd_kernel<T><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), Sq, Sk, H, K, Dh, window, causal, scale);
+      static_cast<T*>(o), lse, Sq, Sk, H, K, Dh, window, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -290,12 +292,16 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 
 // q (B, Sq, H, Dh), k/v (B, Sk, K, Dh) -> o (B, Sq, H, Dh), contiguous, all
 // bf16 (is_bf16 = 1) or all f32. H % K == 0, 1 <= Dh <= 128, window <= 0
-// for none. The wrapper checks the shapes; Sq, Sk and B are >= 1.
-extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v, void* o, int B,
-                               int Sq, int Sk, int H, int K, int Dh, int window, int causal,
-                               int is_bf16, float scale, void* stream) {
+// for none. With a non-null `lse`, also each row's log-sum-exp m + log(max(l,
+// 1e-30)) as f32 (B, H, Sq); o is the same with or without it. The wrapper
+// checks the shapes; Sq, Sk and B are >= 1.
+extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
+                               int B, int Sq, int Sk, int H, int K, int Dh, int window,
+                               int causal, int is_bf16, float scale, void* stream) {
   if (Dh < 1 || Dh > kMaxDh || K < 1 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return is_bf16 ? launch<__nv_bfloat16>(q, k, v, o, B, Sq, Sk, H, K, Dh, window, causal, scale, s)
-                 : launch<float>(q, k, v, o, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
+  float* l = static_cast<float*>(lse);
+  return is_bf16
+             ? launch<__nv_bfloat16>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s)
+             : launch<float>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
 }

@@ -269,8 +269,9 @@ template <int NCHUNK>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
-                    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o, int B,
-                    int Sq, int Sk, int H, int K, int Dh, int window, int causal, float scale) {
+                    const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
+                    float* __restrict__ lse, int B, int Sq, int Sk, int H, int K, int Dh,
+                    int window, int causal, float scale) {
   constexpr int kTileBytes = NCHUNK * kChunkBytes;  // one 64-row tile of Dh columns
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -534,6 +535,18 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_k,
     l_b += __shfl_xor_sync(0xFFFFFFFFu, l_b, 1);
     l_b += __shfl_xor_sync(0xFFFFFFFFu, l_b, 2);
     const float inv_a = 1.f / fmaxf(l_a, 1e-30f), inv_b = 1.f / fmaxf(l_b, 1e-30f);
+    // each row's log-sum-exp for the backward, (B, H, Sq): one lane of its 4
+    if (lse != nullptr && (lane & 3) == 0) {
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int gr = wrow0 + warp * 16 + lane / 4 + 8 * half;
+        if (gr < rows_total) {
+          const int pos = gr / G, g = gr - pos * G;
+          lse[(static_cast<long long>(b) * H + kv * G + g) * Sq + pos] =
+              half ? m_b + logf(fmaxf(l_b, 1e-30f)) : m_a + logf(fmaxf(l_a, 1e-30f));
+        }
+      }
+    }
 
     // o = acc / max(l, 1e-30) (as acc times the reciprocal) in bf16, staged
     // in this warpgroup's Q tile (its last read by wgmma has completed),
@@ -609,8 +622,8 @@ int encode_kv(CUtensorMap* map, const void* ptr, int B, int Sk, int K, int Dh) {
 }
 
 template <int NCHUNK>
-int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, int Sk, int H,
-           int K, int Dh, int window, int causal, float scale, cudaStream_t stream) {
+int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Sk,
+           int H, int K, int Dh, int window, int causal, float scale, cudaStream_t stream) {
   CUtensorMap map_k, map_v;
   int err = encode_kv(&map_k, k, B, Sk, K, Dh);
   if (err == 0) err = encode_kv(&map_v, v, B, Sk, K, Dh);
@@ -621,8 +634,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
   const long long rows = static_cast<long long>(Sq) * (H / K);
   const dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows * B * K));
   flash_fwd_tc_kernel<NCHUNK><<<grid, kThreads, bytes, stream>>>(
-      map_k, map_v, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), B, Sq, Sk,
-      H, K, Dh, window, causal, scale);
+      map_k, map_v, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), lse, B, Sq,
+      Sk, H, K, Dh, window, causal, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -631,18 +644,21 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int Sq, 
 // q (B, Sq, H, Dh), k/v (B, Sk, K, Dh) -> o (B, Sq, H, Dh): contiguous bf16,
 // 16-byte aligned, H % K == 0, H / K <= 64, Sq * (H / K) < 2^31 - 128,
 // Dh % 16 == 0 and 16 <= Dh <= 128, window <= 0 for none; Sq, Sk and B >=
-// 1. The wrapper checks the shapes. Returns a cudaError_t, or 100000 + the
-// CUresult of a refused tensor map.
-extern "C" int repro_flash_fwd_tc(const void* q, const void* k, const void* v, void* o, int B,
-                                  int Sq, int Sk, int H, int K, int Dh, int window, int causal,
-                                  float scale, void* stream) {
+// 1. With a non-null `lse`, also each row's log-sum-exp m + log(max(l,
+// 1e-30)) as f32 (B, H, Sq); o is the same with or without it. The wrapper
+// checks the shapes. Returns a cudaError_t, or 100000 + the CUresult of a
+// refused tensor map.
+extern "C" int repro_flash_fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
+                                  int B, int Sq, int Sk, int H, int K, int Dh, int window,
+                                  int causal, float scale, void* stream) {
   if (Dh < 16 || Dh > 2 * kChunk || Dh % 16 != 0 || K < 1 || H % K != 0 || H / K > kMaxGroups ||
       static_cast<long long>(Sq) * (H / K) > kMaxRows ||
       (static_cast<long long>(Sq) * (H / K) + kRows - 1) / kRows * B * K > 0x7FFFFFFF)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return Dh <= kChunk ? launch<1>(q, k, v, o, B, Sq, Sk, H, K, Dh, window, causal, scale, s)
-                      : launch<2>(q, k, v, o, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
+  float* l = static_cast<float*>(lse);
+  return Dh <= kChunk ? launch<1>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s)
+                      : launch<2>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
 }
 
 // Dynamic shared memory a launch at head_dim `Dh` requests, in bytes.

@@ -11,6 +11,10 @@
     shapes outside that rule: scores, running max, sum, p and p@v in
     float32 on inputs converted to float32.
 
+Both also write, when given a float32 (B, H, Sq) `lse`, each query row's
+log-sum-exp m + log(max(l, 1e-30)), which the training backward reads
+(`models/layers.py: FlashAttention`); `out` is the same with or without it.
+
 `launch` and `launch_tc` run them on validated CUDA tensors;
 `ops.flash_attention_fwd` is the public wrapper and chooses between them by
 `kernel_for`, `ref.flash_reference` the plain version. Both keep the TPU
@@ -76,14 +80,19 @@ def flops(batch: int, seq_q: int, seq_k: int, heads: int, head_dim: int,
     return 4 * batch * heads * head_dim * pairs
 
 
+def _lse_ptr(lse: Optional[torch.Tensor]) -> Optional[int]:
+    return None if lse is None else lse.data_ptr()
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-           window: Optional[int], causal: bool) -> None:
+           window: Optional[int], causal: bool, lse: Optional[torch.Tensor] = None) -> None:
     """The FMA kernel. q (B, Sq, H, Dh), k/v (B, Sk, K, Dh), out like q:
-    contiguous, one dtype (bfloat16 or float32), on one CUDA device."""
+    contiguous, one dtype (bfloat16 or float32), on one CUDA device; with
+    `lse` (float32 (B, H, Sq)), each row's log-sum-exp too."""
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     err = build.library().repro_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kv, dh,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _lse_ptr(lse), b, sq, sk, h, kv, dh,
         0 if window is None else int(window), int(bool(causal)),
         int(q.dtype == torch.bfloat16), scale(dh),
         torch.cuda.current_stream(q.device).cuda_stream,
@@ -92,14 +101,14 @@ def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
 
 
 def launch_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-              window: Optional[int], causal: bool) -> None:
+              window: Optional[int], causal: bool, lse: Optional[torch.Tensor] = None) -> None:
     """The tensor-core kernel. As `launch`, for inputs `kernel_for` sends
     to it (bfloat16). Raises if the launch or a tensor map is refused
     (codes from 100000 up carry the tensor-map encoder's CUresult)."""
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     err = build.library().repro_flash_fwd_tc(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, sk, h, kv, dh,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _lse_ptr(lse), b, sq, sk, h, kv, dh,
         0 if window is None else int(window), int(bool(causal)), scale(dh),
         torch.cuda.current_stream(q.device).cuda_stream,
     )

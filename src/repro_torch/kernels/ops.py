@@ -546,18 +546,19 @@ def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 
 def _flash_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  window: Optional[int], causal: bool) -> torch.Tensor:
+                  window: Optional[int], causal: bool, lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Launch `kernel` and count the launch on the wrapper of its form:
+    the kernel's own without `lse`, its lse form's (`_LSE_FORM`) with it."""
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
     if k.shape[1] == 0:
+        if lse is not None:
+            lse.fill_(-float("inf"))
         return out.zero_()
-    if kernel == flash_attn.TENSOR_CORE:
-        flash_attn.launch_tc(q, k, v, out, window, causal)
-        flash_attention_fwd_tc.launches += 1
-    else:
-        flash_attn.launch(q, k, v, out, window, causal)
-        flash_attention_fwd.launches += 1
+    launch = flash_attn.launch_tc if kernel == flash_attn.TENSOR_CORE else flash_attn.launch
+    launch(q, k, v, out, window, causal, lse)
+    WRAPPERS[kernel if lse is None else _LSE_FORM[kernel]].launches += 1
     return out
 
 
@@ -577,6 +578,41 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == "cpu":
         return ref.flash_reference(q, k, v, window, causal)
     return _flash_launch(_flash_kernel(q, k, v), q, k, v, window, causal)
+
+
+def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                            window: Optional[int] = None, causal: bool = True):
+    """`flash_attention_fwd` that also returns each query row's log-sum-exp
+    of its scaled, masked scores: (out (B, Sq, H, Dh) in q's dtype, lse
+    float32 (B, H, Sq)), the training forward's residual (the reference's
+    `_flash_core_fwd`). The same kernel as `flash_attention_fwd` runs, by
+    `flash_attn.kernel_for`, writing lse beside out; out is bit for bit
+    what `flash_attention_fwd` gives. The tensor-core kernel's launches in
+    this form are counted here, the FMA kernel's on
+    `flash_attention_fwd_lse_fma`."""
+    _check_flash(q, k, v, window)
+    if q.device.type == "cpu":
+        return ref.flash_reference_lse(q, k, v, window, causal)
+    return _flash_lse_launch(_flash_kernel(q, k, v), q, k, v, window, causal)
+
+
+def flash_attention_fwd_lse_fma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                window: Optional[int] = None, causal: bool = True):
+    """`flash_attention_fwd_lse` on the FMA kernel alone, whatever
+    `flash_attn.kernel_for` would pick (the float32 training forward's
+    kernel). On CPU tensors, the plain version."""
+    _check_flash(q, k, v, window)
+    if q.device.type == "cpu":
+        return ref.flash_reference_lse(q, k, v, window, causal)
+    return _flash_lse_launch(flash_attn.FMA, q, k, v, window, causal)
+
+
+def _flash_lse_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      window: Optional[int], causal: bool):
+    """(out, lse float32 (B, H, Sq)) from `kernel`."""
+    b, sq, h, _ = q.shape
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    return _flash_launch(kernel, q, k, v, window, causal, lse), lse
 
 
 def flash_attention_fwd_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -616,7 +652,11 @@ WRAPPERS = {
     "adpcm_lane_decode_serial": adpcm_lane_decode_serial,
     "flash_attention_fwd": flash_attention_fwd,
     "flash_attention_fwd_tc": flash_attention_fwd_tc,
+    "flash_attention_fwd_lse": flash_attention_fwd_lse,
+    "flash_attention_fwd_lse_fma": flash_attention_fwd_lse_fma,
 }
+#: B10's kernels -> the wrapper that counts their launches in the lse form
+_LSE_FORM = {flash_attn.TENSOR_CORE: "flash_attention_fwd_lse", flash_attn.FMA: "flash_attention_fwd_lse_fma"}
 for _fn in WRAPPERS.values():
     _fn.launches = 0
 
@@ -644,6 +684,8 @@ __all__ = [
     "dict_chunk_encode",
     "dict_probe",
     "flash_attention_fwd",
+    "flash_attention_fwd_lse",
+    "flash_attention_fwd_lse_fma",
     "flash_attention_fwd_tc",
     "launch_counts",
     "pack_blocks",

@@ -329,13 +329,10 @@ def adpcm_lane_decode_ref(codes: torch.Tensor, xhat: torch.Tensor, init: torch.T
     return values.reshape(lanes, c, b).permute(1, 0, 2).contiguous(), xhat, torch.ones_like(init)
 
 
-def flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: Optional[int] = None, causal: bool = True) -> torch.Tensor:
-    """Dense GQA attention, q (B, Sq, H, Dh) against k/v (B, Sk, K, Dh) at
-    positions arange(Sq) x arange(Sk): softmax over the scores in float32 on
-    inputs converted to float32, masked scores at -1e30, the output in q's
-    dtype. Query head h reads kv head h // (H/K) (the reference's
-    `jnp.repeat(k, G, axis=2)`)."""
+def _dense_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  window: Optional[int], causal: bool):
+    """(masked scaled float32 scores (B, H, Sq, Sk), v float32 grouped to H
+    heads) of `flash_reference`."""
     b, sq, h, dh = q.shape
     sk, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -350,5 +347,26 @@ def flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if window is not None:
         mask &= kpos > qpos - window
     s.masked_fill_(~mask, -1e30)
+    return s, vv
+
+
+def flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    window: Optional[int] = None, causal: bool = True) -> torch.Tensor:
+    """Dense GQA attention, q (B, Sq, H, Dh) against k/v (B, Sk, K, Dh) at
+    positions arange(Sq) x arange(Sk): softmax over the scores in float32 on
+    inputs converted to float32, masked scores at -1e30, the output in q's
+    dtype. Query head h reads kv head h // (H/K) (the reference's
+    `jnp.repeat(k, G, axis=2)`)."""
+    s, vv = _dense_scores(q, k, v, window, causal)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
+
+
+def flash_reference_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        window: Optional[int] = None, causal: bool = True):
+    """`flash_reference` and each query row's log-sum-exp of its scaled,
+    masked scores, float32 (B, H, Sq): (out, lse), the plain version of
+    `ops.flash_attention_fwd_lse`."""
+    s, vv = _dense_scores(q, k, v, window, causal)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype), torch.logsumexp(s, dim=-1)

@@ -23,7 +23,7 @@ import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.core import kvcache
-from repro_torch.core.device import resolve_device
+from repro_torch.core.device import resolve_device, synchronize
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import params_from_numpy
@@ -43,11 +43,6 @@ class ServeRun:
     #: cache after the last decode step (port-only, for parity checks)
     prefill_logits: Optional[torch.Tensor] = None
     cache: Optional[Dict[str, Any]] = None
-
-
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
 
 
 def serve(
@@ -85,10 +80,10 @@ def serve(
     prompts = prompts.to(device=device, dtype=torch.int32)
 
     with torch.inference_mode():
-        _sync(device)
+        synchronize(device)
         t0 = time.perf_counter()
         cache, logits = prefill_step(model, prompts)
-        _sync(device)
+        synchronize(device)
         prefill_s = time.perf_counter() - t0
 
         tok = torch.argmax(logits, dim=-1).to(torch.int32)  # (B, 1)
@@ -97,7 +92,7 @@ def serve(
         for _ in range(gen - 1):
             cache, tok = serve_step(model, cache, tok)
             out.append(tok)
-        _sync(device)
+        synchronize(device)
         decode_s = time.perf_counter() - t1
         toks = torch.cat(out, dim=1).cpu().numpy()
 

@@ -6,9 +6,15 @@ and so on; the modules of `models/transformer.py` pass their own
 parameters) and keep its weight layout, `x @ w` with `w` of shape
 (d_in, d_out), and its casts, so that parameters carry across unchanged.
 
-Two attentions:
-  * `attention_prefill` (the reference's `attention_train`: a whole
-    sequence, here the prompt) calls kernel B10 through
+Three attentions:
+  * `attention_train` (the reference's, a whole sequence with gradients)
+    runs `FlashAttention`: kernel B10 forward in the form that also writes
+    each row's log-sum-exp (`ops.flash_attention_fwd_lse`), and the port of
+    the reference's hand-derived backward (`_flash_core_bwd`) in plain
+    torch, blockwise over KV blocks, with the scores recomputed in float32
+    (ROADMAP C5's training half);
+  * `attention_prefill` (the reference's `attention_train` on a prompt,
+    with the k/v the decode cache keeps) calls kernel B10 through
     `ops.flash_attention_fwd`: float32 scores (bf16 inputs' products are
     exact in float32), float32 softmax, and p@v in float32, or on bf16
     inputs as three bf16 products of p split as p_hi + p_mid + p_lo (p to
@@ -202,3 +208,103 @@ def attention_prefill(params: Mapping[str, torch.Tensor], cfg, x: torch.Tensor,
     out = ops.flash_attention_fwd(q, k, v, window=window, causal=True)
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"], k, v
 
+
+
+# ------------------------------------------------------- training attention --
+def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
+                   lse: torch.Tensor, dout: torch.Tensor, window: Optional[int], causal: bool,
+                   kv_block: int = KV_BLOCK):
+    """The reference's hand-derived flash backward (`_flash_core_bwd`) at
+    positions arange(Sq) x arange(Sk): q (B, Sq, H, Dh), k/v (B, Sk, K, Dh),
+    out (B, Sq, H, Dh) and dout like q, lse float32 (B, H, Sq). Returns (dq,
+    dk, dv) in the inputs' dtypes.
+
+    D = rowsum(dout * out) in float32; per KV block of `kv_block` keys (the
+    keys padded to a whole block), p = exp(s - lse) recomputed from the
+    scores, dv += p^T dout, dp = dout v^T, ds = p * (dp - D) * scale,
+    dq += ds k (float32), dk += ds^T q; the block products in the input
+    dtype, as the reference's. One difference: the recomputed scores are
+    float32 products of the inputs (the reference's are the input dtype's),
+    so that in bf16 p is the p that B10's float32 forward normalised
+    (ROADMAP C5); in float32 the two are the same."""
+    b, sq, h, dh = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    g = h // kh
+    c = min(kv_block, sk)
+    n = (sk + c - 1) // c
+    pad = n * c - sk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    dev = q.device
+    positions = torch.arange(sq, device=dev)[None]
+    kv_pos = torch.arange(n * c, device=dev)[None]
+    kv_valid = kv_pos < sk
+    scale = float(_score_scale(dh))
+
+    def grouped(t: torch.Tensor) -> torch.Tensor:  # (B, S, H, Dh) -> (B, K, G, S, Dh)
+        return t.transpose(1, 2).reshape(b, kh, g, t.shape[1], dh)
+
+    do = grouped(dout)
+    d_sum = torch.sum(do.to(torch.float32) * grouped(out).to(torch.float32), dim=-1)
+    q_ = grouped(q)
+    q32 = q_.to(torch.float32)
+    do_c = do.to(q.dtype)
+    lse_ = lse.reshape(b, kh, g, sq)[..., None]
+    dq = torch.zeros((b, kh, g, sq, dh), dtype=torch.float32, device=dev)
+    dk = torch.empty((b, kh, n * c, dh), dtype=k.dtype, device=dev)
+    dv = torch.empty((b, kh, n * c, dh), dtype=v.dtype, device=dev)
+    for j in range(n):
+        blk = slice(j * c, (j + 1) * c)
+        k_blk = k[:, blk].transpose(1, 2)  # (B, K, C, Dh)
+        v_blk = v[:, blk].transpose(1, 2)
+        mask = _block_mask(positions, kv_pos[:, blk], kv_valid[:, blk], causal, window)
+        s = torch.einsum("bkgsd,bkcd->bkgsc", q32, k_blk.to(torch.float32)) * scale
+        s = torch.where(mask[:, None, None], s, torch.full_like(s, -float("inf")))
+        p = torch.exp(s - lse_)  # masked -> exp(-inf) = 0
+        del s
+        dv[:, :, blk] = torch.einsum("bkgsc,bkgsd->bkcd", p.to(v.dtype), do_c)
+        dp = torch.einsum("bkgsd,bkcd->bkgsc", do_c, v_blk).to(torch.float32)
+        ds = (p * (dp - d_sum[..., None]) * scale).to(q.dtype)
+        del p, dp
+        dq += torch.einsum("bkgsc,bkcd->bkgsd", ds, k_blk).to(torch.float32)
+        dk[:, :, blk] = torch.einsum("bkgsc,bkgsd->bkcd", ds, q_)
+    dq = dq.reshape(b, h, sq, dh).transpose(1, 2).to(q.dtype)
+    dk = dk[:, :, :sk].transpose(1, 2).contiguous()
+    dv = dv[:, :, :sk].transpose(1, 2).contiguous()
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Causal (optionally windowed) GQA attention at positions arange(S)
+    with gradients: forward on kernel B10 with its log-sum-exp
+    (`ops.flash_attention_fwd_lse`; its plain version on CPU tensors),
+    saving (q, k, v, out, lse); backward `flash_backward` (the reference's
+    `_flash_core` custom VJP). B10 has no backward kernel (ROADMAP B lists
+    one as a candidate)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window: Optional[int], causal: bool):
+        q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+        out, lse = ops.flash_attention_fwd_lse(q, k, v, window=window, causal=causal)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.window, ctx.causal = window, causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, ctx.window, ctx.causal)
+        return dq, dk, dv, None, None
+
+
+def attention_train(params: Mapping[str, torch.Tensor], cfg, x: torch.Tensor,
+                    window: Optional[int] = None) -> torch.Tensor:
+    """Causal self-attention over a whole sequence (B, S, D) at positions
+    arange(S), differentiable: (B, S, D). Forward on kernel B10."""
+    check_softcap(cfg)
+    b, s, _ = x.shape
+    positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
+    q, k, v = attention_qkv(params, cfg, x, positions)
+    out = FlashAttention.apply(q, k, v, window, True)
+    return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"]

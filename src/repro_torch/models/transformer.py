@@ -6,28 +6,36 @@ tied, and a `DenseBlock` per layer (`Attention`, `SwiGLU` and two norms).
 Parameters keep the reference's names and layout (`x @ w` with `w` of
 shape (d_in, d_out), norm gammas as offsets from 1), so the reference's
 parameter tree carries across without transposes (`models/convert.py`).
-They are held in `cfg.dtype` only: the reference keeps float32 master
-weights and casts them to `cfg.dtype` at every call, which computes the
-same thing.
 
-The serving API of the reference: `init_params`, `forward`,
-`init_decode_cache`, `prefill` (writes the ring cache, NUQ-quantized by
-default) and `decode_step`. Prefill attention runs kernel B10
-(`ops.flash_attention_fwd`); the decode reads the quantized ring in plain
-torch (`core/kvcache.py`). The cache is a dict of tensors updated in place,
-with `pos` a Python int. The `moe`, `hybrid` and `ssm` families and
-embedding front ends raise NotImplementedError naming ROADMAP A10; training
-(`loss_fn`, the backward pass) is not ported yet (ROADMAP A10).
-`models/partition.py` has no counterpart: its sharding hints are the
+Two storages, one set of modules, chosen by `Transformer(cfg, device,
+param_dtype=...)`:
+  * serving (`param_dtype=None`): parameters in `cfg.dtype`, without
+    gradients;
+  * training (`param_dtype=cfg.param_dtype`, float32): master parameters
+    with `requires_grad=True`, cast to `cfg.dtype` at every use, as the
+    reference's `_cast` does (`params()`, `p()`).
+
+The API of the reference: `init_params`, `forward` (each `DenseBlock`
+through `layers.attention_train`, kernel B10 with its log-sum-exp and the
+flash backward, under `torch.utils.checkpoint` when `cfg.remat == "full"`),
+`loss_fn`, and for serving `init_decode_cache`, `prefill` (writes the ring
+cache, NUQ-quantized by default) and `decode_step`. Prefill attention runs
+kernel B10 (`ops.flash_attention_fwd`); the decode reads the quantized
+ring in plain torch (`core/kvcache.py`). The cache is a dict of tensors
+updated in place, with `pos` a Python int. The `moe`, `hybrid` and `ssm`
+families and embedding front ends raise NotImplementedError naming ROADMAP
+A10. `models/partition.py` has no counterpart: its sharding hints are the
 identity without a mesh.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import kvcache
 from repro_torch.core.device import resolve_device
@@ -56,42 +64,64 @@ def check_supported(cfg: ModelConfig) -> None:
     layers.check_softcap(cfg)
 
 
+@dataclasses.dataclass(frozen=True)
+class Storage:
+    """Where and how a model's parameters are held: `param` dtype on
+    `device`, with gradients when `train`; functions compute in
+    `compute` (cfg.dtype)."""
+
+    compute: torch.dtype
+    param: torch.dtype
+    device: torch.device
+    train: bool
+
+
 class _Params(nn.Module):
     """A module whose own parameters carry the reference's names; `params()`
-    maps them for the functions of `models/layers.py`."""
+    maps them, in the compute dtype, for the functions of
+    `models/layers.py`."""
 
-    def _add(self, name: str, shape, dtype, device) -> None:
-        self.register_parameter(
-            name, nn.Parameter(torch.zeros(shape, dtype=dtype, device=device), requires_grad=False)
-        )
+    def __init__(self, store: Storage):
+        super().__init__()
+        self._store = store
+
+    def _add(self, name: str, shape) -> None:
+        st = self._store
+        self.register_parameter(name, nn.Parameter(
+            torch.zeros(shape, dtype=st.param, device=st.device), requires_grad=st.train))
+
+    def p(self, name: str) -> torch.Tensor:
+        """Parameter `name` in the compute dtype (itself when it is held so)."""
+        t = getattr(self, name)
+        return t if t.dtype == self._store.compute else t.to(self._store.compute)
 
     def params(self) -> Dict[str, torch.Tensor]:
-        return dict(self.named_parameters(recurse=False))
+        return {name: self.p(name) for name, _ in self.named_parameters(recurse=False)}
 
 
 class Attention(_Params):
     """GQA projections (`wq`, `wk`, `wv`, `wo`) and qwen3's `q_norm`/`k_norm`."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
-        super().__init__()
+    def __init__(self, cfg: ModelConfig, store: Storage):
+        super().__init__(store)
         d, h, kh, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-        self._add("wq", (d, h * dh), dtype, device)
-        self._add("wk", (d, kh * dh), dtype, device)
-        self._add("wv", (d, kh * dh), dtype, device)
-        self._add("wo", (h * dh, d), dtype, device)
+        self._add("wq", (d, h * dh))
+        self._add("wk", (d, kh * dh))
+        self._add("wv", (d, kh * dh))
+        self._add("wo", (h * dh, d))
         if cfg.qk_norm:
-            self._add("q_norm", (dh,), dtype, device)
-            self._add("k_norm", (dh,), dtype, device)
+            self._add("q_norm", (dh,))
+            self._add("k_norm", (dh,))
 
 
 class SwiGLU(_Params):
     """`w_gate`, `w_up` (d_model, d_ff) and `w_down` (d_ff, d_model)."""
 
-    def __init__(self, d_model: int, d_ff: int, dtype, device):
-        super().__init__()
-        self._add("w_gate", (d_model, d_ff), dtype, device)
-        self._add("w_up", (d_model, d_ff), dtype, device)
-        self._add("w_down", (d_ff, d_model), dtype, device)
+    def __init__(self, d_model: int, d_ff: int, store: Storage):
+        super().__init__(store)
+        self._add("w_gate", (d_model, d_ff))
+        self._add("w_up", (d_model, d_ff))
+        self._add("w_down", (d_ff, d_model))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return layers.swiglu(self.params(), x)
@@ -100,57 +130,75 @@ class SwiGLU(_Params):
 class DenseBlock(_Params):
     """Pre-norm attention and SwiGLU with residuals."""
 
-    def __init__(self, cfg: ModelConfig, dtype, device):
-        super().__init__()
-        self._add("attn_norm", (cfg.d_model,), dtype, device)
-        self._add("ffn_norm", (cfg.d_model,), dtype, device)
-        self.attn = Attention(cfg, dtype, device)
-        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, dtype, device)
+    def __init__(self, cfg: ModelConfig, store: Storage):
+        super().__init__(store)
+        self._add("attn_norm", (cfg.d_model,))
+        self._add("ffn_norm", (cfg.d_model,))
+        self.attn = Attention(cfg, store)
+        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, store)
+
+    def forward(self, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+        """The training block (the reference's `_dense_block`), (B, S, D):
+        attention through `layers.attention_train`."""
+        h = x + layers.attention_train(self.attn.params(), cfg, layers.rms_norm(x, self.p("attn_norm")),
+                                       window=cfg.swa_window)
+        return h + self.ffn(layers.rms_norm(h, self.p("ffn_norm")))
 
     def prefill(self, cfg: ModelConfig, x: torch.Tensor):
         """(x out, k, v) over a whole prompt (B, S, D); attention on B10."""
         a, k, v = layers.attention_prefill(
-            self.attn.params(), cfg, layers.rms_norm(x, self.attn_norm), window=cfg.swa_window
+            self.attn.params(), cfg, layers.rms_norm(x, self.p("attn_norm")), window=cfg.swa_window
         )
         h = x + a
-        return h + self.ffn(layers.rms_norm(h, self.ffn_norm)), k, v
+        return h + self.ffn(layers.rms_norm(h, self.p("ffn_norm"))), k, v
 
 
 class Transformer(_Params):
     """The dense decoder: `embed` (padded_vocab, d_model), `final_norm`,
-    `head` (d_model, padded_vocab) unless tied, `layers`."""
+    `head` (d_model, padded_vocab) unless tied, `layers`. `param_dtype`
+    None serves (parameters in `cfg.dtype`, no gradients); a dtype name
+    (`cfg.param_dtype` to train) holds master parameters in it with
+    gradients, cast to `cfg.dtype` at every use."""
 
-    def __init__(self, cfg: ModelConfig, device: Device = None):
-        super().__init__()
+    def __init__(self, cfg: ModelConfig, device: Device = None, param_dtype: Optional[str] = None):
         check_supported(cfg)
-        device = resolve_device(device)
-        dtype = dtype_of(cfg)
+        compute = dtype_of(cfg)
+        store = Storage(compute, compute if param_dtype is None else getattr(torch, param_dtype),
+                        resolve_device(device), param_dtype is not None)
+        super().__init__(store)
         self.cfg = cfg
-        self._add("embed", (cfg.padded_vocab, cfg.d_model), dtype, device)
-        self._add("final_norm", (cfg.d_model,), dtype, device)
+        self._add("embed", (cfg.padded_vocab, cfg.d_model))
+        self._add("final_norm", (cfg.d_model,))
         if not cfg.tie_embeddings:
-            self._add("head", (cfg.d_model, cfg.padded_vocab), dtype, device)
-        self.layers = nn.ModuleList(DenseBlock(cfg, dtype, device) for _ in range(cfg.n_layers))
+            self._add("head", (cfg.d_model, cfg.padded_vocab))
+        self.layers = nn.ModuleList(DenseBlock(cfg, store) for _ in range(cfg.n_layers))
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
+    def embedding(self, inputs: torch.Tensor) -> torch.Tensor:
+        """Rows of the embedding for int tokens, in the compute dtype."""
+        x = self.embed[inputs.long()]
+        return x if x.dtype == self._store.compute else x.to(self._store.compute)
+
     def head_weight(self) -> torch.Tensor:
-        return self.embed.t() if self.cfg.tie_embeddings else self.head
+        return self.p("embed").t() if self.cfg.tie_embeddings else self.p("head")
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
-        x = layers.rms_norm(x, self.final_norm)
+        x = layers.rms_norm(x, self.p("final_norm"))
         return x @ self.head_weight()
 
 
 # =============================================================== init =====
-def init_params(cfg: ModelConfig, seed: int = 0, device: Device = None) -> Transformer:
-    """A `Transformer` with the reference's initial distributions (not its
-    numbers): embedding N(0, 1) / sqrt(d_model), dense weights N(0, 1) /
-    sqrt(d_in), norms 0; drawn in float32 from a `torch.Generator` on the
-    device seeded with `seed`, then cast to `cfg.dtype`."""
-    model = Transformer(cfg, device)
+def init_params(cfg: ModelConfig, seed: int = 0, device: Device = None,
+                param_dtype: Optional[str] = None) -> Transformer:
+    """A `Transformer` (`param_dtype` as there) with the reference's initial
+    distributions (not its numbers): embedding N(0, 1) / sqrt(d_model),
+    dense weights N(0, 1) / sqrt(d_in), norms 0; drawn in float32 from a
+    `torch.Generator` on the device seeded with `seed`, then held in the
+    storage dtype."""
+    model = Transformer(cfg, device, param_dtype)
     gen = torch.Generator(device=model.device).manual_seed(seed)
 
     def normal_(p: torch.Tensor, scale: float) -> None:
@@ -169,11 +217,30 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = None) -> Trans
 # ============================================================ forward =====
 def forward(model: Transformer, cfg: ModelConfig, inputs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """inputs int tokens (B, S) at positions arange(S) -> (logits (B, S, V),
-    aux loss 0.0)."""
-    x = model.embed[inputs.long()]
+    aux loss 0.0). Each block runs under `torch.utils.checkpoint` (its
+    activations recomputed in the backward, B10 launched again) when
+    `cfg.remat == "full"` and gradients are on."""
+    x = model.embedding(inputs)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     for blk in model.layers:
-        x, _, _ = blk.prefill(cfg, x)
+        x = checkpoint(blk, cfg, x, use_reentrant=False) if remat else blk(cfg, x)
     return model.logits(x), torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+# =============================================================== loss =====
+def loss_fn(model: Transformer, cfg: ModelConfig, batch: Dict[str, torch.Tensor],
+            aux_weight: float = 0.01):
+    """Mean next-token cross-entropy over the (optionally masked) labels,
+    from float32 log-softmax of the logits: (ce + aux_weight * aux,
+    {"ce", "aux"})."""
+    logits, aux = forward(model, cfg, batch["inputs"])
+    labels = batch["labels"].long()
+    logp = torch.log_softmax(logits.to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels[..., None])[..., 0]
+    mask = batch.get("mask")
+    mask = torch.ones_like(nll) if mask is None else mask.to(torch.float32)
+    ce = torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    return ce + aux_weight * aux, {"ce": ce, "aux": aux}
 
 
 # ============================================================= decode =====
@@ -275,12 +342,12 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: Dict[str, Any],
     """One autoregressive step of int tokens (B, 1): (cache, logits (B, 1,
     V)). The cache's tensors are updated in place and `pos` advances."""
     pos = cache["pos"]
-    x = model.embed[inputs_t.long()]
+    x = model.embedding(inputs_t)
     for i, blk in enumerate(model.layers):
-        a = _decode_attend(blk.attn.params(), cfg, layers.rms_norm(x, blk.attn_norm),
+        a = _decode_attend(blk.attn.params(), cfg, layers.rms_norm(x, blk.p("attn_norm")),
                            layer_view(cache, i), pos, cfg.swa_window)
         h = x + a
-        x = h + blk.ffn(layers.rms_norm(h, blk.ffn_norm))
+        x = h + blk.ffn(layers.rms_norm(h, blk.p("ffn_norm")))
     cache["pos"] = pos + 1
     return cache, model.logits(x)
 
@@ -293,7 +360,7 @@ def prefill(model: Transformer, cfg: ModelConfig, inputs: torch.Tensor,
     position (B, 1, V))."""
     b, s = inputs.shape
     cache = init_decode_cache(cfg, b, max(cache_seq_len or s, s), model.device)
-    x = model.embed[inputs.long()]
+    x = model.embedding(inputs)
     for i, blk in enumerate(model.layers):
         x, k, v = blk.prefill(cfg, x)
         store_kv(cfg, layer_view(cache, i), k, v)

@@ -260,6 +260,10 @@ def test_wrappers_check_inputs_and_do_not_count_cpu_calls():
                             torch.zeros((1, 8, 2, 16)))
     ops.flash_attention_fwd_tc(*(torch.zeros(s, dtype=torch.bfloat16)
                                  for s in ((1, 8, 4, 16), (1, 8, 2, 16), (1, 8, 2, 16))))
+    ops.flash_attention_fwd_lse(torch.zeros((1, 8, 4, 16)), torch.zeros((1, 8, 2, 16)),
+                                torch.zeros((1, 8, 2, 16)))
+    ops.flash_attention_fwd_lse_fma(torch.zeros((1, 8, 4, 16)), torch.zeros((1, 8, 2, 16)),
+                                    torch.zeros((1, 8, 2, 16)))
     assert ops.launch_counts() == {
         "pack_blocks": 0, "pack_blocks_meta7": 0, "unpack_blocks": 0, "compact_blocks": 0,
         "pack_meta7_blocks": 0, "dict_probe": 0, "dict_chunk_encode": 0, "dict_chunk_decode": 0,
@@ -267,7 +271,8 @@ def test_wrappers_check_inputs_and_do_not_count_cpu_calls():
         "adpcm_encode": 0,
         "adpcm_decode": 0, "adpcm_lane_encode": 0, "adpcm_lane_encode_serial": 0,
         "adpcm_lane_decode": 0, "adpcm_lane_decode_serial": 0,
-        "flash_attention_fwd": 0, "flash_attention_fwd_tc": 0,
+        "flash_attention_fwd": 0, "flash_attention_fwd_tc": 0, "flash_attention_fwd_lse": 0,
+        "flash_attention_fwd_lse_fma": 0,
     }
 
 
