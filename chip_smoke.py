@@ -162,7 +162,15 @@ Phases, each printing one line per check:
                128, bf16), float32 at a smaller shape, windows whose late
                rows have fully masked leading tiles, ragged Sq and Sk (Sk <
                Sq and Sk > Sq), G 1, 2, 4 and 16 (MQA), Dh 16 to 128, a
-               non-causal case, and bf16 at Dh 40 (the FMA kernel).
+               non-causal case, bf16 at Dh 40 (the FMA kernel), and the
+               moe phase's shapes (`MOE_FLASH_CASES`, each of which must run
+               on the tensor-core kernel): qwen3-moe-30b-a3b's prefill (4 x
+               2,048, 32 query heads over 4), a 4,096 window over 8,192
+               positions at mixtral-8x7b's G 4, deepseek-coder-33b's G 7
+               (56 over 8) at 1 x 512, and the dense configs' prefills of
+               the moe phase, 4 x 2,048 each: deepseek-coder-33b's G 7,
+               mistral-nemo-12b's G 4 (32 over 8) and phi4-mini-3.8b's G 3
+               (24 over 8).
                Tolerance: float32 2e-4 (the reference test's rtol and atol);
                bf16 output one bf16 step, |d| <= 2^-7 |plain| + 1e-6
                elementwise. For the tensor-core cases the line also counts
@@ -227,7 +235,27 @@ Phases, each printing one line per check:
                tensor-core kernel's in bf16 beside torch's
                `_scaled_dot_product_flash_attention` (out and lse) and the
                plain flash backward's time, the FMA kernel's in float32
-               beside `_scaled_dot_product_efficient_attention`.
+               beside `_scaled_dot_product_efficient_attention`;
+  12. moe    — the moe family and the remaining dense configs, on a card
+               the earlier phases' models have left (< 2 GB allocated),
+               TF32 off: one MoEFFN at qwen3-moe-30b-a3b's full width
+               (128 experts, top-8) on 2 x 512 tokens on the card and the
+               CPU, float32 and bf16 (`sel` agreement, (expert, slot)
+               pairs, drops, y on the agreeing tokens; MOE_CHECK); each of
+               qwen3-moe-30b-a3b, mixtral-8x7b, deepseek-coder-33b,
+               mistral-nemo-12b and phi4-mini-3.8b served at full width and
+               2 layers on the card and the CPU (LM_CHECK's fields and
+               limits; the moe configs' cache codes over the slots fed the
+               same tokens, MOE_CHECK); qwen3-moe-30b-a3b at full width and all 48 layers
+               (4 x 2,048 + 32) and mixtral-8x7b at full width cut to 8 of
+               its 32 layers (1 x 8,192 + 32, twice its window), each as
+               the lm path (launches: B10's tensor-core kernel once a
+               layer, its FMA kernel never; busy shares, host ops per
+               step), the dropped pairs per layer of one more prefill, and
+               for mixtral the ring (the last 4,096 positions stored, each
+               decode step overwriting the oldest slot); then each dense
+               config at full width and all its layers, 4 x 2,048 + 8, as
+               the lm path.
 Then one JSON line of per-kernel numbers, the card's name and power limit as
 nvidia-smi reports them, and a last JSON line with the device.
 
@@ -239,6 +267,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import json
 import math
 import shutil
@@ -247,6 +276,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 import torch
@@ -259,13 +289,15 @@ from repro_torch.core import bits, dictstore  # noqa: E402
 from repro_torch.core.algorithms import WIRE_CODEC_NAMES, make_codec  # noqa: E402
 from repro_torch.core.pipeline import CompressionPipeline, DecompressionPipeline  # noqa: E402
 from repro_torch.data import make_dataset  # noqa: E402
-from repro_torch.core import engine, entropy  # noqa: E402
+from repro_torch.core import engine, entropy, kvcache  # noqa: E402
 from repro_torch.runtime.elastic import ElasticSession  # noqa: E402
 from repro_torch.runtime.fault import DeviceLossInjector  # noqa: E402
 from repro_torch.kernels import build, delta_nuq, flash_attn, ops, rans, ref  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.launch.serve import serve  # noqa: E402
-from repro_torch.models import layers  # noqa: E402
+from repro_torch.models import layers, moe  # noqa: E402
+from repro_torch.models.moe import MoEFFN  # noqa: E402
+from repro_torch.models.params import Storage  # noqa: E402
 from repro_torch.models.convert import params_to_numpy  # noqa: E402
 from repro_torch.models.transformer import _round_window, decode_step, init_params, loss_fn, prefill  # noqa: E402
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
@@ -400,6 +432,22 @@ FLASH_CASES = (
     (1, 190, 190, 4, 2, 128, None, False, torch.bfloat16),  # not causal
     (1, 200, 200, 4, 2, 40, None, True, torch.bfloat16),  # Dh 40: the FMA kernel in bf16
 )
+#: the moe phase's prefill shapes, each of which must run on the tensor-core
+#: kernel: qwen3-moe-30b-a3b's (G 8); a 4,096 window over twice its length
+#: at mixtral-8x7b's G 4 (8 of its 32 heads, so that the plain version's
+#: dense float32 scores stay ~2 GB); deepseek-coder-33b's G 7; and the
+#: dense configs' prefills of the moe phase at their own shapes:
+#: deepseek-coder-33b's G 7, mistral-nemo-12b's G 4 and phi4-mini-3.8b's G 3
+#: (the plain version's scores 3.8, 2.1 and 1.6 GB)
+MOE_FLASH_CASES = (
+    (4, 2048, 2048, 32, 4, 128, None, True, torch.bfloat16),
+    (1, 8192, 8192, 8, 2, 128, 4096, True, torch.bfloat16),
+    (1, 512, 512, 56, 8, 128, None, True, torch.bfloat16),
+    (4, 2048, 2048, 56, 8, 128, None, True, torch.bfloat16),
+    (4, 2048, 2048, 32, 8, 128, None, True, torch.bfloat16),
+    (4, 2048, 2048, 24, 8, 128, None, True, torch.bfloat16),
+)
+FLASH_CASES += MOE_FLASH_CASES
 FLASH_F32_TOL = 2e-4
 #: B10's log-sum-exp against its plain version's (`torch.logsumexp` of the
 #: dense float32 scores): |d| <= 1e-4 + 1e-5 |plain|. Both are float32 sums
@@ -1485,6 +1533,8 @@ def check_flash(dev) -> dict:
         ok, tol = flash_within(got, want)
         finite = bool(torch.isfinite(got).all())
         expected = flash_attn.kernel_for(dt, dh, h // kh)
+        if case in MOE_FLASH_CASES and expected != flash_attn.TENSOR_CORE:
+            raise AssertionError(f"the moe phase's B10 case {case} would run on {expected}")
         split = None
         if expected == flash_attn.TENSOR_CORE:  # outputs outside the rule with p in 1, 2, 3 bf16 terms
             split = {t: bf16_outside(split_emulation(q, k, v, window, causal, t), want) for t in (1, 2, 3)}
@@ -1544,56 +1594,88 @@ LM_CHECK = dict(layers=2, batch=2, prompt_len=256, gen=4, logits_frac=0.03, code
                 codes_all=0.8)
 
 
-def check_lm_card_vs_cpu(dev) -> dict:
-    """Phase 6, first part: the same weights and prompts served on the card
-    and on the CPU at qwen3-1.7b's full width and reduced depth."""
-    c = LM_CHECK
-    cfg = dataclasses.replace(get_arch(LM_ARCH).model, n_layers=c["layers"])
-    tree = params_to_numpy(init_params(cfg, seed=0, device="cpu"))
+def check_lm_card_vs_cpu(dev, arch: str = LM_ARCH, check: dict = LM_CHECK, phase: str = "lm",
+                         init_device="cpu") -> dict:
+    """Phase 9, first part (and the moe phase's, for each of its configs):
+    the same weights (drawn on `init_device` from seed 0) and prompts served
+    on the card and on the CPU at `arch`'s full width and `check["layers"]`
+    layers, held to `check`'s limits."""
+    c = check
+    cfg = dataclasses.replace(get_arch(arch).model, n_layers=c["layers"])
+    tree = params_to_numpy(init_params(cfg, seed=0, device=init_device))
     prompts = torch.randint(0, cfg.vocab_size, (c["batch"], c["prompt_len"]),
                             generator=torch.Generator().manual_seed(5))
-    card, cpu = (serve(cfg, batch=c["batch"], prompt_len=c["prompt_len"], gen=c["gen"], device=d,
-                       params=tree, prompts=prompts) for d in (dev, "cpu"))
+    t0 = time.perf_counter()
+    card = serve(cfg, batch=c["batch"], prompt_len=c["prompt_len"], gen=c["gen"], device=dev, params=tree,
+                 prompts=prompts)
+    t1 = time.perf_counter()
+    cpu = serve(cfg, batch=c["batch"], prompt_len=c["prompt_len"], gen=c["gen"], device="cpu", params=tree,
+                prompts=prompts)
+    t2 = time.perf_counter()
+    del tree
     lc, lp = card.prefill_logits.float().cpu(), cpu.prefill_logits.float()
     scale = lp.abs().max().item()
     err = (lc - lp).abs().max().item()
     codes = {}
     for name in ("k_codes", "v_codes"):
         a, b = card.cache["layers"][name].cpu(), cpu.cache["layers"][name]
-        codes[name] = {"all": (a == b).double().mean().item(), "layer0": (a[0] == b[0]).double().mean().item()}
+        same = a == b
+        alike = slots_fed_alike(card.tokens, cpu.tokens, c["prompt_len"], a.shape[2])
+        codes[name] = {"all": same.double().mean().item(), "layer0": same[0].double().mean().item(),
+                       "all_fed_alike": same[:, alike].double().mean().item(),
+                       "layer0_fed_alike": same[0][alike].double().mean().item()}
     top2 = lp[:, 0].topk(2, dim=-1).values
     margin = (top2[:, 0] - top2[:, 1]).tolist()
     first = [bool(card.tokens[i, 0] == cpu.tokens[i, 0]) or margin[i] < 2 * err for i in range(c["batch"])]
-    out = {"phase": "lm", "path": "card_vs_cpu", "config": {**c, "d_model": cfg.d_model},
+    out = {"phase": phase, "path": "card_vs_cpu", "arch": arch, "config": {**c, "d_model": cfg.d_model},
            "prefill_logits_max_abs_err": err, "max_abs_logit": scale, "code_agreement": codes,
            "tokens_card": card.tokens.tolist(), "tokens_cpu": cpu.tokens.tolist(),
            "token_agreement": float((card.tokens == cpu.tokens).mean()), "top2_margin_cpu": margin,
-           "finite": bool(torch.isfinite(lc).all())}
+           "finite": bool(torch.isfinite(lc).all()), "card_s": t1 - t0, "cpu_s": t2 - t1}
     emit(out)
     bad = []
     if not out["finite"] or err > c["logits_frac"] * scale:
         bad.append(f"prefill logits differ by {err} (max |logit| {scale})")
+    over = "_fed_alike" if c.get("codes_over_slots_fed_alike") else ""
     for name, r in codes.items():
-        if r["layer0"] < c["codes_layer0"] or r["all"] < c["codes_all"]:
+        if r["layer0" + over] < c["codes_layer0"] or r["all" + over] < c["codes_all"]:
             bad.append(f"{name} agreement {r}")
     if not all(first):
         bad.append(f"first tokens differ where the margin is clear: {margin}")
     if bad:
-        raise AssertionError("card and CPU serving disagree: " + "; ".join(bad))
+        raise AssertionError(f"{arch}: card and CPU serving disagree: " + "; ".join(bad))
     return out
 
 
-def run_lm(dev):
-    """Phase 6, the main path: qwen3-1.7b at full width and depth serving
-    LM_BATCH requests of LM_PROMPT tokens and LM_GEN generated each, with
-    the launch counts set to 0 just before and read just after; then one
-    profiled prefill and decode for the device's busy time. Returns
+def slots_fed_alike(tok_a: np.ndarray, tok_b: np.ndarray, prompt_len: int, w: int) -> torch.Tensor:
+    """(B, W) bool: the ring slots that hold the k/v of the same tokens on
+    both sides: all but those a decode step wrote after the two sides'
+    greedy tokens parted (step j writes position prompt_len + j from
+    generated token j, j < gen - 1)."""
+    b, gen = tok_a.shape
+    same_prefix = np.cumprod(tok_a == tok_b, axis=1).astype(bool)
+    alike = torch.ones((b, w), dtype=torch.bool)
+    for j in range(gen - 1):
+        alike[:, (prompt_len + j) % w] = torch.from_numpy(same_prefix[:, j])
+    return alike
+
+
+def run_lm(dev, arch: str = LM_ARCH, batch: int = LM_BATCH, prompt_len: int = LM_PROMPT, gen: int = LM_GEN,
+           n_layers: Optional[int] = None, phase: str = "lm", path: str = "full"):
+    """Phase 9, the main path (and the moe phase's paths 4-6): `arch` at
+    full width and depth (or `n_layers`) serving `batch` requests of
+    `prompt_len` tokens and `gen` generated each, with the launch counts
+    set to 0 just before and read just after (B10's tensor-core kernel
+    once per layer, its FMA kernel never); then one profiled prefill and
+    decode for the device's busy time. Returns
     (launches, model, prompts on the card)."""
     t_run = time.perf_counter()
-    cfg = get_arch(LM_ARCH).model
+    cfg = get_arch(arch).model
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
     t0 = time.perf_counter()
     model = init_params(cfg, seed=0, device=dev)
-    prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+    prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=torch.Generator().manual_seed(0)).to(dev, torch.int32)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
@@ -1601,25 +1683,36 @@ def run_lm(dev):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
-    run = serve(cfg, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, device=dev, params=model,
-                prompts=prompts)
+    run = serve(cfg, batch=batch, prompt_len=prompt_len, gen=gen, device=dev, params=model, prompts=prompts)
     launches = ops.launch_counts()
     peak = torch.cuda.max_memory_allocated()
     if launches["flash_attention_fwd_tc"] != cfg.n_layers or launches["flash_attention_fwd"]:
-        raise AssertionError(f"B10 launched {launches['flash_attention_fwd_tc']} times on the tensor "
+        raise AssertionError(f"{arch}: B10 launched {launches['flash_attention_fwd_tc']} times on the tensor "
                              f"cores and {launches['flash_attention_fwd']} on the FMA kernel in a "
                              f"prefill of {cfg.n_layers} layers")
-    cache_len = LM_PROMPT + LM_GEN
+    cache_len = prompt_len + gen
     w = _round_window(cfg.effective_kv_window(cache_len))
     logits, ring = run.prefill_logits, run.cache["layers"]
     checks = {
-        "logits_shape": tuple(logits.shape) == (LM_BATCH, 1, cfg.padded_vocab),
+        "logits_shape": tuple(logits.shape) == (batch, 1, cfg.padded_vocab),
         "logits_finite": bool(torch.isfinite(logits).all()),
-        "tokens_shape": run.tokens.shape == (LM_BATCH, LM_GEN),
+        "tokens_shape": run.tokens.shape == (batch, gen),
         "tokens_in_vocab": bool(((run.tokens >= 0) & (run.tokens < cfg.padded_vocab)).all()),
-        "ring_shape": tuple(ring["k_codes"].shape) == (cfg.n_layers, LM_BATCH, w, cfg.n_kv_heads, cfg.head_dim),
+        "ring_shape": tuple(ring["k_codes"].shape) == (cfg.n_layers, batch, w, cfg.n_kv_heads, cfg.head_dim),
         "scales_positive": bool((ring["k_scale"] > 0).all() and (ring["v_scale"] > 0).all()),
-        "pos": run.cache["pos"] == LM_PROMPT + LM_GEN - 1,
+        "pos": run.cache["pos"] == prompt_len + gen - 1,
+    }
+    line = {
+        "phase": phase, "path": path, "arch": arch, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
+        "params": cfg.param_count(), "batch": batch, "prompt_len": prompt_len, "gen": gen,
+        "ring_slots": w, "kv_quant": cfg.kv_quant, "prefill_s": run.prefill_s, "decode_s": run.decode_s,
+        "prefill_tok_per_s": batch * prompt_len / run.prefill_s,
+        "decode_tok_per_s": run.decode_tok_per_s, "decode_ms_per_step": run.decode_s * 1e3 / (gen - 1),
+        "tokens_generated": run.tokens_generated,
+        "cache_bytes": run.cache_bytes, "cache_bytes_raw_equiv": run.cache_bytes_raw_equiv,
+        "kv_compression": run.cache_bytes_raw_equiv / run.cache_bytes,
+        "peak_memory_allocated": peak, "launches": launches,
+        "first_tokens": run.tokens[:, :8].tolist(), "checks": checks, "init_s": init_s,
     }
     t0 = time.perf_counter()
     with torch.inference_mode():
@@ -1638,26 +1731,18 @@ def run_lm(dev):
         del cache
     profile_s = time.perf_counter() - t0
     # the unprofiled run's wall time for as many decode steps as were profiled
-    decode_wall_ms = run.decode_s * 1e3 * LM_PROFILED_STEPS / (LM_GEN - 1)
-    emit({
-        "phase": "lm", "path": "full", "arch": LM_ARCH, "n_layers": cfg.n_layers, "d_model": cfg.d_model,
-        "params": cfg.param_count(), "batch": LM_BATCH, "prompt_len": LM_PROMPT, "gen": LM_GEN,
-        "ring_slots": w, "kv_quant": cfg.kv_quant, "prefill_s": run.prefill_s, "decode_s": run.decode_s,
-        "prefill_tok_per_s": LM_BATCH * LM_PROMPT / run.prefill_s,
-        "decode_tok_per_s": run.decode_tok_per_s, "tokens_generated": run.tokens_generated,
-        "cache_bytes": run.cache_bytes, "cache_bytes_raw_equiv": run.cache_bytes_raw_equiv,
-        "kv_compression": run.cache_bytes_raw_equiv / run.cache_bytes,
-        "peak_memory_allocated": peak, "launches": launches, "first_tokens": run.tokens[:, :8].tolist(),
+    decode_wall_ms = run.decode_s * 1e3 * LM_PROFILED_STEPS / (gen - 1)
+    line.update({
         "device_busy_ms": {"prefill": busy_p, f"decode_{LM_PROFILED_STEPS}_steps": busy_d},
         "busy_share": {"prefill": busy_p / (run.prefill_s * 1e3) if busy_p else None,
                        "decode": busy_d / decode_wall_ms if busy_d else None},
         "top_kernels_ms": {"prefill": top_p, f"decode_{LM_PROFILED_STEPS}_steps": top_d},
         "host_ops": {"prefill": ops_p, "per_decode_step": ops_d / LM_PROFILED_STEPS},
-        "checks": checks, "init_s": init_s, "profile_s": profile_s,
-        "seconds": time.perf_counter() - t_run,
+        "profile_s": profile_s, "seconds": time.perf_counter() - t_run,
     })
+    emit(line)
     if not all(checks.values()):
-        raise AssertionError(f"the lm path's outputs fail their checks: {checks}")
+        raise AssertionError(f"the {arch} path's outputs fail their checks: {checks}")
     del run
     return launches, model, prompts
 
@@ -2847,6 +2932,241 @@ def run_fleet(dev, values: np.ndarray, serve_gang: tuple) -> dict:
     return launches
 
 
+#: the moe phase (ROADMAP A10: the moe family and the three remaining dense
+#: configs). Path 2: one MoEFFN at qwen3-moe-30b-a3b's full width (128
+#: experts of 768, top-8, d_model 2,048) from seed 0, on 2 x 512 tokens of a
+#: fixed float32 input, on the card and on the CPU
+MOE_ROUTE = dict(arch="qwen3-moe-30b-a3b", batch=2, tokens=512)
+#: the moe phase's limits, written before the first run that reads them and
+#: never loosened after one.
+#:  * route: the router's product is float32 on both sides, on the same
+#:    inputs (bf16 inputs are rounded before either side sees them), so the
+#:    two routings differ only where float32 summation order moves a
+#:    probability across a near-tie of a token's k-th and (k+1)-th experts:
+#:    `sel` equal at >= 0.999 in both dtypes. y is compared on the tokens
+#:    whose every route (expert and slot) agrees: float32 within 1e-4 of
+#:    max |y| (products over 2,048 and 768 terms in another order); bf16
+#:    within 0.03 of max |y| (the expert products, the SwiGLU and the
+#:    weighted sum over k each round to bf16, on each side in its own
+#:    order: a few bf16 steps of the largest output);
+#:  * serve: the card-vs-CPU serving check of each dense config at full
+#:    width and 2 layers holds LM_CHECK unchanged. The moe configs hold
+#:    LM_CHECK's limits, with the cache codes compared over the slots fed
+#:    the same tokens on both sides (`slots_fed_alike`): a decode step
+#:    writes the k/v of the token it was fed, so once a request's greedy
+#:    tokens part, the slots written after hold different tokens' codes by
+#:    design. The first run found it: mixtral-8x7b's second request parted
+#:    at its second generated token (CPU top-2 margin 0.14), and its two
+#:    later slots of 768 put layer 0's codes at 0.9974 over the whole ring
+MOE_CHECK = dict(
+    route={"float32": dict(sel=0.999, y_frac=1e-4), "bfloat16": dict(sel=0.999, y_frac=0.03)},
+    serve=dict(LM_CHECK, codes_over_slots_fed_alike=True),
+)
+MOE_ARCHS = ("qwen3-moe-30b-a3b", "mixtral-8x7b")
+DENSE_ARCHS = ("deepseek-coder-33b", "mistral-nemo-12b", "phi4-mini-3.8b")
+#: paths 4 and 5: qwen3-moe-30b-a3b at full width and all 48 layers (30.5 B
+#: parameters, 61.1 GB in bf16), 4 x 2,048 prompt tokens; mixtral-8x7b at
+#: full width cut to 8 of its 32 layers (46.7 B parameters, 93.4 GB in bf16,
+#: do not fit one 80 GB card; 8 layers hold 23.7 GB), one request of 8,192
+#: prompt tokens, twice its 4,096-token window; 32 generated, NUQ cache on
+MOE_PATHS = (
+    dict(arch="qwen3-moe-30b-a3b", batch=4, prompt_len=2048, gen=32, n_layers=None),
+    dict(arch="mixtral-8x7b", batch=1, prompt_len=8192, gen=32, n_layers=8),
+)
+#: path 6: each dense config at full width and all its layers (phi4-mini
+#: 7.7 GB, mistral-nemo 24.5 GB, deepseek-coder 66.7 GB in bf16), 4 x 2,048
+#: + 8
+DENSE_PATH = dict(batch=4, prompt_len=2048, gen=8, n_layers=None)
+#: decode steps of the ring check (a prompt longer than the ring)
+RING_STEPS = 8
+#: device memory in use when the moe phase starts: the earlier phases' models freed
+MOE_START_BYTES = 2 << 30
+
+
+def route_side(params: dict, cfg, x: torch.Tensor, d) -> tuple:
+    """One side of path 2: `moe_ffn` and its routing (`route`, `capacity`,
+    `_dispatch_indices`) on device `d`; (y, aux, sel, e, slot) on the CPU."""
+    p = {k: v.to(d) for k, v in params.items()}
+    xd = x.to(d)
+    t = xd.shape[0] * xd.shape[1]
+    with torch.inference_mode():
+        y, aux = moe.moe_ffn(p, cfg, xd)
+        _, sel, _, _ = moe.route(p["router"], cfg, xd.reshape(t, cfg.d_model))
+        e, slot = moe._dispatch_indices(sel.reshape(-1), cfg.n_experts, moe.capacity(t, cfg))
+    return y.float().cpu(), aux.item(), sel.cpu(), e.cpu(), slot.cpu()
+
+
+def check_moe_route(dev) -> dict:
+    """Path 2 (moe/route_card_vs_cpu): one MoEFFN at full width, the same
+    weights and input on the card and on the CPU, float32 and bf16: the
+    share of equal `sel` entries and of equal (expert, slot) pairs, the
+    dropped pairs on each side, y's max error on the tokens whose every
+    route agrees; `_dispatch_indices` of the CPU's `sel` on both sides.
+    Held to MOE_CHECK["route"]."""
+    c = MOE_ROUTE
+    base = get_arch(c["arch"]).model
+    ffn = MoEFFN(base, Storage(torch.float32, torch.float32, torch.device("cpu"), False))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    with torch.no_grad():
+        for w in ffn.parameters():
+            w.copy_((torch.randn(w.shape, generator=gen, device=dev) / math.sqrt(w.shape[-2])).cpu())
+    x = torch.from_numpy(np.random.default_rng(0).normal(size=(c["batch"], c["tokens"], base.d_model))
+                         .astype(np.float32))
+    t, k = c["batch"] * c["tokens"], base.n_experts_per_token
+    cap = moe.capacity(t, base)
+    out = {}
+    for dtype, lim in MOE_CHECK["route"].items():
+        cfg = dataclasses.replace(base, dtype=dtype)
+        dt = getattr(torch, dtype)
+        params = {n: v.to(dt) for n, v in ffn.params().items()}
+        (yc, auxc, selc, ec, slotc), (yh, auxh, selh, eh, sloth) = (
+            route_side(params, cfg, x.to(dt), d) for d in (dev, torch.device("cpu")))
+        pairs = (ec == eh) & (slotc == sloth)
+        agree = (selc == selh).all(dim=1) & pairs.reshape(t, k).all(dim=1)
+        scale = yh.abs().max().item()
+        y_err = (yc - yh).abs().reshape(t, -1)[agree].max().item()
+        same_dispatch = all(torch.equal(a.cpu(), b) for a, b in zip(
+            moe._dispatch_indices(selh.to(dev).reshape(-1), cfg.n_experts, cap),
+            moe._dispatch_indices(selh.reshape(-1), cfg.n_experts, cap)))
+        r = {"sel_agreement": (selc == selh).double().mean().item(),
+             "pair_agreement": pairs.double().mean().item(),
+             "tokens_agreeing": int(agree.sum()), "tokens": t, "capacity": cap,
+             "dropped_card": int((slotc == cap).sum()), "dropped_cpu": int((sloth == cap).sum()),
+             "y_max_abs_err_agreeing": y_err, "max_abs_y": scale, "aux_card": auxc, "aux_cpu": auxh,
+             "dispatch_of_cpu_sel_equal": same_dispatch, "limits": lim}
+        out[dtype] = r
+        emit({"phase": "moe", "path": "route_card_vs_cpu", "arch": c["arch"], "dtype": dtype, **r})
+        bad = []
+        if r["sel_agreement"] < lim["sel"]:
+            bad.append(f"sel agreement {r['sel_agreement']}")
+        if not y_err <= lim["y_frac"] * scale:
+            bad.append(f"y differs by {y_err} (max |y| {scale})")
+        if not same_dispatch:
+            bad.append("_dispatch_indices of one sel differs between the card and the CPU")
+        if bad:
+            raise AssertionError(f"moe routing, {dtype}, card against CPU: " + "; ".join(bad))
+    return out
+
+
+def moe_prefill_drops(model, cfg, prompts, cache_len: int) -> tuple:
+    """One more prefill, outside the timed run, with a hook on each layer's
+    MoEFFN: the (token, choice) pairs its routing drops. Returns (dropped
+    per layer, cache, logits)."""
+    drops = []
+
+    def hook(mod, args, _out):
+        x = args[1]
+        t = x.shape[0] * x.shape[1]
+        _, sel, _, _ = moe.route(mod.p("router"), cfg, x.reshape(t, cfg.d_model))
+        cap = moe.capacity(t, cfg)
+        _, slot = moe._dispatch_indices(sel.reshape(-1), cfg.n_experts, cap)
+        drops.append(int((slot == cap).sum()))
+
+    handles = [blk.moe.register_forward_hook(hook) for blk in model.layers]
+    try:
+        cache, logits = prefill(model, cfg, prompts, cache_len)
+    finally:
+        for h in handles:
+            h.remove()
+    return drops, cache, logits
+
+
+def check_ring_wrap(model, cfg, prompts, cache, logits) -> dict:
+    """A prompt longer than the ring: layer 0's ring after the prefill
+    holds the codes of the last W positions' keys (position p at slot p %
+    W), and RING_STEPS decode steps overwrite the oldest slots one by one,
+    no other."""
+    b, s = prompts.shape
+    blk = model.layers[0]
+    codes = cache["layers"]["k_codes"][0]
+    w = codes.shape[1]
+    pos = torch.arange(s, dtype=torch.int32, device=prompts.device)[None].expand(b, s)
+    _, k0, _ = layers.attention_qkv(blk.attn.params(), cfg,
+                                    layers.rms_norm(model.embedding(prompts), blk.p("attn_norm")), pos)
+    want, _ = kvcache.quantize_block(k0[:, -w:])
+    slots = (s - w + torch.arange(w, device=prompts.device)) % w
+    stored_last = torch.equal(codes[:, slots], want)
+    before = codes.clone()
+    tok = torch.argmax(logits, dim=-1).to(torch.int32)
+    for _ in range(RING_STEPS):
+        cache, lg = decode_step(model, cfg, cache, tok)
+        tok = torch.argmax(lg, dim=-1).to(torch.int32)
+    changed = (cache["layers"]["k_codes"][0] != before).flatten(2).any(dim=-1).any(dim=0).cpu()
+    expect = torch.zeros(w, dtype=torch.bool)
+    expect[(s + torch.arange(RING_STEPS)) % w] = True
+    return {"ring_holds_last_positions": stored_last, "decode_overwrites_oldest": torch.equal(changed, expect)}
+
+
+def free_card() -> None:
+    """Return the freed models' memory to the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def run_moe_path(dev, spec: dict) -> dict:
+    """Paths 4-5: one moe config served through `serve()` as run_lm serves
+    the lm path (launches, checks, busy shares, host ops per step), then one
+    more prefill for the dropped pairs per layer, and the ring check where
+    the prompt is longer than the ring. Frees the model. Returns launches."""
+    t0 = time.perf_counter()
+    launches, model, prompts = run_lm(dev, spec["arch"], spec["batch"], spec["prompt_len"], spec["gen"],
+                                      spec["n_layers"], phase="moe", path=spec["arch"])
+    cfg = model.cfg
+    t = spec["batch"] * spec["prompt_len"]
+    with torch.inference_mode():
+        drops, cache, logits = moe_prefill_drops(model, cfg, prompts, spec["prompt_len"] + spec["gen"])
+        line = {"phase": "moe", "path": spec["arch"], "n_layers": cfg.n_layers,
+                "cut": None if spec["n_layers"] is None else
+                f"{spec['n_layers']} of {get_arch(spec['arch']).model.n_layers} layers",
+                "dropped_pairs_per_layer": drops, "pairs_per_layer": t * cfg.n_experts_per_token,
+                "capacity": moe.capacity(t, cfg), "experts": cfg.n_experts}
+        checks = {}
+        if spec["prompt_len"] > cache["layers"]["k_codes"].shape[2]:
+            checks = check_ring_wrap(model, cfg, prompts, cache, logits)
+            line["ring"] = checks
+        del cache, logits
+    line["seconds"] = time.perf_counter() - t0
+    emit(line)
+    if not all(checks.values()):
+        raise AssertionError(f"{spec['arch']}: the ring fails its checks: {checks}")
+    del model, prompts
+    free_card()
+    return launches
+
+
+def run_moe(dev) -> dict:
+    """The moe phase: paths 2-6 (path 1 is the flash phase's
+    MOE_FLASH_CASES). Returns the launches of the main paths (4-6)."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the router's float32 product must be true float32")
+    free_card()
+    if torch.cuda.memory_allocated() >= MOE_START_BYTES:
+        raise AssertionError(f"{torch.cuda.memory_allocated()} bytes still allocated before the moe phase")
+    t0 = time.perf_counter()
+    check_moe_route(dev)
+    emit({"phase": "moe", "path": "route_card_vs_cpu", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    for arch in MOE_ARCHS + DENSE_ARCHS:
+        check = MOE_CHECK["serve"] if arch in MOE_ARCHS else LM_CHECK
+        check_lm_card_vs_cpu(dev, arch, check, phase="moe", init_device=dev)
+        free_card()
+    emit({"phase": "moe", "path": "card_vs_cpu", "seconds": time.perf_counter() - t0})
+    launches = {k: 0 for k in KERNELS}
+    for spec in MOE_PATHS:
+        for k, n in run_moe_path(dev, spec).items():
+            launches[k] += n
+    t0 = time.perf_counter()
+    for arch in DENSE_ARCHS:
+        got, model, prompts = run_lm(dev, arch, DENSE_PATH["batch"], DENSE_PATH["prompt_len"], DENSE_PATH["gen"],
+                                     DENSE_PATH["n_layers"], phase="moe", path=f"dense/{arch}")
+        for k, n in got.items():
+            launches[k] += n
+        del model, prompts
+        free_card()
+    emit({"phase": "moe", "path": "dense-configs", "seconds": time.perf_counter() - t0})
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -2942,6 +3262,10 @@ def main() -> int:
     emit({"phase": "timing", "seconds": time.perf_counter() - t_timing, "kernels": {
         k: {key: v for key, v in t.items() if key != "max_abs_err"} for k, t in times.items()
     }})
+    t0 = time.perf_counter()
+    for k, n in run_moe(dev).items():
+        launches[k] += n
+    emit({"phase": "moe", "seconds": time.perf_counter() - t0})
     emit({"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -12,4 +12,11 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 # importing registers each arch
-from repro_torch.configs import qwen3_1_7b  # noqa: F401
+from repro_torch.configs import (  # noqa: F401
+    deepseek_coder_33b,
+    mistral_nemo_12b,
+    mixtral_8x7b,
+    phi4_mini_3_8b,
+    qwen3_1_7b,
+    qwen3_moe_30b_a3b,
+)

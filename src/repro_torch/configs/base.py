@@ -2,7 +2,9 @@
 LM shape set, `register_arch`, `get_arch`, `arch_ids`.
 
 The port registers the architectures whose family it builds: the dense
-`qwen3-1.7b` so far. The reference's other architectures are known by id,
+`qwen3-1.7b`, `deepseek-coder-33b`, `mistral-nemo-12b` and
+`phi4-mini-3.8b`, and the moe `mixtral-8x7b` and `qwen3-moe-30b-a3b`. The
+reference's other architectures are known by id,
 and `get_arch` of one of them raises a KeyError naming the ROADMAP item
 that ports it. `input_specs` (the reference's `jax.ShapeDtypeStruct`
 stand-ins for its dry-run) has no counterpart yet (ROADMAP A10).
@@ -55,13 +57,8 @@ _REGISTRY: Dict[str, Callable[[], ArchSpec]] = {}
 #: the reference's architectures the port does not build yet, by the
 #: ROADMAP item that ports their family or front end
 UNPORTED: Dict[str, str] = {
-    "deepseek-coder-33b": "A10 (dense configs beyond qwen3-1.7b)",
-    "mistral-nemo-12b": "A10 (dense configs beyond qwen3-1.7b)",
-    "phi4-mini-3.8b": "A10 (dense configs beyond qwen3-1.7b)",
     "musicgen-large": "A10 (embedding front ends)",
     "pixtral-12b": "A10 (embedding front ends)",
-    "mixtral-8x7b": "A10 (the moe family)",
-    "qwen3-moe-30b-a3b": "A10 (the moe family)",
     "recurrentgemma-9b": "A10 (the hybrid family)",
     "mamba2-1.3b": "A10 (the ssm family)",
 }

@@ -1,4 +1,4 @@
-"""The model stack (port of `repro/models`): the dense family so far."""
+"""The model stack (port of `repro/models`): the dense and moe families."""
 from repro_torch.models.config import ModelConfig  # noqa: F401
 from repro_torch.models.transformer import (  # noqa: F401
     Transformer,

@@ -4,7 +4,7 @@ imports nothing of `repro`, not even modules without jax).
 One dataclass describes every backbone the reference builds: dense GQA
 transformers, MoE transformers, the RG-LRU/local-attention hybrid
 (RecurrentGemma) and the attention-free Mamba2 SSD stack. The port builds
-the dense family so far (ROADMAP A10 holds the rest); each
+the dense and moe families (ROADMAP A10 holds the rest); each
 `repro_torch/configs/<arch>.py` instantiates one of these with the
 published dimensions, and smoke tests use `reduced()` copies.
 """

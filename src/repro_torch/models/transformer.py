@@ -1,11 +1,14 @@
-"""Decoder backbone, dense family (port of `repro/models/transformer.py`).
+"""Decoder backbone, dense and moe families (port of
+`repro/models/transformer.py`).
 
 GQA + RoPE + SwiGLU (with qwen3's per-head q/k norm), as `nn.Module`s:
 `Transformer` holds the embedding, the final norm, the head when it is not
-tied, and a `DenseBlock` per layer (`Attention`, `SwiGLU` and two norms).
-Parameters keep the reference's names and layout (`x @ w` with `w` of
-shape (d_in, d_out), norm gammas as offsets from 1), so the reference's
-parameter tree carries across without transposes (`models/convert.py`).
+tied, and a block per layer: a `DenseBlock` (`Attention`, `SwiGLU` and two
+norms) for the dense family, a `MoEBlock` (`Attention`, `moe.MoEFFN` and
+two norms) for the moe family (mixtral, qwen3-moe). Parameters keep the
+reference's names and layout (`x @ w` with `w` of shape (d_in, d_out),
+norm gammas as offsets from 1), so the reference's parameter tree carries
+across without transposes (`models/convert.py`).
 
 Two storages, one set of modules, chosen by `Transformer(cfg, device,
 param_dtype=...)`:
@@ -15,21 +18,23 @@ param_dtype=...)`:
     with `requires_grad=True`, cast to `cfg.dtype` at every use, as the
     reference's `_cast` does (`params()`, `p()`).
 
-The API of the reference: `init_params`, `forward` (each `DenseBlock`
-through `layers.attention_train`, kernel B10 with its log-sum-exp and the
-flash backward, under `torch.utils.checkpoint` when `cfg.remat == "full"`),
-`loss_fn`, and for serving `init_decode_cache`, `prefill` (writes the ring
-cache, NUQ-quantized by default) and `decode_step`. Prefill attention runs
-kernel B10 (`ops.flash_attention_fwd`); the decode reads the quantized
-ring in plain torch (`core/kvcache.py`). The cache is a dict of tensors
-updated in place, with `pos` a Python int. The `moe`, `hybrid` and `ssm`
+The API of the reference: `init_params`, `forward` (each block through
+`layers.attention_train`, kernel B10 with its log-sum-exp and the flash
+backward, under `torch.utils.checkpoint` when `cfg.remat == "full"`; the
+moe blocks' load-balance losses summed), `loss_fn`, and for serving
+`init_decode_cache`, `prefill` (writes the ring cache, NUQ-quantized by
+default) and `decode_step`. Prefill attention runs kernel B10
+(`ops.flash_attention_fwd`); the decode reads the quantized ring in plain
+torch (`core/kvcache.py`). An moe block routes all B*S tokens of a prefill,
+or the B tokens of a decode step, in one call, as the reference does:
+capacity and drops depend on them all. The cache is a dict of tensors
+updated in place, with `pos` a Python int. The `hybrid` and `ssm`
 families and embedding front ends raise NotImplementedError naming ROADMAP
 A10. `models/partition.py` has no counterpart: its sharding hints are the
 identity without a mesh.
 """
 from __future__ import annotations
 
-import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -41,6 +46,8 @@ from repro_torch.core import kvcache
 from repro_torch.core.device import resolve_device
 from repro_torch.models import layers
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.moe import MoEFFN
+from repro_torch.models.params import Storage, _Params
 
 Device = Union[None, str, torch.device]
 
@@ -50,9 +57,13 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
+#: the families the port builds
+FAMILIES = ("dense", "moe")
+
+
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not build yet."""
-    if cfg.family != "dense":
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family!r} family is not ported to repro_torch yet (ROADMAP A10)"
         )
@@ -62,41 +73,6 @@ def check_supported(cfg: ModelConfig) -> None:
             "repro_torch yet (ROADMAP A10)"
         )
     layers.check_softcap(cfg)
-
-
-@dataclasses.dataclass(frozen=True)
-class Storage:
-    """Where and how a model's parameters are held: `param` dtype on
-    `device`, with gradients when `train`; functions compute in
-    `compute` (cfg.dtype)."""
-
-    compute: torch.dtype
-    param: torch.dtype
-    device: torch.device
-    train: bool
-
-
-class _Params(nn.Module):
-    """A module whose own parameters carry the reference's names; `params()`
-    maps them, in the compute dtype, for the functions of
-    `models/layers.py`."""
-
-    def __init__(self, store: Storage):
-        super().__init__()
-        self._store = store
-
-    def _add(self, name: str, shape) -> None:
-        st = self._store
-        self.register_parameter(name, nn.Parameter(
-            torch.zeros(shape, dtype=st.param, device=st.device), requires_grad=st.train))
-
-    def p(self, name: str) -> torch.Tensor:
-        """Parameter `name` in the compute dtype (itself when it is held so)."""
-        t = getattr(self, name)
-        return t if t.dtype == self._store.compute else t.to(self._store.compute)
-
-    def params(self) -> Dict[str, torch.Tensor]:
-        return {name: self.p(name) for name, _ in self.named_parameters(recurse=False)}
 
 
 class Attention(_Params):
@@ -127,22 +103,28 @@ class SwiGLU(_Params):
         return layers.swiglu(self.params(), x)
 
 
-class DenseBlock(_Params):
-    """Pre-norm attention and SwiGLU with residuals."""
+class Block(_Params):
+    """Pre-norm attention and an FFN with residuals: `attn_norm`, `attn`,
+    `ffn_norm` and the FFN of the subclass (`ffn_out`)."""
 
     def __init__(self, cfg: ModelConfig, store: Storage):
         super().__init__(store)
         self._add("attn_norm", (cfg.d_model,))
         self._add("ffn_norm", (cfg.d_model,))
         self.attn = Attention(cfg, store)
-        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, store)
 
-    def forward(self, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-        """The training block (the reference's `_dense_block`), (B, S, D):
-        attention through `layers.attention_train`."""
+    def ffn_out(self, cfg: ModelConfig, h: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(the FFN's output on the normed `h`, its aux loss or None)."""
+        raise NotImplementedError
+
+    def forward(self, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The training block (the reference's `_dense_block` / `_moe_block`),
+        (B, S, D): attention through `layers.attention_train`; returns (x
+        out, aux or None)."""
         h = x + layers.attention_train(self.attn.params(), cfg, layers.rms_norm(x, self.p("attn_norm")),
                                        window=cfg.swa_window)
-        return h + self.ffn(layers.rms_norm(h, self.p("ffn_norm")))
+        y, aux = self.ffn_out(cfg, h)
+        return h + y, aux
 
     def prefill(self, cfg: ModelConfig, x: torch.Tensor):
         """(x out, k, v) over a whole prompt (B, S, D); attention on B10."""
@@ -150,15 +132,38 @@ class DenseBlock(_Params):
             self.attn.params(), cfg, layers.rms_norm(x, self.p("attn_norm")), window=cfg.swa_window
         )
         h = x + a
-        return h + self.ffn(layers.rms_norm(h, self.p("ffn_norm"))), k, v
+        return h + self.ffn_out(cfg, h)[0], k, v
+
+
+class DenseBlock(Block):
+    """Attention and SwiGLU (`ffn`)."""
+
+    def __init__(self, cfg: ModelConfig, store: Storage):
+        super().__init__(cfg, store)
+        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, store)
+
+    def ffn_out(self, cfg: ModelConfig, h: torch.Tensor):
+        return self.ffn(layers.rms_norm(h, self.p("ffn_norm"))), None
+
+
+class MoEBlock(Block):
+    """Attention and the expert FFN (`moe`)."""
+
+    def __init__(self, cfg: ModelConfig, store: Storage):
+        super().__init__(cfg, store)
+        self.moe = MoEFFN(cfg, store)
+
+    def ffn_out(self, cfg: ModelConfig, h: torch.Tensor):
+        return self.moe(cfg, layers.rms_norm(h, self.p("ffn_norm")))
 
 
 class Transformer(_Params):
-    """The dense decoder: `embed` (padded_vocab, d_model), `final_norm`,
-    `head` (d_model, padded_vocab) unless tied, `layers`. `param_dtype`
-    None serves (parameters in `cfg.dtype`, no gradients); a dtype name
-    (`cfg.param_dtype` to train) holds master parameters in it with
-    gradients, cast to `cfg.dtype` at every use."""
+    """The decoder: `embed` (padded_vocab, d_model), `final_norm`, `head`
+    (d_model, padded_vocab) unless tied, `layers` (`DenseBlock`s, or
+    `MoEBlock`s for the moe family). `param_dtype` None serves (parameters
+    in `cfg.dtype`, no gradients); a dtype name (`cfg.param_dtype` to
+    train) holds master parameters in it with gradients, cast to
+    `cfg.dtype` at every use."""
 
     def __init__(self, cfg: ModelConfig, device: Device = None, param_dtype: Optional[str] = None):
         check_supported(cfg)
@@ -171,7 +176,8 @@ class Transformer(_Params):
         self._add("final_norm", (cfg.d_model,))
         if not cfg.tie_embeddings:
             self._add("head", (cfg.d_model, cfg.padded_vocab))
-        self.layers = nn.ModuleList(DenseBlock(cfg, store) for _ in range(cfg.n_layers))
+        block = MoEBlock if cfg.family == "moe" else DenseBlock
+        self.layers = nn.ModuleList(block(cfg, store) for _ in range(cfg.n_layers))
 
     @property
     def device(self) -> torch.device:
@@ -195,9 +201,10 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = None,
                 param_dtype: Optional[str] = None) -> Transformer:
     """A `Transformer` (`param_dtype` as there) with the reference's initial
     distributions (not its numbers): embedding N(0, 1) / sqrt(d_model),
-    dense weights N(0, 1) / sqrt(d_in), norms 0; drawn in float32 from a
-    `torch.Generator` on the device seeded with `seed`, then held in the
-    storage dtype."""
+    every weight of two or more dims N(0, 1) / sqrt(shape[-2]) (d_in of a
+    dense or an expert's weight, d_model of the router), norms 0; drawn in
+    float32 from a `torch.Generator` on the device seeded with `seed`, then
+    held in the storage dtype."""
     model = Transformer(cfg, device, param_dtype)
     gen = torch.Generator(device=model.device).manual_seed(seed)
 
@@ -209,22 +216,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = None,
         if not cfg.tie_embeddings:
             normal_(model.head, 1.0 / math.sqrt(cfg.d_model))
         for p in model.layers.parameters():
-            if p.dim() == 2:
-                normal_(p, 1.0 / math.sqrt(p.shape[0]))
+            if p.dim() >= 2:
+                normal_(p, 1.0 / math.sqrt(p.shape[-2]))
     return model
 
 
 # ============================================================ forward =====
 def forward(model: Transformer, cfg: ModelConfig, inputs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """inputs int tokens (B, S) at positions arange(S) -> (logits (B, S, V),
-    aux loss 0.0). Each block runs under `torch.utils.checkpoint` (its
+    aux loss: the sum of the moe blocks' load-balance losses, 0.0 for the
+    dense family). Each block runs under `torch.utils.checkpoint` (its
     activations recomputed in the backward, B10 launched again) when
     `cfg.remat == "full"` and gradients are on."""
     x = model.embedding(inputs)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
+    auxs = []
     for blk in model.layers:
-        x = checkpoint(blk, cfg, x, use_reentrant=False) if remat else blk(cfg, x)
-    return model.logits(x), torch.zeros((), dtype=torch.float32, device=x.device)
+        x, aux = checkpoint(blk, cfg, x, use_reentrant=False) if remat else blk(cfg, x)
+        if aux is not None:
+            auxs.append(aux)
+    aux = torch.sum(torch.stack(auxs)) if auxs else torch.zeros((), dtype=torch.float32, device=x.device)
+    return model.logits(x), aux
 
 
 # =============================================================== loss =====
@@ -347,7 +359,7 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: Dict[str, Any],
         a = _decode_attend(blk.attn.params(), cfg, layers.rms_norm(x, blk.p("attn_norm")),
                            layer_view(cache, i), pos, cfg.swa_window)
         h = x + a
-        x = h + blk.ffn(layers.rms_norm(h, blk.p("ffn_norm")))
+        x = h + blk.ffn_out(cfg, h)[0]
     cache["pos"] = pos + 1
     return cache, model.logits(x)
 
