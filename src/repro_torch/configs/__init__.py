@@ -14,9 +14,11 @@ from repro_torch.configs.base import (  # noqa: F401
 # importing registers each arch
 from repro_torch.configs import (  # noqa: F401
     deepseek_coder_33b,
+    mamba2_1_3b,
     mistral_nemo_12b,
     mixtral_8x7b,
     phi4_mini_3_8b,
     qwen3_1_7b,
     qwen3_moe_30b_a3b,
+    recurrentgemma_9b,
 )

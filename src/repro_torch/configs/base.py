@@ -3,10 +3,10 @@ LM shape set, `register_arch`, `get_arch`, `arch_ids`.
 
 The port registers the architectures whose family it builds: the dense
 `qwen3-1.7b`, `deepseek-coder-33b`, `mistral-nemo-12b` and
-`phi4-mini-3.8b`, and the moe `mixtral-8x7b` and `qwen3-moe-30b-a3b`. The
-reference's other architectures are known by id,
-and `get_arch` of one of them raises a KeyError naming the ROADMAP item
-that ports it. `input_specs` (the reference's `jax.ShapeDtypeStruct`
+`phi4-mini-3.8b`, the moe `mixtral-8x7b` and `qwen3-moe-30b-a3b`, the ssm
+`mamba2-1.3b` and the hybrid `recurrentgemma-9b`. The reference's other
+architectures (the embedding front ends) are known by id, and `get_arch`
+of one of them raises a KeyError naming the ROADMAP item that ports it. `input_specs` (the reference's `jax.ShapeDtypeStruct`
 stand-ins for its dry-run) has no counterpart yet (ROADMAP A10).
 """
 from __future__ import annotations
@@ -59,8 +59,6 @@ _REGISTRY: Dict[str, Callable[[], ArchSpec]] = {}
 UNPORTED: Dict[str, str] = {
     "musicgen-large": "A10 (embedding front ends)",
     "pixtral-12b": "A10 (embedding front ends)",
-    "recurrentgemma-9b": "A10 (the hybrid family)",
-    "mamba2-1.3b": "A10 (the ssm family)",
 }
 
 

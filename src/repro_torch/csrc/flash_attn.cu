@@ -36,7 +36,11 @@
 //     a masked key after the band weighs exp(-1e30 - m) = 0, one before it
 //     is wiped by corr = 0), and CTAs start longest first;
 //   * the score tile's shared memory is reused for p once the scores are in
-//     registers: 100,352 bytes at Dh 128, two CTAs per SM.
+//     registers: 100,352 bytes at Dh 128, two CTAs per SM;
+//   * heads wider than 128 (up to 256, recurrentgemma's) run a second
+//     instance whose threads own 4 x 32 accumulator columns: 198,656 bytes
+//     of shared memory at Dh 256, one CTA per SM. The same f32 arithmetic,
+//     so the same 2e-4 contract.
 // bf16 inputs with Dh a multiple of 16 run on the tensor-core kernel of
 // `flash_attn_tc.cu` instead (`kernels/flash_attn.py: kernel_for`); this
 // kernel takes float32 and the shapes outside that rule. PERF.md holds the
@@ -52,8 +56,7 @@ namespace {
 constexpr int kRows = 64;      // (position, head) query rows per CTA
 constexpr int kKeys = 64;      // keys per K/V tile
 constexpr int kThreads = 128;  // 16 row groups x 8 column lanes
-constexpr int kMaxDh = 128;
-constexpr int kAccPerRow = kMaxDh / 8;  // output columns a thread owns per row
+constexpr int kMaxDh = 256;
 constexpr int kPStride = kKeys + 4;
 constexpr float kMasked = -1e30f;
 
@@ -82,11 +85,14 @@ __host__ __device__ __forceinline__ int smem_floats(int dh) {
   return kRows * qk + k_region + kKeys * round4(dh);
 }
 
-template <typename T>
+// MAXDH (128 or 256) sizes the output accumulator: a thread owns MAXDH / 8
+// columns of each of its 4 rows.
+template <typename T, int MAXDH>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int K,
                  int Dh, int window, int causal, float scale) {
+  constexpr int kAccPerRow = MAXDH / 8;  // output columns a thread owns per row
   extern __shared__ float4 smem4[];
   const int dpad = round4(Dh);
   const int qk = dpad + 4;  // padded row: float4 reads of 4 rows hit 4 bank groups
@@ -274,15 +280,15 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   }
 }
 
-template <typename T>
+template <typename T, int MAXDH>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Sk,
            int H, int K, int Dh, int window, int causal, float scale, cudaStream_t stream) {
   const size_t bytes = static_cast<size_t>(smem_floats(Dh)) * sizeof(float);
-  cudaError_t err = repro::allow_smem(flash_fwd_kernel<T>, bytes);
+  cudaError_t err = repro::allow_smem(flash_fwd_kernel<T, MAXDH>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long rows = static_cast<long long>(Sq) * (H / K);
   const dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows), K, B);
-  flash_fwd_kernel<T><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd_kernel<T, MAXDH><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<T*>(o), lse, Sq, Sk, H, K, Dh, window, causal, scale);
   return static_cast<int>(cudaGetLastError());
@@ -291,7 +297,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 }  // namespace
 
 // q (B, Sq, H, Dh), k/v (B, Sk, K, Dh) -> o (B, Sq, H, Dh), contiguous, all
-// bf16 (is_bf16 = 1) or all f32. H % K == 0, 1 <= Dh <= 128, window <= 0
+// bf16 (is_bf16 = 1) or all f32. H % K == 0, 1 <= Dh <= 256, window <= 0
 // for none. With a non-null `lse`, also each row's log-sum-exp m + log(max(l,
 // 1e-30)) as f32 (B, H, Sq); o is the same with or without it. The wrapper
 // checks the shapes; Sq, Sk and B are >= 1.
@@ -301,7 +307,11 @@ extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v, void
   if (Dh < 1 || Dh > kMaxDh || K < 1 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  if (Dh <= 128)
+    return is_bf16
+               ? launch<__nv_bfloat16, 128>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s)
+               : launch<float, 128>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
   return is_bf16
-             ? launch<__nv_bfloat16>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s)
-             : launch<float>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
+             ? launch<__nv_bfloat16, 256>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s)
+             : launch<float, 256>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
 }

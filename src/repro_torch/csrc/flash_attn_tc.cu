@@ -4,7 +4,7 @@
 // Replaces the Pallas kernel `src/repro/kernels/flash_attn.py:84 flash_fwd`
 // (`_flash_fwd_kernel`), oracle `src/repro/kernels/ref.py: flash_reference`,
 // for the inputs `kernels/flash_attn.py: kernel_for` sends here: bf16 q, k,
-// v with Dh a multiple of 16 (<= 128), G <= 64, 16-byte aligned. Everything
+// v with Dh a multiple of 16 (<= 256), G <= 64, 16-byte aligned. Everything
 // else stays on the f32 FMA kernel of `flash_attn.cu`. The contract is that
 // kernel's: q (B, Sq, H, Dh) against k/v (B, Sk, K, Dh), query head
 // h = kv * G + g with kv head kv, scores scaled by f32(1/sqrt(Dh)), masked
@@ -75,6 +75,17 @@
 //     has a key in its band, as in the FMA kernel;
 //   * the epilogue stages the bf16 output in the warpgroup's Q tile and
 //     writes it with 16-byte stores.
+// Three instances (`Tiling`): Dh <= 64 and Dh <= 128 as above; Dh 129-256
+// (recurrentgemma's 256) keeps the design with K/V tiles of 32 keys, as
+// FlashAttention-3 fits head dim 256 into two consumer warpgroups. Its
+// output accumulator is 128 f32 registers a consumer thread (4 chunks of
+// 64 columns); 32-key tiles halve the two score buffers (16 registers each)
+// and the three bf16 terms of p (8 each), so all of it fits the consumers'
+// 240. Q K^T is `wgmma m64n32k16` over 16 steps, P V two m64n128k16 halves
+// a term and k-step. Shared memory: Q 64 KB, a 4-deep ring of 32-key K/V
+// tiles 128 KB, 197,696 bytes with barriers and slack (64-key tiles would
+// need 328,704 at 4 stages); each instance checks its bytes at compile
+// time. The 256 instance is a first, simple one: PERF.md holds its time.
 // A tile's zero fill past Sk or Dh comes from TMA's out-of-bounds fill: B
 // has its own dimension in the maps, so a ragged edge never reads the next
 // batch's rows.
@@ -90,8 +101,6 @@ namespace {
 constexpr int kConsumers = 2;              // consumer warpgroups
 constexpr int kWgRows = 64;                // rows per consumer warpgroup (wgmma M)
 constexpr int kRows = kConsumers * kWgRows;
-constexpr int kKeys = 64;                  // keys per K/V tile
-constexpr int kStages = 4;                 // K/V ring depth
 constexpr int kThreads = 128 * (kConsumers + 1);
 constexpr int kChunk = 64;                 // Dh columns per 128-byte swizzle span
 constexpr int kChunkBytes = 64 * 128;      // 64 rows x 128 bytes
@@ -99,11 +108,23 @@ constexpr int kMaxGroups = 64;
 constexpr int kMaxRows = 0x7FFFFFFF - kRows;  // Sq * G: rows are indexed in 32 bits
 constexpr float kMasked = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr int kMaxSmem = 232448;           // dynamic shared memory a block may use
 
-__host__ __device__ constexpr int smem_bytes(int nchunk) {
+// The instances: Dh <= 64 and Dh <= 128 take K/V tiles of 64 keys in a ring
+// of 4; Dh 256 takes tiles of 32 keys (half the score and p registers) in a
+// ring of 4, its 128 accumulator registers beside them.
+template <int NCHUNK>
+struct Tiling {
+  static constexpr int kKeys = NCHUNK == 4 ? 32 : 64;  // keys per K/V tile
+  static constexpr int kStages = 4;                    // K/V ring depth
+  static constexpr int kKvChunkBytes = kKeys * 128;    // kKeys rows x 128 bytes
+  static constexpr int kKvTileBytes = NCHUNK * kKvChunkBytes;
+  static constexpr int kQTileBytes = NCHUNK * kChunkBytes;  // one consumer's 64 rows
   // 1024 of alignment slack, Q of both consumers, K and V rings, barriers
-  return 1024 + (kConsumers + 2 * kStages) * nchunk * kChunkBytes + 2 * kStages * 8;
-}
+  static constexpr int kSmemBytes =
+      1024 + kConsumers * kQTileBytes + 2 * kStages * kKvTileBytes + 2 * kStages * 8;
+  static_assert(kSmemBytes <= kMaxSmem, "the instance's tiles exceed a block's shared memory");
+};
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -199,6 +220,20 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// d (64 x 32, f32) (+)= A (64 x 16, K-major in shared memory) B (16 x 32,
+// K-major in shared memory); scale_d 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %18, 0;\n"
+      " wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16"
+      " {%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15},"
+      " %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
 // d (64 x 64, f32) += A (64 x 16 bf16, four registers a thread) B (16 x 64,
 // MN-major in shared memory, i.e. transposed).
 __device__ __forceinline__ void wgmma_rs_t(float (&d)[32], const uint32_t* a, uint64_t b) {
@@ -272,11 +307,15 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_k,
                     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
                     float* __restrict__ lse, int B, int Sq, int Sk, int H, int K, int Dh,
                     int window, int causal, float scale) {
-  constexpr int kTileBytes = NCHUNK * kChunkBytes;  // one 64-row tile of Dh columns
+  using T = Tiling<NCHUNK>;
+  constexpr int kKeys = T::kKeys, kStages = T::kStages;
+  constexpr int kS = kKeys / 2;  // score accumulator registers a thread (m64 x kKeys)
+  constexpr int kP = kKeys / 4;  // A-fragment registers of one bf16 term of p
+  constexpr int kTileBytes = T::kKvTileBytes;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
   const uint32_t sQ = base;
-  const uint32_t sK = sQ + kConsumers * kTileBytes;
+  const uint32_t sK = sQ + kConsumers * T::kQTileBytes;
   const uint32_t sV = sK + kStages * kTileBytes;
   const uint32_t bar_full = sV + kStages * kTileBytes;
   const uint32_t bar_empty = bar_full + kStages * 8;
@@ -328,8 +367,8 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_k,
         const int k0 = (kt_begin + i) * kKeys;
 #pragma unroll
         for (int c = 0; c < NCHUNK; ++c) {
-          tma_load_4d(sK + st * kTileBytes + c * kChunkBytes, &map_k, full, c * kChunk, kv, k0, b);
-          tma_load_4d(sV + st * kTileBytes + c * kChunkBytes, &map_v, full, c * kChunk, kv, k0, b);
+          tma_load_4d(sK + st * kTileBytes + c * T::kKvChunkBytes, &map_k, full, c * kChunk, kv, k0, b);
+          tma_load_4d(sV + st * kTileBytes + c * T::kKvChunkBytes, &map_v, full, c * kChunk, kv, k0, b);
         }
       }
     }
@@ -340,7 +379,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_k,
     const int warp = t / 32;
     const int lane = t % 32;
     const int wrow0 = row0 + wg * kWgRows;
-    const uint32_t sQw = sQ + wg * kTileBytes;
+    const uint32_t sQw = sQ + wg * T::kQTileBytes;
     unsigned char* tile_q = smem + (sQw - base);
     const int units = Dh / 8;  // 16-byte units of a row
     const long long q_batch = static_cast<long long>(b) * Sq;
@@ -384,35 +423,35 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_k,
     for (int c = 0; c < NCHUNK; ++c)
 #pragma unroll
       for (int e = 0; e < 32; ++e) acc[c][e] = 0.f;
-    float sa[32], sb[32];  // two score tiles: one in the softmax, the next on the tensor cores
+    float sa[kS], sb[kS];  // two score tiles: one in the softmax, the next on the tensor cores
 #pragma unroll
-    for (int e = 0; e < 32; ++e) sa[e] = sb[e] = 0.f;
-    uint32_t p_hi[16], p_mid[16], p_lo[16];
+    for (int e = 0; e < kS; ++e) sa[e] = sb[e] = 0.f;
+    uint32_t p_hi[kP], p_mid[kP], p_lo[kP];
     float m_a = kMasked, m_b = kMasked, l_a = 0.f, l_b = 0.f;
     float corr_a = 1.f, corr_b = 1.f;
 
     // S = Q K^T of tile i into s (issued and committed, not waited)
-    auto issue_qk = [&](int i, float (&s)[32]) {
+    auto issue_qk = [&](int i, float (&s)[kS]) {
       const int st = i % kStages;
       mbar_wait(bar_full + 8 * st, (i / kStages) & 1);
       fence_regs(s);
       wgmma_fence();
 #pragma unroll
       for (int ks = 0; ks < NCHUNK * 4; ++ks) {
-        const uint32_t off = (ks / 4) * kChunkBytes + (ks % 4) * 32;
-        wgmma_ss(s, desc_b128(sQw + off, 0, 1024), desc_b128(sK + st * kTileBytes + off, 0, 1024),
-                 ks);
+        const uint32_t col = (ks % 4) * 32;  // 16 columns of the 64-column chunk ks / 4
+        wgmma_ss(s, desc_b128(sQw + (ks / 4) * kChunkBytes + col, 0, 1024),
+                 desc_b128(sK + st * kTileBytes + (ks / 4) * T::kKvChunkBytes + col, 0, 1024), ks);
       }
       wgmma_commit();
     };
     // The online softmax of tile i's scores in s: s becomes p = exp(x - m)
     // (f32), l and m move on, corr = exp(m_old - m_new)
-    auto softmax = [&](int i, float (&s)[32]) {
+    auto softmax = [&](int i, float (&s)[kS]) {
       const int k0 = (kt_begin + i) * kKeys;
       float mx_a = -CUDART_INF_F, mx_b = -CUDART_INF_F;
       if (k0 + kKeys - 1 > wg_hi || k0 < wg_lo) {
 #pragma unroll
-        for (int e = 0; e < 32; ++e) {
+        for (int e = 0; e < kS; ++e) {
           const int key = k0 + 8 * (e / 4) + col + (e & 1);
           const int lo = band[(e & 2) ? 2 : 0], hi = band[(e & 2) ? 3 : 1];
           const float x =
@@ -422,7 +461,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_k,
         }
       } else {
 #pragma unroll
-        for (int e = 0; e < 32; ++e) {
+        for (int e = 0; e < kS; ++e) {
           s[e] *= scale;
           if (e & 2) mx_b = fmaxf(mx_b, s[e]); else mx_a = fmaxf(mx_a, s[e]);
         }
@@ -438,7 +477,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_k,
       m_b = mn_b;
       float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-      for (int e = 0; e < 32; ++e) {
+      for (int e = 0; e < kS; ++e) {
         // subtract first: x = m = -1e30 must give exp(0) = 1 exactly
         s[e] = ex2((s[e] - ((e & 2) ? mn_b : mn_a)) * kLog2e);
         if (e & 2) sum_b += s[e]; else sum_a += s[e];
@@ -455,9 +494,9 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_k,
     // O += p_hi V + p_mid V + p_lo V for tile i, p = p_hi + p_mid + p_lo in
     // bf16 to 2^-26 of p (fragment register r of k-step kk holds
     // accumulator elements 8 kk + 2 r and 8 kk + 2 r + 1)
-    auto issue_pv = [&](int i, const float (&s)[32]) {
+    auto issue_pv = [&](int i, const float (&s)[kS]) {
 #pragma unroll
-      for (int e = 0; e < 32; e += 2) {
+      for (int e = 0; e < kS; e += 2) {
         float r0 = s[e], r1 = s[e + 1];
         p_hi[e / 2] = split_bf16(r0, r1);
         p_mid[e / 2] = split_bf16(r0, r1);
@@ -473,9 +512,17 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_k,
 #pragma unroll
       for (int kk = 0; kk < kKeys / 16; ++kk) {
         // 16 keys: rows kk*16.. of 128 bytes, 8-row groups 1024 apart, the
-        // second 64 columns of V a chunk (kChunkBytes) on
-        const uint64_t dv = desc_b128(tV + kk * 2048, kChunkBytes, 1024);
-        if constexpr (NCHUNK == 2) {
+        // next 64 columns of V a chunk (kKvChunkBytes) on
+        const uint64_t dv = desc_b128(tV + kk * 2048, T::kKvChunkBytes, 1024);
+        if constexpr (NCHUNK == 4) {  // two N = 128 halves: columns 0-127, then 128-255
+          const uint64_t dv2 = desc_b128(tV + 2 * T::kKvChunkBytes + kk * 2048, T::kKvChunkBytes, 1024);
+          wgmma_rs_t128(acc[0], acc[1], p_hi + 4 * kk, dv);
+          wgmma_rs_t128(acc[2], acc[3], p_hi + 4 * kk, dv2);
+          wgmma_rs_t128(acc[0], acc[1], p_mid + 4 * kk, dv);
+          wgmma_rs_t128(acc[2], acc[3], p_mid + 4 * kk, dv2);
+          wgmma_rs_t128(acc[0], acc[1], p_lo + 4 * kk, dv);
+          wgmma_rs_t128(acc[2], acc[3], p_lo + 4 * kk, dv2);
+        } else if constexpr (NCHUNK == 2) {
           wgmma_rs_t128(acc[0], acc[1], p_hi + 4 * kk, dv);
           wgmma_rs_t128(acc[0], acc[1], p_mid + 4 * kk, dv);
           wgmma_rs_t128(acc[0], acc[1], p_lo + 4 * kk, dv);
@@ -501,7 +548,7 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_k,
     // Tile i: its softmax overlaps tile i - 1's P V on the tensor cores,
     // and tile i + 1's Q K^T runs there while this consumer rescales and
     // splits.
-    auto step = [&](int i, float (&cur)[32], float (&next)[32]) {
+    auto step = [&](int i, float (&cur)[kS], float (&next)[kS]) {
       wgmma_wait<1>();  // tile i's Q K^T
       fence_regs(cur);
       softmax(i, cur);
@@ -603,16 +650,16 @@ EncodeTiled encoder() {
 constexpr int kEncodeError = 100000;
 
 // A map of k or v (B, Sk, K, Dh) bf16 as the 4-d tensor (Dh, K, Sk, B),
-// boxes of 64 columns x 1 head x 64 keys x 1 batch, 128-byte swizzle,
+// boxes of 64 columns x 1 head x `keys` keys x 1 batch, 128-byte swizzle,
 // zero fill out of bounds.
-int encode_kv(CUtensorMap* map, const void* ptr, int B, int Sk, int K, int Dh) {
+int encode_kv(CUtensorMap* map, const void* ptr, int B, int Sk, int K, int Dh, int keys) {
   const EncodeTiled enc = encoder();
   if (enc == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(Dh), static_cast<cuuint64_t>(K),
                               static_cast<cuuint64_t>(Sk), static_cast<cuuint64_t>(B)};
   const cuuint64_t row = static_cast<cuuint64_t>(Dh) * 2;
   const cuuint64_t strides[3] = {row, row * K, row * K * Sk};
-  const cuuint32_t box[4] = {kChunk, 1, kKeys, 1};
+  const cuuint32_t box[4] = {kChunk, 1, static_cast<cuuint32_t>(keys), 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult r = enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
                          strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
@@ -625,10 +672,10 @@ template <int NCHUNK>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Sk,
            int H, int K, int Dh, int window, int causal, float scale, cudaStream_t stream) {
   CUtensorMap map_k, map_v;
-  int err = encode_kv(&map_k, k, B, Sk, K, Dh);
-  if (err == 0) err = encode_kv(&map_v, v, B, Sk, K, Dh);
+  int err = encode_kv(&map_k, k, B, Sk, K, Dh, Tiling<NCHUNK>::kKeys);
+  if (err == 0) err = encode_kv(&map_v, v, B, Sk, K, Dh, Tiling<NCHUNK>::kKeys);
   if (err != 0) return err;
-  const size_t bytes = smem_bytes(NCHUNK);
+  const size_t bytes = Tiling<NCHUNK>::kSmemBytes;
   const cudaError_t attr = repro::allow_smem(flash_fwd_tc_kernel<NCHUNK>, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const long long rows = static_cast<long long>(Sq) * (H / K);
@@ -643,7 +690,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 
 // q (B, Sq, H, Dh), k/v (B, Sk, K, Dh) -> o (B, Sq, H, Dh): contiguous bf16,
 // 16-byte aligned, H % K == 0, H / K <= 64, Sq * (H / K) < 2^31 - 128,
-// Dh % 16 == 0 and 16 <= Dh <= 128, window <= 0 for none; Sq, Sk and B >=
+// Dh % 16 == 0 and 16 <= Dh <= 256, window <= 0 for none; Sq, Sk and B >=
 // 1. With a non-null `lse`, also each row's log-sum-exp m + log(max(l,
 // 1e-30)) as f32 (B, H, Sq); o is the same with or without it. The wrapper
 // checks the shapes. Returns a cudaError_t, or 100000 + the CUresult of a
@@ -651,17 +698,20 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 extern "C" int repro_flash_fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
                                   int B, int Sq, int Sk, int H, int K, int Dh, int window,
                                   int causal, float scale, void* stream) {
-  if (Dh < 16 || Dh > 2 * kChunk || Dh % 16 != 0 || K < 1 || H % K != 0 || H / K > kMaxGroups ||
+  if (Dh < 16 || Dh > 4 * kChunk || Dh % 16 != 0 || K < 1 || H % K != 0 || H / K > kMaxGroups ||
       static_cast<long long>(Sq) * (H / K) > kMaxRows ||
       (static_cast<long long>(Sq) * (H / K) + kRows - 1) / kRows * B * K > 0x7FFFFFFF)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  return Dh <= kChunk ? launch<1>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s)
-                      : launch<2>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
+  if (Dh <= kChunk) return launch<1>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
+  if (Dh <= 2 * kChunk) return launch<2>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
+  return launch<4>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
 }
 
 // Dynamic shared memory a launch at head_dim `Dh` requests, in bytes.
 extern "C" int repro_flash_fwd_tc_smem(int Dh) {
-  return smem_bytes(Dh <= kChunk ? 1 : 2);
+  return Dh <= kChunk       ? Tiling<1>::kSmemBytes
+         : Dh <= 2 * kChunk ? Tiling<2>::kSmemBytes
+                            : Tiling<4>::kSmemBytes;
 }

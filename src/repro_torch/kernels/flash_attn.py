@@ -37,8 +37,9 @@ import torch
 
 from repro_torch.kernels import build
 
-#: the widest head the kernels' register accumulators hold
-MAX_HEAD_DIM = 128
+#: the widest head the kernels' register accumulators hold (both kernels
+#: run a second instance for heads wider than 128: recurrentgemma's 256)
+MAX_HEAD_DIM = 256
 #: the widest GQA group (H / K) the tensor-core kernel takes
 MAX_TC_GROUPS = 64
 #: (position, query head) rows of one kv head, Sq * G, the tensor-core
@@ -53,7 +54,7 @@ def kernel_for(dtype: torch.dtype, head_dim: int, groups: int, aligned: bool = T
                rows: int = 0) -> str:
     """Which kernel takes CUDA inputs of this dtype, head_dim and GQA group
     (H / K): the tensor-core kernel for bfloat16 with head_dim a multiple of
-    16 up to 128, groups <= 64, 16-byte aligned tensors (TMA and its
+    16 up to 256, groups <= 64, 16-byte aligned tensors (TMA and its
     16-byte loads need them) and rows = Sq * groups <= MAX_TC_ROWS; the FMA
     kernel for everything else."""
     if (dtype == torch.bfloat16 and head_dim % 16 == 0 and 16 <= head_dim <= MAX_HEAD_DIM

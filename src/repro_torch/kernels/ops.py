@@ -568,7 +568,7 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, Sq, H, Dh) against k/v (B, Sk, K, Dh) at positions arange(Sq) x
     arange(Sk), causal and/or a sliding window (keys > q_pos - window),
     float32 softmax, the output (B, Sq, H, Dh) in q's dtype. All three
-    bfloat16 or all float32, H % K == 0, 1 <= Dh <= 128; any Sq and Sk.
+    bfloat16 or all float32, H % K == 0, 1 <= Dh <= 256; any Sq and Sk.
 
     On CUDA, `flash_attn.kernel_for` picks the kernel: bfloat16 with Dh a
     multiple of 16 and H / K <= 64 runs on the tensor cores (counted as

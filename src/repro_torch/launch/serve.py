@@ -22,12 +22,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_arch
-from repro_torch.core import kvcache
 from repro_torch.core.device import resolve_device, synchronize
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import params_from_numpy
-from repro_torch.models.transformer import Transformer, _round_window, init_params
+from repro_torch.models.transformer import Transformer, _round_window, cache_tensors, init_params
 
 
 @dataclasses.dataclass
@@ -96,11 +95,16 @@ def serve(
         decode_s = time.perf_counter() - t1
         toks = torch.cat(out, dim=1).cpu().numpy()
 
-    # the reference's cache also holds `pos` as an int32 scalar: 4 bytes
-    cache_bytes = kvcache.cache_bytes(cache["layers"]) + 4
-    # raw bf16 cache equivalent for the same layers/window (compression win)
-    w = _round_window(cfg.effective_kv_window(cache_len))
-    raw_equiv = cfg.n_layers * batch * w * cfg.n_kv_heads * cfg.head_dim * 2 * 2
+    # every tensor of the cache (rings and recurrent states); the
+    # reference's cache also holds `pos` as an int32 scalar: 4 bytes
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache_tensors(cache)) + 4
+    # raw bf16 cache equivalent for the same attention layers/window
+    # (compression win); none for the attention-free ssm family
+    raw_equiv = 0
+    if cfg.family != "ssm":
+        n_attn = cfg.hybrid_pattern()[0] if cfg.family == "hybrid" else cfg.n_layers
+        w = _round_window(cfg.effective_kv_window(cache_len))
+        raw_equiv = n_attn * batch * w * cfg.n_kv_heads * cfg.head_dim * 2 * 2
     return ServeRun(
         prefill_s=prefill_s,
         decode_s=decode_s,

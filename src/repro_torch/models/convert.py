@@ -1,12 +1,15 @@
 """Carry parameters between the reference and the port.
 
-The reference's parameter tree for the dense family (`init_params` in
+The reference's parameter tree (`init_params` in
 `repro/models/transformer.py`) as nested dicts of numpy arrays: `embed`
-(padded_vocab, d_model), `final_norm`, `head` unless tied, and `layers`,
-whose leaves are stacked over the layers on dim 0 (`attn_norm` (L, D),
-`attn/wq` (L, D, H*Dh), ..., `ffn/w_down` (L, F, D)). The port's
-`Transformer` keeps the same names and layout, one module per layer, so a
-parameter `layers.<i>.attn.wq` is row i of the tree's `layers/attn/wq`.
+(padded_vocab, d_model), `final_norm`, `head` unless tied, and the stacked
+blocks: `layers` for the dense, moe and ssm families, `groups` and `tail`
+for the hybrid family, whose leaves are stacked over the blocks on dim 0
+(`layers/attn/wq` (L, D, H*Dh), ..., `groups/rec1/rglru/w_in_x` (G, D, R),
+`tail/ffn/w_down` (T, F, D)). The port's `Transformer` keeps the same names
+and layout, one module per block, so a parameter `layers.<i>.attn.wq` is
+row i of the tree's `layers/attn/wq`, and `groups.<i>.rec1.rglru.lam` row
+i of `groups/rec1/rglru/lam`.
 
 `named_to_tree` and `tree_to_named` map any dict keyed by the port's
 parameter names (the parameters, or AdamW's `m` and `v`) to and from that
@@ -23,47 +26,48 @@ import torch
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Device, Transformer
 
+#: the subtrees whose leaves are stacked over blocks on dim 0
+STACKS = ("layers", "groups", "tail")
+
 
 def named_to_tree(named: Mapping[str, Any]) -> Dict[str, Any]:
     """{port parameter name: leaf} -> the reference's nested tree, the
-    per-layer leaves stacked on dim 0 (`np.stack` of numpy leaves,
+    per-block leaves stacked on dim 0 (`np.stack` of numpy leaves,
     `torch.stack` of tensors)."""
     tree: Dict[str, Any] = {}
-    per_layer: Dict[str, list] = {}
+    per_block: Dict[tuple, list] = {}
     for name, leaf in named.items():
         parts = name.split(".")
-        if parts[0] == "layers":
-            per_layer.setdefault(".".join(parts[2:]), []).append((int(parts[1]), leaf))
+        if parts[0] in STACKS:
+            per_block.setdefault((parts[0], ".".join(parts[2:])), []).append((int(parts[1]), leaf))
         else:
             tree[name] = leaf
-    layers: Dict[str, Any] = {}
-    for rest, rows in per_layer.items():
+    for (stack, rest), rows in per_block.items():
         leaves = [leaf for _, leaf in sorted(rows, key=lambda r: r[0])]
         stacked = torch.stack(leaves) if isinstance(leaves[0], torch.Tensor) else np.stack(leaves)
-        node = layers
+        node = tree.setdefault(stack, {})
         *path, last = rest.split(".")
         for key in path:
             node = node.setdefault(key, {})
         node[last] = stacked
-    if layers:
-        tree["layers"] = layers
     return tree
 
 
 def tree_to_named(tree: Mapping[str, Any]) -> Dict[str, Any]:
-    """The inverse of `named_to_tree`: the stacked layer leaves split into
-    rows (views), keyed by the port's parameter names."""
-    named: Dict[str, Any] = {k: v for k, v in tree.items() if k != "layers"}
+    """The inverse of `named_to_tree`: the stacked leaves split into rows
+    (views), keyed by the port's parameter names."""
+    named: Dict[str, Any] = {k: v for k, v in tree.items() if k not in STACKS}
 
-    def walk(node: Mapping[str, Any], prefix: str) -> None:
+    def walk(stack: str, node: Mapping[str, Any], prefix: str) -> None:
         for key, val in node.items():
             if isinstance(val, Mapping):
-                walk(val, f"{prefix}{key}.")
+                walk(stack, val, f"{prefix}{key}.")
             else:
                 for i in range(val.shape[0]):
-                    named[f"layers.{i}.{prefix}{key}"] = val[i]
+                    named[f"{stack}.{i}.{prefix}{key}"] = val[i]
 
-    walk(tree.get("layers", {}), "")
+    for stack in STACKS:
+        walk(stack, tree.get(stack, {}), "")
     return named
 
 
@@ -85,7 +89,7 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device: Device = N
 
 
 def params_to_numpy(model: Transformer) -> Dict[str, Any]:
-    """The inverse of `params_from_numpy`: float32 numpy leaves, the layer
+    """The inverse of `params_from_numpy`: float32 numpy leaves, the block
     leaves stacked on dim 0."""
     return named_to_tree({name: p.detach().to(torch.float32).cpu().numpy()
                           for name, p in model.named_parameters()})

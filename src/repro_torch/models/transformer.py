@@ -1,11 +1,15 @@
-"""Decoder backbone, dense and moe families (port of
+"""Decoder backbone for the dense, moe, ssm and hybrid families (port of
 `repro/models/transformer.py`).
 
 GQA + RoPE + SwiGLU (with qwen3's per-head q/k norm), as `nn.Module`s:
 `Transformer` holds the embedding, the final norm, the head when it is not
-tied, and a block per layer: a `DenseBlock` (`Attention`, `SwiGLU` and two
-norms) for the dense family, a `MoEBlock` (`Attention`, `moe.MoEFFN` and
-two norms) for the moe family (mixtral, qwen3-moe). Parameters keep the
+tied, and its blocks: in `layers`, a `DenseBlock` (`Attention`, `SwiGLU`
+and two norms) per layer for the dense family, a `MoEBlock` (`Attention`,
+`moe.MoEFFN` and two norms) for the moe family (mixtral, qwen3-moe), an
+`SSMBlock` (a norm and `ssd.Mamba2`) for the ssm family (mamba2); for the
+hybrid family (RecurrentGemma) `groups` of `HybridGroup`s (two
+`RecSublayer`s, each an `rglru.RGLRU` and a SwiGLU, then local attention
+and a SwiGLU) and a `tail` of `RecSublayer`s. Parameters keep the
 reference's names and layout (`x @ w` with `w` of shape (d_in, d_out),
 norm gammas as offsets from 1), so the reference's parameter tree carries
 across without transposes (`models/convert.py`).
@@ -27,10 +31,14 @@ default) and `decode_step`. Prefill attention runs kernel B10
 (`ops.flash_attention_fwd`); the decode reads the quantized ring in plain
 torch (`core/kvcache.py`). An moe block routes all B*S tokens of a prefill,
 or the B tokens of a decode step, in one call, as the reference does:
-capacity and drops depend on them all. The cache is a dict of tensors
-updated in place, with `pos` a Python int. The `hybrid` and `ssm`
-families and embedding front ends raise NotImplementedError naming ROADMAP
-A10. `models/partition.py` has no counterpart: its sharding hints are the
+capacity and drops depend on them all. The recurrent blocks carry their
+state in the cache (ssm: `layers/ssm_state` and `layers/conv_tail`;
+hybrid: `groups/{rec1,rec2}/{h,conv_tail}`, `groups/attn/<ring>` and
+`tail/{h,conv_tail}`, the reference's layout); the hybrid family's local
+attention prefills on B10 with `cfg.local_window` and decodes over its
+ring. The cache is a dict of tensors updated in place, with `pos` a Python
+int. Embedding front ends raise NotImplementedError naming ROADMAP A10.
+`models/partition.py` has no counterpart: its sharding hints are the
 identity without a mesh.
 """
 from __future__ import annotations
@@ -44,7 +52,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import kvcache
 from repro_torch.core.device import resolve_device
-from repro_torch.models import layers
+from repro_torch.models import layers, rglru, ssd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import MoEFFN
 from repro_torch.models.params import Storage, _Params
@@ -58,7 +66,7 @@ def dtype_of(cfg: ModelConfig) -> torch.dtype:
 
 
 #: the families the port builds
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "ssm", "hybrid")
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -157,13 +165,126 @@ class MoEBlock(Block):
         return self.moe(cfg, layers.rms_norm(h, self.p("ffn_norm")))
 
 
+class SSMBlock(_Params):
+    """Pre-norm Mamba2 with a residual (the reference's `_ssm_block`):
+    `norm` and the mixer (`mixer`); no separate FFN."""
+
+    def __init__(self, cfg: ModelConfig, store: Storage):
+        super().__init__(store)
+        self._add("norm", (cfg.d_model,))
+        self.mixer = ssd.Mamba2(cfg, store)
+
+    def forward(self, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, None]:
+        h0 = ssd.init_ssm_state(x.shape[0], cfg, x.device)
+        y, _, _ = ssd.mamba2_apply(self.mixer.params(), cfg, layers.rms_norm(x, self.p("norm")), h0)
+        return x + y, None
+
+    def step_(self, cfg: ModelConfig, x: torch.Tensor, state: Dict[str, torch.Tensor],
+              decode: bool) -> torch.Tensor:
+        """x (B, S, D) through the block from the state in `state`
+        (`ssm_state`, `conv_tail`): the chunked scan over a prompt, or the
+        O(1) update of one token when `decode`; the new state written back
+        in place."""
+        fn = ssd.mamba2_decode if decode else ssd.mamba2_apply
+        y, h, tail = fn(self.mixer.params(), cfg, layers.rms_norm(x, self.p("norm")), state["ssm_state"],
+                        state["conv_tail"])
+        state["ssm_state"].copy_(h)
+        state["conv_tail"].copy_(tail)
+        return x + y
+
+
+class RecSublayer(_Params):
+    """An RG-LRU mixer and a SwiGLU, each pre-norm with a residual (the
+    reference's `_rec_sublayer`): `mix_norm`, `rglru`, `ffn_norm`, `ffn`."""
+
+    def __init__(self, cfg: ModelConfig, store: Storage):
+        super().__init__(store)
+        self._add("mix_norm", (cfg.d_model,))
+        self.rglru = rglru.RGLRU(cfg.d_model, cfg.lru_width, cfg.conv_width, store)
+        self._add("ffn_norm", (cfg.d_model,))
+        self.ffn = SwiGLU(cfg.d_model, cfg.d_ff, store)
+
+    def apply(self, cfg: ModelConfig, x: torch.Tensor, h0: Optional[torch.Tensor] = None,
+              conv_tail: Optional[torch.Tensor] = None):
+        """(x out, h_last, conv_tail) from state h0 (zeros when None)."""
+        if h0 is None:
+            h0 = rglru.init_rglru_state(x.shape[0], cfg.lru_width, x.device)
+        y, h_last, tail = self.rglru(layers.rms_norm(x, self.p("mix_norm")), h0, conv_tail)
+        x = x + y
+        return x + self.ffn(layers.rms_norm(x, self.p("ffn_norm"))), h_last, tail
+
+    def forward(self, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, None]:
+        return self.apply(cfg, x)[0], None
+
+    def step_(self, cfg: ModelConfig, x: torch.Tensor, state: Dict[str, torch.Tensor]) -> torch.Tensor:
+        """x through the sublayer from the state in `state` (`h`,
+        `conv_tail`), the new state written back in place."""
+        x, h, tail = self.apply(cfg, x, state["h"], state["conv_tail"])
+        state["h"].copy_(h)
+        state["conv_tail"].copy_(tail)
+        return x
+
+
+class HybridGroup(_Params):
+    """RecurrentGemma's group (the reference's `_hybrid_group`): two
+    `RecSublayer`s (`rec1`, `rec2`), then local attention over
+    `cfg.local_window` keys and a SwiGLU, each pre-norm with a residual
+    (`attn_norm`, `attn`, `attn_ffn_norm`, `attn_ffn`)."""
+
+    def __init__(self, cfg: ModelConfig, store: Storage):
+        super().__init__(store)
+        self.rec1 = RecSublayer(cfg, store)
+        self.rec2 = RecSublayer(cfg, store)
+        self._add("attn_norm", (cfg.d_model,))
+        self.attn = Attention(cfg, store)
+        self._add("attn_ffn_norm", (cfg.d_model,))
+        self.attn_ffn = SwiGLU(cfg.d_model, cfg.d_ff, store)
+
+    def _attend_ffn(self, x: torch.Tensor, attend) -> torch.Tensor:
+        h = x + attend(self.attn.params(), layers.rms_norm(x, self.p("attn_norm")))
+        return h + self.attn_ffn(layers.rms_norm(h, self.p("attn_ffn_norm")))
+
+    def forward(self, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, None]:
+        x = self.rec1(cfg, x)[0]
+        x = self.rec2(cfg, x)[0]
+        return self._attend_ffn(
+            x, lambda p, h: layers.attention_train(p, cfg, h, window=cfg.local_window)), None
+
+    def prefill_(self, cfg: ModelConfig, x: torch.Tensor, state: Dict[str, Any]) -> torch.Tensor:
+        """A prompt through the group: the sublayers' states and the local
+        attention's ring (`state["attn"]`) written in place; attention on
+        B10 over `cfg.local_window` keys."""
+        x = self.rec1.step_(cfg, x, state["rec1"])
+        x = self.rec2.step_(cfg, x, state["rec2"])
+        kv = []
+
+        def attend(p, h):
+            a, k, v = layers.attention_prefill(p, cfg, h, window=cfg.local_window)
+            kv.extend((k, v))
+            return a
+
+        x = self._attend_ffn(x, attend)
+        store_kv(cfg, state["attn"], *kv)
+        return x
+
+    def decode_(self, cfg: ModelConfig, x: torch.Tensor, state: Dict[str, Any], pos: int) -> torch.Tensor:
+        """One token through the group at position `pos`, its states and
+        ring updated in place."""
+        x = self.rec1.step_(cfg, x, state["rec1"])
+        x = self.rec2.step_(cfg, x, state["rec2"])
+        return self._attend_ffn(
+            x, lambda p, h: _decode_attend(p, cfg, h, state["attn"], pos, cfg.local_window))
+
+
 class Transformer(_Params):
     """The decoder: `embed` (padded_vocab, d_model), `final_norm`, `head`
-    (d_model, padded_vocab) unless tied, `layers` (`DenseBlock`s, or
-    `MoEBlock`s for the moe family). `param_dtype` None serves (parameters
-    in `cfg.dtype`, no gradients); a dtype name (`cfg.param_dtype` to
-    train) holds master parameters in it with gradients, cast to
-    `cfg.dtype` at every use."""
+    (d_model, padded_vocab) unless tied, and the blocks: `layers`
+    (`DenseBlock`s, `MoEBlock`s for the moe family, `SSMBlock`s for the ssm
+    family), or for the hybrid family `groups` (`HybridGroup`s) and `tail`
+    (`RecSublayer`s) by `cfg.hybrid_pattern()`. `param_dtype` None serves
+    (parameters in `cfg.dtype`, no gradients); a dtype name
+    (`cfg.param_dtype` to train) holds master parameters in it with
+    gradients, cast to `cfg.dtype` at every use."""
 
     def __init__(self, cfg: ModelConfig, device: Device = None, param_dtype: Optional[str] = None):
         check_supported(cfg)
@@ -176,8 +297,19 @@ class Transformer(_Params):
         self._add("final_norm", (cfg.d_model,))
         if not cfg.tie_embeddings:
             self._add("head", (cfg.d_model, cfg.padded_vocab))
-        block = MoEBlock if cfg.family == "moe" else DenseBlock
-        self.layers = nn.ModuleList(block(cfg, store) for _ in range(cfg.n_layers))
+        if cfg.family == "hybrid":
+            groups, rem = cfg.hybrid_pattern()
+            self.groups = nn.ModuleList(HybridGroup(cfg, store) for _ in range(groups))
+            self.tail = nn.ModuleList(RecSublayer(cfg, store) for _ in range(rem))
+        else:
+            block = {"dense": DenseBlock, "moe": MoEBlock, "ssm": SSMBlock}[cfg.family]
+            self.layers = nn.ModuleList(block(cfg, store) for _ in range(cfg.n_layers))
+
+    def blocks(self):
+        """The blocks in order, each `block(cfg, x) -> (x, aux or None)`."""
+        if self.cfg.family == "hybrid":
+            return [*self.groups, *self.tail]
+        return list(self.layers)
 
     @property
     def device(self) -> torch.device:
@@ -202,7 +334,9 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = None,
     """A `Transformer` (`param_dtype` as there) with the reference's initial
     distributions (not its numbers): embedding N(0, 1) / sqrt(d_model),
     every weight of two or more dims N(0, 1) / sqrt(shape[-2]) (d_in of a
-    dense or an expert's weight, d_model of the router), norms 0; drawn in
+    dense or an expert's weight, d_model of the router), norms and biases
+    0, and the recurrent blocks' own (`RGLRU.draw_`, `Mamba2.draw_`: the
+    convs' N(0, 1) x 0.1, `lam`, `A_log`, `D` = 1, `dt_bias`); drawn in
     float32 from a `torch.Generator` on the device seeded with `seed`, then
     held in the storage dtype."""
     model = Transformer(cfg, device, param_dtype)
@@ -215,9 +349,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = None,
         normal_(model.embed, 1.0 / math.sqrt(cfg.d_model))
         if not cfg.tie_embeddings:
             normal_(model.head, 1.0 / math.sqrt(cfg.d_model))
-        for p in model.layers.parameters():
-            if p.dim() >= 2:
-                normal_(p, 1.0 / math.sqrt(p.shape[-2]))
+        for blk in model.blocks():
+            for p in blk.parameters():
+                if p.dim() >= 2:
+                    normal_(p, 1.0 / math.sqrt(p.shape[-2]))
+        for mod in model.modules():
+            if isinstance(mod, (rglru.RGLRU, ssd.Mamba2)):
+                mod.draw_(gen)
     return model
 
 
@@ -225,13 +363,13 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = None,
 def forward(model: Transformer, cfg: ModelConfig, inputs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """inputs int tokens (B, S) at positions arange(S) -> (logits (B, S, V),
     aux loss: the sum of the moe blocks' load-balance losses, 0.0 for the
-    dense family). Each block runs under `torch.utils.checkpoint` (its
+    other families). Each block runs under `torch.utils.checkpoint` (its
     activations recomputed in the backward, B10 launched again) when
     `cfg.remat == "full"` and gradients are on."""
     x = model.embedding(inputs)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     auxs = []
-    for blk in model.layers:
+    for blk in model.blocks():
         x, aux = checkpoint(blk, cfg, x, use_reentrant=False) if remat else blk(cfg, x)
         if aux is not None:
             auxs.append(aux)
@@ -266,34 +404,79 @@ def _round_window(w: int) -> int:
     return w
 
 
-def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int, device: Device = None) -> Dict[str, Any]:
-    """Decode state for `decode_step`: `pos` and, per layer stacked on dim
-    0, a ring of `_round_window(effective_kv_window(seq_len))` slots,
-    quantized (uint8 codes + float32 group scales) when `cfg.kv_quant`, else
-    raw in `cfg.dtype`."""
-    check_supported(cfg)
-    device = resolve_device(device)
-    n, kh, dh = cfg.n_layers, cfg.n_kv_heads, cfg.head_dim
-    w = _round_window(cfg.effective_kv_window(seq_len))
+def _ring(cfg: ModelConfig, n: int, batch: int, w: int, device: torch.device) -> Dict[str, torch.Tensor]:
+    """n attention layers' rings of w slots, stacked on dim 0: quantized
+    (uint8 codes + float32 group scales) when `cfg.kv_quant`, else raw in
+    `cfg.dtype`."""
+    kh, dh = cfg.n_kv_heads, cfg.head_dim
     if cfg.kv_quant:
         g = min(kvcache.SCALE_GROUP, w)
-        ring = {
+        return {
             "k_codes": torch.zeros((n, batch, w, kh, dh), dtype=torch.uint8, device=device),
             "v_codes": torch.zeros((n, batch, w, kh, dh), dtype=torch.uint8, device=device),
             "k_scale": torch.ones((n, batch, w // g, kh), dtype=torch.float32, device=device),
             "v_scale": torch.ones((n, batch, w // g, kh), dtype=torch.float32, device=device),
         }
-    else:
-        ring = {
-            "k": torch.zeros((n, batch, w, kh, dh), dtype=dtype_of(cfg), device=device),
-            "v": torch.zeros((n, batch, w, kh, dh), dtype=dtype_of(cfg), device=device),
-        }
-    return {"pos": 0, "layers": ring}
+    return {
+        "k": torch.zeros((n, batch, w, kh, dh), dtype=dtype_of(cfg), device=device),
+        "v": torch.zeros((n, batch, w, kh, dh), dtype=dtype_of(cfg), device=device),
+    }
+
+
+def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int, device: Device = None) -> Dict[str, Any]:
+    """Decode state for `decode_step`, the reference's layout, each leaf
+    stacked over its layers on dim 0, and `pos`. Attention layers keep a
+    ring of `_round_window(effective_kv_window(seq_len))` slots (`_ring`):
+    `layers` for the dense and moe families, `groups/attn` for the hybrid.
+    The ssm family keeps `layers/ssm_state` (float32 (L, B, G, E, P, N)) and
+    `layers/conv_tail` ((L, B, W-1, conv_dim) in `cfg.dtype`); the hybrid's
+    RG-LRU sublayers `groups/{rec1,rec2}` and `tail` hold `h` (float32 (n,
+    B, lru_width)) and `conv_tail` ((n, B, W-1, lru_width))."""
+    check_supported(cfg)
+    device = resolve_device(device)
+    dt = dtype_of(cfg)
+    if cfg.family == "ssm":
+        n = cfg.n_layers
+        e = cfg.ssm_heads // cfg.ssm_groups
+        return {"pos": 0, "layers": {
+            "ssm_state": torch.zeros((n, batch, cfg.ssm_groups, e, cfg.ssm_head_dim, cfg.ssm_state),
+                                     dtype=torch.float32, device=device),
+            "conv_tail": torch.zeros((n, batch, cfg.conv_width - 1, ssd.conv_dim(cfg)), dtype=dt, device=device),
+        }}
+    w = _round_window(cfg.effective_kv_window(seq_len))
+    if cfg.family != "hybrid":
+        return {"pos": 0, "layers": _ring(cfg, cfg.n_layers, batch, w, device)}
+    groups, rem = cfg.hybrid_pattern()
+
+    def rec_state(n: int) -> Dict[str, torch.Tensor]:
+        return {"h": torch.zeros((n, batch, cfg.lru_width), dtype=torch.float32, device=device),
+                "conv_tail": torch.zeros((n, batch, cfg.conv_width - 1, cfg.lru_width), dtype=dt, device=device)}
+
+    cache = {"pos": 0, "groups": {"rec1": rec_state(groups), "rec2": rec_state(groups),
+                                  "attn": _ring(cfg, groups, batch, w, device)}}
+    if rem:
+        cache["tail"] = rec_state(rem)
+    return cache
+
+
+def _view(node: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Row i of every tensor of a (nested) dict, as views: writes land in
+    the cache."""
+    return {k: _view(v, i) if isinstance(v, dict) else v[i] for k, v in node.items()}
 
 
 def layer_view(cache: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
-    """Layer i's slice of every ring tensor (views: writes land in the cache)."""
-    return {name: t[i] for name, t in cache["layers"].items()}
+    """Layer i's slice of every tensor of `cache["layers"]` (views)."""
+    return _view(cache["layers"], i)
+
+
+def cache_tensors(cache: Dict[str, Any]):
+    """Every tensor of a cache (nested dicts), in order."""
+    for v in cache.values():
+        if isinstance(v, dict):
+            yield from cache_tensors(v)
+        elif isinstance(v, torch.Tensor):
+            yield v
 
 
 def store_kv(cfg: ModelConfig, cache_l: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor) -> None:
@@ -355,26 +538,44 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: Dict[str, Any],
     V)). The cache's tensors are updated in place and `pos` advances."""
     pos = cache["pos"]
     x = model.embedding(inputs_t)
-    for i, blk in enumerate(model.layers):
-        a = _decode_attend(blk.attn.params(), cfg, layers.rms_norm(x, blk.p("attn_norm")),
-                           layer_view(cache, i), pos, cfg.swa_window)
-        h = x + a
-        x = h + blk.ffn_out(cfg, h)[0]
+    if cfg.family == "ssm":
+        for i, blk in enumerate(model.layers):
+            x = blk.step_(cfg, x, layer_view(cache, i), decode=True)
+    elif cfg.family == "hybrid":
+        for i, grp in enumerate(model.groups):
+            x = grp.decode_(cfg, x, _view(cache["groups"], i), pos)
+        for i, sub in enumerate(model.tail):
+            x = sub.step_(cfg, x, _view(cache["tail"], i))
+    else:
+        for i, blk in enumerate(model.layers):
+            a = _decode_attend(blk.attn.params(), cfg, layers.rms_norm(x, blk.p("attn_norm")),
+                               layer_view(cache, i), pos, cfg.swa_window)
+            h = x + a
+            x = h + blk.ffn_out(cfg, h)[0]
     cache["pos"] = pos + 1
     return cache, model.logits(x)
 
 
 def prefill(model: Transformer, cfg: ModelConfig, inputs: torch.Tensor,
             cache_seq_len: Optional[int] = None) -> Tuple[Dict[str, Any], torch.Tensor]:
-    """Process a prompt of int tokens (B, S): fill the decode cache (ring
-    of `max(cache_seq_len or S, S)` positions) layer by layer with the K/V
-    the forward pass computes, and return (cache, logits of the last prompt
-    position (B, 1, V))."""
+    """Process a prompt of int tokens (B, S): fill the decode cache (rings
+    of `max(cache_seq_len or S, S)` positions, and the recurrent states)
+    layer by layer with what the forward pass computes, and return (cache,
+    logits of the last prompt position (B, 1, V))."""
     b, s = inputs.shape
     cache = init_decode_cache(cfg, b, max(cache_seq_len or s, s), model.device)
     x = model.embedding(inputs)
-    for i, blk in enumerate(model.layers):
-        x, k, v = blk.prefill(cfg, x)
-        store_kv(cfg, layer_view(cache, i), k, v)
+    if cfg.family == "ssm":
+        for i, blk in enumerate(model.layers):
+            x = blk.step_(cfg, x, layer_view(cache, i), decode=False)
+    elif cfg.family == "hybrid":
+        for i, grp in enumerate(model.groups):
+            x = grp.prefill_(cfg, x, _view(cache["groups"], i))
+        for i, sub in enumerate(model.tail):
+            x = sub.step_(cfg, x, _view(cache["tail"], i))
+    else:
+        for i, blk in enumerate(model.layers):
+            x, k, v = blk.prefill(cfg, x)
+            store_kv(cfg, layer_view(cache, i), k, v)
     cache["pos"] = s
     return cache, model.logits(x[:, -1:])

@@ -164,6 +164,10 @@ def test_two_term_split_breaks_the_rule_on_short_rows():
         (torch.bfloat16, 128, 2, True, 2**31, flash_attn.FMA),  # rows past 32-bit indexing
         (torch.float32, 128, 2, True, 4096, flash_attn.FMA),  # float32 contract
         (torch.float32, 64, 1, True, 100, flash_attn.FMA),
+        (torch.bfloat16, 256, 16, True, 8192, flash_attn.TENSOR_CORE),  # recurrentgemma's prefill
+        (torch.bfloat16, 192, 4, True, 100, flash_attn.TENSOR_CORE),
+        (torch.bfloat16, 264, 2, True, 100, flash_attn.FMA),  # past 256 (the wrapper refuses it)
+        (torch.float32, 256, 16, True, 8192, flash_attn.FMA),
     ],
 )
 def test_dispatch_rule(dtype, Dh, G, aligned, rows, kernel):
@@ -231,6 +235,42 @@ def test_plain_version_ragged_lengths_match_oracle(reference, S, window, causal)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL, atol=F32_TOL)
 
 
+@pytest.mark.parametrize(
+    "B,Sq,Sk,H,K,Dh,window,causal",
+    [
+        (1, 96, 96, 16, 1, 256, 40, True),  # recurrentgemma's head: G 16 over one kv head, windowed
+        (2, 50, 70, 4, 2, 256, None, True),  # ragged, Sk > Sq
+        (1, 40, 40, 4, 2, 192, None, False),
+        (1, 33, 33, 2, 1, 136, 9, True),
+    ],
+)
+def test_plain_version_wide_heads_match_oracle(reference, B, Sq, Sk, H, K, Dh, window, causal):
+    """Head dims above 128 (ROADMAP C6): both forms' plain versions on the
+    CPU against the reference's dense oracle, float32 within 2e-4; the lse
+    form's out equal to the plain form's, its lse that of the scaled,
+    masked float32 scores (numpy, float64) within 1e-5."""
+    jnp, _, rflash = reference
+    q, k, v = _qkv(Dh + Sq, B, Sq, Sk, H, K, Dh)
+    tq, tk, tv = map(torch.from_numpy, (q, k, v))
+    got = ops.flash_attention_fwd(tq, tk, tv, window=window, causal=causal)
+    want = rflash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), window=window, causal=causal)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=F32_TOL, atol=F32_TOL)
+    out, lse = ops.flash_attention_fwd_lse(tq, tk, tv, window=window, causal=causal)
+    assert torch.equal(out, got) and lse.shape == (B, H, Sq)
+    kk = np.repeat(k, H // K, axis=2).astype(np.float64)
+    s = np.einsum("bqhd,bkhd->bhqk", q.astype(np.float64), kk) * np.float32(1 / np.sqrt(Dh))
+    qp, kp = np.arange(Sq)[:, None], np.arange(Sk)[None, :]
+    mask = np.ones((Sq, Sk), bool)
+    if causal:
+        mask &= kp <= qp
+    if window is not None:
+        mask &= kp > qp - window
+    s = np.where(mask, s, -np.inf)
+    m = s.max(axis=-1, keepdims=True)
+    want_lse = (m + np.log(np.exp(s - m).sum(axis=-1, keepdims=True)))[..., 0]
+    np.testing.assert_allclose(lse.numpy(), want_lse, rtol=0, atol=1e-5)
+
+
 def test_windowed_rows_with_masked_leading_tiles_are_finite():
     """-1e30, not -inf: rows whose first 64-key tiles are all masked still
     give finite outputs, equal to attending over their window alone."""
@@ -253,8 +293,8 @@ def test_wrapper_checks_inputs_and_counts_no_cpu_call():
     with pytest.raises(ValueError, match="group"):
         ops.flash_attention_fwd(torch.zeros((1, 8, 3, 16)), k, v)
     with pytest.raises(ValueError, match="head_dim"):
-        big = torch.zeros((1, 8, 2, 256))
-        ops.flash_attention_fwd(torch.zeros((1, 8, 4, 256)), big, big)
+        big = torch.zeros((1, 8, 2, 264))
+        ops.flash_attention_fwd(torch.zeros((1, 8, 4, 264)), big, big)
     with pytest.raises(ValueError, match="window"):
         ops.flash_attention_fwd(q, k, v, window=0)
     with pytest.raises(ValueError, match="contiguous"):
@@ -274,7 +314,8 @@ def test_flops_count_the_band():
 
 
 # ---------------------------------------------------------------- on the card --
-#: chip_smoke.py's FLASH_CASES: (B, Sq, Sk, H, K, Dh, window, causal, dtype)
+#: chip_smoke.py's FLASH_CASES and wide-head cases like its
+#: RECURRENT_FLASH_CASES: (B, Sq, Sk, H, K, Dh, window, causal, dtype)
 FLASH_CASES = [
     (4, 2048, 2048, 16, 8, 128, None, True, torch.bfloat16),  # the serving path's prefill
     (2, 512, 512, 8, 2, 128, None, True, torch.float32),
@@ -291,6 +332,10 @@ FLASH_CASES = [
     (1, 333, 333, 4, 2, 16, 50, True, torch.bfloat16),  # Dh 16, windowed
     (1, 190, 190, 4, 2, 128, None, False, torch.bfloat16),  # not causal
     (1, 200, 200, 4, 2, 40, None, True, torch.bfloat16),  # Dh 40: the FMA kernel in bf16
+    (1, 1024, 1024, 16, 1, 256, 512, True, torch.bfloat16),  # recurrentgemma's head, windowed
+    (2, 333, 400, 8, 2, 256, 100, True, torch.bfloat16),  # Dh 256, ragged, Sk > Sq
+    (1, 500, 500, 8, 2, 192, None, True, torch.bfloat16),  # Dh 192
+    (1, 600, 600, 4, 1, 256, 256, True, torch.float32),  # Dh 256 on the FMA kernel
 ]
 
 

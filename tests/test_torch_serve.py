@@ -104,11 +104,11 @@ def test_params_carry_across_unchanged(f32):
 
 def test_unported_configs_raise_naming_the_roadmap():
     with pytest.raises(KeyError, match="ROADMAP A10"):
-        get_arch("mamba2-1.3b")
+        get_arch("musicgen-large")
     with pytest.raises(KeyError, match="unknown arch"):
         get_arch("no-such-arch")
     cfg = get_arch("qwen3-1.7b").model.reduced()
-    for bad in (dict(family="ssm", ssm_state=32),
+    for bad in (dict(input_kind="embeddings", tie_embeddings=True, n_kv_heads=4),
                 dict(input_kind="embeddings"), dict(attn_logit_softcap=30.0)):
         with pytest.raises(NotImplementedError, match="ROADMAP A10"):
             tt.Transformer(dataclasses.replace(cfg, **bad), "cpu")
