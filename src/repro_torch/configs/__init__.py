@@ -1,10 +1,8 @@
 """Architecture registry (port of `repro/configs`): importing this package
-registers the architectures the port builds; `get_arch("--arch id")`
-returns the ArchSpec, and raises naming the ROADMAP item for the
-reference's architectures not ported yet."""
+registers the ten architectures; `get_arch("--arch id")` returns the
+ArchSpec, and raises a KeyError for an unknown id."""
 from repro_torch.configs.base import (  # noqa: F401
     LM_SHAPES,
-    UNPORTED,
     ArchSpec,
     ShapeSpec,
     arch_ids,
@@ -17,7 +15,9 @@ from repro_torch.configs import (  # noqa: F401
     mamba2_1_3b,
     mistral_nemo_12b,
     mixtral_8x7b,
+    musicgen_large,
     phi4_mini_3_8b,
+    pixtral_12b,
     qwen3_1_7b,
     qwen3_moe_30b_a3b,
     recurrentgemma_9b,

@@ -1,13 +1,14 @@
 """Architecture registry (port of `repro/configs/base.py`): ArchSpec, the
 LM shape set, `register_arch`, `get_arch`, `arch_ids`.
 
-The port registers the architectures whose family it builds: the dense
+The port registers all ten of the reference's architectures: the dense
 `qwen3-1.7b`, `deepseek-coder-33b`, `mistral-nemo-12b` and
 `phi4-mini-3.8b`, the moe `mixtral-8x7b` and `qwen3-moe-30b-a3b`, the ssm
-`mamba2-1.3b` and the hybrid `recurrentgemma-9b`. The reference's other
-architectures (the embedding front ends) are known by id, and `get_arch`
-of one of them raises a KeyError naming the ROADMAP item that ports it. `input_specs` (the reference's `jax.ShapeDtypeStruct`
-stand-ins for its dry-run) has no counterpart yet (ROADMAP A10).
+`mamba2-1.3b`, the hybrid `recurrentgemma-9b`, and the dense backbones
+behind embedding front ends, `musicgen-large` and `pixtral-12b`.
+`get_arch` of an unknown id raises a KeyError. `input_specs` (the
+reference's `jax.ShapeDtypeStruct` stand-ins for its dry-run) has no
+counterpart yet (ROADMAP A10).
 """
 from __future__ import annotations
 
@@ -54,14 +55,6 @@ class ArchSpec:
 
 _REGISTRY: Dict[str, Callable[[], ArchSpec]] = {}
 
-#: the reference's architectures the port does not build yet, by the
-#: ROADMAP item that ports their family or front end
-UNPORTED: Dict[str, str] = {
-    "musicgen-large": "A10 (embedding front ends)",
-    "pixtral-12b": "A10 (embedding front ends)",
-}
-
-
 def register_arch(arch_id: str):
     def deco(fn):
         _REGISTRY[arch_id] = fn
@@ -73,11 +66,6 @@ def register_arch(arch_id: str):
 def get_arch(arch_id: str) -> ArchSpec:
     if arch_id in _REGISTRY:
         return _REGISTRY[arch_id]()
-    if arch_id in UNPORTED:
-        raise KeyError(
-            f"arch {arch_id!r} is not ported to repro_torch yet (ROADMAP {UNPORTED[arch_id]}); "
-            f"have {sorted(_REGISTRY)}"
-        )
     raise KeyError(f"unknown arch {arch_id!r}; have {sorted(_REGISTRY)}")
 
 

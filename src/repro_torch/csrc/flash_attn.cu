@@ -8,13 +8,18 @@
 // (G = H / K), query position p with keys at positions 0..Sk-1. Per row, in
 // f32 on inputs converted to f32:
 //   s = (q . k) * scale                    scale = f32(1 / sqrt(Dh))
+//   with a logit softcap c > 0, an unmasked key's s = c * tanhf(s / c)
 //   masked (k_pos > p when causal; k_pos <= p - window with a window): -1e30
 //   running (m, l, acc) over tiles of 64 keys, as the TPU kernel's fori_loop
 //   o = acc / max(l, 1e-30), rounded to q's type (round to nearest even).
 // The mask value is -1e30, not -inf: a row whose first tiles are all masked
 // then sums exp(0) = 1 per masked key, and the first unmasked key wipes that
 // out with corr = exp(-1e30 - m) = 0, as in the TPU kernel. Keys past Sk (the
-// ragged last tile) are -inf instead, so they weigh 0 in every row.
+// ragged last tile) are -inf instead, so they weigh 0 in every row. The cap
+// (the reference's `_chunk_attn_update`: scale, cap, then mask) never
+// touches the masked value: capped, -1e30 would become -c, and a masked key
+// would weigh exp(-c - m) instead of 0. A capped score lies in (-c, c), so
+// the first unmasked key still wipes out the masked leading tiles.
 //
 // What bounds it: operations. At the serving path's prefill (B 4, S 2048,
 // H 16, K 8, Dh 128, causal, bf16) the band holds 68.7 GFLOP (QK^T and PV,
@@ -91,7 +96,7 @@ template <typename T, int MAXDH>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                  T* __restrict__ o, float* __restrict__ lse, int Sq, int Sk, int H, int K,
-                 int Dh, int window, int causal, float scale) {
+                 int Dh, int window, int causal, float scale, float softcap) {
   constexpr int kAccPerRow = MAXDH / 8;  // output columns a thread owns per row
   extern __shared__ float4 smem4[];
   const int dpad = round4(Dh);
@@ -208,7 +213,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
       for (int j = 0; j < 8; ++j) {
         const int kp = k0 + tx + 8 * j;
         const bool ok = (!causal || kp <= p) && (window <= 0 || kp > p - window);
-        const float x = kp >= Sk ? -CUDART_INF_F : (ok ? s[i][j] * scale : kMasked);
+        float x = kp >= Sk ? -CUDART_INF_F : kMasked;
+        if (kp < Sk && ok) {
+          x = s[i][j] * scale;
+          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
+        }
         s[i][j] = x;
         mx = fmaxf(mx, x);
       }
@@ -282,7 +291,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
 
 template <typename T, int MAXDH>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Sk,
-           int H, int K, int Dh, int window, int causal, float scale, cudaStream_t stream) {
+           int H, int K, int Dh, int window, int causal, float scale, float softcap,
+           cudaStream_t stream) {
   const size_t bytes = static_cast<size_t>(smem_floats(Dh)) * sizeof(float);
   cudaError_t err = repro::allow_smem(flash_fwd_kernel<T, MAXDH>, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -290,7 +300,7 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
   const dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows), K, B);
   flash_fwd_kernel<T, MAXDH><<<grid, kThreads, bytes, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(o), lse, Sq, Sk, H, K, Dh, window, causal, scale);
+      static_cast<T*>(o), lse, Sq, Sk, H, K, Dh, window, causal, scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -298,20 +308,22 @@ int launch(const void* q, const void* k, const void* v, void* o, float* lse, int
 
 // q (B, Sq, H, Dh), k/v (B, Sk, K, Dh) -> o (B, Sq, H, Dh), contiguous, all
 // bf16 (is_bf16 = 1) or all f32. H % K == 0, 1 <= Dh <= 256, window <= 0
-// for none. With a non-null `lse`, also each row's log-sum-exp m + log(max(l,
-// 1e-30)) as f32 (B, H, Sq); o is the same with or without it. The wrapper
-// checks the shapes; Sq, Sk and B are >= 1.
+// for none, softcap <= 0 for none (else finite). With a non-null `lse`, also
+// each row's log-sum-exp m + log(max(l, 1e-30)) as f32 (B, H, Sq); o is the
+// same with or without it. The wrapper checks the shapes; Sq, Sk and B are
+// >= 1.
 extern "C" int repro_flash_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                                int B, int Sq, int Sk, int H, int K, int Dh, int window,
-                               int causal, int is_bf16, float scale, void* stream) {
+                               int causal, int is_bf16, float scale, float softcap, void* stream) {
   if (Dh < 1 || Dh > kMaxDh || K < 1 || H % K != 0) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
+  const float c = softcap > 0.f ? softcap : 0.f;
   if (Dh <= 128)
     return is_bf16
-               ? launch<__nv_bfloat16, 128>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s)
-               : launch<float, 128>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
+               ? launch<__nv_bfloat16, 128>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, c, s)
+               : launch<float, 128>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, c, s);
   return is_bf16
-             ? launch<__nv_bfloat16, 256>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s)
-             : launch<float, 256>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
+             ? launch<__nv_bfloat16, 256>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, c, s)
+             : launch<float, 256>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, c, s);
 }

@@ -7,10 +7,12 @@
 // v with Dh a multiple of 16 (<= 256), G <= 64, 16-byte aligned. Everything
 // else stays on the f32 FMA kernel of `flash_attn.cu`. The contract is that
 // kernel's: q (B, Sq, H, Dh) against k/v (B, Sk, K, Dh), query head
-// h = kv * G + g with kv head kv, scores scaled by f32(1/sqrt(Dh)), masked
-// scores at -1e30 (a row's fully masked leading tiles are wiped by
-// corr = 0), keys past a ragged Sk at -inf, o = acc / max(l, 1e-30) rounded
-// to bf16 (round to nearest even).
+// h = kv * G + g with kv head kv, scores scaled by f32(1/sqrt(Dh)), with a
+// logit softcap c > 0 an unmasked key's scaled score s becomes
+// c * tanhf(s / c) (the masked value is never capped: -c would weigh
+// exp(-c - m), not 0), masked scores at -1e30 (a row's fully masked leading
+// tiles are wiped by corr = 0), keys past a ragged Sk at -inf,
+// o = acc / max(l, 1e-30) rounded to bf16 (round to nearest even).
 //
 // Why the tensor cores keep that contract:
 //   * Q K^T: a product of two bf16 values has at most 16 significant bits,
@@ -26,6 +28,9 @@
 //     each the bf16 rounding of what the terms before it leave (exact
 //     remainders in f32), carry p to 2^-26, and O += p_hi V + p_mid V +
 //     p_lo V runs into one f32 accumulator. l sums the f32 p.
+//   * the cap is `tanhf` (a few ulp), applied to the scaled score before
+//     the log2 e fold below; `tanh.approx.f32` (~2^-11 relative) would move
+//     a score by up to ~0.025 at c = 50;
 //   * exp(x - m) is computed as ex2((x - m) * log2 e) by `ex2.approx`
 //     (~2 ulp), a rounding-level difference; x - m is taken first, so a
 //     masked score against a masked maximum gives exp(0) = 1 exactly. The
@@ -75,7 +80,8 @@
 //     has a key in its band, as in the FMA kernel;
 //   * the epilogue stages the bf16 output in the warpgroup's Q tile and
 //     writes it with 16-byte stores.
-// Three instances (`Tiling`): Dh <= 64 and Dh <= 128 as above; Dh 129-256
+// Three instances (`Tiling`), each with and without the cap (`kCap`, so
+// that the uncapped code is unchanged): Dh <= 64 and Dh <= 128 as above; Dh 129-256
 // (recurrentgemma's 256) keeps the design with K/V tiles of 32 keys, as
 // FlashAttention-3 fits head dim 256 into two consumer warpgroups. Its
 // output accumulator is 128 f32 registers a consumer thread (4 chunks of
@@ -271,6 +277,13 @@ __device__ __forceinline__ float ex2(float x) {
   return y;
 }
 
+// The logit softcap of a scaled score (none without kCap).
+template <bool kCap>
+__device__ __forceinline__ float cap_score(float x, float softcap) {
+  if constexpr (kCap) return softcap * tanhf(x / softcap);
+  return x;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo_elem, float hi_elem) {
   const __nv_bfloat162 h = __floats2bfloat162_rn(lo_elem, hi_elem);
   return *reinterpret_cast<const uint32_t*>(&h);
@@ -300,13 +313,13 @@ __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(threads) : "memory");
 }
 
-template <int NCHUNK>
+template <int NCHUNK, bool kCap>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_k,
                     const __grid_constant__ CUtensorMap map_v,
                     const __nv_bfloat16* __restrict__ q, __nv_bfloat16* __restrict__ o,
                     float* __restrict__ lse, int B, int Sq, int Sk, int H, int K, int Dh,
-                    int window, int causal, float scale) {
+                    int window, int causal, float scale, float softcap) {
   using T = Tiling<NCHUNK>;
   constexpr int kKeys = T::kKeys, kStages = T::kStages;
   constexpr int kS = kKeys / 2;  // score accumulator registers a thread (m64 x kKeys)
@@ -454,15 +467,16 @@ flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap map_k,
         for (int e = 0; e < kS; ++e) {
           const int key = k0 + 8 * (e / 4) + col + (e & 1);
           const int lo = band[(e & 2) ? 2 : 0], hi = band[(e & 2) ? 3 : 1];
-          const float x =
-              key >= Sk ? -CUDART_INF_F : (key >= lo && key <= hi ? s[e] * scale : kMasked);
+          const float x = key >= Sk ? -CUDART_INF_F
+                                    : (key >= lo && key <= hi ? cap_score<kCap>(s[e] * scale, softcap)
+                                                              : kMasked);
           s[e] = x;
           if (e & 2) mx_b = fmaxf(mx_b, x); else mx_a = fmaxf(mx_a, x);
         }
       } else {
 #pragma unroll
         for (int e = 0; e < kS; ++e) {
-          s[e] *= scale;
+          s[e] = cap_score<kCap>(s[e] * scale, softcap);
           if (e & 2) mx_b = fmaxf(mx_b, s[e]); else mx_a = fmaxf(mx_a, s[e]);
         }
       }
@@ -668,45 +682,58 @@ int encode_kv(CUtensorMap* map, const void* ptr, int B, int Sk, int K, int Dh, i
   return r == CUDA_SUCCESS ? 0 : kEncodeError + static_cast<int>(r);
 }
 
-template <int NCHUNK>
+template <int NCHUNK, bool kCap>
 int launch(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq, int Sk,
-           int H, int K, int Dh, int window, int causal, float scale, cudaStream_t stream) {
+           int H, int K, int Dh, int window, int causal, float scale, float softcap,
+           cudaStream_t stream) {
   CUtensorMap map_k, map_v;
   int err = encode_kv(&map_k, k, B, Sk, K, Dh, Tiling<NCHUNK>::kKeys);
   if (err == 0) err = encode_kv(&map_v, v, B, Sk, K, Dh, Tiling<NCHUNK>::kKeys);
   if (err != 0) return err;
   const size_t bytes = Tiling<NCHUNK>::kSmemBytes;
-  const cudaError_t attr = repro::allow_smem(flash_fwd_tc_kernel<NCHUNK>, bytes);
+  const cudaError_t attr = repro::allow_smem(flash_fwd_tc_kernel<NCHUNK, kCap>, bytes);
   if (attr != cudaSuccess) return static_cast<int>(attr);
   const long long rows = static_cast<long long>(Sq) * (H / K);
   const dim3 grid(static_cast<unsigned>((rows + kRows - 1) / kRows * B * K));
-  flash_fwd_tc_kernel<NCHUNK><<<grid, kThreads, bytes, stream>>>(
+  flash_fwd_tc_kernel<NCHUNK, kCap><<<grid, kThreads, bytes, stream>>>(
       map_k, map_v, static_cast<const __nv_bfloat16*>(q), static_cast<__nv_bfloat16*>(o), lse, B, Sq,
-      Sk, H, K, Dh, window, causal, scale);
+      Sk, H, K, Dh, window, causal, scale, softcap);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int NCHUNK>
+int launch_cap(const void* q, const void* k, const void* v, void* o, float* lse, int B, int Sq,
+               int Sk, int H, int K, int Dh, int window, int causal, float scale, float softcap,
+               cudaStream_t stream) {
+  return softcap > 0.f
+             ? launch<NCHUNK, true>(q, k, v, o, lse, B, Sq, Sk, H, K, Dh, window, causal, scale, softcap,
+                                    stream)
+             : launch<NCHUNK, false>(q, k, v, o, lse, B, Sq, Sk, H, K, Dh, window, causal, scale, 0.f,
+                                     stream);
 }
 
 }  // namespace
 
 // q (B, Sq, H, Dh), k/v (B, Sk, K, Dh) -> o (B, Sq, H, Dh): contiguous bf16,
 // 16-byte aligned, H % K == 0, H / K <= 64, Sq * (H / K) < 2^31 - 128,
-// Dh % 16 == 0 and 16 <= Dh <= 256, window <= 0 for none; Sq, Sk and B >=
-// 1. With a non-null `lse`, also each row's log-sum-exp m + log(max(l,
-// 1e-30)) as f32 (B, H, Sq); o is the same with or without it. The wrapper
-// checks the shapes. Returns a cudaError_t, or 100000 + the CUresult of a
-// refused tensor map.
+// Dh % 16 == 0 and 16 <= Dh <= 256, window <= 0 for none, softcap <= 0 for
+// none (else finite); Sq, Sk and B >= 1. With a non-null `lse`, also each
+// row's log-sum-exp m + log(max(l, 1e-30)) as f32 (B, H, Sq); o is the same
+// with or without it. The wrapper checks the shapes. Returns a cudaError_t,
+// or 100000 + the CUresult of a refused tensor map.
 extern "C" int repro_flash_fwd_tc(const void* q, const void* k, const void* v, void* o, void* lse,
                                   int B, int Sq, int Sk, int H, int K, int Dh, int window,
-                                  int causal, float scale, void* stream) {
+                                  int causal, float scale, float softcap, void* stream) {
   if (Dh < 16 || Dh > 4 * kChunk || Dh % 16 != 0 || K < 1 || H % K != 0 || H / K > kMaxGroups ||
       static_cast<long long>(Sq) * (H / K) > kMaxRows ||
       (static_cast<long long>(Sq) * (H / K) + kRows - 1) / kRows * B * K > 0x7FFFFFFF)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* l = static_cast<float*>(lse);
-  if (Dh <= kChunk) return launch<1>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
-  if (Dh <= 2 * kChunk) return launch<2>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
-  return launch<4>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, s);
+  const float c = softcap > 0.f ? softcap : 0.f;
+  if (Dh <= kChunk) return launch_cap<1>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, c, s);
+  if (Dh <= 2 * kChunk) return launch_cap<2>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, c, s);
+  return launch_cap<4>(q, k, v, o, l, B, Sq, Sk, H, K, Dh, window, causal, scale, c, s);
 }
 
 // Dynamic shared memory a launch at head_dim `Dh` requests, in bytes.

@@ -59,8 +59,8 @@ SIGNATURES: Dict[str, List[type]] = {
     "repro_adpcm_lane_decode": [_P, _I, _I, _I, _P, _P, _U, _F, _P, _P, _I, _P, _P, _P],
     "repro_adpcm_lane_decode_scratch": [_I, _I],
     "repro_adpcm_lane_decode_serial": [_P, _I, _I, _I, _P, _P, _U, _F, _P, _P, _I, _P, _P],
-    "repro_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
-    "repro_flash_fwd_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P],
+    "repro_flash_fwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
+    "repro_flash_fwd_tc": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _P],
     "repro_flash_fwd_tc_smem": [_I],
 }
 

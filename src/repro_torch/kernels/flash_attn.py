@@ -11,6 +11,11 @@
     shapes outside that rule: scores, running max, sum, p and p@v in
     float32 on inputs converted to float32.
 
+Both take the reference's attention logit softcap c (`softcap`, None for
+none): an unmasked key's scaled score s becomes c * tanhf(s / c) before the
+softmax (the reference's `_chunk_attn_update`: scale, cap, mask); the
+masked value stays -1e30. The cap never picks the kernel.
+
 Both also write, when given a float32 (B, H, Sq) `lse`, each query row's
 log-sum-exp m + log(max(l, 1e-30)), which the training backward reads
 (`models/layers.py: FlashAttention`); `out` is the same with or without it.
@@ -85,24 +90,32 @@ def _lse_ptr(lse: Optional[torch.Tensor]) -> Optional[int]:
     return None if lse is None else lse.data_ptr()
 
 
+def _cap(softcap: Optional[float]) -> float:
+    """The entry points' softcap argument: 0.0 for none."""
+    return 0.0 if softcap is None else float(softcap)
+
+
 def launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-           window: Optional[int], causal: bool, lse: Optional[torch.Tensor] = None) -> None:
+           window: Optional[int], causal: bool, lse: Optional[torch.Tensor] = None,
+           softcap: Optional[float] = None) -> None:
     """The FMA kernel. q (B, Sq, H, Dh), k/v (B, Sk, K, Dh), out like q:
     contiguous, one dtype (bfloat16 or float32), on one CUDA device; with
-    `lse` (float32 (B, H, Sq)), each row's log-sum-exp too."""
+    `lse` (float32 (B, H, Sq)), each row's log-sum-exp too; `softcap` a
+    finite cap > 0 or None."""
     b, sq, h, dh = q.shape
     sk, kv = k.shape[1], k.shape[2]
     err = build.library().repro_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _lse_ptr(lse), b, sq, sk, h, kv, dh,
         0 if window is None else int(window), int(bool(causal)),
-        int(q.dtype == torch.bfloat16), scale(dh),
+        int(q.dtype == torch.bfloat16), scale(dh), _cap(softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "flash_attention_fwd")
 
 
 def launch_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
-              window: Optional[int], causal: bool, lse: Optional[torch.Tensor] = None) -> None:
+              window: Optional[int], causal: bool, lse: Optional[torch.Tensor] = None,
+              softcap: Optional[float] = None) -> None:
     """The tensor-core kernel. As `launch`, for inputs `kernel_for` sends
     to it (bfloat16). Raises if the launch or a tensor map is refused
     (codes from 100000 up carry the tensor-map encoder's CUresult)."""
@@ -110,7 +123,7 @@ def launch_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tens
     sk, kv = k.shape[1], k.shape[2]
     err = build.library().repro_flash_fwd_tc(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), _lse_ptr(lse), b, sq, sk, h, kv, dh,
-        0 if window is None else int(window), int(bool(causal)), scale(dh),
+        0 if window is None else int(window), int(bool(causal)), scale(dh), _cap(softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     build.check(err, "flash_attention_fwd_tc")

@@ -11,6 +11,7 @@ uint32 data travels as int32 tensors holding the same bits (ROADMAP C1).
 """
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional
 
 import torch
@@ -517,7 +518,7 @@ _FLASH_DTYPES = (torch.bfloat16, torch.float32)
 
 
 def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 window: Optional[int]) -> None:
+                 window: Optional[int], softcap: Optional[float]) -> None:
     dev = q.device
     _check(q, "q", 4, dev, q.dtype)
     if q.dtype not in _FLASH_DTYPES:
@@ -534,6 +535,8 @@ def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"head_dim must be in [1, {flash_attn.MAX_HEAD_DIM}], got {dh}")
     if window is not None and window < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
+    if softcap is not None and not (math.isfinite(softcap) and softcap > 0):
+        raise ValueError(f"softcap must be None or a finite value > 0, got {softcap}")
     if dev.type == "cuda" and (b > 65535 or kv > 65535):
         raise ValueError(f"batch {b} and kv heads {kv} must each be <= 65535 (the launch grid)")
 
@@ -546,7 +549,8 @@ def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
 
 
 def _flash_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  window: Optional[int], causal: bool, lse: Optional[torch.Tensor] = None) -> torch.Tensor:
+                  window: Optional[int], causal: bool, softcap: Optional[float],
+                  lse: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Launch `kernel` and count the launch on the wrapper of its form:
     the kernel's own without `lse`, its lse form's (`_LSE_FORM`) with it."""
     out = torch.empty_like(q)
@@ -557,77 +561,85 @@ def _flash_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
             lse.fill_(-float("inf"))
         return out.zero_()
     launch = flash_attn.launch_tc if kernel == flash_attn.TENSOR_CORE else flash_attn.launch
-    launch(q, k, v, out, window, causal, lse)
+    launch(q, k, v, out, window, causal, lse, softcap)
     WRAPPERS[kernel if lse is None else _LSE_FORM[kernel]].launches += 1
     return out
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        window: Optional[int] = None, causal: bool = True) -> torch.Tensor:
+                        window: Optional[int] = None, causal: bool = True,
+                        softcap: Optional[float] = None) -> torch.Tensor:
     """GQA flash attention forward, the Pallas contract (`flash_fwd`): q
     (B, Sq, H, Dh) against k/v (B, Sk, K, Dh) at positions arange(Sq) x
     arange(Sk), causal and/or a sliding window (keys > q_pos - window),
     float32 softmax, the output (B, Sq, H, Dh) in q's dtype. All three
     bfloat16 or all float32, H % K == 0, 1 <= Dh <= 256; any Sq and Sk.
+    `softcap` (None, or finite and > 0) caps each unmasked key's scaled
+    score s to softcap * tanh(s / softcap), as the reference's blocked scan
+    does.
 
-    On CUDA, `flash_attn.kernel_for` picks the kernel: bfloat16 with Dh a
-    multiple of 16 and H / K <= 64 runs on the tensor cores (counted as
-    `flash_attention_fwd_tc`), the rest on the FMA kernel (counted here).
-    A refused launch raises; neither kernel stands in for the other."""
-    _check_flash(q, k, v, window)
+    On CUDA, `flash_attn.kernel_for` picks the kernel (the cap does not):
+    bfloat16 with Dh a multiple of 16 and H / K <= 64 runs on the tensor
+    cores (counted as `flash_attention_fwd_tc`), the rest on the FMA kernel
+    (counted here). A refused launch raises; neither kernel stands in for
+    the other."""
+    _check_flash(q, k, v, window, softcap)
     if q.device.type == "cpu":
-        return ref.flash_reference(q, k, v, window, causal)
-    return _flash_launch(_flash_kernel(q, k, v), q, k, v, window, causal)
+        return ref.flash_reference(q, k, v, window, causal, softcap)
+    return _flash_launch(_flash_kernel(q, k, v), q, k, v, window, causal, softcap)
 
 
 def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                            window: Optional[int] = None, causal: bool = True):
+                            window: Optional[int] = None, causal: bool = True,
+                            softcap: Optional[float] = None):
     """`flash_attention_fwd` that also returns each query row's log-sum-exp
-    of its scaled, masked scores: (out (B, Sq, H, Dh) in q's dtype, lse
+    of its scaled, capped, masked scores: (out (B, Sq, H, Dh) in q's dtype, lse
     float32 (B, H, Sq)), the training forward's residual (the reference's
     `_flash_core_fwd`). The same kernel as `flash_attention_fwd` runs, by
     `flash_attn.kernel_for`, writing lse beside out; out is bit for bit
     what `flash_attention_fwd` gives. The tensor-core kernel's launches in
     this form are counted here, the FMA kernel's on
     `flash_attention_fwd_lse_fma`."""
-    _check_flash(q, k, v, window)
+    _check_flash(q, k, v, window, softcap)
     if q.device.type == "cpu":
-        return ref.flash_reference_lse(q, k, v, window, causal)
-    return _flash_lse_launch(_flash_kernel(q, k, v), q, k, v, window, causal)
+        return ref.flash_reference_lse(q, k, v, window, causal, softcap)
+    return _flash_lse_launch(_flash_kernel(q, k, v), q, k, v, window, causal, softcap)
 
 
 def flash_attention_fwd_lse_fma(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                                window: Optional[int] = None, causal: bool = True):
+                                window: Optional[int] = None, causal: bool = True,
+                                softcap: Optional[float] = None):
     """`flash_attention_fwd_lse` on the FMA kernel alone, whatever
     `flash_attn.kernel_for` would pick (the float32 training forward's
     kernel). On CPU tensors, the plain version."""
-    _check_flash(q, k, v, window)
+    _check_flash(q, k, v, window, softcap)
     if q.device.type == "cpu":
-        return ref.flash_reference_lse(q, k, v, window, causal)
-    return _flash_lse_launch(flash_attn.FMA, q, k, v, window, causal)
+        return ref.flash_reference_lse(q, k, v, window, causal, softcap)
+    return _flash_lse_launch(flash_attn.FMA, q, k, v, window, causal, softcap)
 
 
 def _flash_lse_launch(kernel: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      window: Optional[int], causal: bool):
+                      window: Optional[int], causal: bool, softcap: Optional[float]):
     """(out, lse float32 (B, H, Sq)) from `kernel`."""
     b, sq, h, _ = q.shape
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    return _flash_launch(kernel, q, k, v, window, causal, lse), lse
+    return _flash_launch(kernel, q, k, v, window, causal, softcap, lse), lse
 
 
 def flash_attention_fwd_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                           window: Optional[int] = None, causal: bool = True) -> torch.Tensor:
+                           window: Optional[int] = None, causal: bool = True,
+                           softcap: Optional[float] = None) -> torch.Tensor:
     """`flash_attention_fwd` on the tensor-core kernel alone: raises
     ValueError for inputs outside `flash_attn.kernel_for`'s rule. On CPU
     tensors inside the rule, the plain version."""
-    _check_flash(q, k, v, window)
+    _check_flash(q, k, v, window, softcap)
     if _flash_kernel(q, k, v) != flash_attn.TENSOR_CORE:
         raise ValueError(
             f"{q.dtype} q {tuple(q.shape)} against {k.shape[2]} kv heads is outside the "
             "tensor-core kernel's rule (bfloat16, head_dim % 16 == 0, H / K <= 64, 16-byte aligned)")
     if q.device.type == "cpu":
-        return ref.flash_reference(q, k, v, window, causal)
-    return _flash_launch(flash_attn.TENSOR_CORE, q, k, v, window, causal)
+        return ref.flash_reference(q, k, v, window, causal, softcap)
+    return _flash_launch(flash_attn.TENSOR_CORE, q, k, v, window, causal, softcap)
 
 
 #: the kernel wrappers, by kernel name

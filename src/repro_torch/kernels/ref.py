@@ -330,15 +330,18 @@ def adpcm_lane_decode_ref(codes: torch.Tensor, xhat: torch.Tensor, init: torch.T
 
 
 def _dense_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  window: Optional[int], causal: bool):
+                  window: Optional[int], causal: bool, softcap: Optional[float] = None):
     """(masked scaled float32 scores (B, H, Sq, Sk), v float32 grouped to H
-    heads) of `flash_reference`."""
+    heads) of `flash_reference`: scaled, then capped to `softcap * tanh(s /
+    softcap)` when a cap is given, then masked (the reference's order)."""
     b, sq, h, dh = q.shape
     sk, kh = k.shape[1], k.shape[2]
     g = h // kh
     kk = k.to(torch.float32).repeat_interleave(g, dim=2)
     vv = v.to(torch.float32).repeat_interleave(g, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.to(torch.float32), kk) / math.sqrt(dh)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     qpos = torch.arange(sq, device=q.device)[:, None]
     kpos = torch.arange(sk, device=q.device)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
@@ -351,22 +354,25 @@ def _dense_scores(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    window: Optional[int] = None, causal: bool = True) -> torch.Tensor:
+                    window: Optional[int] = None, causal: bool = True,
+                    softcap: Optional[float] = None) -> torch.Tensor:
     """Dense GQA attention, q (B, Sq, H, Dh) against k/v (B, Sk, K, Dh) at
     positions arange(Sq) x arange(Sk): softmax over the scores in float32 on
-    inputs converted to float32, masked scores at -1e30, the output in q's
-    dtype. Query head h reads kv head h // (H/K) (the reference's
-    `jnp.repeat(k, G, axis=2)`)."""
-    s, vv = _dense_scores(q, k, v, window, causal)
+    inputs converted to float32, each scaled score s of an unmasked key
+    capped to `softcap * tanh(s / softcap)` when `softcap` is given, masked
+    scores at -1e30, the output in q's dtype. Query head h reads kv head
+    h // (H/K) (the reference's `jnp.repeat(k, G, axis=2)`)."""
+    s, vv = _dense_scores(q, k, v, window, causal, softcap)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype)
 
 
 def flash_reference_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        window: Optional[int] = None, causal: bool = True):
+                        window: Optional[int] = None, causal: bool = True,
+                        softcap: Optional[float] = None):
     """`flash_reference` and each query row's log-sum-exp of its scaled,
-    masked scores, float32 (B, H, Sq): (out, lse), the plain version of
-    `ops.flash_attention_fwd_lse`."""
-    s, vv = _dense_scores(q, k, v, window, causal)
+    capped, masked scores, float32 (B, H, Sq): (out, lse), the plain
+    version of `ops.flash_attention_fwd_lse`."""
+    s, vv = _dense_scores(q, k, v, window, causal, softcap)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", p, vv).to(q.dtype), torch.logsumexp(s, dim=-1)

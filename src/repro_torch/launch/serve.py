@@ -5,8 +5,12 @@ NUQ-compressed KV cache (port of `repro/launch/serve.py`).
       --batch 4 --prompt-len 2048 --gen 32          # on the card
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-1.7b --reduced \
       --batch 4 --prompt-len 64 --gen 32 --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch musicgen-large --full   # on the card
 
 Weights are random, drawn from a seed (`init_params`), as in the reference.
+Embedding configs (musicgen-large, pixtral-12b) take (B, S, D) prompts,
+seeded bf16 normals when none are given, and feed each generated token
+back as its `embed` row rounded to bfloat16, as the reference does.
 On the card the prefill and decode times are taken after
 `torch.cuda.synchronize()`.
 """
@@ -44,6 +48,15 @@ class ServeRun:
     cache: Optional[Dict[str, Any]] = None
 
 
+def decode_input(model: Transformer, tok: torch.Tensor) -> torch.Tensor:
+    """A decode step's input for greedy tokens (B, 1): the tokens, or for an
+    embeddings model their `embed` rows (B, 1, D) rounded to bfloat16, as
+    the reference's serve loop feeds them back."""
+    if model.cfg.input_kind == "tokens":
+        return tok
+    return model.embed[tok[:, 0].long()][:, None].to(torch.bfloat16)
+
+
 def serve(
     cfg: ModelConfig,
     batch: int = 4,
@@ -59,8 +72,12 @@ def serve(
     tokens each greedily (the first from the prefill's logits). `device`
     None means CUDA (no CPU fallback). `params`: a `Transformer` (moved to
     the device) or the reference's parameter tree as numpy leaves; None
-    draws them from `seed`. `prompts` int (batch, prompt_len); None draws
-    them from `seed`."""
+    draws them from `seed`. `prompts` int (batch, prompt_len), or for
+    `input_kind == "embeddings"` float (batch, prompt_len, d_model); None
+    draws them from `seed` (bfloat16 normals for embeddings). An
+    embeddings model is fed each greedy token as its `embed` row rounded to
+    bfloat16 (also when the model is float32), as the reference's serve
+    loop does."""
     device = resolve_device(device)
     if params is None:
         model = init_params(cfg, seed, device)
@@ -71,12 +88,14 @@ def serve(
     cache_len = cache_len or (prompt_len + gen)
     prefill_step = make_prefill_step(cfg, cache_seq_len=cache_len)
     serve_step = make_serve_step(cfg)
+    tokens_in = cfg.input_kind == "tokens"
     if prompts is None:
         gen_t = torch.Generator().manual_seed(seed)
-        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen_t)
+        prompts = (torch.randint(0, cfg.vocab_size, (batch, prompt_len), generator=gen_t) if tokens_in
+                   else torch.randn((batch, prompt_len, cfg.d_model), generator=gen_t).to(torch.bfloat16))
     if not isinstance(prompts, torch.Tensor):
         prompts = torch.from_numpy(np.array(prompts))
-    prompts = prompts.to(device=device, dtype=torch.int32)
+    prompts = prompts.to(device=device, dtype=torch.int32) if tokens_in else prompts.to(device)
 
     with torch.inference_mode():
         synchronize(device)
@@ -89,7 +108,7 @@ def serve(
         out = [tok]
         t1 = time.perf_counter()
         for _ in range(gen - 1):
-            cache, tok = serve_step(model, cache, tok)
+            cache, tok = serve_step(model, cache, decode_input(model, tok))
             out.append(tok)
         synchronize(device)
         decode_s = time.perf_counter() - t1

@@ -56,7 +56,8 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
     master parameters (`cfg.param_dtype`) on `device` (CUDA when None).
     train_step(model, opt_state, batch) -> (model, opt_state, metrics
     {"loss", "ce", "grad_norm" (0-d tensors), "lr" (float)}) updates the
-    model's parameters in place. batch = {inputs (B, S), labels (B, S)},
+    model's parameters in place. batch = {inputs (B, S) or (B, S, D)
+    embeddings, labels (B, S)},
     pre-split to (mb, b, ...) by `microbatch_split` when microbatches > 1.
 
     With `step_cfg.grad_compression` and a port `runtime/elastic.DeviceMesh`
@@ -93,7 +94,10 @@ def make_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig,
         for i in range(mb):
             mbatch = batch if mb == 1 else {k: v[i] for k, v in batch.items()}
             loss, metrics = loss_fn(model, cfg, mbatch, step_cfg.aux_weight)
-            got = torch.autograd.grad(loss, [params[k] for k in names])
+            # an embeddings model's untied `embed` is not used: a zero
+            # gradient, as the reference's `jax.grad` gives it
+            got = torch.autograd.grad(loss, [params[k] for k in names], allow_unused=True,
+                                      materialize_grads=True)
             with torch.no_grad():
                 if mb == 1:  # 0 + g / 1 is g: keep autograd's tensors
                     grads = {k: g.to(torch.float32) for k, g in zip(names, got)}

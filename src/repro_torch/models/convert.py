@@ -14,7 +14,8 @@ i of `groups/rec1/rglru/lam`.
 `named_to_tree` and `tree_to_named` map any dict keyed by the port's
 parameter names (the parameters, or AdamW's `m` and `v`) to and from that
 tree; the checkpoints of `launch/train.py` are written in it, so that
-either package can resume from the other's.
+either package can resume from the other's. `frontend_params_from_numpy`
+carries the reference's front-end stubs (`models/frontends.py`) across.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Any, Dict, Mapping, Optional
 import numpy as np
 import torch
 
+from repro_torch.core.device import resolve_device
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import Device, Transformer
 
@@ -86,6 +88,17 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig, device: Device = N
                 raise ValueError(f"{name}: parameter of shape {a.shape} where {tuple(p.shape)} is expected")
             p.copy_(torch.from_numpy(a))
     return model
+
+
+def frontend_params_from_numpy(tree: Mapping[str, Any], dtype: torch.dtype = torch.float32,
+                               device: Device = None) -> Dict[str, torch.Tensor]:
+    """The reference's front-end parameters (`init_audio_frontend`'s
+    `{"codebooks"}` or `init_vision_frontend`'s `{"proj"}`, numpy leaves) as
+    the tensors of `models/frontends.py`, in `dtype` on `device` (CUDA when
+    None)."""
+    device = resolve_device(device)
+    return {name: torch.from_numpy(np.array(leaf, dtype=np.float32)).to(device=device, dtype=dtype)
+            for name, leaf in tree.items()}
 
 
 def params_to_numpy(model: Transformer) -> Dict[str, Any]:

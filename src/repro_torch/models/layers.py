@@ -12,7 +12,9 @@ Three attentions:
     each row's log-sum-exp (`ops.flash_attention_fwd_lse`), and the port of
     the reference's hand-derived backward (`_flash_core_bwd`) in plain
     torch, blockwise over KV blocks, with the scores recomputed in float32
-    (ROADMAP C5's training half);
+    (ROADMAP C5's training half); with `cfg.attn_logit_softcap` both take
+    the cap (B10 caps each unmasked key's scaled score, the backward its
+    derivative);
   * `attention_prefill` (the reference's `attention_train` on a prompt,
     with the k/v the decode cache keeps) calls kernel B10 through
     `ops.flash_attention_fwd`: float32 scores (bf16 inputs' products are
@@ -187,25 +189,15 @@ def attention_qkv(params: Mapping[str, torch.Tensor], cfg, x: torch.Tensor, posi
     return q, k, v
 
 
-def check_softcap(cfg) -> None:
-    """B10 computes no logit softcap; a configuration with one is refused."""
-    if cfg.attn_logit_softcap is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: attention logit softcap {cfg.attn_logit_softcap} is not ported to "
-            "repro_torch (kernel B10 has none; ROADMAP A10)"
-        )
-
-
 def attention_prefill(params: Mapping[str, torch.Tensor], cfg, x: torch.Tensor,
                       window: Optional[int] = None):
     """Causal self-attention over a whole sequence at positions arange(S)
-    through kernel B10: (out (B, S, D), k, v), k/v (B, S, K, Dh) for the
-    decode cache."""
-    check_softcap(cfg)
+    through kernel B10, with `cfg.attn_logit_softcap`: (out (B, S, D), k,
+    v), k/v (B, S, K, Dh) for the decode cache."""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     q, k, v = attention_qkv(params, cfg, x, positions)
-    out = ops.flash_attention_fwd(q, k, v, window=window, causal=True)
+    out = ops.flash_attention_fwd(q, k, v, window=window, causal=True, softcap=cfg.attn_logit_softcap)
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"], k, v
 
 
@@ -213,7 +205,7 @@ def attention_prefill(params: Mapping[str, torch.Tensor], cfg, x: torch.Tensor,
 # ------------------------------------------------------- training attention --
 def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                    lse: torch.Tensor, dout: torch.Tensor, window: Optional[int], causal: bool,
-                   kv_block: int = KV_BLOCK):
+                   kv_block: int = KV_BLOCK, softcap: Optional[float] = None):
     """The reference's hand-derived flash backward (`_flash_core_bwd`) at
     positions arange(Sq) x arange(Sk): q (B, Sq, H, Dh), k/v (B, Sk, K, Dh),
     out (B, Sq, H, Dh) and dout like q, lse float32 (B, H, Sq). Returns (dq,
@@ -226,7 +218,13 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
     dtype, as the reference's. One difference: the recomputed scores are
     float32 products of the inputs (the reference's are the input dtype's),
     so that in bf16 p is the p that B10's float32 forward normalised
-    (ROADMAP C5); in float32 the two are the same."""
+    (ROADMAP C5); in float32 the two are the same.
+
+    With a logit softcap c the forward's scores were s_c = c * t, t =
+    tanh(s / c) of the scaled float32 scores s: p = exp(s_c - lse), and ds
+    takes the cap's derivative (1 - t^2) before the scale. The reference
+    differentiates its softcap path by autodiff through the scan
+    (`_flash_ad`); this is the same gradient in closed form."""
     b, sq, h, dh = q.shape
     sk, kh = k.shape[1], k.shape[2]
     g = h // kh
@@ -260,12 +258,19 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
         v_blk = v[:, blk].transpose(1, 2)
         mask = _block_mask(positions, kv_pos[:, blk], kv_valid[:, blk], causal, window)
         s = torch.einsum("bkgsd,bkcd->bkgsc", q32, k_blk.to(torch.float32)) * scale
+        if softcap is not None:
+            t = torch.tanh(s / softcap)
+            s = softcap * t
         s = torch.where(mask[:, None, None], s, torch.full_like(s, -float("inf")))
         p = torch.exp(s - lse_)  # masked -> exp(-inf) = 0
         del s
         dv[:, :, blk] = torch.einsum("bkgsc,bkgsd->bkcd", p.to(v.dtype), do_c)
         dp = torch.einsum("bkgsd,bkcd->bkgsc", do_c, v_blk).to(torch.float32)
-        ds = (p * (dp - d_sum[..., None]) * scale).to(q.dtype)
+        ds = p * (dp - d_sum[..., None])
+        if softcap is not None:
+            ds = ds * (1.0 - t * t)
+            del t
+        ds = (ds * scale).to(q.dtype)
         del p, dp
         dq += torch.einsum("bkgsc,bkcd->bkgsd", ds, k_blk).to(torch.float32)
         dk[:, :, blk] = torch.einsum("bkgsc,bkgsd->bkcd", ds, q_)
@@ -276,35 +281,36 @@ def flash_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch
 
 
 class FlashAttention(torch.autograd.Function):
-    """Causal (optionally windowed) GQA attention at positions arange(S)
-    with gradients: forward on kernel B10 with its log-sum-exp
-    (`ops.flash_attention_fwd_lse`; its plain version on CPU tensors),
-    saving (q, k, v, out, lse); backward `flash_backward` (the reference's
-    `_flash_core` custom VJP). B10 has no backward kernel (ROADMAP B lists
-    one as a candidate)."""
+    """Causal (optionally windowed, optionally capped) GQA attention at
+    positions arange(S) with gradients: forward on kernel B10 with its
+    log-sum-exp (`ops.flash_attention_fwd_lse`; its plain version on CPU
+    tensors), saving (q, k, v, out, lse) and the cap; backward
+    `flash_backward` (the reference's `_flash_core` custom VJP, and its
+    `_flash_ad` gradient when capped). B10 has no backward kernel (ROADMAP
+    B lists one as a candidate)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, window: Optional[int], causal: bool):
+    def forward(ctx, q, k, v, window: Optional[int], causal: bool, softcap: Optional[float] = None):
         q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-        out, lse = ops.flash_attention_fwd_lse(q, k, v, window=window, causal=causal)
+        out, lse = ops.flash_attention_fwd_lse(q, k, v, window=window, causal=causal, softcap=softcap)
         ctx.save_for_backward(q, k, v, out, lse)
-        ctx.window, ctx.causal = window, causal
+        ctx.window, ctx.causal, ctx.softcap = window, causal, softcap
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, ctx.window, ctx.causal)
-        return dq, dk, dv, None, None
+        dq, dk, dv = flash_backward(q, k, v, out, lse, dout, ctx.window, ctx.causal, softcap=ctx.softcap)
+        return dq, dk, dv, None, None, None
 
 
 def attention_train(params: Mapping[str, torch.Tensor], cfg, x: torch.Tensor,
                     window: Optional[int] = None) -> torch.Tensor:
     """Causal self-attention over a whole sequence (B, S, D) at positions
-    arange(S), differentiable: (B, S, D). Forward on kernel B10."""
-    check_softcap(cfg)
+    arange(S), differentiable, with `cfg.attn_logit_softcap`: (B, S, D).
+    Forward on kernel B10."""
     b, s, _ = x.shape
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None].expand(b, s)
     q, k, v = attention_qkv(params, cfg, x, positions)
-    out = FlashAttention.apply(q, k, v, window, True)
+    out = FlashAttention.apply(q, k, v, window, True, cfg.attn_logit_softcap)
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"]

@@ -37,8 +37,12 @@ hybrid: `groups/{rec1,rec2}/{h,conv_tail}`, `groups/attn/<ring>` and
 `tail/{h,conv_tail}`, the reference's layout); the hybrid family's local
 attention prefills on B10 with `cfg.local_window` and decodes over its
 ring. The cache is a dict of tensors updated in place, with `pos` a Python
-int. Embedding front ends raise NotImplementedError naming ROADMAP A10.
-`models/partition.py` has no counterpart: its sharding hints are the
+int. Inputs are int tokens, or for `cfg.input_kind == "embeddings"`
+(musicgen-large, pixtral-12b: the front ends of `models/frontends.py`)
+(B, S, D) embeddings cast to the compute dtype; the `embed` table stays,
+as the head when tied and as the rows serving feeds back. Attention takes
+`cfg.attn_logit_softcap` in every path: B10 and its lse form, the flash
+backward, both decode reads. `models/partition.py` has no counterpart: its sharding hints are the
 identity without a mesh.
 """
 from __future__ import annotations
@@ -63,24 +67,6 @@ Device = Union[None, str, torch.device]
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
     """The compute dtype `cfg.dtype` as a torch dtype."""
     return getattr(torch, cfg.dtype)
-
-
-#: the families the port builds
-FAMILIES = ("dense", "moe", "ssm", "hybrid")
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for what the port does not build yet."""
-    if cfg.family not in FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported to repro_torch yet (ROADMAP A10)"
-        )
-    if cfg.input_kind != "tokens":
-        raise NotImplementedError(
-            f"{cfg.name}: input_kind={cfg.input_kind!r} (embedding front ends) is not ported to "
-            "repro_torch yet (ROADMAP A10)"
-        )
-    layers.check_softcap(cfg)
 
 
 class Attention(_Params):
@@ -287,7 +273,6 @@ class Transformer(_Params):
     gradients, cast to `cfg.dtype` at every use."""
 
     def __init__(self, cfg: ModelConfig, device: Device = None, param_dtype: Optional[str] = None):
-        check_supported(cfg)
         compute = dtype_of(cfg)
         store = Storage(compute, compute if param_dtype is None else getattr(torch, param_dtype),
                         resolve_device(device), param_dtype is not None)
@@ -316,8 +301,10 @@ class Transformer(_Params):
         return self.embed.device
 
     def embedding(self, inputs: torch.Tensor) -> torch.Tensor:
-        """Rows of the embedding for int tokens, in the compute dtype."""
-        x = self.embed[inputs.long()]
+        """The blocks' input in the compute dtype: rows of the embedding for
+        int tokens (B, S), or for `input_kind == "embeddings"` the (B, S, D)
+        embeddings themselves."""
+        x = self.embed[inputs.long()] if self.cfg.input_kind == "tokens" else inputs
         return x if x.dtype == self._store.compute else x.to(self._store.compute)
 
     def head_weight(self) -> torch.Tensor:
@@ -361,7 +348,8 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: Device = None,
 
 # ============================================================ forward =====
 def forward(model: Transformer, cfg: ModelConfig, inputs: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """inputs int tokens (B, S) at positions arange(S) -> (logits (B, S, V),
+    """inputs int tokens (B, S), or (B, S, D) embeddings for
+    `input_kind == "embeddings"`, at positions arange(S) -> (logits (B, S, V),
     aux loss: the sum of the moe blocks' load-balance losses, 0.0 for the
     other families). Each block runs under `torch.utils.checkpoint` (its
     activations recomputed in the backward, B10 launched again) when
@@ -432,7 +420,6 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int, device: Device
     `layers/conv_tail` ((L, B, W-1, conv_dim) in `cfg.dtype`); the hybrid's
     RG-LRU sublayers `groups/{rec1,rec2}` and `tail` hold `h` (float32 (n,
     B, lru_width)) and `conv_tail` ((n, B, W-1, lru_width))."""
-    check_supported(cfg)
     device = resolve_device(device)
     dt = dtype_of(cfg)
     if cfg.family == "ssm":
@@ -534,8 +521,9 @@ def _decode_attend(p: Dict[str, torch.Tensor], cfg: ModelConfig, x_t: torch.Tens
 
 def decode_step(model: Transformer, cfg: ModelConfig, cache: Dict[str, Any],
                 inputs_t: torch.Tensor) -> Tuple[Dict[str, Any], torch.Tensor]:
-    """One autoregressive step of int tokens (B, 1): (cache, logits (B, 1,
-    V)). The cache's tensors are updated in place and `pos` advances."""
+    """One autoregressive step of int tokens (B, 1), or (B, 1, D)
+    embeddings for `input_kind == "embeddings"`: (cache, logits (B, 1, V)).
+    The cache's tensors are updated in place and `pos` advances."""
     pos = cache["pos"]
     x = model.embedding(inputs_t)
     if cfg.family == "ssm":
@@ -558,11 +546,12 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: Dict[str, Any],
 
 def prefill(model: Transformer, cfg: ModelConfig, inputs: torch.Tensor,
             cache_seq_len: Optional[int] = None) -> Tuple[Dict[str, Any], torch.Tensor]:
-    """Process a prompt of int tokens (B, S): fill the decode cache (rings
-    of `max(cache_seq_len or S, S)` positions, and the recurrent states)
-    layer by layer with what the forward pass computes, and return (cache,
-    logits of the last prompt position (B, 1, V))."""
-    b, s = inputs.shape
+    """Process a prompt of int tokens (B, S), or (B, S, D) embeddings for
+    `input_kind == "embeddings"`: fill the decode cache (rings of
+    `max(cache_seq_len or S, S)` positions, and the recurrent states) layer
+    by layer with what the forward pass computes, and return (cache, logits
+    of the last prompt position (B, 1, V))."""
+    b, s = inputs.shape[:2]
     cache = init_decode_cache(cfg, b, max(cache_seq_len or s, s), model.device)
     x = model.embedding(inputs)
     if cfg.family == "ssm":

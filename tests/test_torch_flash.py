@@ -19,7 +19,7 @@ one and two terms, which break it: that is why the kernel splits p in
 three.
 
 Tests marked `cuda` hold the CUDA kernels against the plain version on the
-card and skip without one."""
+card, with and without a logit softcap, and skip without one."""
 import numpy as np
 import pytest
 import torch
@@ -65,9 +65,10 @@ def _bf16_outside(got: torch.Tensor, want: torch.Tensor) -> int:
     return int((~((g - w).abs() <= w.abs() * 2.0**-7 + 1e-6)).sum())
 
 
-def _split_emulation(q, k, v, window, causal, terms):
+def _split_emulation(q, k, v, window, causal, terms, softcap=None):
     """The tensor-core kernel's numerics in dense plain torch: bf16 q.k
-    products in float32 (exact) scaled by f32(1/sqrt(Dh)), masked scores at
+    products in float32 (exact) scaled by f32(1/sqrt(Dh)), capped to
+    softcap * tanh(s / softcap) when `softcap` is given, masked scores at
     -1e30, float32 p = exp(s - max) and l = sum(p), then p@v as `terms`
     float32 products of bf16 terms of p (each the bf16 rounding of what the
     terms before it leave), summed, divided by max(l, 1e-30), in bf16."""
@@ -77,6 +78,8 @@ def _split_emulation(q, k, v, window, causal, terms):
     kk = k.float().repeat_interleave(g, dim=2)
     vv = v.float().repeat_interleave(g, dim=2)
     s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kk) * flash_attn.scale(dh)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
     qpos, kpos = torch.arange(sq)[:, None], torch.arange(sk)[None, :]
     mask = torch.ones((sq, sk), dtype=torch.bool)
     if causal:
@@ -126,6 +129,21 @@ def test_three_term_split_emulation_is_within_one_bf16_step(B, Sq, Sk, H, K, Dh,
     want = ref.flash_reference(q, k, v, window, causal)
     assert _bf16_outside(got, want) == 0
     assert torch.isfinite(got.float()).all()
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,K,Dh,window,causal,cancel,seed", SPLIT_CASES)
+def test_three_term_split_emulation_with_cap_is_within_one_bf16_step(B, Sq, Sk, H, K, Dh, window, causal,
+                                                                     cancel, seed):
+    """With a logit softcap (the kernel caps each scaled score before its
+    softmax) three bf16 terms of p still keep every output within one bf16
+    step of the capped plain version, and the cap moves some output by more
+    than 100x that step."""
+    q, k, v = _bf16_qkv(seed, B, Sq, Sk, H, K, Dh, cancel)
+    got = _split_emulation(q, k, v, window, causal, terms=3, softcap=1.0)
+    want = ref.flash_reference(q, k, v, window, causal, softcap=1.0)
+    assert _bf16_outside(got, want) == 0
+    uncapped = ref.flash_reference(q, k, v, window, causal).float()
+    assert bool(((uncapped - want.float()).abs() > 100 * (want.float().abs() * 2.0**-7 + 1e-6)).any())
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,K,Dh,window,causal,cancel,seed", SPLIT_CASES)
@@ -355,6 +373,49 @@ def test_cuda_flash_matches_plain_version(cuda, B, Sq, Sk, H, K, Dh, window, cau
         _bf16_close(got, want)
     else:
         torch.testing.assert_close(got, want, rtol=F32_TOL, atol=F32_TOL)
+
+
+#: chip_smoke.py's capped cases, each with its cap: (B, Sq, Sk, H, K, Dh,
+#: window, causal, dtype, softcap)
+CAP_CASES = [
+    (2, 512, 512, 8, 8, 64, None, True, torch.bfloat16, 1.0),  # musicgen's G 1, Dh 64
+    (2, 700, 700, 8, 4, 64, 96, True, torch.bfloat16, 2.0),  # windowed: leading tiles masked
+    (2, 333, 250, 8, 2, 128, None, True, torch.bfloat16, 1.5),  # ragged, Sk < Sq
+    (1, 200, 300, 8, 2, 128, 40, True, torch.bfloat16, 1.0),  # Sk > Sq, windowed
+    (1, 333, 400, 8, 2, 256, 100, True, torch.bfloat16, 2.0),  # Dh 256, ragged, windowed
+    (1, 190, 190, 4, 2, 128, None, False, torch.bfloat16, 0.5),  # not causal
+    (2, 300, 300, 8, 2, 64, 50, True, torch.float32, 1.0),  # float32: the FMA kernel
+    (1, 200, 200, 4, 2, 40, None, True, torch.bfloat16, 1.0),  # Dh 40: the FMA kernel in bf16
+]
+
+
+def _tolerance(want: torch.Tensor) -> torch.Tensor:
+    """The elementwise rule of the dtype: one bf16 step, or 2e-4 + 2e-4 |w|."""
+    w = want.float().abs()
+    return w * 2.0**-7 + 1e-6 if want.dtype == torch.bfloat16 else F32_TOL + F32_TOL * w
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Sq,Sk,H,K,Dh,window,causal,dtype,cap", CAP_CASES)
+def test_cuda_flash_with_cap_matches_plain_version(cuda, B, Sq, Sk, H, K, Dh, window, causal, dtype, cap):
+    """Both forms of B10 with a logit softcap on the kernel `kernel_for`
+    names: out within its dtype's rule of the capped plain version, lse
+    within 1e-4 + 1e-5 |plain|, the lse form's out the plain form's; and
+    the cap moves some output by more than 100x the rule."""
+    q, k, v = (torch.from_numpy(a).to(cuda, dtype) for a in _qkv(5 * Sq + Dh, B, Sq, Sk, H, K, Dh))
+    kernel = flash_attn.kernel_for(dtype, Dh, H // K)
+    lse_form = "flash_attention_fwd_lse" if kernel == flash_attn.TENSOR_CORE else "flash_attention_fwd_lse_fma"
+    ops.reset_launches()
+    got = ops.flash_attention_fwd(q, k, v, window=window, causal=causal, softcap=cap)
+    got_lse, lse = ops.flash_attention_fwd_lse(q, k, v, window=window, causal=causal, softcap=cap)
+    assert ops.launch_counts() == {**{n: 0 for n in ops.WRAPPERS}, kernel: 1, lse_form: 1}
+    want, want_lse = ref.flash_reference_lse(q, k, v, window=window, causal=causal, softcap=cap)
+    torch.cuda.synchronize()
+    assert torch.equal(got, got_lse)
+    assert bool(((got.float() - want.float()).abs() <= _tolerance(want)).all())
+    assert bool(((lse - want_lse).abs() <= 1e-4 + 1e-5 * want_lse.abs()).all())
+    uncapped = ref.flash_reference(q, k, v, window=window, causal=causal).float()
+    assert bool(((uncapped - want.float()).abs() > 100 * _tolerance(want)).any())
 
 
 @pytest.mark.cuda

@@ -34,7 +34,7 @@ from repro.launch import steps as rsteps
 from repro.models import moe as rmoe
 from repro.models import transformer as rt
 from repro.optim import AdamWConfig as RAdamWConfig
-from repro_torch.configs import UNPORTED, get_arch
+from repro_torch.configs import arch_ids, get_arch
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import moe as tmoe
@@ -83,7 +83,7 @@ def _leaf(tree, path):
 # ------------------------------------------------------------- registry --
 def test_get_arch_returns_the_ported_configs():
     for arch in MOE_ARCHS + DENSE_ARCHS:
-        assert arch not in UNPORTED
+        assert arch in arch_ids()
         assert dataclasses.asdict(get_arch(arch).model) == dataclasses.asdict(rget(arch).model)
         assert get_arch(arch).source == rget(arch).source
         assert get_arch(arch).skips == rget(arch).skips
@@ -92,15 +92,22 @@ def test_get_arch_returns_the_ported_configs():
 
 @pytest.mark.parametrize("arch,family", [("musicgen-large", "dense"), ("pixtral-12b", "dense")])
 def test_ssm_and_hybrid_still_refused(arch, family):
-    """The ssm and hybrid families are ported now (tests/test_torch_recurrent.py);
-    the configs still refused are the embedding front ends', naming A10, and
-    a model with their input kind is refused likewise."""
-    with pytest.raises(KeyError, match="ROADMAP A10"):
-        get_arch(arch)
-    cfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b").model.reduced(), family=family,
-                              input_kind="embeddings")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tt.Transformer(cfg, "cpu")
+    """Nothing is refused any more: the ssm and hybrid families are ported
+    (tests/test_torch_recurrent.py) and so are the embedding front ends'
+    configs, which equal the reference's. The moe family, and `family`,
+    the front ends' own, run on (B, S, D) embeddings: float32 logits
+    within 1e-4 and the aux loss within 1e-6 a layer of the reference's
+    forward."""
+    assert dataclasses.asdict(get_arch(arch).model) == dataclasses.asdict(rget(arch).model)
+    emb = np.random.default_rng(3).normal(size=(2, 24, 128)).astype(np.float32)
+    for fam in ("moe", family):
+        cfg, tcfg = _cfgs("qwen3-moe-30b-a3b", family=fam, input_kind="embeddings")
+        params = rt.init_params(cfg, jax.random.PRNGKey(1))
+        model = params_from_numpy(jax.tree_util.tree_map(np.asarray, params), tcfg, "cpu")
+        want, aux = jax.jit(lambda p, x: rt.forward(p, cfg, x))(params, jnp.asarray(emb))
+        got, taux = tt.forward(model, tcfg, _t(emb))
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0, atol=1e-4, err_msg=fam)
+        assert abs(taux.item() - float(aux)) <= 1e-6 * cfg.n_layers, fam
 
 
 def test_transformer_builds_moe_blocks():

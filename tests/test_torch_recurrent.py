@@ -44,7 +44,7 @@ from repro.models import rglru as rrglru
 from repro.models import ssd as rssd
 from repro.models import transformer as rt
 from repro.optim import AdamWConfig as RAdamWConfig
-from repro_torch.configs import UNPORTED, get_arch
+from repro_torch.configs import arch_ids, get_arch
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import rglru as trglru
@@ -87,7 +87,7 @@ def _np_tree(tree):
 # ------------------------------------------------------------- registry --
 @pytest.mark.parametrize("arch", ARCHS)
 def test_get_arch_returns_the_ported_config(arch):
-    assert arch not in UNPORTED
+    assert arch in arch_ids()
     assert dataclasses.asdict(get_arch(arch).model) == dataclasses.asdict(rget(arch).model)
     assert get_arch(arch).source == rget(arch).source
     assert get_arch(arch).model.param_count() == rget(arch).model.param_count()
@@ -95,11 +95,18 @@ def test_get_arch_returns_the_ported_config(arch):
 
 @pytest.mark.parametrize("arch", ["musicgen-large", "pixtral-12b"])
 def test_front_end_configs_still_refused(arch):
-    with pytest.raises(KeyError, match="ROADMAP A10"):
-        get_arch(arch)
-    cfg = dataclasses.replace(get_arch("mamba2-1.3b").model.reduced(), input_kind="embeddings")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        tt.Transformer(cfg, "cpu")
+    """The front ends' configs are ported now and equal the reference's;
+    the ssm and hybrid families run on (B, S, D) embeddings as well:
+    float32 logits within 1e-4 of the reference's forward."""
+    assert dataclasses.asdict(get_arch(arch).model) == dataclasses.asdict(rget(arch).model)
+    emb = np.random.default_rng(4).normal(size=(2, 40, 128)).astype(np.float32)
+    for fam_arch in ARCHS:
+        cfg, tcfg = _cfgs(fam_arch, input_kind="embeddings")
+        params = rt.init_params(cfg, jax.random.PRNGKey(2))
+        model = params_from_numpy(_np_tree(params), tcfg, "cpu")
+        want, _ = jax.jit(lambda p, x: rt.forward(p, cfg, x))(params, jnp.asarray(emb))
+        got, _ = tt.forward(model, tcfg, _t(emb))
+        np.testing.assert_allclose(_np(got), np.asarray(want), rtol=0, atol=1e-4, err_msg=fam_arch)
 
 
 def test_transformer_builds_both_families_at_full_width():

@@ -228,9 +228,23 @@ def test_params_numpy_roundtrip_through_masters(pair):
 
 
 def test_softcap_refused_in_training():
-    _, tcfg = _cfgs(attn_logit_softcap=30.0)
-    with pytest.raises(NotImplementedError, match="A10"):
-        tt.Transformer(tcfg, "cpu", param_dtype="float32")
+    """A logit softcap is no longer refused in training: a capped model
+    with float32 masters and full remat matches the reference's loss and
+    gradients (its `_flash_ad` path) within the tolerances of
+    `test_loss_and_grads_match_reference`; `tests/test_torch_softcap.py`
+    holds the cap itself tighter."""
+    cfg, tcfg = _cfgs(n_layers=2, attn_logit_softcap=2.0, remat="full")
+    params = rt.init_params(cfg, KEY)
+    toks = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 25)).astype(np.int32)
+    batch = {"inputs": toks[:, :-1], "labels": toks[:, 1:]}
+    (loss, _), g = jax.jit(jax.value_and_grad(lambda p, b: rt.loss_fn(p, cfg, b), has_aux=True))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()})
+    model = params_from_numpy(jax.tree_util.tree_map(np.asarray, params), tcfg, "cpu", param_dtype="float32")
+    tloss, _ = tt.loss_fn(model, tcfg, {k: _t(v) for k, v in batch.items()})
+    tloss.backward()
+    assert abs(tloss.item() - float(loss)) <= 1e-5 * abs(float(loss))
+    rel = _tree_rel(named_to_tree({k: p.grad.numpy() for k, p in model.named_parameters()}), _ref_grads_tree(g))
+    assert max(rel.values()) < 1e-4, rel
 
 
 # ------------------------------------------------------------ train step --
