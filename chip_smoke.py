@@ -307,7 +307,25 @@ Phases, each printing one line per check:
                musicgen's layer 0 timed without and with a cap (in turns),
                beside SDPA (which has no cap). The kernels line gains the
                row `flash_attention_fwd_tc_softcap`, the capped instances'
-               launches and times.
+               launches and times;
+  15. mesh   — the mesh machinery (`models/partition.py`, `compat.py`,
+               `runtime/sharding.py`, `launch/mesh.py`), every slot on the
+               one card: (a) `train(mesh=...)` of qwen3-1.7b at full width
+               and depth on a (pod 2, data 1, model 1) mesh, masters and
+               AdamW moments sharded by `param_specs(cfg, "train")`, the
+               compressed pod sync, 3 steps of 4 x 1,024 from the B2 feed
+               (B10's lse form 2 x 28 x 3 times in each slot's program, B2
+               once a step); (b) qwen3-1.7b at full width and depth served
+               4 x 2,048 + 8 with the ring over a (data 1, model 4) mesh,
+               the decode through the distributed-LSE merge; (c)
+               qwen3-moe-30b-a3b at full width and 4 of its 48 layers, 4 x
+               2,048 + 4 on a (data 4, model 1) mesh, the moe dispatch per
+               data shard and B10 once a layer in each shard's slot
+               program. Each first held card against CPU on the same mesh
+               at full width and 2 layers (TRAIN_CHECK in float32 and bf16
+               on each leaf's merged gradient, LM_CHECK, MOE_CHECK).
+               Lines carry step seconds, peak memory, the collectives'
+               bytes (`compat.wire_bytes`) and busy shares.
 Then one JSON line of per-kernel numbers, the card's name and power limit as
 nvidia-smi reports them, and a last JSON line with the device.
 
@@ -361,6 +379,11 @@ from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.launch.train import restore_state, state_like, state_tree, train  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.optim.adamw import AdamWConfig, adamw, apply_updates_  # noqa: E402
+from repro_torch import compat  # noqa: E402
+from repro_torch.launch.steps import TrainStepConfig  # noqa: E402
+from repro_torch.models import partition  # noqa: E402
+from repro_torch.runtime.elastic import make_mesh, reshard  # noqa: E402
+from repro_torch.runtime.sharding import param_specs, physical_specs  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, 700 W), for the bounds: the
 #: device-memory rate, and the 32-bit scalar rate outside the tensor cores
@@ -3874,6 +3897,329 @@ def run_frontends(dev) -> tuple:
         free_card()
     return launches, worst, capped_launches, timing
 
+#: the mesh phase (ROADMAP A10 item 5, first half): the mesh machinery on
+#: the card, every slot of each mesh on the one H100 (`cuda:0`), so no
+#: collective crosses a link; each path held card against CPU on the same
+#: mesh (the CPU's slots all `cpu`) at full width and 2 layers first.
+#:  (a) data-parallel training: qwen3-1.7b at full width and depth on a
+#:      (pod 2, data 1, model 1) mesh, masters and moments sharded by
+#:      `param_specs(cfg, "train")`, the compressed pod sync
+#:      (`GradCompressionConfig()`), 3 steps of the train cell's 4 x 1,024
+#:      through the B2 feed;
+#:  (b) distributed-LSE decode: qwen3-1.7b at full width and depth serving
+#:      4 x 2,048 + 8 with the ring over a (data 1, model 4) mesh;
+#:  (c) per-shard moe prefill: qwen3-moe-30b-a3b at full width and 4 of its
+#:      48 layers (cut for the script's time), 4 x 2,048 + 4 on a (data 4,
+#:      model 1) mesh.
+#: The card-vs-CPU limits are the ones the earlier phases hold one device
+#: to: (a) TRAIN_CHECK's, in float32 and in bf16, on the loss, on each
+#: leaf's merged gradient (AdamW's first moment after the one step,
+#: (1 - b1) g of the synced, clipped gradient, gathered whole) and on each
+#: parameter's update, in relative norm; (b) LM_CHECK; (c)
+#: MOE_CHECK["serve"] (LM_CHECK, codes over the slots fed alike).
+MAP3 = {"data": ("pod", "data"), "model": "model"}
+MAP2 = {"data": "data", "model": "model"}
+MESH_TRAIN = dict(shape=(2, 1, 1), names=("pod", "data", "model"), steps=3, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+#: (b)'s check serves LM_CHECK's 2 x 256 + 4 in a ring of 512 slots: the
+#: model axis splits the ring's 128-slot scale groups 4 ways
+MESH_DECODE = dict(arch=LM_ARCH, shape=(1, 4), batch=4, prompt_len=2048, gen=8, check=dict(LM_CHECK, cache_len=512))
+MESH_MOE = dict(arch="qwen3-moe-30b-a3b", shape=(4, 1), batch=4, prompt_len=2048, gen=4, n_layers=4,
+                check=dict(MOE_CHECK["serve"], batch=4))
+MESH_KERNELS = ("flash_attention_fwd_lse", "flash_attention_fwd_tc", "flash_attention_fwd",
+                "flash_attention_fwd_lse_fma", "unpack_blocks")
+
+
+def card_mesh(shape, names, dev) -> "DeviceMesh":
+    """A mesh of `shape` whose every slot is `dev` (one card, or the CPU)."""
+    return make_mesh(shape, names, devices=[dev] * math.prod(shape))
+
+
+#: B10's wrappers, whose launches `slot_launches` buckets by slot (they
+#: count on `ops.WRAPPERS`, so a module attribute may wrap them; B2's count
+#: on their own name, and run in the feed's thread, outside any slot)
+SLOT_COUNTED = ("flash_attention_fwd_lse", "flash_attention_fwd_tc", "flash_attention_fwd",
+                "flash_attention_fwd_lse_fma")
+
+
+@contextlib.contextmanager
+def slot_launches():
+    """Each call of B10's wrappers made inside the block, its launches
+    bucketed by the slot program it ran under (`"whole"` outside one). The
+    wrappers' own counts are untouched."""
+    buckets: dict = {}
+    originals = {n: getattr(ops, n) for n in SLOT_COUNTED}
+
+    def wrap(fn):
+        def inner(*a, **kw):
+            before = ops.launch_counts()
+            out = fn(*a, **kw)
+            after = ops.launch_counts()
+            prog = partition.current_slot()
+            b = buckets.setdefault("whole" if prog is None else prog.slot, {})
+            for k in MESH_KERNELS:
+                if after[k] != before[k]:
+                    b[k] = b.get(k, 0) + after[k] - before[k]
+            return out
+        return inner
+
+    for n, fn in originals.items():
+        setattr(ops, n, wrap(fn))
+    try:
+        yield buckets
+    finally:
+        for n, fn in originals.items():
+            setattr(ops, n, fn)
+
+
+def mesh_train_once(d, cfg, tree: dict, tokens: np.ndarray, mesh) -> tuple:
+    """One data-parallel step of `cfg` on `mesh` (slots on `d`) from the
+    numpy weights `tree`: (loss, grad_norm, {name: AdamW's m}, {name:
+    update}), the leaves gathered whole on the CPU."""
+    c = TRAIN_CHECK
+    with partition.logical_axes(MAP3):
+        specs = param_specs(cfg, "train")
+        init_fn, step = make_train_step(cfg, AdamWConfig(lr=c["lr"]),
+                                        TrainStepConfig(grad_compression=GradCompressionConfig()), mesh=mesh,
+                                        param_pspecs=physical_specs(specs), device=d)
+        _, opt = init_fn(0)
+    model = params_from_numpy(tree, cfg, d, param_dtype="float32")
+    params = reshard({k: p.detach() for k, p in model.named_parameters()}, specs, mesh, MAP3)
+    del model
+    before = {k: t.gather().cpu() for k, t in params.items()}
+    b = {"inputs": torch.from_numpy(tokens[:, :-1]).to(d), "labels": torch.from_numpy(tokens[:, 1:]).to(d)}
+    params, opt, m = step(params, opt, b)
+    moments = {k: t.gather().cpu() for k, t in opt.m.items()}
+    updates = {k: t.gather().cpu() - before[k] for k, t in params.items()}
+    return float(m["loss"]), float(m["grad_norm"]), moments, updates
+
+
+def check_mesh_train_card_vs_cpu(dev) -> dict:
+    """(a) first: one compressed data-parallel step at full width and 2
+    layers on the (pod 2, data 1, model 1) mesh, card slots against CPU
+    slots, the same numpy weights and tokens, in float32 and in bf16, held
+    to TRAIN_CHECK leaf by leaf."""
+    c = TRAIN_CHECK
+    cfg = dataclasses.replace(get_arch(LM_ARCH).model, n_layers=c["layers"])
+    tree = params_to_numpy(init_params(cfg, seed=0, device="cpu", param_dtype="float32"))
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (c["batch"], c["seq"] + 1)).astype(np.int32)
+    bad, out = [], {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+        t0 = time.perf_counter()
+        got = {}
+        for d in (dev, torch.device("cpu")):
+            mesh = card_mesh(MESH_TRAIN["shape"], MESH_TRAIN["names"], d)
+            got[d.type] = mesh_train_once(d, cfg, tree, tokens, mesh)
+            free_card()
+        (lc, gc, mc, uc), (lp, gp, mp, up) = got["cuda"], got["cpu"]
+        grad_rel = {k: rel_norm(mc[k], mp[k]) for k in mp}
+        update_rel = {k: rel_norm(uc[k], up[k]) for k in up}
+        tol = c[dtype]
+        r = {"loss_card": lc, "loss_cpu": lp, "loss_rel": abs(lc - lp) / abs(lp), "grad_norm_card": gc,
+             "grad_norm_cpu": gp, "grad_norm_rel": abs(gc - gp) / abs(gp),
+             "grad_rel_max": max(grad_rel.values()), "grad_rel_worst": max(grad_rel, key=grad_rel.get),
+             "update_rel_max": max(update_rel.values()), "update_rel_worst": max(update_rel, key=update_rel.get),
+             "finite": all(bool(torch.isfinite(g).all()) for g in mc.values()) and math.isfinite(lc),
+             "tolerance": tol, "seconds": time.perf_counter() - t0}
+        out[dtype] = r
+        emit({"phase": "mesh", "path": "train_card_vs_cpu", "dtype": dtype,
+              "mesh": dict(zip(MESH_TRAIN["names"], MESH_TRAIN["shape"])),
+              "config": {k: c[k] for k in ("layers", "batch", "seq", "lr")}, **r})
+        if not r["finite"]:
+            bad.append(f"{dtype}: non-finite loss or merged gradients on the card")
+        if r["loss_rel"] > tol["loss_rel"]:
+            bad.append(f"{dtype}: loss {lc} on the card against {lp}")
+        if r["grad_norm_rel"] > tol["grad_rel"]:
+            bad.append(f"{dtype}: gradient norm {gc} on the card against {gp}")
+        if r["grad_rel_max"] > tol["grad_rel"]:
+            bad.append(f"{dtype}: merged gradient of {r['grad_rel_worst']} differs by {r['grad_rel_max']}")
+        if r["update_rel_max"] > tol["update_rel"]:
+            bad.append(f"{dtype}: update of {r['update_rel_worst']} differs by {r['update_rel_max']}")
+    if bad:
+        raise AssertionError("card and CPU data-parallel training disagree: " + "; ".join(bad))
+    return out
+
+
+def run_mesh_train(dev) -> dict:
+    """(a): `train(mesh=...)` at full width and depth, with the launch counts
+    set to 0 just before and read just after: B10's lse form twice per
+    layer, step and slot (the forward and full remat's recompute) in each
+    slot's program, B2 once per step (the feed), no other form of B10."""
+    t = MESH_TRAIN
+    cfg = get_arch(LM_ARCH).model
+    mesh = card_mesh(t["shape"], t["names"], dev)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    compat.reset_wire()
+    t0 = time.perf_counter()
+    with partition.logical_axes(MAP3), slot_launches() as per_slot:
+        run = train(cfg, steps=t["steps"], batch=t["batch"], seq=t["seq"], device=dev, mesh=mesh,
+                    grad_compression=GradCompressionConfig(), log_every=t["steps"])
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    per_step = (2 if cfg.remat == "full" else 1) * cfg.n_layers * t["steps"]
+    want_slot = {"flash_attention_fwd_lse": per_step}
+    checks = {
+        "steps": run.final_step == t["steps"] and len(run.losses) == t["steps"],
+        "losses_finite": all(math.isfinite(x) for x in run.losses),
+        "per_slot_b10": all(per_slot.get(s, {}) == want_slot for s in range(mesh.size)),
+        "b2_per_step": launches["unpack_blocks"] == t["steps"],
+        "b10_total": launches["flash_attention_fwd_lse"] == per_step * mesh.size
+        and not any(launches[k] for k in ("flash_attention_fwd_tc", "flash_attention_fwd",
+                                          "flash_attention_fwd_lse_fma")),
+    }
+    emit({"phase": "mesh", "path": "train", "arch": LM_ARCH, "mesh": dict(zip(t["names"], t["shape"])),
+          "mapping": MAP3, "n_layers": cfg.n_layers, "batch": t["batch"], "seq": t["seq"], "steps": t["steps"],
+          "losses": run.losses, "step_s": run.step_s, "tokens_per_s": run.tokens_per_s,
+          "peak_memory_allocated": torch.cuda.max_memory_allocated(), "wire_bytes": compat.wire_bytes(),
+          "launches": {k: launches[k] for k in MESH_KERNELS}, "launches_per_slot": per_slot,
+          "checks": checks, "seconds": wall})
+    if not all(checks.values()):
+        raise AssertionError(f"the data-parallel train path fails its checks: {checks}; per slot {per_slot}")
+    free_card()
+    return launches
+
+
+def check_mesh_serve_card_vs_cpu(dev, spec: dict) -> dict:
+    """(b)/(c) first: `spec["arch"]` at full width and 2 layers served on
+    the same mesh shape with card slots and with CPU slots, the same
+    weights and prompts, held to `spec["check"]` as check_lm_card_vs_cpu
+    holds one device."""
+    c = spec["check"]
+    names = ("data", "model")
+    cfg = dataclasses.replace(get_arch(spec["arch"]).model, n_layers=c["layers"])
+    tree = params_to_numpy(init_params(cfg, seed=0, device=dev))
+    prompts = torch.randint(0, cfg.vocab_size, (c["batch"], c["prompt_len"]),
+                            generator=torch.Generator().manual_seed(5))
+    t0 = time.perf_counter()
+    kw = dict(batch=c["batch"], prompt_len=c["prompt_len"], gen=c["gen"], cache_len=c.get("cache_len"),
+              params=tree, prompts=prompts)
+    with partition.logical_axes(MAP2):
+        card = serve(cfg, device=dev, mesh=card_mesh(spec["shape"], names, dev), **kw)
+        t1 = time.perf_counter()
+        cpu = serve(cfg, device="cpu", mesh=card_mesh(spec["shape"], names, torch.device("cpu")), **kw)
+    t2 = time.perf_counter()
+    del tree
+    lc, lp = card.prefill_logits.float().cpu(), cpu.prefill_logits.float()
+    scale, err = lp.abs().max().item(), (lc - lp).abs().max().item()
+    codes = {}
+    for name in ("k_codes", "v_codes"):
+        a, b = card.cache["layers"][name].gather().cpu(), cpu.cache["layers"][name].gather()
+        same = a == b
+        alike = slots_fed_alike(card.tokens, cpu.tokens, c["prompt_len"], a.shape[2])
+        codes[name] = {"all": same.double().mean().item(), "layer0": same[0].double().mean().item(),
+                       "all_fed_alike": same[:, alike].double().mean().item(),
+                       "layer0_fed_alike": same[0][alike].double().mean().item()}
+    top2 = lp[:, 0].topk(2, dim=-1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    first = [bool(card.tokens[i, 0] == cpu.tokens[i, 0]) or margin[i] < 2 * err for i in range(c["batch"])]
+    out = {"phase": "mesh", "path": f"serve_card_vs_cpu/{spec['arch']}", "mesh": dict(zip(names, spec["shape"])),
+           "config": {**c, "d_model": cfg.d_model}, "prefill_logits_max_abs_err": err, "max_abs_logit": scale,
+           "code_agreement": codes, "token_agreement": float((card.tokens == cpu.tokens).mean()),
+           "top2_margin_cpu": margin, "card_s": t1 - t0, "cpu_s": t2 - t1}
+    emit(out)
+    bad = []
+    if not bool(torch.isfinite(lc).all()) or err > c["logits_frac"] * scale:
+        bad.append(f"prefill logits differ by {err} (max |logit| {scale})")
+    over = "_fed_alike" if c.get("codes_over_slots_fed_alike") else ""
+    for name, r in codes.items():
+        if r["layer0" + over] < c["codes_layer0"] or r["all" + over] < c["codes_all"]:
+            bad.append(f"{name} agreement {r}")
+    if not all(first):
+        bad.append(f"first tokens differ where the margin is clear: {margin}")
+    if bad:
+        raise AssertionError(f"{spec['arch']} on a mesh: card and CPU serving disagree: " + "; ".join(bad))
+    free_card()
+    return out
+
+
+def run_mesh_serve(dev, spec: dict) -> dict:
+    """(b)/(c): `spec["arch"]` at full width (and `n_layers`) served through
+    `serve(mesh=...)` with the launch counts set to 0 just before and read
+    just after: B10's tensor-core kernel once per layer in each data
+    shard's slot program when the data axis splits the batch, else once
+    per layer on the whole batch; every slot's ring shard of 1/n of the
+    ring. Then one profiled decode step for the busy share."""
+    cfg = get_arch(spec["arch"]).model
+    if spec.get("n_layers"):
+        cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
+    names = ("data", "model")
+    mesh = card_mesh(spec["shape"], names, dev)
+    free_card()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)
+    prompts = torch.randint(0, cfg.vocab_size, (spec["batch"], spec["prompt_len"]),
+                            generator=torch.Generator().manual_seed(0)).to(dev, torch.int32)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    compat.reset_wire()
+    with partition.logical_axes(MAP2), slot_launches() as per_slot:
+        run = serve(cfg, batch=spec["batch"], prompt_len=spec["prompt_len"], gen=spec["gen"], device=dev,
+                    params=model, prompts=prompts, mesh=mesh)
+    launches, wire = ops.launch_counts(), compat.wire_bytes()
+    n_data, n_model = spec["shape"]
+    if n_data > 1:
+        want = {s: {"flash_attention_fwd_tc": cfg.n_layers} for s in range(mesh.size)}
+    else:
+        want = {"whole": {"flash_attention_fwd_tc": cfg.n_layers}}
+    ring = run.cache["layers"]["k_codes"]
+    w = _round_window(cfg.effective_kv_window(spec["prompt_len"] + spec["gen"]))
+    checks = {
+        "per_slot_b10": per_slot == want,
+        "no_fma": launches["flash_attention_fwd"] == 0,
+        "logits_finite": bool(torch.isfinite(run.prefill_logits).all()),
+        "tokens_in_vocab": bool(((run.tokens >= 0) & (run.tokens < cfg.padded_vocab)).all()),
+        "ring_shards": len(ring.shards) == mesh.size and all(
+            tuple(sh.shape) == (cfg.n_layers, spec["batch"] // n_data, w // n_model, cfg.n_kv_heads, cfg.head_dim)
+            for sh in ring.shards),
+        "pos": run.cache["pos"] == spec["prompt_len"] + spec["gen"] - 1,
+    }
+    if n_model > 1:
+        checks["lse_merge_on_the_wire"] = wire.get("pmax", 0) > 0 and wire.get("psum", 0) > 0
+    if n_data > 1 and cfg.family == "moe":
+        checks["moe_buffers_gathered"] = wire.get("all_gather", 0) > 0
+    line = {"phase": "mesh", "path": f"serve/{spec['arch']}", "mesh": dict(zip(names, spec["shape"])),
+            "mapping": MAP2, "n_layers": cfg.n_layers, "cut": None if not spec.get("n_layers") else
+            f"{spec['n_layers']} of {get_arch(spec['arch']).model.n_layers} layers",
+            "batch": spec["batch"], "prompt_len": spec["prompt_len"], "gen": spec["gen"], "ring_slots": w,
+            "prefill_s": run.prefill_s, "decode_ms_per_step": run.decode_s * 1e3 / (spec["gen"] - 1),
+            "peak_memory_allocated": torch.cuda.max_memory_allocated(), "wire_bytes": wire,
+            "cache_bytes": run.cache_bytes, "launches_per_slot": per_slot,
+            "launches": {k: launches[k] for k in MESH_KERNELS}, "checks": checks, "init_s": init_s}
+    with torch.inference_mode(), partition.logical_axes(MAP2), partition.set_mesh(mesh):
+        cache = run.cache
+        tok = torch.from_numpy(run.tokens[:, -1:]).to(dev)
+        t1 = time.perf_counter()
+        cache, _ = decode_step(model, cfg, cache, tok)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t1) * 1e3
+        busy = device_busy_ms(lambda: decode_step(model, cfg, cache, tok))
+    line.update({"decode_step_wall_ms": wall_ms, "decode_step_busy_ms": busy,
+                 "busy_share": busy / wall_ms if busy else None, "seconds": time.perf_counter() - t0})
+    emit(line)
+    del run, model, prompts, cache
+    free_card()
+    if not all(checks.values()):
+        raise AssertionError(f"{spec['arch']} on a mesh fails its checks: {checks}; per slot {per_slot}")
+    return launches
+
+
+def run_mesh(dev) -> dict:
+    """The mesh phase: (a)-(c) with their card-vs-CPU checks. Returns the
+    launches of the three main paths."""
+    launches = {k: 0 for k in KERNELS}
+    for fn in (lambda: (check_mesh_train_card_vs_cpu(dev), run_mesh_train(dev))[1],
+               lambda: (check_mesh_serve_card_vs_cpu(dev, MESH_DECODE), run_mesh_serve(dev, MESH_DECODE))[1],
+               lambda: (check_mesh_serve_card_vs_cpu(dev, MESH_MOE), run_mesh_serve(dev, MESH_MOE))[1]):
+        for k, n in fn().items():
+            if k in launches:
+                launches[k] += n
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
@@ -3990,6 +4336,10 @@ def main() -> int:
     err[SOFTCAP] = max(err[SOFTCAP], fe_times[SOFTCAP]["max_abs_err"])
     times[SOFTCAP], eval_launches[SOFTCAP] = fe_times[SOFTCAP], 0
     emit({"phase": "frontends", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    for k, n in run_mesh(dev).items():
+        launches[k] += n
+    emit({"phase": "mesh", "seconds": time.perf_counter() - t0})
     emit({"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

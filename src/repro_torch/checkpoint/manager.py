@@ -26,7 +26,9 @@ rebuilds the structure from `like=`. So each package loads the other's
 checkpoints with `like=`. `load_checkpoint(device=...)` puts the leaves on
 a torch device (the reference's `shardings=`); without one it returns numpy
 arrays, as the reference does. numpy has no bfloat16, so bfloat16 tensors
-are refused (the training state is float32).
+are refused (the training state is float32). A sharded leaf
+(`runtime/sharding.Sharded`) is gathered to its whole tensor before it is
+written.
 """
 from __future__ import annotations
 
@@ -93,7 +95,11 @@ def tree_map(fn, tree: Any) -> Any:
 
 def _host(x) -> np.ndarray:
     """A leaf as a numpy array that owns its data (a copy: the caller may
-    update its tensors in place)."""
+    update its tensors in place). A `runtime/sharding.Sharded` leaf is
+    gathered whole first, so a checkpoint of sharded state keeps the
+    reference's format."""
+    if hasattr(x, "shards") and hasattr(x, "gather"):
+        x = x.gather()
     if isinstance(x, torch.Tensor):
         if x.dtype == torch.bfloat16:
             raise TypeError("numpy has no bfloat16: checkpoint bfloat16 tensors as float32")

@@ -8,7 +8,7 @@ The port registers all ten of the reference's architectures: the dense
 behind embedding front ends, `musicgen-large` and `pixtral-12b`.
 `get_arch` of an unknown id raises a KeyError. `input_specs` (the
 reference's `jax.ShapeDtypeStruct` stand-ins for its dry-run) has no
-counterpart yet (ROADMAP A10).
+counterpart yet: it comes with the dry run (ROADMAP A10 item 5b).
 """
 from __future__ import annotations
 

@@ -19,7 +19,9 @@ reconstruction carried in the state, paper §3.1.2).
                                           reference's collective)
   compressed_grad_sync                 — that over every leaf of a
                                           gradient dict, across one axis of
-                                          a `runtime/elastic.DeviceMesh`
+                                          a `runtime/elastic.DeviceMesh`,
+                                          once per group of slots that
+                                          share every other coordinate
   ef_init / ef_step                    — error-feedback state
 
 No kernel: the reference quantizes in jnp (`nuq.mulaw_encode_unsigned`),
@@ -33,6 +35,7 @@ from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple
 
 import torch
 
+from repro_torch import compat
 from repro_torch.core.algorithms.nuq import mulaw_decode_unsigned, mulaw_encode_unsigned
 
 
@@ -106,43 +109,74 @@ def compressed_allreduce_mean(xs: Sequence[torch.Tensor], cfg: GradCompressionCo
     """The mean of one tensor per slot, the codes on the wire: each slot
     quantizes its own tensor, every slot receives all slots' codes and
     scales (on `devices[i]`, default each tensor's own), dequantizes them
-    and averages. Returns one result per slot, on its device."""
+    and averages. Returns one result per slot, on its device; slots that
+    share a device share one result (read-only). The codes and scales that
+    leave a slot are counted in `compat.wire_bytes()["compressed"]`."""
     devices = [x.device for x in xs] if devices is None else [torch.device(d) for d in devices]
     shape, dtype = xs[0].shape, xs[0].dtype
     sent = [quantize_tensor(x.to(d), cfg) for x, d in zip(xs, devices)]
-    out = []
+    compat.count_bytes("compressed", (len(xs) - 1) * sum(p.numel() + 4 * sc.numel() for p, sc, _ in sent))
+    done = {}
     for d in devices:
-        deq = torch.stack([dequantize_tensor(p.to(d), s.to(d), n, shape, cfg) for p, s, n in sent])
-        out.append(torch.mean(deq, dim=0).to(dtype))
-    return out
+        if d not in done:
+            deq = torch.stack([dequantize_tensor(p.to(d), sc.to(d), n, shape, cfg) for p, sc, n in sent])
+            done[d] = torch.mean(deq, dim=0).to(dtype)
+    return [done[d] for d in devices]
+
+
+def _sync_axis_dims(spec, axis: str) -> List[int]:
+    """The dims of a physical spec split over exactly `axis` (the
+    reference filters a spec down to its `axis` entries)."""
+    return [d for d, e in enumerate(spec or ()) if e == axis]
 
 
 def compressed_grad_sync(grads: Any, mesh, axis: str = "pod",
                          cfg: GradCompressionConfig = GradCompressionConfig(),
                          param_specs: Optional[Any] = None):
     """Synchronize gradients across the `axis` of a port `DeviceMesh`
-    (`runtime/elastic.py`) with compression: `grads` is one gradient dict
-    per slot of the axis (a single dict for an axis of one slot, returned
-    as a single dict), each on its slot's device; every slot gets the
-    compressed mean of all of them. The mesh's other axes must have one
-    slot. `param_specs` (logical sharding of the leaves) needs
-    `runtime/sharding.py`, which is ROADMAP A10's, and is refused."""
-    if param_specs is not None:
-        raise NotImplementedError("compressed_grad_sync(param_specs=...) resolves logical sharding "
-                                  "specs through runtime/sharding.py, which is not ported "
-                                  "(ROADMAP A10)")
+    (`runtime/elastic.py`) with compression: `grads` is one gradient tree
+    per mesh slot (row-major; a single dict for a mesh of one slot,
+    returned as a single dict), each on its slot's device and holding the
+    whole gradient as that slot sees it. The sync runs once per group of
+    slots that share every coordinate but `axis`: every slot of a group
+    gets the compressed mean of the group's trees.
+
+    `param_specs` (physical specs keyed like the leaves, as
+    `sharding.physical_specs` gives them) are filtered to their `axis`
+    entries, as the reference filters its partial-manual `shard_map`
+    specs: a dim split over exactly `axis` is cut into one slice per
+    slot of the group, each slot's slice averaged with the others' (the
+    reference's local views), and the slot outputs joined again. An entry
+    naming `axis` among other axes (("pod", "data")) leaves the dim
+    whole."""
     if axis not in mesh.axis_names:
         raise ValueError(f"mesh axes {mesh.axis_names} have no {axis!r}")
     width = mesh.shape[mesh.axis_names.index(axis)]
-    if width != mesh.size:
-        raise NotImplementedError(f"a mesh {dict(zip(mesh.axis_names, mesh.shape))} with axes beside "
-                                  f"{axis!r} (ROADMAP A10)")
     single = isinstance(grads, Mapping)
     per_slot = [grads] if single else list(grads)
-    if len(per_slot) != width:
-        raise ValueError(f"{len(per_slot)} gradient trees for the {width} slots of axis {axis!r}")
-    synced = _map(lambda *xs: compressed_allreduce_mean(xs, cfg, mesh.devices), *per_slot)
-    out = [_map(lambda r, i=i: r[i], synced) for i in range(width)]
+    if len(per_slot) != mesh.size:
+        raise ValueError(f"{len(per_slot)} gradient trees for the {mesh.size} slots of a "
+                         f"{dict(zip(mesh.axis_names, mesh.shape))} mesh")
+    out: List[Any] = [None] * mesh.size
+    for grp in compat.groups(mesh, (axis,)):
+        devs = [mesh.devices[s] for s in grp]
+
+        def leaf(*xs, spec=None):
+            dims = _sync_axis_dims(spec, axis)
+            if not dims:
+                return compressed_allreduce_mean(xs, cfg, devs)
+            d = dims[0]
+            n = xs[0].shape[d] // width
+            parts = compressed_allreduce_mean([x.narrow(d, i * n, n) for i, x in enumerate(xs)], cfg, devs)
+            return compat.all_gather(parts, devs, dim=d)
+
+        trees = [per_slot[s] for s in grp]
+        if param_specs is None:
+            synced = _map(lambda *xs: leaf(*xs), *trees)
+        else:
+            synced = _map(lambda sp, *xs: leaf(*xs, spec=sp), param_specs, *trees)
+        for i, s in enumerate(grp):
+            out[s] = _map(lambda r, i=i: r[i], synced)
     return out[0] if single else out
 
 

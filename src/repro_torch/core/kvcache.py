@@ -12,9 +12,15 @@ The encoder is the port's host-built mu-law threshold table at (7 bits,
 vmax 1.0) (`core/algorithms/nuq.py`, ROADMAP C2), which follows the
 reference's jitted quantizer; the dequantization table is the reference's
 own float64 construction, copied. Writes update the cache tensors in place.
-Only the single-view decode is ported: the reference's shard_map branch of
-`decode_attend_dlse` (the ring sharded over a model axis) runs only inside
-the reference's dry run, under a model-axis mesh (ROADMAP A10).
+
+`decode_attend_dlse` has the reference's two branches. Without a mesh (or
+with a model axis of one slot) it appends the token and scans the whole
+ring. Under a mesh and logical mapping (`models/partition.py`) whose model
+axis splits the ring, each slot appends the token if the slot is its own and
+scans only its slice of the ring (W over the model slots, B over the data
+slots when B > 1), and the slots' (m, l, acc) statistics merge by a
+log-sum-exp over the model axis (`compat.pmax`/`psum`): the explicit form
+of the reference's `shard_map`.
 """
 from __future__ import annotations
 
@@ -23,7 +29,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from repro_torch import compat
 from repro_torch.core.algorithms.nuq import mulaw_decode_unsigned, mulaw_encode_unsigned
+from repro_torch.core.device import on_device
+from repro_torch.models import partition
 
 SCALE_GROUP = 128  # tokens per quantization scale group
 
@@ -102,6 +111,29 @@ def dequantize_block_kmajor(codes: torch.Tensor, scale: torch.Tensor, ring_w: in
 
 
 # ----------------------------------------------------------------- writes --
+def prefill_layer(cache: Dict[str, torch.Tensor], layer: int, k: torch.Tensor,
+                  v: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Write a whole prefill (B, S <= W, K, Dh) for one layer at slot 0 of a
+    layer-stacked quantized cache ({k,v}_codes (L, B, W, K, Dh), {k,v}_scale
+    (L, B, W // G, K)), in place: S padded with zeros to a multiple of the
+    scale group, then quantized. Sets cache["length"] = S."""
+    s = k.shape[1]
+    g = min(SCALE_GROUP, cache["k_codes"].shape[2])
+    pad = (-s) % g
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    kc, ks = quantize_block(k)
+    vc, vs = quantize_block(v)
+    n = kc.shape[1]
+    cache["k_codes"][layer, :, :n] = kc
+    cache["v_codes"][layer, :, :n] = vc
+    cache["k_scale"][layer, :, :ks.shape[1]] = ks
+    cache["v_scale"][layer, :, :vs.shape[1]] = vs
+    cache["length"] = s
+    return cache
+
+
 def append_token_layer(cache_layer: dict, k_t: torch.Tensor, v_t: torch.Tensor, pos: int) -> dict:
     """Append one token (B, 1, K, Dh) to a single layer's ring at slot
     pos % W, in place. The token is quantized against its group's current
@@ -122,11 +154,14 @@ def append_token_layer(cache_layer: dict, k_t: torch.Tensor, v_t: torch.Tensor, 
 
 # ------------------------------------------------------------------ reads --
 def _flash_quant_stats(q: torch.Tensor, cache_layer: dict, pos: int, window: Optional[int],
-                       kv_block: int, softcap: Optional[float]):
-    """Blocked flash statistics over one layer's quantized ring: q (B, 1,
-    H, Dh) against the W slots in blocks of C keys (the largest multiple of
-    the scale group up to `kv_block` that divides W). Returns unnormalized
-    (m, l, acc) float32."""
+                       kv_block: int, softcap: Optional[float], slot_base: int = 0,
+                       ring_w: Optional[int] = None):
+    """Blocked flash statistics over one layer's quantized ring, or a
+    slot's slice of it: q (B, 1, H, Dh) against the slice's W slots in
+    blocks of C keys (the largest multiple of the scale group up to
+    `kv_block` that divides W). `slot_base` is the slice's first ring slot
+    and `ring_w` the whole ring's size (W when None), for the positions.
+    Returns unnormalized (m, l, acc) float32."""
     from repro_torch.models.layers import _chunk_attn_update
 
     b, _, h, dh = q.shape
@@ -142,11 +177,12 @@ def _flash_quant_stats(q: torch.Tensor, cache_layer: dict, pos: int, window: Opt
         if w % cand == 0:
             c = cand
             break
-    slots = torch.arange(w, device=dev)
+    ring = ring_w or w
+    slots = slot_base + torch.arange(w, device=dev)
     # slot s holds absolute position s before the ring wraps, else the latest
-    # p <= pos with p % W == s
-    abs_pos = pos - torch.remainder(pos - slots, w) if pos >= w else slots
-    valid = abs_pos <= pos
+    # p <= pos with p % ring == s
+    abs_pos = pos - torch.remainder(pos - slots, ring) if pos >= ring else slots
+    valid = (abs_pos <= pos) & (slots < ring)
     if window is not None:
         valid = valid & (abs_pos > pos - window)
 
@@ -156,8 +192,8 @@ def _flash_quant_stats(q: torch.Tensor, cache_layer: dict, pos: int, window: Opt
     gpb = c // g_eff
     for j in range(w // c):
         blk, gblk = slice(j * c, (j + 1) * c), slice(j * gpb, (j + 1) * gpb)
-        k_blk = dequantize_block_kmajor(cache_layer["k_codes"][:, blk], cache_layer["k_scale"][:, gblk], w)
-        v_blk = dequantize_block_kmajor(cache_layer["v_codes"][:, blk], cache_layer["v_scale"][:, gblk], w)
+        k_blk = dequantize_block_kmajor(cache_layer["k_codes"][:, blk], cache_layer["k_scale"][:, gblk], ring)
+        v_blk = dequantize_block_kmajor(cache_layer["v_codes"][:, blk], cache_layer["v_scale"][:, gblk], ring)
         mask = valid[blk][None, None, :].expand(b, 1, c)
         m, l, acc = _chunk_attn_update(q_, k_blk, v_blk, mask, m, l, acc, softcap)
     return m, l, acc
@@ -173,14 +209,104 @@ def decode_attention_quant(q: torch.Tensor, cache_layer: dict, pos: int, window:
     return out.reshape(b, h, 1, dh).transpose(1, 2).to(q.dtype)
 
 
+def _append_local(cl: dict, k_t: torch.Tensor, v_t: torch.Tensor, pos: int, ring_w: int,
+                  slot_base: int, w_local: int) -> None:
+    """Write the token (B, 1, K, Dh) into a slot's slice of the ring (its
+    first ring slot `slot_base`, `w_local` slots) iff ring slot
+    pos % ring_w is in it, in place; quantized against its group's scale."""
+    slot = pos % ring_w
+    if not slot_base <= slot < slot_base + w_local:
+        return
+    local = slot - slot_base
+    g = min(local // min(SCALE_GROUP, ring_w), cl["k_scale"].shape[1] - 1)
+    for codes, scale, x in ((cl["k_codes"], cl["k_scale"], k_t), (cl["v_codes"], cl["v_scale"], v_t)):
+        xn = torch.clamp(x[:, 0].to(torch.float32) / scale[:, g, :][..., None], -1.0, 1.0)
+        codes[:, local] = _signed_codes(xn, 8)
+
+
 def decode_attend_dlse(q: torch.Tensor, cache_layer: dict, k_t: torch.Tensor, v_t: torch.Tensor,
                        pos: int, window: Optional[int], kv_block: int = 2048,
                        softcap: Optional[float] = None):
-    """The reference's decode attention, single-view branch (no mesh):
-    append the token at its slot, then scan the whole ring. Returns
-    (attn_out (B, 1, H, Dh), cache_layer), the cache updated in place."""
-    cache_layer = append_token_layer(cache_layer, k_t, v_t, pos)
-    return decode_attention_quant(q, cache_layer, pos, window, kv_block, softcap), cache_layer
+    """The reference's decode attention (DESIGN.md §8): returns (attn_out
+    (B, 1, H, Dh), cache_layer), the cache updated in place.
+
+    Without a mesh and mapping, with a model axis of one slot, a ring W
+    that the model slots do not divide, or a model entry naming several
+    axes, the single view: append the token at its slot, then scan the
+    whole ring. Otherwise the distributed-LSE branch: the ring's W is split
+    over the model slots and B over the data slots when B > 1; each slot
+    appends the token if its slice holds the slot, scans only its slice,
+    and the (m, l, acc) triples of a data group's model slots merge as
+    m_g = pmax(m), l_g = psum(l e^(m - m_g)), acc_g = psum(acc e^(m - m_g)).
+    The cache's leaves may be `runtime/sharding.Sharded` (one shard per
+    slot) or whole tensors; a whole ring is cut into per-slot views (copies
+    written back when a slot's device is another)."""
+    from repro_torch.runtime.sharding import Placement, Sharded
+
+    axes, mesh = partition.current_axes(), partition.current_mesh()
+    m_entry = axes.get("model") if axes else None
+    d_entry = axes.get("data") if axes else None
+    b, _, h, dh = q.shape
+    w = cache_layer["k_codes"].shape[1]
+    n_model = 1
+    if m_entry is not None and mesh is not None and isinstance(m_entry, str) and m_entry in mesh.axis_names:
+        n_model = partition.axis_size(m_entry, mesh)
+    if m_entry is None or n_model == 1 or w % n_model != 0 or not isinstance(m_entry, str):
+        if not any(isinstance(t, Sharded) for t in cache_layer.values()):
+            cache_layer = append_token_layer(cache_layer, k_t, v_t, pos)
+            return decode_attention_quant(q, cache_layer, pos, window, kv_block, softcap), cache_layer
+        whole = {k: t.gather(q.device) for k, t in cache_layer.items()}
+        append_token_layer(whole, k_t, v_t, pos)
+        out = decode_attention_quant(q, whole, pos, window, kv_block, softcap)
+        for k, t in cache_layer.items():
+            t.write(whole[k])
+        return out, cache_layer
+
+    w_local = w // n_model
+    dax = d_entry if b > 1 else None
+    specs = {"k_codes": (dax, m_entry), "v_codes": (dax, m_entry), "k_scale": (dax, m_entry),
+             "v_scale": (dax, m_entry)}
+    local, back = {}, []
+    for k, t in cache_layer.items():
+        pl = Placement(mesh, specs[k])
+        if isinstance(t, Sharded) and (t.placement.entry(0), t.placement.entry(1)) == specs[k]:
+            local[k] = t.shards
+            continue
+        whole = t.gather() if isinstance(t, Sharded) else t
+        views = [whole[pl.slices(whole.shape, s)].to(d) for s, d in enumerate(mesh.devices)]
+        local[k] = views
+        back.append((t, whole, pl, views))
+    tok = Placement(mesh, (dax,))
+    stats = []
+    for s, dev in enumerate(mesh.devices):
+        sl = tok.slices(q.shape, s)[:1]
+        cl = {k: local[k][s] for k in local}
+        base = compat.shard_index(mesh, s, (m_entry,)) * w_local
+        with on_device(dev):
+            _append_local(cl, k_t[sl].to(dev), v_t[sl].to(dev), pos, w, base, w_local)
+            stats.append(_flash_quant_stats(q[sl].to(dev), cl, pos, window, kv_block, softcap,
+                                            slot_base=base, ring_w=w))
+    outs = [None] * mesh.size
+    for grp in compat.groups(mesh, (m_entry,)):
+        devs = [mesh.devices[s] for s in grp]
+        m_g = compat.pmax([stats[s][0] for s in grp], devs)
+        wts = [torch.exp(stats[s][0] - mg) for s, mg in zip(grp, m_g)]
+        l_g = compat.psum([stats[s][1] * wt for s, wt in zip(grp, wts)], devs)
+        acc_g = compat.psum([stats[s][2] * wt[..., None] for s, wt in zip(grp, wts)], devs)
+        for s, lg, ag in zip(grp, l_g, acc_g):
+            o = ag / torch.clamp(lg[..., None], min=1e-30)
+            outs[s] = o.reshape(o.shape[0], h, 1, dh).transpose(1, 2).to(q.dtype)
+    # the first slot of each data shard holds its rows
+    out = torch.cat([outs[s].to(q.device) for s in partition.lead_slots(mesh, partition.axis_names(dax))],
+                    dim=0)
+    for t, whole, pl, views in back:
+        for s, view in enumerate(views):
+            dst = whole[pl.slices(whole.shape, s)]
+            if view.data_ptr() != dst.data_ptr() or view.device != dst.device:
+                dst.copy_(view)
+        if isinstance(t, Sharded):
+            t.write(whole)
+    return out, cache_layer
 
 
 def cache_bytes(ring: Dict[str, torch.Tensor]) -> int:

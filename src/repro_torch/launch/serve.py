@@ -17,6 +17,7 @@ On the card the prefill and decode times are taken after
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import time
@@ -28,9 +29,11 @@ import torch
 from repro_torch.configs import get_arch
 from repro_torch.core.device import resolve_device, synchronize
 from repro_torch.launch.steps import make_prefill_step, make_serve_step
+from repro_torch.models import partition
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import params_from_numpy
 from repro_torch.models.transformer import Transformer, _round_window, cache_tensors, init_params
+from repro_torch.runtime.elastic import logical_mapping
 
 
 @dataclasses.dataclass
@@ -67,6 +70,7 @@ def serve(
     device: Union[None, str, torch.device] = None,
     params: Union[None, Transformer, Dict[str, Any]] = None,
     prompts: Union[None, np.ndarray, torch.Tensor] = None,
+    mesh=None,
 ) -> ServeRun:
     """Prefill `batch` prompts of `prompt_len` tokens, then decode `gen`
     tokens each greedily (the first from the prefill's logits). `device`
@@ -77,7 +81,14 @@ def serve(
     draws them from `seed` (bfloat16 normals for embeddings). An
     embeddings model is fed each greedy token as its `embed` row rounded to
     bfloat16 (also when the model is float32), as the reference's serve
-    loop does."""
+    loop does.
+
+    With `mesh` (a `runtime/elastic.DeviceMesh`) the prefill and decode
+    run under it and the active logical mapping
+    (`elastic.logical_mapping(mesh.axis_names)` outside one): the rings
+    held as per-slot shards, the decode reading them through the
+    distributed-LSE branch, an moe block dispatching per data shard
+    (`models/transformer.py`). The weights stay whole on `device`."""
     device = resolve_device(device)
     if params is None:
         model = init_params(cfg, seed, device)
@@ -97,7 +108,12 @@ def serve(
         prompts = torch.from_numpy(np.array(prompts))
     prompts = prompts.to(device=device, dtype=torch.int32) if tokens_in else prompts.to(device)
 
-    with torch.inference_mode():
+    ctx = contextlib.ExitStack()
+    if mesh is not None:
+        ctx.enter_context(partition.logical_axes(partition.current_axes()
+                                                or logical_mapping(mesh.axis_names)))
+        ctx.enter_context(partition.set_mesh(mesh))
+    with ctx, torch.inference_mode():
         synchronize(device)
         t0 = time.perf_counter()
         cache, logits = prefill_step(model, prompts)

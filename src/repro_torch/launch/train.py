@@ -12,6 +12,12 @@ straggler monitoring, fault-injection drills and exact resume.
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b --reduced \\
       --steps 20 --batch 8 --seq 128 --device cpu --checkpoint-dir /tmp/ckpt
 
+`train(mesh=...)` trains data-parallel on a port `DeviceMesh` under the
+active logical mapping (`models/partition.py`): masters and AdamW moments
+held as shards by `sharding.param_specs(cfg, "train")`, the global batch
+split over the data axes, the compressed sync over the pod axis when
+`grad_compression` is given (`launch/steps.py: _mesh_train_step`).
+
 Checkpoints hold {"params", "opt_state": AdamWState(step, m, v)} in the
 reference's tree (`models/convert.py: named_to_tree`, layers stacked on dim
 0, float32), so the reference's trainer can resume from the port's and the
@@ -31,15 +37,19 @@ import torch
 
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import get_arch
+from repro_torch.core.gradient import GradCompressionConfig
 from repro_torch.core.device import DeviceLike, resolve_device, synchronize
 from repro_torch.data.pipeline import CompressedFeed, zipf_token_stream
 from repro_torch.launch.steps import TrainStepConfig, make_train_step, microbatch_split
+from repro_torch.models import partition
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.convert import named_to_tree, tree_to_named
 from repro_torch.models.transformer import Transformer
 from repro_torch.optim import AdamWConfig, warmup_cosine
 from repro_torch.optim.adamw import AdamWState
+from repro_torch.runtime.elastic import logical_mapping
 from repro_torch.runtime.fault import FaultInjector, HeartbeatMonitor, StragglerDetector
+from repro_torch.runtime.sharding import Sharded, param_specs, physical_specs
 
 
 @dataclasses.dataclass
@@ -56,27 +66,43 @@ class TrainRun:
     step_s: list = dataclasses.field(default_factory=list)
 
 
-def state_tree(model: Transformer, opt_state: AdamWState) -> Dict[str, Any]:
-    """The training state as the reference's checkpoint tree, host tensors
-    (copies of device ones)."""
-    def tree(named) -> Dict[str, Any]:
-        return named_to_tree({k: t.detach().cpu() for k, t in named.items()})
+def _named(model) -> Dict[str, Any]:
+    """{name: parameter} of a `Transformer`, or the data-parallel step's
+    {name: `Sharded`} itself."""
+    return model if isinstance(model, dict) else dict(model.named_parameters())
 
-    return {"params": tree(dict(model.named_parameters())),
+
+def state_tree(model, opt_state: AdamWState) -> Dict[str, Any]:
+    """The training state as the reference's checkpoint tree, host tensors
+    (copies of device ones; sharded leaves gathered whole)."""
+    def tree(named) -> Dict[str, Any]:
+        return named_to_tree({k: (t.gather() if isinstance(t, Sharded) else t).detach().cpu()
+                              for k, t in named.items()})
+
+    return {"params": tree(_named(model)),
             "opt_state": AdamWState(step=opt_state.step.cpu(), m=tree(opt_state.m), v=tree(opt_state.v))}
 
 
-def state_like(model: Transformer) -> Dict[str, Any]:
+def state_like(model) -> Dict[str, Any]:
     """`state_tree`'s structure, for `load_checkpoint(like=...)`."""
     def tree() -> Dict[str, Any]:
-        return named_to_tree({k: np.zeros(1) for k, _ in model.named_parameters()})
+        return named_to_tree({k: np.zeros(1) for k in _named(model)})
 
     return {"params": tree(), "opt_state": AdamWState(step=np.zeros(()), m=tree(), v=tree())}
 
 
-def restore_state(model: Transformer, got: Dict[str, Any]) -> AdamWState:
+def restore_state(model, got: Dict[str, Any], opt_state: Optional[AdamWState] = None) -> AdamWState:
     """Copy a loaded `state_tree` (numpy leaves) into `model`'s parameters
-    in place; returns the optimizer state on the model's device."""
+    in place; returns the optimizer state on the model's device. Sharded
+    state (`model` a {name: `Sharded`}) is written into its shards, the
+    moments into `opt_state`'s."""
+    if isinstance(model, dict):
+        st = got["opt_state"]
+        for mine, tree in ((model, got["params"]), (opt_state.m, st.m), (opt_state.v, st.v)):
+            for k, a in tree_to_named(tree).items():
+                mine[k].write(torch.from_numpy(np.ascontiguousarray(a)))
+        return AdamWState(step=torch.tensor(int(np.asarray(st.step)), dtype=torch.int32),
+                          m=opt_state.m, v=opt_state.v)
     dev = model.device
 
     def named(tree) -> Dict[str, torch.Tensor]:
@@ -107,13 +133,22 @@ def train(
     codec: str = "delta_leb128",
     log_every: int = 10,
     device: DeviceLike = None,
+    mesh=None,
+    grad_compression: Optional[GradCompressionConfig] = None,
 ) -> TrainRun:
     """Train `cfg` for `steps` steps on a Zipf token stream, on `device`
     (CUDA when None). An injected fault at a step of `fail_at` restarts
-    from the latest committed checkpoint (or from the start without one)."""
+    from the latest committed checkpoint (or from the start without one).
+    With `mesh`, data-parallel over its slots (see the module's docstring);
+    the feed decodes on `device`."""
     device = resolve_device(device)
     opt_cfg = AdamWConfig(lr=lr, schedule=warmup_cosine(max(steps // 20, 2), steps))
-    init_fn, train_step = make_train_step(cfg, opt_cfg, TrainStepConfig(microbatches=microbatches),
+    pspecs = None
+    if mesh is not None:
+        with partition.logical_axes(partition.current_axes() or logical_mapping(mesh.axis_names)):
+            pspecs = physical_specs(param_specs(cfg, "train"))
+    step_cfg = TrainStepConfig(microbatches=microbatches, grad_compression=grad_compression)
+    init_fn, train_step = make_train_step(cfg, opt_cfg, step_cfg, mesh=mesh, param_pspecs=pspecs,
                                           device=device)
     feed = CompressedFeed(zipf_token_stream(cfg.vocab_size, batch, seq, seed=seed), codec=codec,
                           device=device).start()
@@ -125,7 +160,7 @@ def train(
     if mgr and resume:
         got_step, got = mgr.restore_latest(like=like)
         if got is not None:
-            opt_state = restore_state(model, got)
+            opt_state = restore_state(model, got, opt_state)
             # step counter is authoritative from the optimizer state
             start_step = int(opt_state.step)
             print(f"[train] resumed from checkpoint at step {start_step}")
@@ -167,7 +202,7 @@ def train(
                     model, opt_state = init_fn(seed)
                     step = 0
                 else:
-                    opt_state = restore_state(model, got)
+                    opt_state = restore_state(model, got, opt_state)
                     step = int(opt_state.step)
                 print(f"[train] restart #{restarts}: resumed at step {step}")
         wall = time.perf_counter() - t0

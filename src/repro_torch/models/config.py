@@ -4,8 +4,8 @@ imports nothing of `repro`, not even modules without jax).
 One dataclass describes every backbone the reference builds: dense GQA
 transformers, MoE transformers, the RG-LRU/local-attention hybrid
 (RecurrentGemma) and the attention-free Mamba2 SSD stack, all four of
-which the port builds (embedding front ends wait for ROADMAP A10); each
-`repro_torch/configs/<arch>.py` instantiates one of these with the
+which the port builds, with token or embedding inputs (the front ends of
+`models/frontends.py`); each `repro_torch/configs/<arch>.py` instantiates one of these with the
 published dimensions, and smoke tests use `reduced()` copies.
 """
 from __future__ import annotations

@@ -9,8 +9,19 @@ SwiGLU products (`torch.bmm`, plain library products as in the reference,
 which computes them outside any Pallas kernel). Every expert is computed,
 full or not: a decode step of a few tokens reads every expert's weights.
 
-Only the reference's branch without a mesh is ported: its `shard_map`
-dispatch runs under a mesh alone (ROADMAP A10, the mesh machinery).
+Under a mesh and logical mapping (`models/partition.py`) whose data axes
+hold n > 1 slots, dispatch and combine run per data shard, as the
+reference's `shard_map` does: each shard ranks its own contiguous T / n
+tokens against a per-shard capacity C_local = max(8, ceil(capacity(T) /
+n)), the (E, C, D) buffer (C = n * C_local) holds shard i in capacity slots
+[i * C_local, (i + 1) * C_local), and each shard combines its tokens from
+its own block. T % n != 0 (a batch-1 decode) takes the unsharded branch.
+The expert products run on the whole buffer with whole weights, which
+changes no number. Inside a slot's program (the data-parallel train step)
+the tokens are already the slot's shard; its load-balance loss then uses
+the global routed fractions when the step has gathered them
+(`SlotProgram.shared["moe_f"]`), so that the slots' losses sum to the
+reference's.
 
 Routing runs in float32 (`route`): the router is held in the compute dtype,
 as the reference's `_cast` rounds it before use, and the product is taken
@@ -20,10 +31,13 @@ not).
 """
 from __future__ import annotations
 
-from typing import Mapping, Tuple
+from typing import Mapping, Optional, Tuple
 
 import torch
 
+from repro_torch import compat
+from repro_torch.core.device import on_device
+from repro_torch.models import partition
 from repro_torch.models.params import Storage, _Params
 
 
@@ -39,9 +53,12 @@ class MoEFFN(_Params):
         self._add("w_gate", (n, d, f))
         self._add("w_up", (n, d, f))
         self._add("w_down", (n, f, d))
+        #: the layer's index, naming it to a slot program's shared routing
+        #: fractions (`moe_ffn(key=)`)
+        self.key: Optional[int] = None
 
     def forward(self, cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        return moe_ffn(self.params(), cfg, x)
+        return moe_ffn(self.params(), cfg, x, key=self.key)
 
 
 def capacity(tokens: int, cfg) -> int:
@@ -105,21 +122,103 @@ def route(router: torch.Tensor, cfg, xt: torch.Tensor):
     return gates, sel, probs, aux
 
 
-def moe_ffn(params: Mapping[str, torch.Tensor], cfg, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def shard_dispatch(sel: torch.Tensor, cfg, n_shards: int, cap_local: int):
+    """(expert, slot) of each (token, choice) pair of sel (T, k), each of
+    the n_shards contiguous token shards ranked on its own against
+    `cap_local` slots (the sentinel `cap_local` for overflow): the
+    reference's per-shard `_dispatch_indices`, concatenated."""
+    t, k = sel.shape
+    tl = t // n_shards
+    parts = [_dispatch_indices(sel[i * tl:(i + 1) * tl].reshape(tl * k), cfg.n_experts, cap_local)
+             for i in range(n_shards)]
+    return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+
+def _experts(params: Mapping[str, torch.Tensor], buf: torch.Tensor) -> torch.Tensor:
+    a = torch.bmm(buf, params["w_gate"])
+    h = (a * torch.sigmoid(a)) * torch.bmm(buf, params["w_up"])
+    return torch.bmm(h, params["w_down"])
+
+
+def _local(params, cfg, xt: torch.Tensor, sel: torch.Tensor, gates: torch.Tensor, cap: int,
+           dtype: torch.dtype) -> torch.Tensor:
+    """Dispatch, expert products and combine of tokens xt (T, D) at capacity
+    `cap`: (T, D)."""
+    t, d = xt.shape
+    k = cfg.n_experts_per_token
+    e, slot = _dispatch_indices(sel.reshape(t * k), cfg.n_experts, cap)
+    buf = unique_scatter(torch.repeat_interleave(xt, k, dim=0), e, slot, cfg.n_experts, cap)
+    gathered = unique_gather(_experts(params, buf), e, slot)
+    w = gates.reshape(-1).to(dtype)
+    return torch.sum((gathered * w[:, None]).reshape(t, k, d), dim=1)
+
+
+def moe_ffn(params: Mapping[str, torch.Tensor], cfg, x: torch.Tensor,
+            key: Optional[int] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, D) -> (y (B, S, D), aux load-balance loss, a float32
-    scalar). Capacity and drops depend on all B*S tokens of the call."""
+    scalar). Capacity and drops depend on all B*S tokens of the call, or
+    per data shard under a mesh (see the module's docstring). `key` names
+    the layer to a slot program's shared routing fractions."""
     b, s, d = x.shape
     n_experts, k = cfg.n_experts, cfg.n_experts_per_token
     t = b * s
     xt = x.reshape(t, d)
-    gates, sel, _, aux = route(params["router"], cfg, xt)
-    cap = capacity(t, cfg)
-    e, slot = _dispatch_indices(sel.reshape(t * k), n_experts, cap)
-    buf = unique_scatter(torch.repeat_interleave(xt, k, dim=0), e, slot, n_experts, cap)
-    a = torch.bmm(buf, params["w_gate"])
-    h = (a * torch.sigmoid(a)) * torch.bmm(buf, params["w_up"])
-    out_buf = torch.bmm(h, params["w_down"])
-    gathered = unique_gather(out_buf, e, slot)
-    w = gates.reshape(-1).to(x.dtype)
-    y = torch.sum((gathered * w[:, None]).reshape(t, k, d), dim=1)
-    return y.reshape(b, s, d), aux
+    gates, sel, probs, aux = route(params["router"], cfg, xt)
+    prog = partition.current_slot()
+    if prog is not None and "data" in prog.split:
+        n = prog.split["data"][1]
+        aux = _slot_aux(prog, key, sel, probs, t * n, n_experts, aux)
+        cap = max(8, -(-capacity(t * n, cfg) // n))
+        return _local(params, cfg, xt, sel, gates, cap, x.dtype).reshape(b, s, d), aux
+    dax, n = partition.data_shards()
+    if dax is None or n == 1 or t % n != 0:
+        return _local(params, cfg, xt, sel, gates, capacity(t, cfg), x.dtype).reshape(b, s, d), aux
+    return _sharded(params, cfg, xt, sel, gates, dax, n, x.dtype).reshape(b, s, d), aux
+
+
+def _slot_aux(prog, key, sel, probs, t_global: int, n_experts: int, aux):
+    """A slot's share of the global load-balance loss: E * sum_e f_e *
+    sum_tokens(p_e) / T with the global fractions f from the step's
+    recording pass; records this slot's routed counts when asked."""
+    counts = torch.sum((sel[..., None] == torch.arange(n_experts, device=sel.device)).to(torch.float32),
+                       dim=(0, 1))
+    rec = prog.shared.get("moe_counts")
+    if rec is not None:
+        rec[key] = rec[key] + counts.to(rec[key].device) if key in rec else counts
+    f = prog.shared.get("moe_f", {}).get(key)
+    if f is None:
+        return aux
+    return n_experts * torch.sum(f.to(probs.device) * torch.sum(probs, dim=0)) / t_global
+
+
+def _sharded(params, cfg, xt, sel, gates, dax, n: int, dtype: torch.dtype) -> torch.Tensor:
+    """The per-data-shard dispatch and combine: each shard's tokens ranked
+    apart (`shard_dispatch`) and scattered on the shard's slot, the
+    buffers assembled along capacity
+    (`compat.all_gather`), the expert products on the whole buffer, each
+    shard's block of the products combined on its slot."""
+    mesh = partition.current_mesh()
+    t, d = xt.shape
+    k = cfg.n_experts_per_token
+    tl = t // n
+    cap_local = max(8, -(-capacity(t, cfg) // n))
+    devs = [mesh.devices[s] for s in partition.lead_slots(mesh, partition.axis_names(dax))]
+    e_all, slot_all = shard_dispatch(sel, cfg, n, cap_local)
+    idx, bufs = [], []
+    for i, dev in enumerate(devs):
+        with on_device(dev):
+            pairs = slice(i * tl * k, (i + 1) * tl * k)
+            e, slot = e_all[pairs].to(dev), slot_all[pairs].to(dev)
+            bufs.append(unique_scatter(torch.repeat_interleave(xt[i * tl:(i + 1) * tl].to(dev), k, dim=0), e,
+                                       slot, cfg.n_experts, cap_local))
+            idx.append((e, slot))
+    buf = compat.all_gather(bufs, [xt.device] * n, dim=1)[0]
+    out_buf = _experts(params, buf)
+    ys = []
+    for i, dev in enumerate(devs):
+        with on_device(dev):
+            e, slot = idx[i]
+            gathered = unique_gather(out_buf[:, i * cap_local:(i + 1) * cap_local].to(dev), e, slot)
+            w = gates[i * tl:(i + 1) * tl].reshape(-1).to(device=dev, dtype=dtype)
+            ys.append(torch.sum((gathered * w[:, None]).reshape(tl, k, d), dim=1))
+    return compat.all_gather(ys, [xt.device] * n, dim=0)[0]

@@ -42,8 +42,18 @@ int. Inputs are int tokens, or for `cfg.input_kind == "embeddings"`
 (B, S, D) embeddings cast to the compute dtype; the `embed` table stays,
 as the head when tied and as the rows serving feeds back. Attention takes
 `cfg.attn_logit_softcap` in every path: B10 and its lse form, the flash
-backward, both decode reads. `models/partition.py` has no counterpart: its sharding hints are the
-identity without a mesh.
+backward, both decode reads.
+
+Under a mesh and logical mapping (`models/partition.py`), the reference's
+`partition.hint` sites are kept (the identity on whole tensors, a shape
+check inside a slot's program), the rings of the decode cache are held as
+`runtime/sharding.Sharded` per `sharding.cache_specs` (batch over data,
+ring over model; the recurrent states stay whole), a prefill writes each
+layer's shards from its whole K/V, its B10 attention runs per data shard
+on the shard's slot, the decode reads the ring through the
+distributed-LSE branch of `kvcache.decode_attend_dlse`, and an moe block
+dispatches per data shard (`models/moe.py`). Weights stay whole: the model
+axis's compute is not split (the next ROADMAP item).
 """
 from __future__ import annotations
 
@@ -54,9 +64,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import compat
 from repro_torch.core import kvcache
-from repro_torch.core.device import resolve_device
-from repro_torch.models import layers, rglru, ssd
+from repro_torch.core.device import on_device, resolve_device
+from repro_torch.models import layers, partition, rglru, ssd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import MoEFFN
 from repro_torch.models.params import Storage, _Params
@@ -117,14 +128,14 @@ class Block(_Params):
         out, aux or None)."""
         h = x + layers.attention_train(self.attn.params(), cfg, layers.rms_norm(x, self.p("attn_norm")),
                                        window=cfg.swa_window)
+        h = partition.hint(h, "data", None, None)
         y, aux = self.ffn_out(cfg, h)
-        return h + y, aux
+        return partition.hint(h + y, "data", None, None), aux
 
     def prefill(self, cfg: ModelConfig, x: torch.Tensor):
         """(x out, k, v) over a whole prompt (B, S, D); attention on B10."""
-        a, k, v = layers.attention_prefill(
-            self.attn.params(), cfg, layers.rms_norm(x, self.p("attn_norm")), window=cfg.swa_window
-        )
+        a, k, v = _prefill_attention(self.attn.params(), cfg, layers.rms_norm(x, self.p("attn_norm")),
+                                     cfg.swa_window)
         h = x + a
         return h + self.ffn_out(cfg, h)[0], k, v
 
@@ -163,7 +174,7 @@ class SSMBlock(_Params):
     def forward(self, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, None]:
         h0 = ssd.init_ssm_state(x.shape[0], cfg, x.device)
         y, _, _ = ssd.mamba2_apply(self.mixer.params(), cfg, layers.rms_norm(x, self.p("norm")), h0)
-        return x + y, None
+        return partition.hint(x + y, "data", None, None), None
 
     def step_(self, cfg: ModelConfig, x: torch.Tensor, state: Dict[str, torch.Tensor],
               decode: bool) -> torch.Tensor:
@@ -197,7 +208,8 @@ class RecSublayer(_Params):
             h0 = rglru.init_rglru_state(x.shape[0], cfg.lru_width, x.device)
         y, h_last, tail = self.rglru(layers.rms_norm(x, self.p("mix_norm")), h0, conv_tail)
         x = x + y
-        return x + self.ffn(layers.rms_norm(x, self.p("ffn_norm"))), h_last, tail
+        x = x + self.ffn(layers.rms_norm(x, self.p("ffn_norm")))
+        return partition.hint(x, "data", None, None), h_last, tail
 
     def forward(self, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, None]:
         return self.apply(cfg, x)[0], None
@@ -233,8 +245,8 @@ class HybridGroup(_Params):
     def forward(self, cfg: ModelConfig, x: torch.Tensor) -> Tuple[torch.Tensor, None]:
         x = self.rec1(cfg, x)[0]
         x = self.rec2(cfg, x)[0]
-        return self._attend_ffn(
-            x, lambda p, h: layers.attention_train(p, cfg, h, window=cfg.local_window)), None
+        x = self._attend_ffn(x, lambda p, h: layers.attention_train(p, cfg, h, window=cfg.local_window))
+        return partition.hint(x, "data", None, None), None
 
     def prefill_(self, cfg: ModelConfig, x: torch.Tensor, state: Dict[str, Any]) -> torch.Tensor:
         """A prompt through the group: the sublayers' states and the local
@@ -245,7 +257,7 @@ class HybridGroup(_Params):
         kv = []
 
         def attend(p, h):
-            a, k, v = layers.attention_prefill(p, cfg, h, window=cfg.local_window)
+            a, k, v = _prefill_attention(p, cfg, h, cfg.local_window)
             kv.extend((k, v))
             return a
 
@@ -289,6 +301,9 @@ class Transformer(_Params):
         else:
             block = {"dense": DenseBlock, "moe": MoEBlock, "ssm": SSMBlock}[cfg.family]
             self.layers = nn.ModuleList(block(cfg, store) for _ in range(cfg.n_layers))
+            for i, blk in enumerate(self.layers):
+                if isinstance(blk, MoEBlock):
+                    blk.moe.key = i
 
     def blocks(self):
         """The blocks in order, each `block(cfg, x) -> (x, aux or None)`."""
@@ -312,7 +327,7 @@ class Transformer(_Params):
 
     def logits(self, x: torch.Tensor) -> torch.Tensor:
         x = layers.rms_norm(x, self.p("final_norm"))
-        return x @ self.head_weight()
+        return partition.hint(x @ self.head_weight(), "data", None, "model")
 
 
 # =============================================================== init =====
@@ -354,7 +369,7 @@ def forward(model: Transformer, cfg: ModelConfig, inputs: torch.Tensor) -> Tuple
     other families). Each block runs under `torch.utils.checkpoint` (its
     activations recomputed in the backward, B10 launched again) when
     `cfg.remat == "full"` and gradients are on."""
-    x = model.embedding(inputs)
+    x = partition.hint(model.embedding(inputs), "data", None, None)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     auxs = []
     for blk in model.blocks():
@@ -392,23 +407,31 @@ def _round_window(w: int) -> int:
     return w
 
 
-def _ring(cfg: ModelConfig, n: int, batch: int, w: int, device: torch.device) -> Dict[str, torch.Tensor]:
+def _ring(cfg: ModelConfig, n: int, batch: int, w: int, device: torch.device) -> Dict[str, Any]:
     """n attention layers' rings of w slots, stacked on dim 0: quantized
     (uint8 codes + float32 group scales) when `cfg.kv_quant`, else raw in
-    `cfg.dtype`."""
+    `cfg.dtype`. Under a mesh and mapping each is a `sharding.Sharded` by
+    `sharding.cache_specs` (batch over data when batch > 1, ring over
+    model)."""
     kh, dh = cfg.n_kv_heads, cfg.head_dim
     if cfg.kv_quant:
         g = min(kvcache.SCALE_GROUP, w)
-        return {
-            "k_codes": torch.zeros((n, batch, w, kh, dh), dtype=torch.uint8, device=device),
-            "v_codes": torch.zeros((n, batch, w, kh, dh), dtype=torch.uint8, device=device),
-            "k_scale": torch.ones((n, batch, w // g, kh), dtype=torch.float32, device=device),
-            "v_scale": torch.ones((n, batch, w // g, kh), dtype=torch.float32, device=device),
-        }
-    return {
-        "k": torch.zeros((n, batch, w, kh, dh), dtype=dtype_of(cfg), device=device),
-        "v": torch.zeros((n, batch, w, kh, dh), dtype=dtype_of(cfg), device=device),
-    }
+        leaves = {"k_codes": ((n, batch, w, kh, dh), torch.uint8, 0.0),
+                  "v_codes": ((n, batch, w, kh, dh), torch.uint8, 0.0),
+                  "k_scale": ((n, batch, w // g, kh), torch.float32, 1.0),
+                  "v_scale": ((n, batch, w // g, kh), torch.float32, 1.0)}
+    else:
+        leaves = {"k": ((n, batch, w, kh, dh), dtype_of(cfg), 0.0),
+                  "v": ((n, batch, w, kh, dh), dtype_of(cfg), 0.0)}
+    mesh, axes = partition.current_mesh(), partition.current_axes()
+    if mesh is None or axes is None:
+        return {k: torch.full(shape, fill, dtype=dt, device=device) for k, (shape, dt, fill) in leaves.items()}
+    from repro_torch.runtime.sharding import Placement
+
+    data = "data" if batch > 1 else None
+    return {k: Placement(mesh, partition.spec(*((None, data, "model") + (None,) * (len(shape) - 3))))
+            .zeros(shape, dt, fill, logical=(None, data, "model") + (None,) * (len(shape) - 3))
+            for k, (shape, dt, fill) in leaves.items()}
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int, device: Device = None) -> Dict[str, Any]:
@@ -447,9 +470,10 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int, device: Device
 
 
 def _view(node: Dict[str, Any], i: int) -> Dict[str, Any]:
-    """Row i of every tensor of a (nested) dict, as views: writes land in
-    the cache."""
-    return {k: _view(v, i) if isinstance(v, dict) else v[i] for k, v in node.items()}
+    """Row i of every tensor of a (nested) dict, as views (of every shard of
+    a `Sharded`): writes land in the cache."""
+    return {k: _view(v, i) if isinstance(v, dict) else (v[i] if isinstance(v, torch.Tensor) else v.row(i))
+            for k, v in node.items()}
 
 
 def layer_view(cache: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
@@ -458,18 +482,28 @@ def layer_view(cache: Dict[str, Any], i: int) -> Dict[str, torch.Tensor]:
 
 
 def cache_tensors(cache: Dict[str, Any]):
-    """Every tensor of a cache (nested dicts), in order."""
+    """Every tensor of a cache (nested dicts), in order; every shard of a
+    `Sharded` ring."""
     for v in cache.values():
         if isinstance(v, dict):
             yield from cache_tensors(v)
         elif isinstance(v, torch.Tensor):
             yield v
+        elif hasattr(v, "shards"):
+            yield from v.shards
 
 
 def store_kv(cfg: ModelConfig, cache_l: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor) -> None:
     """Write a prefill's K/V (B, S, K, Dh) at positions [0, S) into one
     layer's ring in place: position p at slot p % W, the last W positions
-    when S > W; quantized by groups of the scale group when the cache is."""
+    when S > W; quantized by groups of the scale group when the cache is.
+    A `Sharded` ring is written whole, then copied into its shards."""
+    if not isinstance(next(iter(cache_l.values())), torch.Tensor):
+        whole = {name: t.gather(k.device) for name, t in cache_l.items()}
+        store_kv(cfg, whole, k, v)
+        for name, t in cache_l.items():
+            t.write(whole[name])
+        return
     s = k.shape[1]
     w = next(iter(cache_l.values())).shape[1]
     sw = min(s, w)
@@ -492,6 +526,28 @@ def store_kv(cfg: ModelConfig, cache_l: Dict[str, torch.Tensor], k: torch.Tensor
         cache_l["v"][:, idx] = v_w.to(cache_l["v"].dtype)
 
 
+def _prefill_attention(p: Dict[str, torch.Tensor], cfg: ModelConfig, x: torch.Tensor,
+                       window: Optional[int]):
+    """`layers.attention_prefill` (B10) on a prompt (B, S, D): under a mesh
+    and mapping whose data axes split B, once per data shard, on the
+    shard's first slot and as its program; the shards' (out, k, v) joined
+    again (`compat.all_gather`)."""
+    dax, n = partition.data_shards()
+    b = x.shape[0]
+    if dax is None or n == 1 or b % n != 0:
+        return layers.attention_prefill(p, cfg, x, window=window)
+    mesh = partition.current_mesh()
+    bl = b // n
+    parts = []
+    for i, slot in enumerate(partition.lead_slots(mesh, partition.axis_names(dax))):
+        dev = mesh.devices[slot]
+        with partition.slot_program(mesh, slot, {"data": (b, n)}), on_device(dev):
+            pd = {k: t.to(dev) for k, t in p.items()}
+            parts.append(layers.attention_prefill(pd, cfg, x[i * bl:(i + 1) * bl].to(dev), window=window))
+    return tuple(compat.all_gather([part[j] for part in parts], [x.device] * n, dim=0)[0]
+                 for j in range(3))
+
+
 def _decode_attend(p: Dict[str, torch.Tensor], cfg: ModelConfig, x_t: torch.Tensor,
                    cache_l: Dict[str, torch.Tensor], pos: int, window: Optional[int]) -> torch.Tensor:
     """One layer's decode attention: write the token into the ring cache (in
@@ -503,6 +559,12 @@ def _decode_attend(p: Dict[str, torch.Tensor], cfg: ModelConfig, x_t: torch.Tens
         out, _ = kvcache.decode_attend_dlse(q, cache_l, k_t, v_t, pos, window,
                                             softcap=cfg.attn_logit_softcap)
     else:
+        if not isinstance(cache_l["k"], torch.Tensor):  # a Sharded raw ring: read and written whole
+            whole = {name: t.gather(x_t.device) for name, t in cache_l.items()}
+            out = _decode_attend(p, cfg, x_t, whole, pos, window)
+            for name, t in cache_l.items():
+                t.write(whole[name])
+            return out
         w = cache_l["k"].shape[1]
         slot = pos % w
         cache_l["k"][:, slot] = k_t[:, 0].to(cache_l["k"].dtype)
@@ -525,7 +587,7 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: Dict[str, Any],
     embeddings for `input_kind == "embeddings"`: (cache, logits (B, 1, V)).
     The cache's tensors are updated in place and `pos` advances."""
     pos = cache["pos"]
-    x = model.embedding(inputs_t)
+    x = partition.hint(model.embedding(inputs_t), "data", None, None)
     if cfg.family == "ssm":
         for i, blk in enumerate(model.layers):
             x = blk.step_(cfg, x, layer_view(cache, i), decode=True)
@@ -539,7 +601,7 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: Dict[str, Any],
             a = _decode_attend(blk.attn.params(), cfg, layers.rms_norm(x, blk.p("attn_norm")),
                                layer_view(cache, i), pos, cfg.swa_window)
             h = x + a
-            x = h + blk.ffn_out(cfg, h)[0]
+            x = partition.hint(h + blk.ffn_out(cfg, h)[0], "data", None, None)
     cache["pos"] = pos + 1
     return cache, model.logits(x)
 

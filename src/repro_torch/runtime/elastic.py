@@ -19,9 +19,10 @@ and its own kernel launches.
                            healthy set changes (a device loss shrinks it
                            onto the named survivors).
 
-`reshard` and `ElasticSession.shardings_for` resolve a training job's
-logical sharding specs onto a mesh (its restore from a checkpoint), which
-is ROADMAP A10's.
+  reshard(tree, specs)   — place a live tree onto a (new) mesh by its
+                           logical specs: one shard per slot, on the
+                           slot's device (`runtime/sharding.Sharded`);
+                           `sharding.gather` reads the whole tensors back.
 """
 from __future__ import annotations
 
@@ -32,6 +33,7 @@ from typing import Any, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core.device import DeviceLike, visible_devices
+from repro_torch.models import partition
 
 
 @dataclasses.dataclass(frozen=True)
@@ -125,12 +127,15 @@ def make_mesh_for(
 
 
 def reshard(tree: Any, logical_specs: Any, mesh: DeviceMesh, mapping: dict) -> Any:
-    """Place a live pytree onto a (new) mesh per its logical specs: a
-    training job's restore, ROADMAP A10."""
-    raise NotImplementedError(
-        "reshard places a training job's state by logical sharding specs, "
-        "which repro_torch does not have yet (ROADMAP A10); run it on repro"
-    )
+    """Place a live tree onto a (new) mesh per its logical specs: each
+    tensor leaf becomes a `sharding.Sharded`, one shard per slot on the
+    slot's device (a `Sharded` leaf is gathered first, so a job re-meshes
+    onto the survivors of a device loss)."""
+    from repro_torch.runtime import sharding as shpol
+
+    with partition.logical_axes(mapping):
+        placements = shpol.resolve(logical_specs, mesh)
+    return shpol.place(tree, placements, logical_specs)
 
 
 @dataclasses.dataclass
@@ -167,9 +172,9 @@ class ElasticSession:
         return self
 
     def shardings_for(self, logical_specs: Any) -> Any:
-        """Logical specs resolved onto the mesh: ROADMAP A10, as `reshard`."""
-        raise NotImplementedError(
-            "ElasticSession.shardings_for resolves a training job's logical "
-            "sharding specs, which repro_torch does not have yet (ROADMAP "
-            "A10); run it on repro"
-        )
+        """Logical specs resolved onto the current mesh: a tree of
+        `sharding.Placement`s."""
+        from repro_torch.runtime import sharding as shpol
+
+        with partition.logical_axes(self.mapping):
+            return shpol.resolve(logical_specs, self.mesh)

@@ -109,10 +109,15 @@ def test_elastic_session_cstream_profile():
     assert four.resize(3, devices=list(four.mesh.devices)[1:]).mesh.size == 3
     with pytest.raises(ValueError, match=PORT_ONLY["wider_than_visible"]):
         telastic.ElasticSession(n_devices=2, profile="cstream", device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        es.shardings_for({})
-    with pytest.raises(NotImplementedError, match="ROADMAP A10"):
-        telastic.reshard({}, {}, es.mesh, es.mapping)
+    # a job's logical specs resolve onto the mesh as the reference's do,
+    # and reshard places each leaf as one shard per slot
+    specs = {"w": ("data", None), "b": ()}
+    got, want = es.shardings_for(specs), ref.shardings_for(specs)
+    assert {k: v.spec for k, v in got.items()} == {k: tuple(v.spec) for k, v in want.items()}
+    w = torch.arange(9.0).reshape(3, 3)  # `four` was resized to 3 slots above
+    placed = telastic.reshard({"w": w, "b": torch.ones(2)}, specs, four.mesh, four.mapping)
+    assert [tuple(s.shape) for s in placed["w"].shards] == [(1, 3)] * 3
+    assert torch.equal(placed["w"].gather(), w) and torch.equal(placed["b"].shards[2], torch.ones(2))
 
 
 def test_plan_fleet_scales_gang_plan():

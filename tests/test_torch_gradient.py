@@ -166,9 +166,21 @@ def test_compressed_sync_four_slots(qbits):
 
 
 def test_sync_refusals():
+    """`param_specs=` and a mesh with axes beside the sync axis are taken
+    (held to the reference's jitted sync on its one-device mesh: specs
+    filtered to the sync axis leave the leaf whole); a mesh without the
+    axis, or a tree count that is not the mesh's slot count, is refused."""
+    from jax.sharding import PartitionSpec as P
+
     mesh = make_mesh((1,), ("pod",), device="cpu")
-    with pytest.raises(NotImplementedError, match="A10"):
-        tg.compressed_grad_sync({"w": torch.zeros(3)}, mesh, param_specs={"w": None})
+    x = np.random.default_rng(5).normal(0, 0.01, (300,)).astype(np.float32)
+    rc, tc = _cfgs(chunk=128)
+    want = rg.compressed_grad_sync({"w": jnp.asarray(x)}, jax.make_mesh((1,), ("pod",)), "pod", rc,
+                                   {"w": P(("pod", "data"))})
+    for m, specs in ((mesh, {"w": (("pod", "data"),)}), (make_mesh((1, 1), ("pod", "data"), device="cpu"),
+                                                         {"w": (None,)})):
+        got = tg.compressed_grad_sync({"w": _t(x)}, m, cfg=tc, param_specs=specs)
+        np.testing.assert_allclose(got["w"].numpy(), np.asarray(want["w"]), rtol=0, atol=1e-7)
     with pytest.raises(ValueError):
         tg.compressed_grad_sync({"w": torch.zeros(3)}, mesh, axis="data")
     wide = make_mesh((2,), ("pod",), devices=["cpu"] * 2)

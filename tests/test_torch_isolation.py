@@ -21,6 +21,7 @@ for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
 import chip_smoke  # noqa: F401  (imported, not run)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", leaked)
+print("IMPORTED", sorted(m for m in sys.modules if m.startswith("repro_torch")))
 import torch
 from repro_torch.api import JobSpec
 from repro_torch.core.pipeline import CompressionPipeline, DecompressionPipeline
@@ -61,6 +62,15 @@ def probe_output():
 
 def test_port_and_chip_smoke_import_neither_jax_nor_repro(probe_output):
     assert "LEAKED []" in probe_output, probe_output
+
+
+def test_the_mesh_modules_are_probed(probe_output):
+    """The mesh machinery's modules, the port's own `compat.py` among them,
+    are imported by the probe and so held to it."""
+    line = next(ln for ln in probe_output.splitlines() if ln.startswith("IMPORTED"))
+    for mod in ("repro_torch.compat", "repro_torch.models.partition", "repro_torch.runtime.sharding",
+                "repro_torch.launch.mesh", "repro_torch.runtime.elastic"):
+        assert repr(mod) in line, mod
 
 
 def test_no_device_on_a_cpu_only_host_raises(probe_output):

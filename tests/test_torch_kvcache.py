@@ -124,6 +124,28 @@ def test_append_then_attend_matches_reference(pos):
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_r), rtol=1e-6, atol=1e-6)
 
 
+@pytest.mark.parametrize("s,w", [(256, 256), (200, 256), (40, 64), (300, 512)])
+def test_prefill_layer_matches_reference(s, w):
+    """A whole prefill written at slot 0 of layer 1 of a 3-layer cache: S
+    padded with zeros to the scale group, scales bit-equal, codes at
+    CODE_RATE, the other layers untouched, the length set to S."""
+    rng = np.random.default_rng(s + w)
+    k = rng.normal(0, 1.5, (2, s, 2, 16)).astype(np.float32)
+    v = rng.normal(size=(2, s, 2, 16)).astype(np.float32)
+    ref = jax.jit(lambda c, k, v: rk.prefill_layer(c, jnp.asarray(1), k, v))(rk.init_cache(3, 2, w, 2, 16), k, v)
+    init = rk.init_cache(3, 2, w, 2, 16)
+    cache = {name: _t(getattr(init, name)) for name in ("k_codes", "v_codes", "k_scale", "v_scale")}
+    got = tk.prefill_layer(cache, 1, _t(k), _t(v))
+    assert got["length"] == s == int(ref.length)
+    for name in ("k_scale", "v_scale"):
+        np.testing.assert_array_equal(got[name].numpy().view(np.uint32),
+                                      np.asarray(getattr(ref, name)).view(np.uint32))
+    for name in ("k_codes", "v_codes"):
+        a, b = got[name].numpy(), np.asarray(getattr(ref, name))
+        assert _rate(a, b) >= CODE_RATE, (name, _rate(a, b))
+        np.testing.assert_array_equal(a[[0, 2]], b[[0, 2]])
+
+
 def test_cache_bytes_counts_codes_and_scales():
     cache = {"k_codes": torch.zeros((4, 2, 256, 2, 32), dtype=torch.uint8),
              "k_scale": torch.zeros((4, 2, 2, 2))}
