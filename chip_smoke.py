@@ -370,7 +370,7 @@ from repro_torch.models.moe import MoEFFN  # noqa: E402
 from repro_torch.models.params import Storage  # noqa: E402
 from repro_torch.models.convert import params_to_numpy  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    _round_window, decode_step, init_decode_cache, init_params, loss_fn, prefill)
+    _round_window, decode_step, init_decode_cache, init_params, loss_fn, prefill, tp_active)
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.checkpoint.manager import tree_flatten  # noqa: E402
 from repro_torch.core.gradient import GradCompressionConfig, dequantize_tensor, quantize_tensor  # noqa: E402
@@ -378,12 +378,12 @@ from repro_torch.data.pipeline import CompressedFeed, zipf_token_stream  # noqa:
 from repro_torch.launch.steps import make_train_step  # noqa: E402
 from repro_torch.launch.train import restore_state, state_like, state_tree, train  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
-from repro_torch.optim.adamw import AdamWConfig, adamw, apply_updates_  # noqa: E402
+from repro_torch.optim.adamw import AdamWConfig, AdamWState, adamw, apply_updates_  # noqa: E402
 from repro_torch import compat  # noqa: E402
 from repro_torch.launch.steps import TrainStepConfig  # noqa: E402
 from repro_torch.models import partition  # noqa: E402
 from repro_torch.runtime.elastic import make_mesh, reshard  # noqa: E402
-from repro_torch.runtime.sharding import param_specs, physical_specs  # noqa: E402
+from repro_torch.runtime.sharding import model_split, param_specs, physical_specs, slot_weight  # noqa: E402
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, 700 W), for the bounds: the
 #: device-memory rate, and the 32-bit scalar rate outside the tensor cores
@@ -3099,39 +3099,56 @@ DENSE_ARCHS = ("deepseek-coder-33b", "mistral-nemo-12b", "phi4-mini-3.8b")
 #: do not fit one 80 GB card; 8 layers hold 23.7 GB), one request of 8,192
 #: prompt tokens, twice its 4,096-token window; 32 generated, NUQ cache on
 MOE_PATHS = (
-    dict(arch="qwen3-moe-30b-a3b", batch=4, prompt_len=2048, gen=32, n_layers=24),
+    dict(arch="qwen3-moe-30b-a3b", batch=4, prompt_len=2048, gen=32, n_layers=12),
     dict(arch="mixtral-8x7b", batch=1, prompt_len=8192, gen=32, n_layers=8),
 )
-#: path 6: each dense config at full width and all its layers (phi4-mini
-#: 7.7 GB, mistral-nemo 24.5 GB, deepseek-coder 66.7 GB in bf16), 4 x 2,048
-#: + 8
-DENSE_PATH = dict(batch=4, prompt_len=2048, gen=8, n_layers=None)
+#: path 6: each dense config at full width and 16 of its layers (all 32, 40
+#: and 62 hold phi4-mini 7.7 GB, mistral-nemo 24.5 GB, deepseek-coder 66.7
+#: GB in bf16), 4 x 2,048 + 8. Cut, with qwen3-moe's path to 12 of 48
+#: layers and musicgen's to 24 of 48, when the tp phase came: the script
+#: ran 1,115.1 s on the H100 with them at 62/40/32, 24 and 48 layers, over
+#: its 1,050 s target
+DENSE_PATH = dict(batch=4, prompt_len=2048, gen=8, n_layers=16)
 #: decode steps of the ring check (a prompt longer than the ring)
 RING_STEPS = 8
 #: device memory in use when the moe phase starts: the earlier phases' models freed
 MOE_START_BYTES = 2 << 30
 
 
-def route_side(params: dict, cfg, x: torch.Tensor, d) -> tuple:
+def route_side(params: dict, cfg, x: torch.Tensor, d, shape=None) -> tuple:
     """One side of path 2: `moe_ffn` and its routing (`route`, `capacity`,
-    `_dispatch_indices`) on device `d`; (y, aux, sel, e, slot) on the CPU."""
+    `_dispatch_indices`) on device `d`; (y, aux, sel, e, slot) on the CPU.
+    With a mesh `shape` ((data 1, model n), every slot on `d`), the split
+    form `moe.moe_group` over its one model group, each slot on its shard
+    of the experts (or of each expert's d_ff)."""
     p = {k: v.to(d) for k, v in params.items()}
     xd = x.to(d)
     t = xd.shape[0] * xd.shape[1]
     with torch.inference_mode():
-        y, aux = moe.moe_ffn(p, cfg, xd)
+        if shape is None:
+            y, aux = moe.moe_ffn(p, cfg, xd)
+        else:
+            mesh = card_mesh(shape, ("data", "model"), d)
+            ms = model_split(cfg)
+            with partition.logical_axes(MAP2), partition.set_mesh(mesh):
+                g = partition.model_groups(mesh, {})[0]
+                ps = [{k: slot_weight(v, ms["layers.0.moe." + k], i, g.n, d) for k, v in p.items()}
+                      for i in range(g.n)]
+                ys, auxs = moe.moe_group(g, ps, cfg, [xd] * g.n, moe.capacity(t, cfg))
+            y, aux = ys[0], auxs[0]
         _, sel, _, _ = moe.route(p["router"], cfg, xd.reshape(t, cfg.d_model))
         e, slot = moe._dispatch_indices(sel.reshape(-1), cfg.n_experts, moe.capacity(t, cfg))
     return y.float().cpu(), aux.item(), sel.cpu(), e.cpu(), slot.cpu()
 
 
-def check_moe_route(dev) -> dict:
+def check_moe_route(dev, shape=None, phase: str = "moe") -> dict:
     """Path 2 (moe/route_card_vs_cpu): one MoEFFN at full width, the same
     weights and input on the card and on the CPU, float32 and bf16: the
     share of equal `sel` entries and of equal (expert, slot) pairs, the
     dropped pairs on each side, y's max error on the tokens whose every
     route agrees; `_dispatch_indices` of the CPU's `sel` on both sides.
-    Held to MOE_CHECK["route"]."""
+    Held to MOE_CHECK["route"]. With a mesh `shape`, the split form on
+    card slots against CPU slots (`route_side`)."""
     c = MOE_ROUTE
     base = get_arch(c["arch"]).model
     ffn = MoEFFN(base, Storage(torch.float32, torch.float32, torch.device("cpu"), False))
@@ -3149,7 +3166,7 @@ def check_moe_route(dev) -> dict:
         dt = getattr(torch, dtype)
         params = {n: v.to(dt) for n, v in ffn.params().items()}
         (yc, auxc, selc, ec, slotc), (yh, auxh, selh, eh, sloth) = (
-            route_side(params, cfg, x.to(dt), d) for d in (dev, torch.device("cpu")))
+            route_side(params, cfg, x.to(dt), d, shape) for d in (dev, torch.device("cpu")))
         pairs = (ec == eh) & (slotc == sloth)
         agree = (selc == selh).all(dim=1) & pairs.reshape(t, k).all(dim=1)
         scale = yh.abs().max().item()
@@ -3164,7 +3181,8 @@ def check_moe_route(dev) -> dict:
              "y_max_abs_err_agreeing": y_err, "max_abs_y": scale, "aux_card": auxc, "aux_cpu": auxh,
              "dispatch_of_cpu_sel_equal": same_dispatch, "limits": lim}
         out[dtype] = r
-        emit({"phase": "moe", "path": "route_card_vs_cpu", "arch": c["arch"], "dtype": dtype, **r})
+        emit({"phase": phase, "path": "route_card_vs_cpu", "arch": c["arch"], "dtype": dtype,
+              "mesh": None if shape is None else dict(zip(("data", "model"), shape)), **r})
         bad = []
         if r["sel_agreement"] < lim["sel"]:
             bad.append(f"sel agreement {r['sel_agreement']}")
@@ -3621,7 +3639,7 @@ SOFTCAP_CHECK = dict(cap=1.0, batch=2, prompt_len=64, gen=4, seq=64, lr=1e-3)
 #: 10 of its 40 layers (for time: its decoder is mistral-nemo-12b's, which
 #: the moe phase serves at all 40), 4 x 2,048 patch embeddings + 8
 FRONTEND_PATHS = (
-    dict(arch="musicgen-large", batch=4, prompt_len=2048, gen=32, n_layers=None),
+    dict(arch="musicgen-large", batch=4, prompt_len=2048, gen=32, n_layers=24),
     dict(arch="pixtral-12b", batch=4, prompt_len=2048, gen=8, n_layers=10),
 )
 
@@ -3906,8 +3924,9 @@ def run_frontends(dev) -> tuple:
 #:      `param_specs(cfg, "train")`, the compressed pod sync
 #:      (`GradCompressionConfig()`), 3 steps of the train cell's 4 x 1,024
 #:      through the B2 feed;
-#:  (b) distributed-LSE decode: qwen3-1.7b at full width and depth serving
-#:      4 x 2,048 + 8 with the ring over a (data 1, model 4) mesh;
+#:  (b) distributed-LSE decode: qwen3-1.7b on a (data 1, model 4) mesh; its
+#:      compute is split over the model axis now, so it runs as the tp
+#:      phase's (a);
 #:  (c) per-shard moe prefill: qwen3-moe-30b-a3b at full width and 4 of its
 #:      48 layers (cut for the script's time), 4 x 2,048 + 4 on a (data 4,
 #:      model 1) mesh.
@@ -3920,9 +3939,6 @@ def run_frontends(dev) -> tuple:
 MAP3 = {"data": ("pod", "data"), "model": "model"}
 MAP2 = {"data": "data", "model": "model"}
 MESH_TRAIN = dict(shape=(2, 1, 1), names=("pod", "data", "model"), steps=3, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
-#: (b)'s check serves LM_CHECK's 2 x 256 + 4 in a ring of 512 slots: the
-#: model axis splits the ring's 128-slot scale groups 4 ways
-MESH_DECODE = dict(arch=LM_ARCH, shape=(1, 4), batch=4, prompt_len=2048, gen=8, check=dict(LM_CHECK, cache_len=512))
 MESH_MOE = dict(arch="qwen3-moe-30b-a3b", shape=(4, 1), batch=4, prompt_len=2048, gen=4, n_layers=4,
                 check=dict(MOE_CHECK["serve"], batch=4))
 MESH_KERNELS = ("flash_attention_fwd_lse", "flash_attention_fwd_tc", "flash_attention_fwd",
@@ -3978,13 +3994,16 @@ def mesh_train_once(d, cfg, tree: dict, tokens: np.ndarray, mesh) -> tuple:
     c = TRAIN_CHECK
     with partition.logical_axes(MAP3):
         specs = param_specs(cfg, "train")
-        init_fn, step = make_train_step(cfg, AdamWConfig(lr=c["lr"]),
-                                        TrainStepConfig(grad_compression=GradCompressionConfig()), mesh=mesh,
-                                        param_pspecs=physical_specs(specs), device=d)
-        _, opt = init_fn(0)
+        _, step = make_train_step(cfg, AdamWConfig(lr=c["lr"]),
+                                  TrainStepConfig(grad_compression=GradCompressionConfig()), mesh=mesh,
+                                  param_pspecs=physical_specs(specs), device=d)
     model = params_from_numpy(tree, cfg, d, param_dtype="float32")
     params = reshard({k: p.detach() for k, p in model.named_parameters()}, specs, mesh, MAP3)
     del model
+    # init_fn's state without its draw of a model that `tree` replaces
+    opt = AdamWState(step=torch.zeros((), dtype=torch.int32),
+                     m={k: t.placement.zeros(t.shape, torch.float32) for k, t in params.items()},
+                     v={k: t.placement.zeros(t.shape, torch.float32) for k, t in params.items()})
     before = {k: t.gather().cpu() for k, t in params.items()}
     b = {"inputs": torch.from_numpy(tokens[:, :-1]).to(d), "labels": torch.from_numpy(tokens[:, 1:]).to(d)}
     params, opt, m = step(params, opt, b)
@@ -3993,9 +4012,10 @@ def mesh_train_once(d, cfg, tree: dict, tokens: np.ndarray, mesh) -> tuple:
     return float(m["loss"]), float(m["grad_norm"]), moments, updates
 
 
-def check_mesh_train_card_vs_cpu(dev) -> dict:
+def check_mesh_train_card_vs_cpu(dev, spec: dict = MESH_TRAIN, phase: str = "mesh") -> dict:
     """(a) first: one compressed data-parallel step at full width and 2
-    layers on the (pod 2, data 1, model 1) mesh, card slots against CPU
+    layers on the mesh of `spec` ((pod 2, data 1, model 1); the tp phase's
+    (pod 2, data 1, model 2) splits the model axis), card slots against CPU
     slots, the same numpy weights and tokens, in float32 and in bf16, held
     to TRAIN_CHECK leaf by leaf."""
     c = TRAIN_CHECK
@@ -4008,7 +4028,7 @@ def check_mesh_train_card_vs_cpu(dev) -> dict:
         t0 = time.perf_counter()
         got = {}
         for d in (dev, torch.device("cpu")):
-            mesh = card_mesh(MESH_TRAIN["shape"], MESH_TRAIN["names"], d)
+            mesh = card_mesh(spec["shape"], spec["names"], d)
             got[d.type] = mesh_train_once(d, cfg, tree, tokens, mesh)
             free_card()
         (lc, gc, mc, uc), (lp, gp, mp, up) = got["cuda"], got["cpu"]
@@ -4022,8 +4042,8 @@ def check_mesh_train_card_vs_cpu(dev) -> dict:
              "finite": all(bool(torch.isfinite(g).all()) for g in mc.values()) and math.isfinite(lc),
              "tolerance": tol, "seconds": time.perf_counter() - t0}
         out[dtype] = r
-        emit({"phase": "mesh", "path": "train_card_vs_cpu", "dtype": dtype,
-              "mesh": dict(zip(MESH_TRAIN["names"], MESH_TRAIN["shape"])),
+        emit({"phase": phase, "path": "train_card_vs_cpu", "dtype": dtype,
+              "mesh": dict(zip(spec["names"], spec["shape"])),
               "config": {k: c[k] for k in ("layers", "batch", "seq", "lr")}, **r})
         if not r["finite"]:
             bad.append(f"{dtype}: non-finite loss or merged gradients on the card")
@@ -4040,13 +4060,15 @@ def check_mesh_train_card_vs_cpu(dev) -> dict:
     return out
 
 
-def run_mesh_train(dev) -> dict:
-    """(a): `train(mesh=...)` at full width and depth, with the launch counts
-    set to 0 just before and read just after: B10's lse form twice per
-    layer, step and slot (the forward and full remat's recompute) in each
-    slot's program, B2 once per step (the feed), no other form of B10."""
-    t = MESH_TRAIN
+def run_mesh_train(dev, t: dict = MESH_TRAIN, phase: str = "mesh") -> dict:
+    """(a): `train(mesh=...)` at full width and depth (or `t["n_layers"]`),
+    with the launch counts set to 0 just before and read just after: B10's
+    lse form twice per layer, step and slot (the forward and full remat's
+    recompute) in each slot's program (under tensor parallelism, on the
+    slot's heads), B2 once per step (the feed), no other form of B10."""
     cfg = get_arch(LM_ARCH).model
+    if t.get("n_layers"):
+        cfg = dataclasses.replace(cfg, n_layers=t["n_layers"])
     mesh = card_mesh(t["shape"], t["names"], dev)
     free_card()
     torch.cuda.reset_peak_memory_stats()
@@ -4056,6 +4078,7 @@ def run_mesh_train(dev) -> dict:
     with partition.logical_axes(MAP3), slot_launches() as per_slot:
         run = train(cfg, steps=t["steps"], batch=t["batch"], seq=t["seq"], device=dev, mesh=mesh,
                     grad_compression=GradCompressionConfig(), log_every=t["steps"])
+        tp = tp_active_on(cfg, mesh, MAP3)
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
     per_step = (2 if cfg.remat == "full" else 1) * cfg.n_layers * t["steps"]
@@ -4069,16 +4092,23 @@ def run_mesh_train(dev) -> dict:
         and not any(launches[k] for k in ("flash_attention_fwd_tc", "flash_attention_fwd",
                                           "flash_attention_fwd_lse_fma")),
     }
-    emit({"phase": "mesh", "path": "train", "arch": LM_ARCH, "mesh": dict(zip(t["names"], t["shape"])),
+    emit({"phase": phase, "path": "train", "arch": LM_ARCH, "mesh": dict(zip(t["names"], t["shape"])),
           "mapping": MAP3, "n_layers": cfg.n_layers, "batch": t["batch"], "seq": t["seq"], "steps": t["steps"],
           "losses": run.losses, "step_s": run.step_s, "tokens_per_s": run.tokens_per_s,
           "peak_memory_allocated": torch.cuda.max_memory_allocated(), "wire_bytes": compat.wire_bytes(),
           "launches": {k: launches[k] for k in MESH_KERNELS}, "launches_per_slot": per_slot,
-          "checks": checks, "seconds": wall})
+          "tensor_parallel": tp, "checks": checks, "seconds": wall})
     if not all(checks.values()):
         raise AssertionError(f"the data-parallel train path fails its checks: {checks}; per slot {per_slot}")
     free_card()
     return launches
+
+
+def tp_active_on(cfg, mesh, mapping) -> bool:
+    """Whether `cfg`'s compute splits over `mesh`'s model axis (tensor
+    parallelism) under `mapping`."""
+    with partition.logical_axes(mapping), partition.set_mesh(mesh):
+        return tp_active(cfg)
 
 
 def check_mesh_serve_card_vs_cpu(dev, spec: dict) -> dict:
@@ -4114,7 +4144,8 @@ def check_mesh_serve_card_vs_cpu(dev, spec: dict) -> dict:
     top2 = lp[:, 0].topk(2, dim=-1).values
     margin = (top2[:, 0] - top2[:, 1]).tolist()
     first = [bool(card.tokens[i, 0] == cpu.tokens[i, 0]) or margin[i] < 2 * err for i in range(c["batch"])]
-    out = {"phase": "mesh", "path": f"serve_card_vs_cpu/{spec['arch']}", "mesh": dict(zip(names, spec["shape"])),
+    out = {"phase": spec.get("phase", "mesh"), "path": f"serve_card_vs_cpu/{spec['arch']}",
+           "mesh": dict(zip(names, spec["shape"])),
            "config": {**c, "d_model": cfg.d_model}, "prefill_logits_max_abs_err": err, "max_abs_logit": scale,
            "code_agreement": codes, "token_agreement": float((card.tokens == cpu.tokens).mean()),
            "top2_margin_cpu": margin, "card_s": t1 - t0, "cpu_s": t2 - t1}
@@ -4161,7 +4192,8 @@ def run_mesh_serve(dev, spec: dict) -> dict:
                     params=model, prompts=prompts, mesh=mesh)
     launches, wire = ops.launch_counts(), compat.wire_bytes()
     n_data, n_model = spec["shape"]
-    if n_data > 1:
+    tp = tp_active_on(cfg, mesh, MAP2)
+    if n_data > 1 or tp:  # per data shard, or under tensor parallelism per slot on its heads
         want = {s: {"flash_attention_fwd_tc": cfg.n_layers} for s in range(mesh.size)}
     else:
         want = {"whole": {"flash_attention_fwd_tc": cfg.n_layers}}
@@ -4179,9 +4211,10 @@ def run_mesh_serve(dev, spec: dict) -> dict:
     }
     if n_model > 1:
         checks["lse_merge_on_the_wire"] = wire.get("pmax", 0) > 0 and wire.get("psum", 0) > 0
-    if n_data > 1 and cfg.family == "moe":
+    if (n_data > 1 or tp) and cfg.family == "moe":
         checks["moe_buffers_gathered"] = wire.get("all_gather", 0) > 0
-    line = {"phase": "mesh", "path": f"serve/{spec['arch']}", "mesh": dict(zip(names, spec["shape"])),
+    line = {"phase": spec.get("phase", "mesh"), "path": f"serve/{spec['arch']}", "tensor_parallel": tp,
+            "mesh": dict(zip(names, spec["shape"])),
             "mapping": MAP2, "n_layers": cfg.n_layers, "cut": None if not spec.get("n_layers") else
             f"{spec['n_layers']} of {get_arch(spec['arch']).model.n_layers} layers",
             "batch": spec["batch"], "prompt_len": spec["prompt_len"], "gen": spec["gen"], "ring_slots": w,
@@ -4208,12 +4241,59 @@ def run_mesh_serve(dev, spec: dict) -> dict:
 
 
 def run_mesh(dev) -> dict:
-    """The mesh phase: (a)-(c) with their card-vs-CPU checks. Returns the
-    launches of the three main paths."""
+    """The mesh phase: (a) and (c) with their card-vs-CPU checks ((b), the
+    distributed-LSE decode on (data 1, model 4), is tensor-parallel now and
+    runs as the tp phase's (a)). Returns the launches of the main paths."""
     launches = {k: 0 for k in KERNELS}
     for fn in (lambda: (check_mesh_train_card_vs_cpu(dev), run_mesh_train(dev))[1],
-               lambda: (check_mesh_serve_card_vs_cpu(dev, MESH_DECODE), run_mesh_serve(dev, MESH_DECODE))[1],
                lambda: (check_mesh_serve_card_vs_cpu(dev, MESH_MOE), run_mesh_serve(dev, MESH_MOE))[1]):
+        for k, n in fn().items():
+            if k in launches:
+                launches[k] += n
+    return launches
+
+
+#: the tp phase (ROADMAP A10 item 5b): tensor parallelism over the model
+#: axis, every slot on the one H100, each path held card against CPU on the
+#: same mesh first, at full width and 2 layers:
+#:  (a) qwen3-1.7b at full width and depth served 4 x 2,048 + 4 on (data 1,
+#:      model 4): B10's tensor-core kernel on each slot's 4 heads (over its
+#:      2 kv heads, G = 2), the ring's slices written from K/V gathered over
+#:      the group, the decode's statistics merged over the slots; LM_CHECK
+#:      (the mesh phase's (b) before, now split);
+#:  (b) training: one compressed step of qwen3-1.7b on (pod 2, data 1,
+#:      model 2) at 2 layers, card against CPU in float32 and bf16 under
+#:      TRAIN_CHECK; then `train(mesh=...)` at full width and 8 of its 28
+#:      layers (cut: the four slots' gathered float32 leaves and gradients
+#:      of all 28 would not fit the card beside the masters and moments), 2
+#:      steps through the B2 feed;
+#:  (c) expert parallelism: qwen3-moe-30b-a3b at full width and 4 of its 48
+#:      layers on (data 1, model 4), 32 experts a slot, 4 x 2,048 + 4;
+#:      first the split expert FFN (`moe.moe_group`) card against CPU on
+#:      the same slots, routing and y held to MOE_CHECK["route"] (the moe
+#:      phase's path 2 at the same shape): a served prefill's last logits
+#:      move with every routing decision that a near tie flips between
+#:      the card's and the CPU's bf16 partial sums.
+#: (a)'s check serves LM_CHECK's 2 x 256 + 4 in a ring of 512 slots: the
+#: model axis splits the ring's 128-slot scale groups 4 ways. Its codes are
+#: compared over the ring slots both runs fed the same tokens, as the moe
+#: check compares them: the split program's bf16 partial sums move a near
+#: tie of the greedy token (a 0.2 margin in a run on the H100, 3 of 4 tokens
+#: alike), and a slot fed another token holds other codes
+TP_SERVE = dict(arch=LM_ARCH, shape=(1, 4), batch=4, prompt_len=2048, gen=4, phase="tp",
+                check=dict(LM_CHECK, cache_len=512, codes_over_slots_fed_alike=True))
+TP_TRAIN = dict(shape=(2, 1, 2), names=("pod", "data", "model"), steps=2, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                n_layers=8)
+TP_MOE = dict(arch="qwen3-moe-30b-a3b", shape=(1, 4), batch=4, prompt_len=2048, gen=4, n_layers=4, phase="tp")
+
+
+def run_tp(dev) -> dict:
+    """The tp phase: (a)-(c) with their card-vs-CPU checks. Returns the
+    launches of the three main paths."""
+    launches = {k: 0 for k in KERNELS}
+    for fn in (lambda: (check_mesh_serve_card_vs_cpu(dev, TP_SERVE), run_mesh_serve(dev, TP_SERVE))[1],
+               lambda: (check_mesh_train_card_vs_cpu(dev, TP_TRAIN, "tp"), run_mesh_train(dev, TP_TRAIN, "tp"))[1],
+               lambda: (check_moe_route(dev, TP_MOE["shape"], "tp"), run_mesh_serve(dev, TP_MOE))[1]):
         for k, n in fn().items():
             if k in launches:
                 launches[k] += n
@@ -4340,6 +4420,10 @@ def main() -> int:
     for k, n in run_mesh(dev).items():
         launches[k] += n
     emit({"phase": "mesh", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    for k, n in run_tp(dev).items():
+        launches[k] += n
+    emit({"phase": "tp", "seconds": time.perf_counter() - t0})
     emit({"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

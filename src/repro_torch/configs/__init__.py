@@ -7,6 +7,7 @@ from repro_torch.configs.base import (  # noqa: F401
     ShapeSpec,
     arch_ids,
     get_arch,
+    input_specs,
 )
 
 # importing registers each arch

@@ -6,14 +6,17 @@ The port registers all ten of the reference's architectures: the dense
 `phi4-mini-3.8b`, the moe `mixtral-8x7b` and `qwen3-moe-30b-a3b`, the ssm
 `mamba2-1.3b`, the hybrid `recurrentgemma-9b`, and the dense backbones
 behind embedding front ends, `musicgen-large` and `pixtral-12b`.
-`get_arch` of an unknown id raises a KeyError. `input_specs` (the
-reference's `jax.ShapeDtypeStruct` stand-ins for its dry-run) has no
-counterpart yet: it comes with the dry run (ROADMAP A10 item 5b).
+`get_arch` of an unknown id raises a KeyError. `input_specs` gives the
+dry run's stand-ins for a cell's feeds: `torch.empty(..., device="meta")`
+tensors of the reference's shapes and dtypes (the port's
+`jax.ShapeDtypeStruct`).
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Optional, Tuple
+
+import torch
 
 from repro_torch.models.config import ModelConfig
 
@@ -71,3 +74,28 @@ def get_arch(arch_id: str) -> ArchSpec:
 
 def arch_ids():
     return sorted(_REGISTRY)
+
+
+# ------------------------------------------------------------ input specs --
+def input_specs(spec: ArchSpec, shape: ShapeSpec) -> Dict[str, torch.Tensor]:
+    """Stand-ins on the `meta` device for every model input of (arch,
+    shape), no storage allocated.
+
+    train:   {inputs, labels}           prefill: {inputs}
+    decode:  {inputs_t} (the KV cache is built by the launcher: it is
+             carried state, not a feed).
+    For embedding-frontend archs (musicgen, pixtral) `inputs` are
+    precomputed frame/patch embeddings (B, S, d_model) in bfloat16."""
+    cfg = spec.model
+    b, s = shape.global_batch, shape.seq_len
+
+    def ins(rows: int, cols: int) -> torch.Tensor:
+        if cfg.input_kind == "embeddings":
+            return torch.empty((rows, cols, cfg.d_model), dtype=torch.bfloat16, device="meta")
+        return torch.empty((rows, cols), dtype=torch.int32, device="meta")
+
+    if shape.kind == "train":
+        return {"inputs": ins(b, s), "labels": torch.empty((b, s), dtype=torch.int32, device="meta")}
+    if shape.kind == "prefill":
+        return {"inputs": ins(b, s)}
+    return {"inputs_t": ins(b, 1)}

@@ -5,7 +5,9 @@ The paper measures Joules with custom hardware (§3.5). Energy here is an
 time, for the hardware profiles of Table 2 (RK3399 AMP/SMP, H2+, Z8350).
 Speeds follow the paper's roofline finding (A72 big core ≈ 2× A53 little
 core, Fig 6a). The reference's TPU-mode constants (`TpuChip`, `V5E`,
-`tpu_energy_j`) are TPU-only and are not part of the port.
+`tpu_energy_j`) are TPU-only and have no counterpart; in their place the
+dry run's roofline (`launch/hlo_analysis.py`) takes a `GpuChip`,
+`H100_SXM`.
 """
 from __future__ import annotations
 
@@ -57,6 +59,24 @@ PROFILES = {
     p.name: p
     for p in (RK3399_AMP, RK3399_SMP_BIG, RK3399_SMP_LITTLE, H2PLUS, Z8350)
 }
+
+
+@dataclasses.dataclass(frozen=True)
+class GpuChip:
+    """A GPU's peak rates for the roofline: dense bf16 tensor-core FLOP/s,
+    HBM bytes/s, and NVLink bytes/s each way, at `power_w`. Published
+    data-sheet peaks, not measurements."""
+
+    name: str
+    peak_flops: float
+    hbm_bw: float
+    link_bw: float
+    power_w: float
+
+
+#: NVIDIA H100 SXM5 80 GB (the data sheet's dense bf16 tensor-core peak,
+#: HBM3 bandwidth and NVLink 4 bandwidth per direction) at its 700 W limit
+H100_SXM = GpuChip("H100 SXM5 80GB", peak_flops=989e12, hbm_bw=3.35e12, link_bw=450e9, power_w=700.0)
 
 
 def edge_energy_j(

@@ -15,7 +15,8 @@ own float64 construction, copied. Writes update the cache tensors in place.
 
 `decode_attend_dlse` has the reference's two branches. Without a mesh (or
 with a model axis of one slot) it appends the token and scans the whole
-ring. Under a mesh and logical mapping (`models/partition.py`) whose model
+ring; a ring held as shards is read and written per data shard on the
+shard's slot (`per_data_shard`). Under a mesh and logical mapping (`models/partition.py`) whose model
 axis splits the ring, each slot appends the token if the slot is its own and
 scans only its slice of the ring (W over the model slots, B over the data
 slots when B > 1), and the slots' (m, l, acc) statistics merge by a
@@ -224,6 +225,23 @@ def _append_local(cl: dict, k_t: torch.Tensor, v_t: torch.Tensor, pos: int, ring
         codes[:, local] = _signed_codes(xn, 8)
 
 
+def lse_merge(stats, devices, dtype: torch.dtype):
+    """Merge the slots' (m, l, acc) statistics of one model group by a
+    log-sum-exp over the group: m_g = pmax(m), l_g = psum(l e^(m - m_g)),
+    acc_g = psum(acc e^(m - m_g)). Returns each slot's normalized output
+    (B, 1, H, Dh) in `dtype`."""
+    m_g = compat.pmax([st[0] for st in stats], devices)
+    wts = [torch.exp(st[0] - mg) for st, mg in zip(stats, m_g)]
+    l_g = compat.psum([st[1] * wt for st, wt in zip(stats, wts)], devices)
+    acc_g = compat.psum([st[2] * wt[..., None] for st, wt in zip(stats, wts)], devices)
+    outs = []
+    for lg, ag in zip(l_g, acc_g):
+        o = ag / torch.clamp(lg[..., None], min=1e-30)
+        b, kh, grp, _, dh = o.shape
+        outs.append(o.reshape(b, kh * grp, 1, dh).transpose(1, 2).to(dtype))
+    return outs
+
+
 def decode_attend_dlse(q: torch.Tensor, cache_layer: dict, k_t: torch.Tensor, v_t: torch.Tensor,
                        pos: int, window: Optional[int], kv_block: int = 2048,
                        softcap: Optional[float] = None):
@@ -255,12 +273,12 @@ def decode_attend_dlse(q: torch.Tensor, cache_layer: dict, k_t: torch.Tensor, v_
         if not any(isinstance(t, Sharded) for t in cache_layer.values()):
             cache_layer = append_token_layer(cache_layer, k_t, v_t, pos)
             return decode_attention_quant(q, cache_layer, pos, window, kv_block, softcap), cache_layer
-        whole = {k: t.gather(q.device) for k, t in cache_layer.items()}
-        append_token_layer(whole, k_t, v_t, pos)
-        out = decode_attention_quant(q, whole, pos, window, kv_block, softcap)
-        for k, t in cache_layer.items():
-            t.write(whole[k])
-        return out, cache_layer
+
+        def single(rows, whole, dev):
+            append_token_layer(whole, k_t[rows].to(dev), v_t[rows].to(dev), pos)
+            return decode_attention_quant(q[rows].to(dev), whole, pos, window, kv_block, softcap)
+
+        return join_rows(per_data_shard(cache_layer, b, single), q.device), cache_layer
 
     w_local = w // n_model
     dax = d_entry if b > 1 else None
@@ -288,14 +306,8 @@ def decode_attend_dlse(q: torch.Tensor, cache_layer: dict, k_t: torch.Tensor, v_
                                             slot_base=base, ring_w=w))
     outs = [None] * mesh.size
     for grp in compat.groups(mesh, (m_entry,)):
-        devs = [mesh.devices[s] for s in grp]
-        m_g = compat.pmax([stats[s][0] for s in grp], devs)
-        wts = [torch.exp(stats[s][0] - mg) for s, mg in zip(grp, m_g)]
-        l_g = compat.psum([stats[s][1] * wt for s, wt in zip(grp, wts)], devs)
-        acc_g = compat.psum([stats[s][2] * wt[..., None] for s, wt in zip(grp, wts)], devs)
-        for s, lg, ag in zip(grp, l_g, acc_g):
-            o = ag / torch.clamp(lg[..., None], min=1e-30)
-            outs[s] = o.reshape(o.shape[0], h, 1, dh).transpose(1, 2).to(q.dtype)
+        for s, o in zip(grp, lse_merge([stats[s] for s in grp], [mesh.devices[s] for s in grp], q.dtype)):
+            outs[s] = o
     # the first slot of each data shard holds its rows
     out = torch.cat([outs[s].to(q.device) for s in partition.lead_slots(mesh, partition.axis_names(dax))],
                     dim=0)
@@ -309,6 +321,137 @@ def decode_attend_dlse(q: torch.Tensor, cache_layer: dict, k_t: torch.Tensor, v_
     return out, cache_layer
 
 
+def per_data_shard(leaves, batch: int, fn):
+    """Run fn(rows, whole, device) once per data shard of the active mapping
+    and mesh, on the shard's first slot: `whole` holds each `Sharded` leaf
+    of one layer's ring (batch first) gathered over the other axes (the
+    shard's rows of the whole ring), `rows` the shard's slice of the batch
+    (every row when the data axes do not split it); the leaves written back
+    into the shards of the slots that hold those rows. Returns ([fn's
+    result per shard], whether the data axes split the batch)."""
+    mesh = next(iter(leaves.values())).mesh
+    dax, n = partition.data_shards()
+    daxes = partition.axis_names(dax)
+    keep = tuple(a for a in mesh.axis_names if a not in daxes)
+    split = n > 1 and next(iter(leaves.values())).placement.entry(0) is not None
+    outs = []
+    for i, slot in enumerate(partition.lead_slots(mesh, daxes) if daxes else [0]):
+        dev = mesh.devices[slot]
+        rows = slice(i * batch // n, (i + 1) * batch // n) if split else slice(None)
+        whole = {k: t.gather_over(keep, slot) for k, t in leaves.items()}
+        with on_device(dev):
+            outs.append(fn(rows, whole, dev))
+        for k, t in leaves.items():
+            t.write_over(keep, slot, whole[k])
+    return outs, split
+
+
+def join_rows(result, device) -> Optional[torch.Tensor]:
+    """`per_data_shard`'s results as one batch on `device`: the shards'
+    rows joined (`compat.all_gather`), or the first shard's when the data
+    axes do not split the batch."""
+    outs, split = result
+    if outs[0] is None:
+        return None
+    return compat.all_gather(outs, [device], dim=0)[0] if split else outs[0].to(device)
+
+
 def cache_bytes(ring: Dict[str, torch.Tensor]) -> int:
     """Bytes of a ring's tensors (codes and scales, or raw K/V)."""
     return sum(t.numel() * t.element_size() for t in ring.values())
+
+
+# ---------------------------------------------------- tensor parallelism --
+def _flash_raw_stats(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, pos: int, window: Optional[int],
+                     kv_block: int, softcap: Optional[float], slot_base: int, ring_w: int):
+    """`_flash_quant_stats` over a slot's slice of a raw ring: k/v (B,
+    W_local, K, Dh) in the cache dtype, in blocks of up to `kv_block` keys."""
+    from repro_torch.models.layers import _chunk_attn_update
+
+    b, _, h, dh = q.shape
+    w, kh = k.shape[1], k.shape[2]
+    grp = h // kh
+    dev = q.device
+    slots = slot_base + torch.arange(w, device=dev)
+    abs_pos = pos - torch.remainder(pos - slots, ring_w) if pos >= ring_w else slots
+    valid = (abs_pos <= pos) & (slots < ring_w)
+    if window is not None:
+        valid = valid & (abs_pos > pos - window)
+    m = torch.full((b, kh, grp, 1), -float("inf"), dtype=torch.float32, device=dev)
+    l = torch.zeros((b, kh, grp, 1), dtype=torch.float32, device=dev)
+    acc = torch.zeros((b, kh, grp, 1, dh), dtype=torch.float32, device=dev)
+    q_ = q.transpose(1, 2)
+    c = min(kv_block, w)
+    for j in range(0, w, c):
+        blk = slice(j, min(j + c, w))
+        n = blk.stop - blk.start
+        mask = valid[blk][None, None, :].expand(b, 1, n)
+        m, l, acc = _chunk_attn_update(q_, k[:, blk].transpose(1, 2), v[:, blk].transpose(1, 2), mask,
+                                       m, l, acc, softcap)
+    return m, l, acc
+
+
+def decode_attend_group(g, qs, rings, kts, vts, pos: int, window: Optional[int], kv_block: int = 2048,
+                        softcap: Optional[float] = None):
+    """The distributed-LSE decode over a model group (tensor parallelism):
+    qs[i] (B, 1, H, Dh) every head on slot i, rings[i] the slot's slice of
+    one layer's ring (W / n slots, quantized or raw), kts/vts[i] the token's
+    K/V (B, 1, K, Dh) on every kv head. Each slot writes the token if its
+    slice holds ring slot pos % W, scans its slice, and the statistics
+    merge over the group (`lse_merge`). Returns each slot's output (B, 1,
+    H, Dh); the rings are updated in place."""
+    quant = "k_codes" in rings[0]
+    w_local = rings[0]["k_codes" if quant else "k"].shape[1]
+    ring_w = w_local * g.n
+
+    def one(i, q, cl, kt, vt):
+        base = i * w_local
+        if quant:
+            _append_local(cl, kt, vt, pos, ring_w, base, w_local)
+            return _flash_quant_stats(q, cl, pos, window, kv_block, softcap, slot_base=base, ring_w=ring_w)
+        slot = pos % ring_w
+        if base <= slot < base + w_local:
+            cl["k"][:, slot - base] = kt[:, 0].to(cl["k"].dtype)
+            cl["v"][:, slot - base] = vt[:, 0].to(cl["v"].dtype)
+        return _flash_raw_stats(q, cl["k"], cl["v"], pos, window, kv_block, softcap, base, ring_w)
+
+    return lse_merge(g.map(one, qs, rings, kts, vts), g.devices, qs[0].dtype)
+
+
+def store_slice(cache_l: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor, base: int, ring_w: int,
+                quant: bool, store) -> None:
+    """Write a prefill's K/V (B, S, K, Dh) at positions [0, S) into a
+    slot's slice of one layer's ring (its first ring slot `base`, of a ring
+    of `ring_w`), in place. Without wrapping (S <= W) the slot quantizes
+    only its positions (a slice of whole scale groups, as the ring splits
+    them); else `store(whole, k, v)` writes a whole ring on the slot, whose
+    slice is copied."""
+    name = "k_codes" if quant else "k"
+    w_local = cache_l[name].shape[1]
+    s = k.shape[1]
+    if s > ring_w:
+        whole = {n: torch.full((t.shape[0], t.shape[1] * ring_w // w_local) + tuple(t.shape[2:]),
+                               1.0 if n.endswith("scale") else 0, dtype=t.dtype, device=t.device)
+                 for n, t in cache_l.items()}
+        store(whole, k, v)
+        for n, t in cache_l.items():
+            per = t.shape[1]
+            t.copy_(whole[n][:, base // w_local * per:(base // w_local + 1) * per])
+        return
+    end = min(base + w_local, s)
+    if end <= base:
+        return
+    kk, vv = k[:, base:end], v[:, base:end]
+    if not quant:
+        cache_l["k"][:, :end - base] = kk.to(cache_l["k"].dtype)
+        cache_l["v"][:, :end - base] = vv.to(cache_l["v"].dtype)
+        return
+    grp = min(SCALE_GROUP, ring_w)
+    pad = (-(end - base)) % grp
+    padded = (0, 0, 0, 0, 0, pad)
+    kq, ks = quantize_block(torch.nn.functional.pad(kk, padded))
+    vq, vs = quantize_block(torch.nn.functional.pad(vv, padded))
+    cache_l["k_codes"][:, :end - base] = kq[:, :end - base]
+    cache_l["v_codes"][:, :end - base] = vq[:, :end - base]
+    cache_l["k_scale"][:, :ks.shape[1]] = ks
+    cache_l["v_scale"][:, :vs.shape[1]] = vs

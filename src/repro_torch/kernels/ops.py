@@ -7,6 +7,12 @@ outputs with `torch.empty`, and then:
     its plain-integer `launches` count, and raises if the launch failed.
 There is no fallback from a CUDA tensor to the plain version.
 
+B10's wrappers also take `meta` tensors (the dry run, `launch/dryrun.py`):
+they return outputs of the right shape and dtype, launch nothing, count no
+launch, and report the kernel's work to `META_COST`'s callbacks
+(`launch/hlo_analysis.py: analyze_program`). No CPU or CUDA tensor takes
+that form.
+
 uint32 data travels as int32 tensors holding the same bits (ROADMAP C1).
 """
 from __future__ import annotations
@@ -24,7 +30,7 @@ from repro_torch.kernels import (
 
 
 def _check(t: torch.Tensor, name: str, ndim: int, device: torch.device,
-           dtype: torch.dtype = torch.int32) -> None:
+           dtype: torch.dtype = torch.int32, meta: bool = False) -> None:
     if not isinstance(t, torch.Tensor):
         raise TypeError(f"{name} must be a torch.Tensor, got {type(t).__name__}")
     if t.dtype != dtype:
@@ -36,7 +42,7 @@ def _check(t: torch.Tensor, name: str, ndim: int, device: torch.device,
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
-    if t.device.type not in ("cpu", "cuda"):
+    if t.device.type not in (("cpu", "cuda", "meta") if meta else ("cpu", "cuda")):
         raise ValueError(f"{name}: unsupported device {t.device}")
 
 
@@ -520,11 +526,11 @@ _FLASH_DTYPES = (torch.bfloat16, torch.float32)
 def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  window: Optional[int], softcap: Optional[float]) -> None:
     dev = q.device
-    _check(q, "q", 4, dev, q.dtype)
+    _check(q, "q", 4, dev, q.dtype, meta=True)
     if q.dtype not in _FLASH_DTYPES:
         raise TypeError(f"q must be bfloat16 or float32, got {q.dtype}")
-    _check(k, "k", 4, dev, q.dtype)
-    _check(v, "v", 4, dev, q.dtype)
+    _check(k, "k", 4, dev, q.dtype, meta=True)
+    _check(v, "v", 4, dev, q.dtype, meta=True)
     b, sq, h, dh = q.shape
     if k.shape != v.shape or k.shape[0] != b or k.shape[3] != dh:
         raise ValueError(f"q {tuple(q.shape)}, k {tuple(k.shape)} and v {tuple(v.shape)} disagree")
@@ -539,6 +545,28 @@ def _check_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"softcap must be None or a finite value > 0, got {softcap}")
     if dev.type == "cuda" and (b > 65535 or kv > 65535):
         raise ValueError(f"batch {b} and kv heads {kv} must each be <= 65535 (the launch grid)")
+
+
+#: callbacks (name, flops over the unmasked pairs, flops over every pair,
+#: bytes, transcendentals) of B10's meta form
+META_COST: list = []
+
+
+def _flash_meta(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: Optional[int],
+                causal: bool, lse: bool):
+    """B10 on `meta` tensors: the outputs' shapes and dtypes, nothing
+    launched or counted; its flops (QK^T and PV over the unmasked pairs,
+    `flash_attn.flops`), bytes (q, k, v read once, out and lse written
+    once) and exponentials (one per unmasked pair) reported to
+    `META_COST`."""
+    b, sq, h, dh = q.shape
+    out = torch.empty_like(q)
+    lse_t = torch.empty((b, h, sq), dtype=torch.float32, device=q.device) if lse else None
+    flops = flash_attn.flops(b, sq, k.shape[1], h, dh, window, causal)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, out)) + (4 * b * h * sq if lse else 0)
+    for fn in META_COST:
+        fn(name, float(flops), 4.0 * b * h * dh * sq * k.shape[1], float(nbytes), float(flops // (4 * dh)))
+    return (out, lse_t) if lse else out
 
 
 def _flash_kernel(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
@@ -586,6 +614,8 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_flash(q, k, v, window, softcap)
     if q.device.type == "cpu":
         return ref.flash_reference(q, k, v, window, causal, softcap)
+    if q.device.type == "meta":
+        return _flash_meta("flash_attention_fwd", q, k, v, window, causal, lse=False)
     return _flash_launch(_flash_kernel(q, k, v), q, k, v, window, causal, softcap)
 
 
@@ -603,6 +633,8 @@ def flash_attention_fwd_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_flash(q, k, v, window, softcap)
     if q.device.type == "cpu":
         return ref.flash_reference_lse(q, k, v, window, causal, softcap)
+    if q.device.type == "meta":
+        return _flash_meta("flash_attention_fwd_lse", q, k, v, window, causal, lse=True)
     return _flash_lse_launch(_flash_kernel(q, k, v), q, k, v, window, causal, softcap)
 
 
@@ -615,6 +647,8 @@ def flash_attention_fwd_lse_fma(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     _check_flash(q, k, v, window, softcap)
     if q.device.type == "cpu":
         return ref.flash_reference_lse(q, k, v, window, causal, softcap)
+    if q.device.type == "meta":
+        return _flash_meta("flash_attention_fwd_lse_fma", q, k, v, window, causal, lse=True)
     return _flash_lse_launch(flash_attn.FMA, q, k, v, window, causal, softcap)
 
 
@@ -633,6 +667,8 @@ def flash_attention_fwd_tc(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ValueError for inputs outside `flash_attn.kernel_for`'s rule. On CPU
     tensors inside the rule, the plain version."""
     _check_flash(q, k, v, window, softcap)
+    if q.device.type == "meta":
+        return _flash_meta("flash_attention_fwd_tc", q, k, v, window, causal, lse=False)
     if _flash_kernel(q, k, v) != flash_attn.TENSOR_CORE:
         raise ValueError(
             f"{q.dtype} q {tuple(q.shape)} against {k.shape[2]} kv heads is outside the "

@@ -88,7 +88,11 @@ def serve(
     (`elastic.logical_mapping(mesh.axis_names)` outside one): the rings
     held as per-slot shards, the decode reading them through the
     distributed-LSE branch, an moe block dispatching per data shard
-    (`models/transformer.py`). The weights stay whole on `device`."""
+    (`models/transformer.py`). The weights stay whole on `device`; for the
+    dense and moe families on a model axis of several slots each slot
+    computes on its model shard of them (views of the whole weights, or
+    copies on a slot's own device): tensor parallelism, each decode step's
+    greedy token taken over the split vocab."""
     device = resolve_device(device)
     if params is None:
         model = init_params(cfg, seed, device)

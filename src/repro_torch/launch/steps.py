@@ -2,8 +2,9 @@
 
 `make_train_step` returns (init_fn, train_step): microbatched gradient
 accumulation in float32, optional compressed gradient sync across a mesh
-axis, AdamW applied in place, and metrics. `make_serve_step` /
-`make_prefill_step` wrap the decode and prefill paths.
+axis, AdamW applied in place, and metrics; on a mesh, data parallel, and
+tensor parallel over the model axis for the dense and moe families.
+`make_serve_step` / `make_prefill_step` wrap the decode and prefill paths.
 """
 from __future__ import annotations
 
@@ -17,7 +18,7 @@ from repro_torch.core import gradient as gradmod
 from repro_torch.core.device import DeviceLike, on_device
 from repro_torch.models import partition
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import Transformer, decode_step, init_params, loss_fn, prefill
+from repro_torch.models.transformer import Transformer, decode_greedy, init_params, loss_fn, prefill
 from repro_torch.optim.adamw import AdamWConfig, AdamWState, adamw, apply_updates_, global_norm
 
 
@@ -156,14 +157,37 @@ def _mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, step_cfg: TrainStep
         each pod's codes averaged with identical ones;
       * AdamW: the global norm clip on the whole gradients, then each
         slot updates its own shards in place.
-    The model axis's slots replicate their data shard's compute: splitting
-    it (tensor parallelism) is the next ROADMAP item."""
+    Tensor parallelism (the dense and moe families on a model axis wider
+    than one slot, `transformer.tp_active`): each data shard runs one group
+    program over its model group (`transformer.loss_group`) instead of
+    one program per slot. Each slot's leaves are its model shards of the
+    masters gathered over the data axes only (`Sharded.gather_over`); one
+    autograd graph runs over the group's slots, differentiating the loss of
+    its first slot (every slot holds the same value); a leaf the model
+    axis does not split gets each slot's partial gradient, summed over the
+    group; the gradients are summed over the data axes; the pod sync
+    quantizes whole leaves (the model shards all-gathered), as the
+    reference's does; the clip's norm is a `psum` of the model slots'
+    squared norms, a replicated leaf counted once; AdamW runs on each
+    slot's own shards. The ssm and hybrid families keep one program per
+    slot with whole weights (ROADMAP A10 item 5c)."""
     from repro_torch.runtime.elastic import logical_mapping
     from repro_torch.runtime.sharding import Placement
+
+    from repro_torch.models import transformer as tt
+    from repro_torch.runtime.sharding import model_split
 
     mapping = partition.current_axes() or logical_mapping(mesh.axis_names)
     daxes = data_axes(mesh, mapping)
     n_data = compat.n_slots(mesh, daxes)
+    with partition.logical_axes(mapping):
+        maxes = partition.model_axes(mesh)
+    tp = cfg.family in ("dense", "moe") and bool(maxes) and compat.n_slots(mesh, maxes) > 1
+    #: the axes a slot's gradient spans: all of them, or under tensor
+    #: parallelism all but the model axes (its model shard)
+    oaxes = tuple(a for a in mesh.axis_names if not tp or a not in maxes)
+    mspec = model_split(cfg) if tp else {}
+    compute = getattr(torch, cfg.dtype)
     _, shard_update = adamw(dataclasses.replace(opt_cfg, clip_norm=None))
     workers: Dict[torch.device, Transformer] = {}
     #: the first slot of each data shard: the moe recording pass runs there
@@ -241,22 +265,76 @@ def _mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, step_cfg: TrainStep
         return ({k: g.to(torch.float32) for k, g in zip(names, got)}, loss.detach(),
                 (w * m["ce"]).detach())
 
+    def tp_grads(params, mbatch) -> list:
+        """Each group program's [(slot, {name: gradient of the slot's
+        leaf}, loss, ce)] (see the docstring)."""
+        with partition.logical_axes(mapping), partition.set_mesh(mesh):
+            groups, data_split = tt.tp_groups(cfg, mbatch["labels"].shape[0])
+            total = count(mbatch)
+            f_global, t_global = None, None
+            if cfg.family == "moe" and data_split:
+                record: dict = {}
+                with torch.no_grad():
+                    for g in groups:
+                        with compat.slots_of(g.slots):
+                            run_group(params, mbatch, g, data_split, {"record": record})
+                t_global = mbatch["labels"].numel()
+                f_global = {li: torch.stack([c.to(mesh.devices[0]) for c in cs]).sum(0) / t_global
+                            for li, cs in record.items()}
+                if partition.lead_group_only():
+                    f_global = {li: f * n_data for li, f in f_global.items()}
+            out = []
+            for g in groups:
+                kw = {} if f_global is None else {"f_global": f_global, "t_global": t_global}
+                with compat.slots_of(g.slots):
+                    out.extend(run_group(params, mbatch, g, data_split, kw, total))
+        return out
+
+    def run_group(params, mbatch, g, data_split: bool, moe_kw: dict, total: float = 0.0):
+        b = {k: tt.group_rows(x, g, data_split, n_data) for k, x in mbatch.items()}
+        leaves = g.map(lambda i: {k: t.gather_over(oaxes, g.slots[i]).detach().requires_grad_(
+            torch.is_grad_enabled()) for k, t in params.items()})
+        ps = g.map(lambda i, lv: tt.nested({k: v if v.dtype == compute else v.to(compute)
+                                            for k, v in lv.items()}), leaves)
+        t = b["labels"].shape[0] * b["labels"].shape[1]
+        cap = tt.moe_capacity(cfg, t, n_data, data_split) if cfg.family == "moe" else 0
+        if "record" in moe_kw:
+            tt.loss_group(g, cfg, ps, b, compute, cap, moe_kw)
+            return []
+        mine = count(b)
+        w = mine / max(total, 1.0) if mine > 0 else 0.0
+        ce, aux = tt.loss_group(g, cfg, ps, b, compute, cap, moe_kw)
+        # a recorded moe loss is already the shard's share of the global aux
+        aux_w = 1.0 if "f_global" in moe_kw else w
+        loss = w * ce[0] + step_cfg.aux_weight * aux_w * aux[0]
+        names = list(params)
+        flat = [lv[k] for lv in leaves for k in names]
+        got = torch.autograd.grad(loss, flat, allow_unused=True, materialize_grads=True)
+        return [(s, {k: got[i * len(names) + j].to(torch.float32) for j, k in enumerate(names)},
+                 loss.detach(), (w * ce[0]).detach()) for i, s in enumerate(g.slots)]
+
     def train_step(params, opt_state: AdamWState, batch: Dict[str, torch.Tensor]):
         mb = step_cfg.microbatches
+        with partition.logical_axes(mapping), partition.set_mesh(mesh):
+            active = [s for g in tt.tp_groups(cfg, 1)[0] for s in g.slots] if tp else list(range(mesh.size))
         grads: List[Optional[dict]] = [None] * mesh.size
         loss_acc = [0.0] * mesh.size
         ce_acc = [0.0] * mesh.size
-        for j in range(mb):
+        # the dry run counts one microbatch as mb identical trips
+        trips = 1 if tp and partition.lead_group_only() else mb
+        for j in range(trips):
             mbatch = batch if mb == 1 else {k: v[j] for k, v in batch.items()}
             shared: dict = {}
-            if cfg.family == "moe" and n_data > 1:
+            if cfg.family == "moe" and n_data > 1 and not tp:
                 shared["moe_counts"] = {}
                 for slot in leads:
                     run_slot(params, mbatch, slot, shared, record=True)
                 t_global = mbatch["labels"].numel()
                 shared = {"moe_f": {k: c / t_global for k, c in shared["moe_counts"].items()}}
-            for slot in range(mesh.size):
-                g, loss, ce = run_slot(params, mbatch, slot, shared)
+            with partition.repeated(mb // trips):
+                got = tp_grads(params, mbatch) if tp else [(s, *run_slot(params, mbatch, s, shared))
+                                                            for s in range(mesh.size)]
+            for slot, g, loss, ce in got:
                 with torch.no_grad():
                     if mb == 1:
                         grads[slot] = g
@@ -267,37 +345,51 @@ def _mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, step_cfg: TrainStep
                             grads[slot][k] += x / mb
                 loss_acc[slot] = loss_acc[slot] + loss / mb
                 ce_acc[slot] = ce_acc[slot] + ce / mb
-                del g
+            del got
         with torch.no_grad():
+            if tp and partition.lead_group_only():  # the dry run: the other groups' alike
+                lead = {compat.shard_index(mesh, s, maxes): s for s in active}
+                for s in range(mesh.size):
+                    if grads[s] is None:
+                        twin = lead[compat.shard_index(mesh, s, maxes)]
+                        grads[s], loss_acc[s], ce_acc[s] = grads[twin], loss_acc[twin], ce_acc[twin]
             merged: List[Optional[dict]] = [None] * mesh.size
             losses, ces = [], []
             for grp in compat.groups(mesh, daxes):
                 devs = [mesh.devices[s] for s in grp]
-                summed = {k: compat.psum([grads[s][k] for s in grp], devs) for k in grads[grp[0]]}
+                if not any(s in active for s in grp):
+                    continue
+                with compat.slots_of(grp):
+                    summed = {k: compat.psum([grads[s][k] for s in grp], devs) for k in grads[grp[0]]}
+                    losses.append(compat.psum([loss_acc[s] for s in grp], devs)[0])
+                    ces.append(compat.psum([ce_acc[s] for s in grp], devs)[0])
                 for i, s in enumerate(grp):
                     merged[s] = {k: v[i] for k, v in summed.items()}
-                losses.append(compat.psum([loss_acc[s] for s in grp], devs)[0])
-                ces.append(compat.psum([ce_acc[s] for s in grp], devs)[0])
             del grads, summed
+            if tp:
+                merged = _tp_merge_model(merged, params, mesh, maxes, active, mspec)
             if sync:
-                merged = gradmod.compressed_grad_sync(merged, mesh, step_cfg.sync_axis,
-                                                      step_cfg.grad_compression, param_pspecs)
-            gnorm = global_norm(merged[0])
+                merged = (_tp_sync(merged, params, mesh, maxes, mspec, step_cfg, param_pspecs) if tp else
+                          gradmod.compressed_grad_sync(merged, mesh, step_cfg.sync_axis,
+                                                       step_cfg.grad_compression, param_pspecs))
+            gnorm = _tp_norm(merged, mesh, maxes, mspec) if tp else global_norm(merged[0])
             scale = (torch.clamp(opt_cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
                      if opt_cfg.clip_norm is not None else None)
             new_state = opt_state
-            for slot in range(mesh.size):
-                dev = mesh.devices[slot]
-                p_s, m_s, v_s, g_s = {}, {}, {}, {}
-                for k, t in params.items():
-                    sl = t.placement.slices(t.shape, slot)
-                    g = merged[slot][k][sl]
-                    g_s[k] = g if scale is None else (g * scale.to(dev)).to(g.dtype)
-                    p_s[k], m_s[k], v_s[k] = (t.shards[slot], opt_state.m[k].shards[slot],
-                                              opt_state.v[k].shards[slot])
-                updates, new_state, om = shard_update(g_s, AdamWState(opt_state.step, m_s, v_s), p_s)
-                apply_updates_(p_s, updates)
-                del updates, g_s
+            # the dry run counts the first slot's update alone
+            for slot in (active[:1] if partition.lead_group_only() else active):
+                with partition.slot_program(mesh, slot, {}):
+                    dev = mesh.devices[slot]
+                    p_s, m_s, v_s, g_s = {}, {}, {}, {}
+                    for k, t in params.items():
+                        sl = t.own_in(oaxes, slot)
+                        g = merged[slot][k][sl]
+                        g_s[k] = g if scale is None else (g * scale.to(dev)).to(g.dtype)
+                        p_s[k], m_s[k], v_s[k] = (t.shards[slot], opt_state.m[k].shards[slot],
+                                                  opt_state.v[k].shards[slot])
+                    updates, new_state, om = shard_update(g_s, AdamWState(opt_state.step, m_s, v_s), p_s)
+                    apply_updates_(p_s, updates)
+                    del updates, g_s
         opt_state = AdamWState(step=new_state.step, m=opt_state.m, v=opt_state.v)
         return params, opt_state, {"loss": losses[0], "ce": ces[0], "grad_norm": gnorm, "lr": om["lr"]}
 
@@ -313,11 +405,12 @@ def microbatch_split(batch: Dict[str, Any], mb: int) -> Dict[str, Any]:
 
 def make_serve_step(cfg: ModelConfig) -> Callable:
     """serve_step(model, cache, inputs_t) -> (cache, next_token int32 (B, 1)),
-    greedy (the reference's default; its sampling variant has no caller)."""
+    greedy (the reference's default; its sampling variant has no caller).
+    Under tensor parallelism the argmax runs over the split vocab
+    (`transformer.decode_greedy`)."""
 
     def serve_step(model, cache, inputs_t: torch.Tensor):
-        cache, logits = decode_step(model, cfg, cache, inputs_t)
-        return cache, torch.argmax(logits, dim=-1).to(torch.int32)
+        return decode_greedy(model, cfg, cache, inputs_t)
 
     return serve_step
 
@@ -329,3 +422,75 @@ def make_prefill_step(cfg: ModelConfig, cache_seq_len: Optional[int] = None) -> 
         return prefill(model, cfg, inputs, cache_seq_len)
 
     return prefill_step
+
+
+def _tp_merge_model(merged, params, mesh, maxes, active, mspec):
+    """Under tensor parallelism: the gradient of a leaf that the model axes
+    do not split holds each model slot's part; summed over the group."""
+    out = list(merged)
+    for grp in compat.groups(mesh, maxes):
+        if not any(s in active for s in grp):
+            continue
+        devs = [mesh.devices[s] for s in grp]
+        for i, s in enumerate(grp):
+            out[s] = dict(merged[s])
+        for k in params:
+            if mspec[k] is None:
+                with compat.slots_of(grp):
+                    summed = compat.psum([merged[s][k] for s in grp], devs)
+                for i, s in enumerate(grp):
+                    out[s][k] = summed[i]
+    return out
+
+
+def _tp_norm(merged, mesh, maxes, mspec) -> torch.Tensor:
+    """The global gradient norm from the model shards of the first data
+    shard's group: each slot's squared norms of its split leaves, the
+    replicated leaves' on the first slot alone, summed (`compat.psum`)."""
+    grp = compat.groups(mesh, maxes)[0]
+    devs = [mesh.devices[s] for s in grp]
+    parts = []
+    for i, s in enumerate(grp[:1] if partition.lead_group_only() else grp):
+        with partition.slot_program(mesh, s, {}):
+            sq = [torch.sum(torch.square(g.to(torch.float32))) for k, g in merged[s].items()
+                  if mspec[k] is not None or i == 0]
+            parts.append(torch.sum(torch.stack(sq)))
+    parts = parts + parts[:1] * (len(grp) - len(parts))
+    with compat.slots_of(grp):
+        return torch.sqrt(compat.psum(parts, devs)[0])
+
+
+def _tp_sync(merged, params, mesh, maxes, mspec, step_cfg, param_pspecs):
+    """The compressed pod sync under tensor parallelism: each data shard's
+    model shards all-gathered over its group into whole leaves, synced as
+    the reference's partial-manual `shard_map` syncs its global leaves (the
+    quantizer's chunks run over the whole leaf), and cut back to each
+    slot's shard. Every slot of a group holds the same whole leaves, so the
+    sync runs once per data shard, over the mesh of the groups' first
+    slots."""
+    from repro_torch.runtime.elastic import DeviceMesh
+
+    groups = compat.groups(mesh, maxes)
+    whole = []
+    for grp in groups:
+        devs = [mesh.devices[s] for s in grp]
+        tree = {}
+        for k in params:
+            d = mspec[k]
+            with compat.slots_of(grp):
+                tree[k] = (merged[grp[0]][k] if d is None
+                           else compat.all_gather([merged[s][k] for s in grp], devs, dim=d)[0])
+        whole.append(tree)
+    rest = [a for a in mesh.axis_names if a not in maxes]
+    leads = DeviceMesh(tuple(mesh.devices[g[0]] for g in groups),
+                       tuple(mesh.shape[mesh.axis_names.index(a)] for a in rest), tuple(rest))
+    synced = gradmod.compressed_grad_sync(whole, leads, step_cfg.sync_axis, step_cfg.grad_compression,
+                                          param_pspecs)
+    out: List[Optional[dict]] = [None] * mesh.size
+    for grp, tree in zip(groups, synced):
+        for i, s in enumerate(grp):
+            out[s] = {k: (v if mspec[k] is None else
+                          v.narrow(mspec[k], i * (v.shape[mspec[k]] // len(grp)), v.shape[mspec[k]] // len(grp))
+                          .to(mesh.devices[s]))
+                      for k, v in tree.items()}
+    return out

@@ -16,7 +16,9 @@ straggler monitoring, fault-injection drills and exact resume.
 active logical mapping (`models/partition.py`): masters and AdamW moments
 held as shards by `sharding.param_specs(cfg, "train")`, the global batch
 split over the data axes, the compressed sync over the pod axis when
-`grad_compression` is given (`launch/steps.py: _mesh_train_step`).
+`grad_compression` is given (`launch/steps.py: _mesh_train_step`); the
+dense and moe families split their compute over a model axis of several
+slots (tensor parallelism, one group program per data shard).
 
 Checkpoints hold {"params", "opt_state": AdamWState(step, m, v)} in the
 reference's tree (`models/convert.py: named_to_tree`, layers stacked on dim

@@ -29,14 +29,29 @@ Three attentions:
     `kv_valid`, softcap) in plain torch, with the reference's numerics. The
     raw-cache decode uses it; `_chunk_attn_update` is also the step of the
     quantized-cache decode read (`core/kvcache.py`).
+
+Under tensor parallelism (a model group of n slots, `models/partition.py`)
+the attention is split by heads (`head_splits`): each slot projects its
+columns of `wq` (a 1/n shard), the kv heads its q heads read (a slice of
+`wk`/`wv` when they are replicated over the model axis, its shard when
+split), runs norm, RoPE and B10 on its heads, and multiplies its rows of
+`wo`; the partial outputs meet in `compat.psum` (`attention_group_out`).
+Where the head count does not divide n, slot i attends a contiguous range
+of whole heads (the first H mod n slots one more): its q columns are
+all-gathered first, and the attention outputs all-gathered and re-cut to
+`wo`'s row shards before the sum. `swiglu` is the FFN's slot program as
+it stands (its `w_gate`/`w_up` column shards and `w_down` row shard give a
+partial sum).
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+import dataclasses
+from typing import List, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch import compat
 from repro_torch.kernels import ops
 
 # Default KV block of the blocked scan (the reference's KV_BLOCK)
@@ -314,3 +329,139 @@ def attention_train(params: Mapping[str, torch.Tensor], cfg, x: torch.Tensor,
     q, k, v = attention_qkv(params, cfg, x, positions)
     out = FlashAttention.apply(q, k, v, window, True, cfg.attn_logit_softcap)
     return out.reshape(b, s, cfg.n_heads * cfg.head_dim) @ params["wo"]
+
+
+# --------------------------------------------- tensor-parallel attention --
+@dataclasses.dataclass(frozen=True)
+class HeadSplit:
+    """One model slot's part of the attention: `cols`, its columns of `wq`
+    (and rows of `wo`); `heads`, the whole q heads it attends; `kv`, the kv
+    heads those read; `own_kv`, the kv heads it contributes when the slots
+    gather K/V (each kv head from the first slot that reads it);
+    `gather_q`, whether q is all-gathered first (heads straddle the
+    slots); `kv_index`, each local q head's kv head among `kv` when B10's
+    grouping (local head j reads local kv j // (heads / kv)) does not hold,
+    else None."""
+
+    cols: Tuple[int, int]
+    heads: Tuple[int, int]
+    kv: Tuple[int, int]
+    own_kv: Tuple[int, int]
+    gather_q: bool
+    kv_index: Optional[Tuple[int, ...]]
+
+
+def head_splits(cfg, n: int, kv_sharded: bool) -> List[HeadSplit]:
+    """The `HeadSplit` of each of n model slots. `kv_sharded`: `wk`/`wv`
+    are split over the model axis (each slot holds kv heads [iK/n,
+    (i+1)K/n), which must be the ones its heads read)."""
+    h, kh, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    if (h * dh) % n or h < n:
+        raise ValueError(f"{h} heads of {dh} do not split over {n} model slots")
+    width, grp = h * dh // n, h // kh
+    base, extra = divmod(h, n)
+    out, h0, kv_done = [], 0, 0
+    for i in range(n):
+        h1 = h0 + base + (i < extra)
+        k0, k1 = h0 // grp, (h1 - 1) // grp + 1
+        if kv_sharded and (k0, k1) != (i * kh // n, (i + 1) * kh // n):
+            raise ValueError(f"slot {i}'s heads [{h0}, {h1}) read kv heads [{k0}, {k1}), "
+                             f"not its shard of the split wk/wv")
+        idx = tuple((h0 + j) // grp - k0 for j in range(h1 - h0))
+        nq, nk = h1 - h0, k1 - k0
+        regular = nq % nk == 0 and all(idx[j] == j // (nq // nk) for j in range(nq))
+        out.append(HeadSplit((i * width, (i + 1) * width), (h0, h1), (k0, k1), (max(k0, kv_done), k1),
+                             h % n != 0, None if regular else idx))
+        kv_done = max(kv_done, k1)
+        h0 = h1
+    return out
+
+
+def _kv_project(p: Mapping[str, torch.Tensor], name: str, x: torch.Tensor, sp: HeadSplit,
+                heads: Tuple[int, int], kv_sharded: bool, dh: int) -> torch.Tensor:
+    """x @ the columns of kv heads `heads` of `wk`/`wv` (the slot's shard
+    when split, else a slice of the replicated weight)."""
+    off = sp.kv[0] if kv_sharded else 0
+    return x @ p[name][:, (heads[0] - off) * dh:(heads[1] - off) * dh]
+
+
+def attention_group_qkv(g, ps, cfg, xs, positions, splits: List[HeadSplit], kv_sharded: bool,
+                        all_heads: bool = False):
+    """Each slot's (q, k, v) from the replicated input xs[i] (B, S, D) at
+    `positions` (B, S): q on the slot's heads (B, S, h_i, Dh) and k/v on
+    the kv heads they read, or with `all_heads` every q and kv head on
+    every slot (the decode: q all-gathered, K/V gathered from their first
+    readers). Per-head norm and RoPE as `attention_qkv`."""
+    dh = cfg.head_dim
+    qc = g.map(lambda i, x, p: x @ p["wq"], xs, ps)
+    if all_heads or splits[0].gather_q:
+        qc = compat.all_gather(qc, g.devices, dim=-1)
+
+    def q_of(i, q, p):
+        sp = splits[i]
+        if not all_heads and sp.gather_q:
+            q = q[..., sp.heads[0] * dh:sp.heads[1] * dh]
+        b, s = q.shape[:2]
+        q = q.reshape(b, s, -1, dh)
+        if cfg.qk_norm:
+            q = rms_norm(q, p["q_norm"])
+        cos, sin = rope_angles(positions.to(q.device), dh, cfg.rope_theta)
+        return apply_rope(q, cos, sin)
+
+    def kv_of(i, x, p):
+        sp = splits[i]
+        heads = sp.own_kv if all_heads else sp.kv
+        b, s = x.shape[:2]
+        k = _kv_project(p, "wk", x, sp, heads, kv_sharded, dh).reshape(b, s, -1, dh)
+        v = _kv_project(p, "wv", x, sp, heads, kv_sharded, dh).reshape(b, s, -1, dh)
+        if cfg.qk_norm:
+            k = rms_norm(k, p["k_norm"])
+        cos, sin = rope_angles(positions.to(k.device), dh, cfg.rope_theta)
+        return apply_rope(k, cos, sin), v
+
+    qs = g.map(q_of, qc, ps, by=g.variants)
+    kvs = g.map(kv_of, xs, ps, by=g.variants)
+    ks, vs = [kv[0] for kv in kvs], [kv[1] for kv in kvs]
+    if all_heads:
+        ks = compat.all_gather(ks, g.devices, dim=2)
+        vs = compat.all_gather(vs, g.devices, dim=2)
+    return qs, ks, vs
+
+
+def grouped_kv(sp: HeadSplit, k: torch.Tensor, v: torch.Tensor):
+    """k/v (B, S, kv_i, Dh) laid out for B10 against the slot's q heads:
+    as they are when B10's grouping holds, else one kv head per q head."""
+    if sp.kv_index is None:
+        return k, v
+    idx = torch.tensor(sp.kv_index, device=k.device)
+    return k.index_select(2, idx).contiguous(), v.index_select(2, idx).contiguous()
+
+
+def attention_group_out(g, ps, outs, splits: List[HeadSplit], all_heads: bool = False):
+    """The attention outputs through `wo`: each slot's outs[i] (B, S,
+    h_i, Dh) on its heads, or with `all_heads` (B, S, H, Dh) on every head,
+    times its rows of `wo`, summed over the slots (`compat.psum`)."""
+    b, s = outs[0].shape[:2]
+    flat = [o.reshape(b, s, -1) for o in outs]
+    if not all_heads and splits[0].gather_q:
+        flat = compat.all_gather(flat, g.devices, dim=-1)
+        all_heads = True
+    parts = g.map(lambda i, o, p: (o[..., splits[i].cols[0]:splits[i].cols[1]] if all_heads else o) @ p["wo"],
+                  flat, ps)
+    return compat.psum(parts, g.devices)
+
+
+def attention_train_group(g, ps, cfg, xs, splits: List[HeadSplit], kv_sharded: bool,
+                          window: Optional[int] = None):
+    """`attention_train` over a model group: B10's lse form and the flash
+    backward on each slot's heads; the replicated (B, S, D) output on
+    every slot."""
+    b, s = xs[0].shape[:2]
+    positions = torch.arange(s, dtype=torch.int32, device=xs[0].device)[None].expand(b, s)
+    qs, ks, vs = attention_group_qkv(g, ps, cfg, xs, positions, splits, kv_sharded)
+
+    def one(i, q, k, v):
+        k, v = grouped_kv(splits[i], k, v)
+        return FlashAttention.apply(q, k, v, window, True, cfg.attn_logit_softcap)
+
+    return attention_group_out(g, ps, g.map(one, qs, ks, vs, by=g.variants), splits)

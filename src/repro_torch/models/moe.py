@@ -23,6 +23,16 @@ the global routed fractions when the step has gathered them
 (`SlotProgram.shared["moe_f"]`), so that the slots' losses sum to the
 reference's.
 
+Under tensor parallelism (`moe_group`, one data shard's model group of n
+slots) the router stays replicated: every slot routes the shard's tokens
+and fills the whole (E, C, D) buffer. Where E divides the production model
+axis (qwen3-moe) the experts are split over it (expert parallelism): each
+slot runs `_experts` on its E / n experts' rows of the buffer and the rows
+are all-gathered, so that every slot combines over k in the unsharded
+order. Otherwise (mixtral) each expert's d_ff is split (tensor parallelism
+inside each expert): each slot's products give a partial (E, C, D) sum,
+added by `compat.psum`. The capacity stays the reference's.
+
 Routing runs in float32 (`route`): the router is held in the compute dtype,
 as the reference's `_cast` rounds it before use, and the product is taken
 in float32. Top-k is a stable descending sort, so that equal probabilities
@@ -222,3 +232,54 @@ def _sharded(params, cfg, xt, sel, gates, dax, n: int, dtype: torch.dtype) -> to
             w = gates[i * tl:(i + 1) * tl].reshape(-1).to(device=dev, dtype=dtype)
             ys.append(torch.sum((gathered * w[:, None]).reshape(tl, k, d), dim=1))
     return compat.all_gather(ys, [xt.device] * n, dim=0)[0]
+
+
+def expert_parallel(cfg) -> bool:
+    """The experts split over the model axis (E divides the production
+    model axis, `runtime/sharding.py: _rule`), else d_ff inside each."""
+    from repro_torch.runtime.sharding import MODEL_AXIS_SIZE
+
+    return cfg.n_experts > 0 and cfg.n_experts % MODEL_AXIS_SIZE == 0
+
+
+def moe_group(g, ps, cfg, xs, cap: int, f_global=None, t_global: Optional[int] = None,
+              record: Optional[list] = None):
+    """`moe_ffn` over a model group: xs[i] (B, S, D) replicated, ps[i] the
+    slot's `router` (whole) and expert shards, `cap` the capacity of the
+    data shard's tokens. Returns (ys (B, S, D) replicated, aux per slot).
+    With `f_global` (E,) the global routed fractions of a data-parallel
+    step, each slot's aux is the data shard's share E * sum_e f_e *
+    sum_tokens(p_e) / t_global; `record` (a list) gets the shard's routed
+    counts (E,)."""
+    b, s, d = xs[0].shape
+    n_experts, k = cfg.n_experts, cfg.n_experts_per_token
+    t = b * s
+    ep = expert_parallel(cfg)
+    el = n_experts // g.n
+
+    def dispatch(i, x, p):
+        xt = x.reshape(t, d)
+        gates, sel, probs, aux = route(p["router"], cfg, xt)
+        if record is not None and i == 0:
+            record.append(torch.sum((sel[..., None] == torch.arange(n_experts, device=sel.device))
+                                    .to(torch.float32), dim=(0, 1)))
+        if f_global is not None:
+            aux = n_experts * torch.sum(f_global.to(probs.device) * torch.sum(probs, dim=0)) / t_global
+        e, slot = _dispatch_indices(sel.reshape(t * k), n_experts, cap)
+        buf = unique_scatter(torch.repeat_interleave(xt, k, dim=0), e, slot, n_experts, cap)
+        return gates, e, slot, aux, buf
+
+    routed = g.map(dispatch, xs, ps)
+    if ep:
+        parts = g.map(lambda i, r, p: _experts(p, r[4][i * el:(i + 1) * el]), routed, ps)
+        out_bufs = compat.all_gather(parts, g.devices, dim=0)
+    else:
+        out_bufs = compat.psum(g.map(lambda i, r, p: _experts(p, r[4]), routed, ps), g.devices)
+
+    def combine(i, r, out_buf):
+        gates, e, slot = r[0], r[1], r[2]
+        gathered = unique_gather(out_buf, e, slot)
+        w = gates.reshape(-1).to(xs[0].dtype)
+        return torch.sum((gathered * w[:, None]).reshape(t, k, d), dim=1).reshape(b, s, d)
+
+    return g.map(combine, routed, out_bufs), [r[3] for r in routed]

@@ -17,9 +17,17 @@ The port has no SPMD partitioner. Outside the explicit per-slot maps a
 tensor is whole (the reference's global array), so `hint` is the identity
 there. Inside a slot's program (`slot_program`: one slot of the mesh runs
 its shard of a batch, as a `shard_map` body does) `hint` checks that each
-dim named by a split logical axis has its shard's size. The model axis's
-compute is not split in this port (tensor parallelism is the next ROADMAP
-item), so only the batch-like axes are checked.
+dim named by a split logical axis has its shard's size.
+
+Tensor parallelism (the dense and moe families on a model axis wider than
+one slot) runs one program per data shard over that shard's model group
+(`model_groups`, a `Group`): the layer code holds lists of per-slot
+tensors, one per model slot, each on its slot's device, and the slots meet
+at the collectives of `compat.py`. `Group.map` runs each slot's part under
+its slot program, whose split also names "model" (the vocab, the one dim
+the model code hints over "model"), so `hint` checks the slot's vocab
+shard too. The ssm and hybrid families compute with whole weights on every
+model slot (ROADMAP A10 item 5c).
 """
 from __future__ import annotations
 
@@ -30,10 +38,13 @@ from typing import Dict, Iterator, Optional, Sequence, Tuple, Union
 import torch
 
 from repro_torch import compat
+from repro_torch.core.device import on_device
 
 Axis = Union[str, Sequence[str], None]
 
 _AXES: Optional[dict] = None
+#: run only the first data shard's model group (the dry run's one device)
+_LEAD_ONLY = False
 _MESH = None  # the current runtime/elastic.DeviceMesh, or None
 #: the slot program running now: process-wide, since autograd runs a card's
 #: backward (full remat's recompute of a slot's blocks) on its own thread
@@ -157,7 +168,7 @@ def lead_slots(mesh, axes: Sequence[str]) -> list:
 def hint(x: torch.Tensor, *logical: Axis) -> torch.Tensor:
     """The reference's sharding constraint on logical axes: the identity.
     Inside a slot's program, checks that each dim of a split logical axis
-    has its shard's size."""
+    ("data", and "model" inside a group program) has its shard's size."""
     prog = current_slot()
     if _AXES is None or prog is None:
         return x
@@ -170,3 +181,124 @@ def hint(x: torch.Tensor, *logical: Axis) -> torch.Tensor:
                 raise ValueError(f"dim {d} of {tuple(x.shape)} is not a 1/{n} shard of {a!r} "
                                  f"({total}) in slot {prog.slot}'s program")
     return x
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    """The model group of one data shard: its `slots` (indices into
+    `mesh.devices`) in `shard_index` order over the model axes, the data
+    shard's index `data`, and the split its slot programs hold (see
+    `SlotProgram`)."""
+
+    mesh: object
+    slots: Tuple[int, ...]
+    data: int
+    split: Dict[str, Tuple[int, int]]
+    #: each slot's variant of a head-split call (`map(by=)`): under
+    #: `only_lead_group`, slots of one variant give results of the same
+    #: shapes for inputs of the same shapes
+    variants: Optional[tuple] = None
+
+    @property
+    def n(self) -> int:
+        return len(self.slots)
+
+    @property
+    def devices(self) -> list:
+        return [self.mesh.devices[s] for s in self.slots]
+
+    def map(self, fn, *lists, by: Optional[tuple] = None) -> list:
+        """[fn(i, lists[0][i], ...) for each slot i of the group], each call
+        as the slot's program on its device. Under `only_lead_group` (the
+        dry run, whose count reads the first slot alone) a later slot on
+        inputs of the same shapes as an earlier one, and of the same variant
+        in `by` when fn's shapes depend on the slot (`variants`), takes that
+        slot's results: shapes are all the other slots contribute."""
+        out, memo = [], ({} if _LEAD_ONLY else None)
+        for i, s in enumerate(self.slots):
+            args = [x[i] for x in lists]
+            key = None if memo is None else (None if by is None else by[i], _shapes(args))
+            if key is not None and key in memo:
+                out.append(memo[key])
+                continue
+            with slot_program(self.mesh, s, self.split), on_device(self.mesh.devices[s]):
+                out.append(fn(i, *args))
+            if key is not None:
+                memo[key] = out[-1]
+        return out
+
+
+def _shapes(x) -> tuple:
+    """The shapes and dtypes of the tensors in x (nested lists and tuples;
+    other leaves by type)."""
+    if isinstance(x, torch.Tensor):
+        return (tuple(x.shape), x.dtype)
+    if isinstance(x, (list, tuple)):
+        return tuple(_shapes(y) for y in x)
+    return (type(x).__name__,)
+
+
+#: the trips a counted block stands for (the dry run's microbatches)
+_REPEAT = 1
+
+
+def repeat() -> int:
+    return _REPEAT
+
+
+@contextlib.contextmanager
+def repeated(n: int) -> Iterator[None]:
+    """The block runs once and stands for n identical trips (a loop whose
+    trips do the same work on other data): the dry run's analysis counts
+    its ops n times, as the reference's counts a loop body by its trip
+    count."""
+    global _REPEAT
+    prev = _REPEAT
+    _REPEAT = prev * n
+    try:
+        yield
+    finally:
+        _REPEAT = prev
+
+
+def model_axes(mesh=None) -> Tuple[str, ...]:
+    """The mesh axes of the active mapping's "model" entry, () without a
+    mapping or mesh, or when the mesh lacks one of them."""
+    mesh = _MESH if mesh is None else mesh
+    names = axis_names(_AXES.get("model")) if _AXES else ()
+    if mesh is None or not names or not all(a in mesh.axis_names for a in names):
+        return ()
+    return names
+
+
+def model_width(mesh=None) -> int:
+    """Slots on the model axes of the active mapping and mesh (1 without)."""
+    mesh = _MESH if mesh is None else mesh
+    axes = model_axes(mesh)
+    return axis_size(axes, mesh) if axes else 1
+
+
+def model_groups(mesh, split: Dict[str, Tuple[int, int]]) -> list:
+    """The model group of each data shard of `mesh` under the active
+    mapping, in data-shard order; the first alone under `lead_group_only`."""
+    axes = model_axes(mesh)
+    out = [Group(mesh, tuple(g), d, dict(split)) for d, g in enumerate(compat.groups(mesh, axes))]
+    return out[:1] if _LEAD_ONLY else out
+
+
+def lead_group_only() -> bool:
+    return _LEAD_ONLY
+
+
+@contextlib.contextmanager
+def only_lead_group() -> Iterator[None]:
+    """Run only the first data shard's model group in the block: every
+    group does the same work on its shard, so the dry run
+    (`launch/dryrun.py`) reads one device's program from the first."""
+    global _LEAD_ONLY
+    prev = _LEAD_ONLY
+    _LEAD_ONLY = True
+    try:
+        yield
+    finally:
+        _LEAD_ONLY = prev

@@ -52,11 +52,25 @@ ring over model; the recurrent states stay whole), a prefill writes each
 layer's shards from its whole K/V, its B10 attention runs per data shard
 on the shard's slot, the decode reads the ring through the
 distributed-LSE branch of `kvcache.decode_attend_dlse`, and an moe block
-dispatches per data shard (`models/moe.py`). Weights stay whole: the model
-axis's compute is not split (the next ROADMAP item).
+dispatches per data shard (`models/moe.py`).
+
+Tensor parallelism: for the dense and moe families on a model axis wider
+than one slot (`tp_active`), `prefill`, `decode_step` and the train step
+(`launch/steps.py`) run one program per data shard over its model group
+(`partition.Group`), on lists of per-slot tensors: the embedding and head
+split by vocab (a masked lookup of the slot's rows then `compat.psum`;
+logits (data, None, "model"); a vocab-parallel cross-entropy, `ce_group`;
+a greedy argmax over the split vocab, `decode_greedy`), attention split by
+heads (`layers.head_splits`), the SwiGLU's d_ff and the moe experts split
+(`moe.moe_group`), norms and residuals replicated. Each slot writes its
+slice of the ring from K/V gathered over the group, and the decode merges
+the slots' statistics over their ring slices (`kvcache.
+decode_attend_group`). The ssm and hybrid families keep whole weights on
+every model slot (ROADMAP A10 item 5c).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -67,6 +81,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch import compat
 from repro_torch.core import kvcache
 from repro_torch.core.device import on_device, resolve_device
+from repro_torch.kernels import ops
 from repro_torch.models import layers, partition, rglru, ssd
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.moe import MoEFFN
@@ -497,12 +512,12 @@ def store_kv(cfg: ModelConfig, cache_l: Dict[str, torch.Tensor], k: torch.Tensor
     """Write a prefill's K/V (B, S, K, Dh) at positions [0, S) into one
     layer's ring in place: position p at slot p % W, the last W positions
     when S > W; quantized by groups of the scale group when the cache is.
-    A `Sharded` ring is written whole, then copied into its shards."""
+    A `Sharded` ring is written per data shard on the shard's slot: its
+    rows of the ring gathered, written, and copied back into the shards
+    (`kvcache.per_data_shard`)."""
     if not isinstance(next(iter(cache_l.values())), torch.Tensor):
-        whole = {name: t.gather(k.device) for name, t in cache_l.items()}
-        store_kv(cfg, whole, k, v)
-        for name, t in cache_l.items():
-            t.write(whole[name])
+        kvcache.per_data_shard(cache_l, k.shape[0],
+                               lambda rows, whole, dev: store_kv(cfg, whole, k[rows].to(dev), v[rows].to(dev)))
         return
     s = k.shape[1]
     w = next(iter(cache_l.values())).shape[1]
@@ -553,18 +568,22 @@ def _decode_attend(p: Dict[str, torch.Tensor], cfg: ModelConfig, x_t: torch.Tens
     """One layer's decode attention: write the token into the ring cache (in
     place), attend over it, project."""
     b = x_t.shape[0]
+    if not cfg.kv_quant and not isinstance(cache_l["k"], torch.Tensor):
+        # a Sharded raw ring: per data shard on its slot
+        pd = {}
+
+        def one(rows, whole, dev):
+            if dev not in pd:
+                pd[dev] = {name: t.to(dev) for name, t in p.items()}
+            return _decode_attend(pd[dev], cfg, x_t[rows].to(dev), whole, pos, window)
+
+        return kvcache.join_rows(kvcache.per_data_shard(cache_l, b, one), x_t.device)
     positions = torch.full((b, 1), pos, dtype=torch.int32, device=x_t.device)
     q, k_t, v_t = layers.attention_qkv(p, cfg, x_t, positions)
     if cfg.kv_quant:
         out, _ = kvcache.decode_attend_dlse(q, cache_l, k_t, v_t, pos, window,
                                             softcap=cfg.attn_logit_softcap)
     else:
-        if not isinstance(cache_l["k"], torch.Tensor):  # a Sharded raw ring: read and written whole
-            whole = {name: t.gather(x_t.device) for name, t in cache_l.items()}
-            out = _decode_attend(p, cfg, x_t, whole, pos, window)
-            for name, t in cache_l.items():
-                t.write(whole[name])
-            return out
         w = cache_l["k"].shape[1]
         slot = pos % w
         cache_l["k"][:, slot] = k_t[:, 0].to(cache_l["k"].dtype)
@@ -586,6 +605,11 @@ def decode_step(model: Transformer, cfg: ModelConfig, cache: Dict[str, Any],
     """One autoregressive step of int tokens (B, 1), or (B, 1, D)
     embeddings for `input_kind == "embeddings"`: (cache, logits (B, 1, V)).
     The cache's tensors are updated in place and `pos` advances."""
+    if tp_active(cfg):
+        _check_tp_cache(cache)
+        parts = _tp_run(model, cfg, inputs_t, cache, decode=True)
+        cache["pos"] = cache["pos"] + 1
+        return cache, _whole_logits(parts, inputs_t.device)
     pos = cache["pos"]
     x = partition.hint(model.embedding(inputs_t), "data", None, None)
     if cfg.family == "ssm":
@@ -615,6 +639,11 @@ def prefill(model: Transformer, cfg: ModelConfig, inputs: torch.Tensor,
     of the last prompt position (B, 1, V))."""
     b, s = inputs.shape[:2]
     cache = init_decode_cache(cfg, b, max(cache_seq_len or s, s), model.device)
+    if tp_active(cfg):
+        _check_tp_cache(cache)
+        parts = _tp_run(model, cfg, inputs, cache, decode=False)
+        cache["pos"] = s
+        return cache, _whole_logits(parts, inputs.device)
     x = model.embedding(inputs)
     if cfg.family == "ssm":
         for i, blk in enumerate(model.layers):
@@ -630,3 +659,301 @@ def prefill(model: Transformer, cfg: ModelConfig, inputs: torch.Tensor,
             store_kv(cfg, layer_view(cache, i), k, v)
     cache["pos"] = s
     return cache, model.logits(x[:, -1:])
+
+
+# ======================================================= tensor parallelism ===
+def tp_active(cfg: ModelConfig) -> bool:
+    """The dense and moe families under a mapping and mesh whose model axis
+    holds more than one slot: their compute is split over it."""
+    return cfg.family in ("dense", "moe") and partition.model_width() > 1
+
+
+def nested(named: Dict[str, Any]) -> Dict[str, Any]:
+    """{"layers.0.attn.wq": t, ...} -> {"layers": {"0": {"attn": {"wq": t}}}}."""
+    out: Dict[str, Any] = {}
+    for name, t in named.items():
+        node = out
+        parts = name.split(".")
+        for part in parts[:-1]:
+            node = node.setdefault(part, {})
+        node[parts[-1]] = t
+    return out
+
+
+def tp_layout(cfg: ModelConfig, n: int):
+    """(head splits of the n model slots, whether wk/wv are split)."""
+    from repro_torch.runtime.sharding import model_split
+
+    kv_sharded = model_split(cfg)["layers.0.attn.wk"] is not None
+    return layers.head_splits(cfg, n, kv_sharded), kv_sharded
+
+
+def tp_groups(cfg: ModelConfig, batch: int):
+    """(the model groups of the current mesh, whether the data axes split a
+    batch of `batch` rows)."""
+    mesh = partition.current_mesh()
+    _, n_data = partition.data_shards()
+    data_split = n_data > 1 and batch > 1 and batch % n_data == 0
+    n = partition.model_width()
+    split = {"model": (cfg.padded_vocab, n)}
+    if data_split:
+        split["data"] = (batch, n_data)
+    variants = tuple((sp.heads[1] - sp.heads[0], sp.kv[1] - sp.kv[0], sp.own_kv[1] - sp.own_kv[0],
+                      sp.kv_index is None) for sp in tp_layout(cfg, n)[0])
+    return [dataclasses.replace(g, variants=variants) for g in partition.model_groups(mesh, split)], data_split
+
+
+def group_rows(x: torch.Tensor, g, data_split: bool, n_data: int) -> torch.Tensor:
+    """The group's data shard of a global batch (all of it when the data
+    axes do not split it)."""
+    if not data_split:
+        return x
+    b = x.shape[0] // n_data
+    return x[g.data * b:(g.data + 1) * b]
+
+
+def serve_slot_params(model: Transformer, cfg: ModelConfig, g) -> list:
+    """Each slot's parameters for a group program from a whole model: its
+    model shard of each weight, a view (a copy on another device), in the
+    compute dtype, nested by name."""
+    from repro_torch.runtime.sharding import model_split, slot_weight
+
+    ms = model_split(cfg)
+    compute = model._store.compute
+    named = [(k, p if p.dtype == compute else p.to(compute)) for k, p in model.named_parameters()]
+    return [nested({k: slot_weight(p, ms[k], i, g.n, dev) for k, p in named})
+            for i, dev in enumerate(g.devices)]
+
+
+def embed_group(g, cfg: ModelConfig, ps, inputs: torch.Tensor, compute: torch.dtype):
+    """The blocks' input on every slot: the vocab-split embedding's rows
+    (each slot's masked lookup, `compat.psum`), or the (B, S, D) embeddings
+    of an embeddings model."""
+    if cfg.input_kind != "tokens":
+        return g.map(lambda i, p: inputs.to(device=p["final_norm"].device, dtype=compute), ps)
+    vn = cfg.padded_vocab // g.n
+
+    def one(i, p):
+        tok = inputs.to(p["embed"].device).long()
+        own = (tok >= i * vn) & (tok < (i + 1) * vn)
+        rows = p["embed"][(tok - i * vn).clamp(0, vn - 1)]
+        return torch.where(own[..., None], rows, rows.new_zeros(()))
+
+    xs = compat.psum(g.map(one, ps), g.devices)
+    return g.map(lambda i, x: partition.hint(x if x.dtype == compute else x.to(compute), "data", None, None), xs)
+
+
+def logits_group(g, cfg: ModelConfig, ps, xs):
+    """Each slot's vocab shard of the logits (B, S, V / n)."""
+    def one(i, x, p):
+        w = p["embed"].t() if cfg.tie_embeddings else p["head"]
+        return partition.hint(layers.rms_norm(x, p["final_norm"]) @ w, "data", None, "model")
+
+    return g.map(one, xs, ps)
+
+
+def ce_group(g, logits, labels: torch.Tensor, mask: Optional[torch.Tensor]):
+    """The vocab-parallel cross-entropy of each slot's logits shard: the
+    max over the slots (`pmax`), the sum of exponents (`psum`) and the
+    label's logit from the slot that holds it (`psum`); the masked mean of
+    log(sum) + max - logit on every slot, in float32."""
+    vn = logits[0].shape[-1]
+    ms = compat.pmax(g.map(lambda i, lg: lg.detach().to(torch.float32).amax(dim=-1), logits), g.devices)
+    se = compat.psum(g.map(lambda i, lg, m: torch.sum(torch.exp(lg.to(torch.float32) - m[..., None]), dim=-1),
+                           logits, ms), g.devices)
+
+    def label_logit(i, lg):
+        lab = labels.to(lg.device).long()
+        own = (lab >= i * vn) & (lab < (i + 1) * vn)
+        got = torch.gather(lg.to(torch.float32), -1, (lab - i * vn).clamp(0, vn - 1)[..., None])[..., 0]
+        return torch.where(own, got, got.new_zeros(()))
+
+    ll = compat.psum(g.map(label_logit, logits), g.devices)
+
+    def ce(i, m, s_, lab_logit):
+        nll = torch.log(s_) + m - lab_logit
+        mk = torch.ones_like(nll) if mask is None else mask.to(device=nll.device, dtype=torch.float32)
+        return torch.sum(nll * mk) / torch.clamp(torch.sum(mk), min=1.0)
+
+    return g.map(ce, ms, se, ll)
+
+
+def moe_capacity(cfg: ModelConfig, tokens: int, n_data: int, data_split: bool) -> int:
+    """The capacity of a data shard's `tokens` tokens: the reference's
+    per-shard C_local when the data axes split them, else the whole call's."""
+    from repro_torch.models.moe import capacity
+
+    if data_split:
+        return max(8, -(-capacity(tokens * n_data, cfg) // n_data))
+    return capacity(tokens, cfg)
+
+
+def ffn_group(g, cfg: ModelConfig, lps, hs, cap: int = 0, moe_kw: Optional[dict] = None):
+    """The block's FFN on the normed hs over a group: (ys, aux per slot or
+    None). SwiGLU's shards give partial sums (`compat.psum`)."""
+    from repro_torch.models.moe import moe_group
+
+    ns = g.map(lambda i, h, lp: layers.rms_norm(h, lp["ffn_norm"]), hs, lps)
+    if cfg.family == "moe":
+        return moe_group(g, [lp["moe"] for lp in lps], cfg, ns, cap, **(moe_kw or {}))
+    return compat.psum(g.map(lambda i, x, lp: layers.swiglu(lp["ffn"], x), ns, lps), g.devices), None
+
+
+def block_train_group(g, cfg: ModelConfig, lps, xs, cap: int, moe_kw: Optional[dict] = None):
+    """`Block.forward` over a group: (xs out, aux per slot or None)."""
+    splits, kv_sharded = tp_layout(cfg, g.n)
+    ns = g.map(lambda i, x, lp: layers.rms_norm(x, lp["attn_norm"]), xs, lps)
+    a = layers.attention_train_group(g, [lp["attn"] for lp in lps], cfg, ns, splits, kv_sharded,
+                                     window=cfg.swa_window)
+    hs = g.map(lambda i, x, y: partition.hint(x + y, "data", None, None), xs, a)
+    ys, aux = ffn_group(g, cfg, lps, hs, cap, moe_kw)
+    return g.map(lambda i, h, y: partition.hint(h + y, "data", None, None), hs, ys), aux
+
+
+def loss_group(g, cfg: ModelConfig, ps, batch: Dict[str, torch.Tensor], compute: torch.dtype, cap: int,
+               moe_kw: Optional[dict] = None):
+    """`loss_fn` over a group program: (ce per slot, aux per slot). Each
+    block runs under `torch.utils.checkpoint` when `cfg.remat == "full"`
+    and gradients are on; `moe_kw` as `moe.moe_group` takes it, its
+    `record` a dict of per-layer lists."""
+    xs = embed_group(g, cfg, ps, batch["inputs"], compute)
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    auxs = []
+    for li in range(cfg.n_layers):
+        lps = [p["layers"][str(li)] for p in ps]
+        kw = dict(moe_kw or {})
+        if isinstance(kw.get("record"), dict):
+            kw["record"] = kw["record"].setdefault(li, [])
+        if isinstance(kw.get("f_global"), dict):
+            kw["f_global"] = kw["f_global"][li]
+
+        def fn(*x_in, lps=lps, kw=kw):
+            out, aux = block_train_group(g, cfg, lps, list(x_in), cap, kw)
+            return (*out, *(aux or ()))
+
+        res = checkpoint(fn, *xs, use_reentrant=False) if remat else fn(*xs)
+        xs = list(res[:g.n])
+        if len(res) > g.n:
+            auxs.append(res[g.n:])
+    ce = ce_group(g, logits_group(g, cfg, ps, xs), batch["labels"], batch.get("mask"))
+    if not auxs:
+        return ce, g.map(lambda i, c: torch.zeros((), dtype=torch.float32, device=c.device), ce)
+    return ce, g.map(lambda i, c: torch.sum(torch.stack([a[i].to(c.device) for a in auxs])), ce)
+
+
+def _slot_ring(cache_layers: Dict[str, Any], g, i: int, li: int) -> Dict[str, torch.Tensor]:
+    """Slot i's slice of layer li's ring (views of its shards)."""
+    return {k: t.shards[g.slots[i]][li] for k, t in cache_layers.items()}
+
+
+def _group_prefill(g, cfg: ModelConfig, ps, inputs: torch.Tensor, cache: Dict[str, Any], compute, cap: int):
+    """A prompt through the group: the rings' slices written, and each
+    slot's logits shard of the last position (B, 1, V / n)."""
+    splits, kv_sharded = tp_layout(cfg, g.n)
+    b, s = inputs.shape[:2]
+    xs = embed_group(g, cfg, ps, inputs, compute)
+    positions = torch.arange(s, dtype=torch.int32, device=xs[0].device)[None].expand(b, s)
+    w_local = next(iter(cache["layers"].values())).shards[g.slots[0]].shape[2]
+    for li in range(cfg.n_layers):
+        lps = [p["layers"][str(li)] for p in ps]
+        aps = [lp["attn"] for lp in lps]
+        ns = g.map(lambda i, x, lp: layers.rms_norm(x, lp["attn_norm"]), xs, lps)
+        qs, ks, vs = layers.attention_group_qkv(g, aps, cfg, ns, positions, splits, kv_sharded)
+
+        def attend(i, q, k, v):
+            k, v = layers.grouped_kv(splits[i], k, v)
+            return ops.flash_attention_fwd(q, k, v, window=cfg.swa_window, causal=True,
+                                           softcap=cfg.attn_logit_softcap)
+
+        a = layers.attention_group_out(g, aps, g.map(attend, qs, ks, vs, by=g.variants), splits)
+
+        def own(t):
+            return g.map(lambda i, x: x[:, :, splits[i].own_kv[0] - splits[i].kv[0]:
+                                        splits[i].own_kv[1] - splits[i].kv[0]], t, by=g.variants)
+
+        k_all = compat.all_gather(own(ks), g.devices, dim=2)
+        v_all = compat.all_gather(own(vs), g.devices, dim=2)
+        g.map(lambda i, k, v: kvcache.store_slice(_slot_ring(cache["layers"], g, i, li), k, v, i * w_local,
+                                                  w_local * g.n, cfg.kv_quant,
+                                                  lambda whole, k_, v_: store_kv(cfg, whole, k_, v_)),
+              k_all, v_all)
+        hs = g.map(lambda i, x, y: x + y, xs, a)
+        ys, _ = ffn_group(g, cfg, lps, hs, cap)
+        xs = g.map(lambda i, h, y: h + y, hs, ys)
+    return logits_group(g, cfg, ps, g.map(lambda i, x: x[:, -1:], xs))
+
+
+def _group_decode(g, cfg: ModelConfig, ps, inputs_t: torch.Tensor, cache: Dict[str, Any], compute, cap: int):
+    """One token through the group at `cache["pos"]`, the rings' slices
+    updated in place: each slot's logits shard (B, 1, V / n)."""
+    splits, kv_sharded = tp_layout(cfg, g.n)
+    pos = cache["pos"]
+    xs = embed_group(g, cfg, ps, inputs_t, compute)
+    positions = torch.full((xs[0].shape[0], 1), pos, dtype=torch.int32, device=xs[0].device)
+    for li in range(cfg.n_layers):
+        lps = [p["layers"][str(li)] for p in ps]
+        aps = [lp["attn"] for lp in lps]
+        ns = g.map(lambda i, x, lp: layers.rms_norm(x, lp["attn_norm"]), xs, lps)
+        qs, ks, vs = layers.attention_group_qkv(g, aps, cfg, ns, positions, splits, kv_sharded, all_heads=True)
+        rings = [_slot_ring(cache["layers"], g, i, li) for i in range(g.n)]
+        outs = kvcache.decode_attend_group(g, qs, rings, ks, vs, pos, cfg.swa_window,
+                                           softcap=cfg.attn_logit_softcap)
+        a = layers.attention_group_out(g, aps, outs, splits, all_heads=True)
+        hs = g.map(lambda i, x, y: x + y, xs, a)
+        ys, _ = ffn_group(g, cfg, lps, hs, cap)
+        xs = g.map(lambda i, h, y: partition.hint(h + y, "data", None, None), hs, ys)
+    return logits_group(g, cfg, ps, xs)
+
+
+def _tp_run(model: Transformer, cfg: ModelConfig, inputs: torch.Tensor, cache: Dict[str, Any], decode: bool):
+    """Each data shard's group program (`_group_prefill`/`_group_decode`):
+    [(group, its slots' logits shards)]."""
+    groups, data_split = tp_groups(cfg, inputs.shape[0])
+    _, n_data = partition.data_shards()
+    out = []
+    for g in groups:
+        x = group_rows(inputs, g, data_split, n_data)
+        cap = moe_capacity(cfg, x.shape[0] * x.shape[1], n_data, data_split) if cfg.family == "moe" else 0
+        run = _group_decode if decode else _group_prefill
+        with compat.slots_of(g.slots):
+            out.append((g, run(g, cfg, serve_slot_params(model, cfg, g), x, cache, model._store.compute, cap)))
+    return out
+
+
+def _whole_logits(parts, device) -> torch.Tensor:
+    """The groups' logits shards joined over the vocab and the data shards."""
+    rows = [compat.all_gather(lg, [device], dim=-1)[0] for _, lg in parts]
+    return rows[0] if len(rows) == 1 else compat.all_gather(rows, [device], dim=0)[0]
+
+
+def _check_tp_cache(cache: Dict[str, Any]) -> None:
+    from repro_torch.runtime.sharding import Sharded
+
+    if not all(isinstance(t, Sharded) for t in cache["layers"].values()):
+        raise ValueError("a tensor-parallel decode reads a ring held as shards (`init_decode_cache` "
+                         "under the mesh)")
+
+
+def decode_greedy(model: Transformer, cfg: ModelConfig, cache: Dict[str, Any],
+                  inputs_t: torch.Tensor) -> Tuple[Dict[str, Any], torch.Tensor]:
+    """`decode_step` and the greedy token int32 (B, 1) of its logits, the
+    first maximal index as `torch.argmax` takes it. Under tensor
+    parallelism over the split vocab: each slot's maximum and first index,
+    then the first slot holding the largest (all-gathered), without
+    gathering the logits."""
+    if not tp_active(cfg):
+        cache, logits = decode_step(model, cfg, cache, inputs_t)
+        return cache, torch.argmax(logits, dim=-1).to(torch.int32)
+    _check_tp_cache(cache)
+    parts = _tp_run(model, cfg, inputs_t, cache, decode=True)
+    cache["pos"] = cache["pos"] + 1
+    toks = []
+    for g, lgs in parts:
+        vn = lgs[0].shape[-1]
+        best = g.map(lambda i, lg: torch.max(lg, dim=-1, keepdim=True), lgs)
+        with compat.slots_of(g.slots):
+            vals = compat.all_gather([b.values.to(torch.float32) for b in best], g.devices, dim=-1)
+            idx = compat.all_gather([b.indices + i * vn for i, b in enumerate(best)], g.devices, dim=-1)
+        first = g.map(lambda i, v: torch.argmax(v, dim=-1, keepdim=True), vals)[0]
+        toks.append(torch.gather(idx[0], -1, first)[..., 0].to(device=inputs_t.device, dtype=torch.int32))
+    return cache, (toks[0] if len(toks) == 1 else compat.all_gather(toks, [inputs_t.device], dim=0)[0])

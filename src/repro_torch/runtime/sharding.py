@@ -22,11 +22,12 @@ A placement (`Placement`, from `resolve`) is the port's `NamedSharding`:
 which dims split over which mesh axes, and each slot's slice. `Sharded`
 is a tensor held as one shard per slot, each on its slot's device, with
 its placement and global shape; `gather` rebuilds the whole tensor, the
-counterpart of reading a global array. The port computes on whole tensors
-outside the explicit per-slot maps (`compat.py`), so placing a weight by
-its specs changes where it is stored, not a number: a weight is gathered
-whole before use, and splitting the model axis's compute (tensor
-parallelism) is the next ROADMAP item.
+counterpart of reading a global array, and `gather_over` rebuilds it over
+some mesh axes only, keeping the slot's shard along the others. Under
+tensor parallelism (the dense and moe families on a model axis wider than
+one slot) a slot gathers a weight over the data axes alone (FSDP) and
+computes on its model shard (`model_split`, `slot_weight`); the ssm and
+hybrid families gather their weights whole (ROADMAP A10 item 5c).
 """
 from __future__ import annotations
 
@@ -78,6 +79,30 @@ def _rule(cfg: ModelConfig, path: str, ndim: int, mode: str) -> tuple:
     if spec is None:
         return ()
     return spec
+
+
+def model_split(cfg: ModelConfig, mode: str = "train") -> Dict[str, Optional[int]]:
+    """{port parameter name: the dim its logical spec splits over "model",
+    or None}: what a model slot holds a 1/n shard of under tensor
+    parallelism."""
+    key = (cfg, mode)
+    if key not in _MODEL_SPLIT:
+        _MODEL_SPLIT[key] = {k: (spec.index("model") if "model" in spec else None)
+                             for k, spec in param_specs(cfg, mode).items()}
+    return _MODEL_SPLIT[key]
+
+
+_MODEL_SPLIT: Dict[tuple, Dict[str, Optional[int]]] = {}
+
+
+def slot_weight(t: torch.Tensor, dim: Optional[int], i: int, n: int, device) -> torch.Tensor:
+    """Model slot i's shard (of n) of a whole weight `t` along `dim` (the
+    whole weight when None): a view on `t`'s device, else a copy on
+    `device`."""
+    if dim is not None:
+        size = t.shape[dim] // n
+        t = t.narrow(dim, i * size, size)
+    return t if t.device == torch.device(device) else t.to(device)
 
 
 def _ref_path(name: str) -> Tuple[str, bool]:
@@ -233,6 +258,7 @@ class Sharded:
     placement: Placement
     shape: Tuple[int, ...]
     logical: Optional[tuple] = None
+    _over_cache: dict = dataclasses.field(default_factory=dict, repr=False)
 
     @property
     def mesh(self):
@@ -255,6 +281,76 @@ class Sharded:
                 seen.add(key)
                 out[sl].copy_(shard)
         return out
+
+    def _over(self, axes, slot: int):
+        """(dims split over `axes`, [(slot s, its slice relative to the
+        result)] for one slot of each distinct shard that `gather_over(axes,
+        slot)` assembles), and the result's shape."""
+        key = (tuple(axes), slot)
+        if key in self._over_cache:
+            return self._over_cache[key]
+        own = self.placement.slices(self.shape, slot)
+        dims = []
+        for d in range(len(self.shape)):
+            names = partition.axis_names(self.placement.entry(d))
+            inside = [a in axes for a in names]
+            if any(inside) and not all(inside):
+                raise ValueError(f"dim {d} of {self.placement.spec} is split over {names}: "
+                                 f"partly inside {tuple(axes)}")
+            if names and all(inside):
+                dims.append(d)
+        shape = tuple(self.shape[d] if d in dims else own[d].stop - own[d].start for d in range(len(self.shape)))
+        parts, seen = [], set()
+        for s in compat.group_of(self.mesh, [a for a in self.mesh.axis_names if a in axes], slot):
+            sl = self.placement.slices(self.shape, s)
+            k = tuple((x.start, x.stop) for x in sl)
+            if k not in seen:
+                seen.add(k)
+                parts.append((s, tuple(sl[d] if d in dims else slice(0, shape[d]) for d in range(len(sl)))))
+        self._over_cache[key] = (parts, shape)
+        return parts, shape
+
+    def gather_over(self, axes, slot: int, device=None) -> torch.Tensor:
+        """The tensor gathered over the mesh axes `axes` only, keeping slot
+        `slot`'s shard along the dims split over other axes (a model slot's
+        weight gathered over the data axes: FSDP), on `device` (the slot's
+        when None). The bytes of other slots' shards count as
+        `all_gather`."""
+        device = self.mesh.devices[slot] if device is None else torch.device(device)
+        parts, shape = self._over(axes, slot)
+        if len(parts) == 1 and self.shards[parts[0][0]].device == device:
+            return self.shards[parts[0][0]]
+        out = torch.empty(shape, dtype=self.dtype, device=device)
+        moved = 0
+        for s, sl in parts:
+            out[sl].copy_(self.shards[s])
+            if s != slot:
+                moved += self.shards[s].numel() * self.shards[s].element_size()
+        compat.count_bytes("all_gather", moved)
+        compat.observe("all-gather", out.numel() * out.element_size(), len(parts), slots=(slot,))
+        return out
+
+    def own_in(self, axes, slot: int) -> Tuple[slice, ...]:
+        """Slot `slot`'s own shard as slices of what `gather_over(axes,
+        slot)` gives."""
+        own = self.placement.slices(self.shape, slot)
+        parts, _ = self._over(axes, slot)
+        return next(sl for s, sl in parts if s == slot or self.placement.slices(self.shape, s) == own)
+
+    def write_over(self, axes, slot: int, t: torch.Tensor) -> None:
+        """Write `t` (what `gather_over(axes, slot)` gives) into the shards
+        of every slot that shares slot `slot`'s coordinates outside `axes`,
+        in place."""
+        others = [a for a in self.mesh.axis_names if a not in axes]
+        key = compat.shard_index(self.mesh, slot, others)
+        parts, _ = self._over(axes, slot)
+        where = {tuple((x.start, x.stop) for x in self.placement.slices(self.shape, s)): sl for s, sl in parts}
+        for s, shard in enumerate(self.shards):
+            if compat.shard_index(self.mesh, s, others) != key:
+                continue
+            sl = where.get(tuple((x.start, x.stop) for x in self.placement.slices(self.shape, s)))
+            if sl is not None and shard is not t:
+                shard.copy_(t[sl])
 
     def row(self, i: int) -> "Sharded":
         """Row i of dim 0 (an unsplit dim), as views of the shards: a

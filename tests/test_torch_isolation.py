@@ -73,6 +73,15 @@ def test_the_mesh_modules_are_probed(probe_output):
         assert repr(mod) in line, mod
 
 
+def test_the_dry_run_modules_are_probed(probe_output):
+    """The dry run, its program analysis and the H100 chip model are
+    imported by the probe and so held to it."""
+    line = next(ln for ln in probe_output.splitlines() if ln.startswith("IMPORTED"))
+    for mod in ("repro_torch.launch.dryrun", "repro_torch.launch.hlo_analysis", "repro_torch.core.energy",
+                "repro_torch.configs.base"):
+        assert repr(mod) in line, mod
+
+
 def test_no_device_on_a_cpu_only_host_raises(probe_output):
     import torch
 

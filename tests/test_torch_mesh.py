@@ -274,11 +274,18 @@ def test_dlse_sharded_branch_matches_the_reference(ref, shape):
 @pytest.mark.parametrize("case", ["no mapping", "model width 1", "ring not divisible", "tuple model entry"])
 def test_dlse_falls_back_to_the_single_view(ref, case):
     """The reference's fallback conditions take the single view: the port's
-    output then equals its own single view bit for bit."""
+    output then equals its own single view bit for bit. A ring held as
+    shards is read per data shard on the shard's slot ("model width 1":
+    two data shards of one row), so its output equals the single view of
+    each shard's rows."""
     want, _ = kvcache.decode_attend_dlse(_toks(ref, "q"), _ring(ref), _toks(ref, "kt"), _toks(ref, "vt"), POS, None)
     mesh, mapping = _mesh((1, 4)), MAP2
     ring = _ring(ref)
     if case == "model width 1":
+        rows = [kvcache.decode_attend_dlse(_toks(ref, "q")[i:i + 1], {k: v[i:i + 1] for k, v in _ring(ref).items()},
+                                           _toks(ref, "kt")[i:i + 1], _toks(ref, "vt")[i:i + 1], POS, None)[0]
+                for i in range(2)]
+        want = torch.cat(rows)
         mesh = _mesh((2, 1))
         ring = reshard(ring, CACHE_SPECS, mesh, mapping)
     elif case == "ring not divisible":
