@@ -243,7 +243,9 @@ Phases, each printing one line per check:
                tensor-core kernel's in bf16 beside torch's
                `_scaled_dot_product_flash_attention` (out and lse) and the
                plain flash backward's time, the FMA kernel's in float32
-               beside `_scaled_dot_product_efficient_attention`;
+               beside `_scaled_dot_product_efficient_attention`. A plain
+               version of seconds a call is timed in one call after a
+               warm-up, which also gives the reference output (`timed_once`);
   12. moe    — the moe family and the remaining dense configs, on a card
                the earlier phases' models have left (< 2 GB allocated),
                TF32 off: one MoEFFN at qwen3-moe-30b-a3b's full width
@@ -255,7 +257,7 @@ Phases, each printing one line per check:
                2 layers on the card and the CPU (LM_CHECK's fields and
                limits; the moe configs' cache codes over the slots fed the
                same tokens, MOE_CHECK); qwen3-moe-30b-a3b at full width cut
-               to 24 of its 48 layers (4 x 2,048 + 32; cut for the script's
+               to 12 of its 48 layers (4 x 2,048 + 32; cut for the script's
                time) and mixtral-8x7b at full width cut to 8 of
                its 32 layers (1 x 8,192 + 32, twice its window), each as
                the lm path (launches: B10's tensor-core kernel once a
@@ -263,7 +265,7 @@ Phases, each printing one line per check:
                step), the dropped pairs per layer of one more prefill, and
                for mixtral the ring (the last 4,096 positions stored, each
                decode step overwriting the oldest slot); then each dense
-               config at full width and all its layers, 4 x 2,048 + 8, as
+               config at full width and 16 of its layers, 4 x 2,048 + 8, as
                the lm path;
   13. recurrent — the ssm and hybrid families, on a card the moe phase's
                models have left: mamba2-1.3b at full width and 2 layers and
@@ -300,8 +302,8 @@ Phases, each printing one line per check:
                capped reduced qwen3-1.7b served on both in bf16 and float32
                (B10's tensor-core and FMA kernels once a layer) and one
                float32 train step each (`SOFTCAP_CHECK`); then, as the lm
-               path, musicgen-large at full width and all 48 layers (4 x
-               2,048 frame embeddings + 32, B10's tensor-core kernel 48
+               path, musicgen-large at full width and 24 of its 48 layers
+               (4 x 2,048 frame embeddings + 32, B10's tensor-core kernel 24
                times) and pixtral-12b at full width and 10 of its 40 layers
                (4 x 2,048 patch embeddings + 8, 10 times); and B10 at
                musicgen's layer 0 timed without and with a cap (in turns),
@@ -323,9 +325,22 @@ Phases, each printing one line per check:
                data shard and B10 once a layer in each shard's slot
                program. Each first held card against CPU on the same mesh
                at full width and 2 layers (TRAIN_CHECK in float32 and bf16
-               on each leaf's merged gradient, LM_CHECK, MOE_CHECK).
+               on each leaf's merged gradient entering the compressed sync
+               and on the step's updates, LM_CHECK, MOE_CHECK).
                Lines carry step seconds, peak memory, the collectives'
-               bytes (`compat.wire_bytes`) and busy shares.
+               bytes (`compat.wire_bytes`) and busy shares;
+  16. tp     — tensor parallelism over the model axis, every slot on the
+               one card (`run_tp`): (a) qwen3-1.7b split over (data 1,
+               model 4) at full depth, (b) its split training on (pod 2,
+               data 1, model 2), (c) qwen3-moe's experts over (data 1,
+               model 4); then the `tp_recurrent` paths
+               (`run_tp_recurrent`): (d) mamba2-1.3b and (e)
+               recurrentgemma-9b served split over (data 1, model 4) at
+               full width and depth, (f) mamba2-1.3b's split training on
+               (pod 2, data 1, model 2). Each first held card against CPU on
+               the same mesh (LM_CHECK, RECURRENT_CHECK, TRAIN_CHECK,
+               MOE_CHECK["route"]); B10 launched in each slot's program on
+               its heads; every state and ring held as shards.
 Then one JSON line of per-kernel numbers, the card's name and power limit as
 nvidia-smi reports them, and a last JSON line with the device.
 
@@ -340,6 +355,7 @@ import dataclasses
 import gc
 import json
 import math
+import resource
 import shutil
 import subprocess
 import sys
@@ -370,7 +386,7 @@ from repro_torch.models.moe import MoEFFN  # noqa: E402
 from repro_torch.models.params import Storage  # noqa: E402
 from repro_torch.models.convert import params_to_numpy  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
-    _round_window, decode_step, init_decode_cache, init_params, loss_fn, prefill, tp_active)
+    _round_window, decode_greedy, decode_step, init_decode_cache, init_params, loss_fn, prefill, tp_active)
 from repro_torch.checkpoint import load_checkpoint, save_checkpoint  # noqa: E402
 from repro_torch.checkpoint.manager import tree_flatten  # noqa: E402
 from repro_torch.core.gradient import GradCompressionConfig, dequantize_tensor, quantize_tensor  # noqa: E402
@@ -383,7 +399,8 @@ from repro_torch import compat  # noqa: E402
 from repro_torch.launch.steps import TrainStepConfig  # noqa: E402
 from repro_torch.models import partition  # noqa: E402
 from repro_torch.runtime.elastic import make_mesh, reshard  # noqa: E402
-from repro_torch.runtime.sharding import model_split, param_specs, physical_specs, slot_weight  # noqa: E402
+from repro_torch.runtime.sharding import (  # noqa: E402
+    Sharded, model_split, param_specs, physical_specs, slot_weight)
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, 700 W), for the bounds: the
 #: device-memory rate, and the 32-bit scalar rate outside the tensor cores
@@ -529,13 +546,15 @@ MOE_FLASH_CASES = (
 )
 FLASH_CASES += MOE_FLASH_CASES
 #: the recurrent phase's shapes, at head dims above 128 (ROADMAP C6): the
-#: first, recurrentgemma-9b's prefill (2 x 4,096, 16 query heads over 1 of
-#: 256, window 2,048; the plain version's float32 scores 2.1 GB), must run
-#: on the tensor-core kernel; a ragged, windowed bf16 case at Dh 256 (Sk >
-#: Sq); bf16 at Dh 192; bf16 at Dh 256, not causal; float32 at Dh 256 (the
-#: FMA kernel)
+#: first two, recurrentgemma-9b's prefill (2 x 4,096, 16 query heads over 1
+#: of 256, window 2,048; the plain version's float32 scores 2.1 GB) and its
+#: split prefill's (the tp_recurrent phase's (e): 4 of the 16 heads a model
+#: slot, G 4), must run on the tensor-core kernel; a ragged, windowed bf16
+#: case at Dh 256 (Sk > Sq); bf16 at Dh 192; bf16 at Dh 256, not causal;
+#: float32 at Dh 256 (the FMA kernel)
 RECURRENT_FLASH_CASES = (
     (2, 4096, 4096, 16, 1, 256, 2048, True, torch.bfloat16),
+    (2, 4096, 4096, 4, 1, 256, 2048, True, torch.bfloat16),  # its split prefill: 4 heads a slot, G 4
     (2, 333, 400, 8, 2, 256, 100, True, torch.bfloat16),
     (1, 500, 500, 8, 2, 192, None, True, torch.bfloat16),
     (1, 190, 190, 4, 2, 256, None, False, torch.bfloat16),
@@ -675,6 +694,25 @@ def time_ms(fn, iters: int, cycles_per_ms: float, queued: bool = True):
     if queued and enqueue_ms >= sleep_ms:
         raise AssertionError(f"enqueue took {enqueue_ms:.3f} ms, past the {sleep_ms:.3f} ms sleep")
     return start.elapsed_time(end) / iters, host_ms
+
+
+def timed_once(fn) -> tuple:
+    """(fn's result, device ms, host ms) of one call after one warm-up call,
+    unqueued, up to a synchronize: for a plain version of seconds a call
+    (TIMING_ITERS' (_, 1, False)), whose timed call also gives the reference
+    output, where `time_ms` and a call for the output would run it twice
+    more: 2 x (14.8 s + 3.5 s) of the timing phase's 95.6 s in a run on the
+    H100 (NVIDIA H100 80GB HBM3, 700 W)."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end), (time.perf_counter() - t0) * 1e3
 
 
 def max_abs_err(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -1465,7 +1503,8 @@ def time_kernels(dev, full_values: dict, heavy_frame: bits.Frame) -> dict:
     for name, (kern, plain, nbytes, nops) in plan.items():
         kern_iters, plain_iters, queued = TIMING_ITERS.get(name, (100, 10, True))
         if plain not in plain_runs:
-            plain_runs[plain] = (plain(), *time_ms(plain, plain_iters, cpm, queued=queued))
+            plain_runs[plain] = (timed_once(plain) if (plain_iters, queued) == (1, False) else
+                                 (plain(), *time_ms(plain, plain_iters, cpm, queued=queued)))
         want, plain_ms, plain_host_ms = plain_runs[plain]
         got = kern()
         if name == "rans_section_encode":
@@ -1636,7 +1675,7 @@ def check_flash(dev) -> dict:
         ok, tol = flash_within(got, want)
         finite = bool(torch.isfinite(got).all())
         expected = flash_attn.kernel_for(dt, dh, h // kh)
-        if (case in MOE_FLASH_CASES + RECURRENT_FLASH_CASES[:1] + FRONTEND_FLASH_CASES
+        if (case in MOE_FLASH_CASES + RECURRENT_FLASH_CASES[:2] + FRONTEND_FLASH_CASES
                 and expected != flash_attn.TENSOR_CORE):
             raise AssertionError(f"the B10 case {case} of a served config would run on {expected}")
         split = None
@@ -2297,13 +2336,25 @@ def run_train_drill(dev) -> dict:
     return out
 
 
+#: the utility ops `prof.events()` leaves out of a trace, which
+#: `device_busy_ms` leaves out too
+PROFILER_UTILITY_OPS = ("[memory]", "[OutOfMemory]", "profiler::_record_function_enter",
+                        "profiler::_record_function_enter_new", "profiler::_record_function_exit",
+                        "aten::is_leaf", "aten::output_nr", "aten::_version")
+
+
 def device_busy_ms(fn, top: int = 0):
     """Device time of every kernel, copy and set `fn` runs, summed over the
-    profiler trace's device-side events (None if it holds none). A torch
-    op's own entry in `key_averages()` also carries its kernels' device
-    time, so the sum runs over the device events alone. With `top`, returns
-    (ms, the `top` kernel names with the most device time and their ms, the
-    count of torch ops the host called at top level)."""
+    profiler trace's device-side events (None if it holds none). With
+    `top`, returns (ms, the `top` kernel names with the most device time and
+    their ms, the count of torch ops the host called at top level: aten ops
+    inside no other synchronous host event of their thread, the parents
+    `prof.events()` gives).
+
+    The trace is read from the profiler's raw events: `prof.events()` builds
+    a Python object and the parent tree for each of them, ~0.28 ms a host op
+    on an 8-core host, twice the capture's own cost, which made the served
+    paths' profiles a tenth of the script's time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -2311,12 +2362,23 @@ def device_busy_ms(fn, top: int = 0):
         fn()
         torch.cuda.synchronize()
     by_name: dict = {}
+    spans: dict = {}  # thread -> [(start, -end, name)] of its synchronous host events
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if name in PROFILER_UTILITY_OPS or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        if e.device_type() == DeviceType.CUDA:
+            by_name[name] = by_name.get(name, 0.0) + (e.end_ns() - e.start_ns()) / 1e6
+        elif e.device_type() == DeviceType.CPU and not e.is_async() and e.start_thread_id() == e.end_thread_id():
+            spans.setdefault(e.start_thread_id(), []).append((e.start_ns(), -e.end_ns(), name))
     host_ops = 0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            by_name[e.name] = by_name.get(e.name, 0.0) + e.device_time_total / 1e3
-        elif e.cpu_parent is None and e.name.startswith("aten::"):
-            host_ops += 1
+    for evs in spans.values():
+        ends = []  # the ends of the events enclosing the current one, innermost last
+        for start, neg_end, name in sorted(evs):
+            while ends and (start >= ends[-1] or -neg_end > ends[-1]):
+                ends.pop()
+            host_ops += not ends and name.startswith("aten::")
+            ends.append(-neg_end)
     total = sum(by_name.values())
     ms = total if total > 0 else None
     if not top:
@@ -3370,46 +3432,75 @@ RECURRENT_PATHS = (
 
 
 def cache_leaves(cache: dict, prefix: str = "") -> dict:
-    """{"groups/rec1/h": tensor, ...}: every tensor of a cache by path."""
+    """{"groups/rec1/h": tensor, ...}: every tensor of a cache by path (a
+    leaf held as shards gathered whole)."""
     out = {}
     for k, v in cache.items():
         if isinstance(v, dict):
             out.update(cache_leaves(v, f"{prefix}{k}/"))
         elif isinstance(v, torch.Tensor):
             out[prefix + k] = v
+        elif isinstance(v, Sharded):
+            out[prefix + k] = v.gather()
     return out
 
 
-def recurrent_side(model, cfg, prompts: torch.Tensor, gen: int) -> tuple:
+def recurrent_side(model, cfg, prompts: torch.Tensor, gen: int, cache_len: Optional[int] = None,
+                   mesh=None) -> tuple:
     """One side of the card-vs-CPU check: the prefill's logits and cache
-    (on the CPU), then greedy decode steps: (logits, leaves, tokens)."""
-    with torch.inference_mode():
-        cache, logits = prefill(model, cfg, prompts, prompts.shape[1] + gen)
+    (on the CPU, shards gathered), then greedy decode steps (the serve
+    step): (logits, leaves, tokens). With `mesh`, under it and MAP2: split
+    over its model axis, every cache leaf held as shards."""
+    ctx = contextlib.ExitStack()
+    if mesh is not None:
+        ctx.enter_context(partition.logical_axes(MAP2))
+        ctx.enter_context(partition.set_mesh(mesh))
+    with ctx, torch.inference_mode():
+        cache, logits = prefill(model, cfg, prompts, cache_len or prompts.shape[1] + gen)
+        if mesh is not None and not (tp_active(cfg) and all(
+                isinstance(v, Sharded) and len(v.shards) == mesh.size for v in sharded_leaves(cache))):
+            raise AssertionError(f"{cfg.name}: the cache on {mesh.shape} is not held as split shards")
         leaves = {k: v.cpu().clone() for k, v in cache_leaves(cache).items()}
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         toks = [tok]
         for _ in range(gen - 1):
-            cache, lg = decode_step(model, cfg, cache, tok)
-            tok = torch.argmax(lg, dim=-1).to(torch.int32)
+            cache, tok = decode_greedy(model, cfg, cache, tok)
             toks.append(tok)
     return logits.float().cpu(), leaves, torch.cat(toks, dim=1).cpu().numpy()
 
 
-def check_recurrent_card_vs_cpu(dev, arch: str, dtype: str) -> dict:
+def sharded_leaves(cache: dict) -> list:
+    """Every leaf of a cache but `pos`, as it is held."""
+    out = []
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out.extend(sharded_leaves(v))
+        elif k != "pos":
+            out.append(v)
+    return out
+
+
+def check_recurrent_card_vs_cpu(dev, arch: str, dtype: str, spec: Optional[dict] = None) -> dict:
     """The recurrent phase's first part for `arch` in `dtype`: the same
     weights and prompts on the card and the CPU at full width and
-    RECURRENT_CHECK's depth, held to its limits for that dtype."""
+    RECURRENT_CHECK's depth, held to its limits for that dtype. With
+    `spec` (the tp_recurrent phase's (d)/(e)): both sides split over the
+    same mesh shape (`spec["shape"]`, card slots against CPU slots), with
+    a cache of `spec["check_cache_len"]` positions when given, every state
+    and ring leaf gathered from its shards."""
     c = RECURRENT_CHECK
     lim = c["dtypes"][dtype]
     cfg = dataclasses.replace(get_arch(arch).model, n_layers=c["layers"][arch], dtype=dtype)
     tree = params_to_numpy(init_params(cfg, seed=0, device=dev))
     prompts = torch.randint(0, cfg.vocab_size, (c["batch"], c["prompt_len"]),
                             generator=torch.Generator().manual_seed(5)).to(torch.int32)
+    cache_len = (spec or {}).get("check_cache_len")
     sides, secs = {}, {}
     for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
         t0 = time.perf_counter()
         model = params_from_numpy(tree, cfg, d)
-        sides[name] = recurrent_side(model, cfg, prompts.to(d), c["gen"])
+        mesh = None if spec is None else card_mesh(spec["shape"], ("data", "model"), d)
+        sides[name] = recurrent_side(model, cfg, prompts.to(d), c["gen"], cache_len, mesh)
         del model
         free_card()
         secs[name] = time.perf_counter() - t0
@@ -3429,8 +3520,10 @@ def check_recurrent_card_vs_cpu(dev, arch: str, dtype: str) -> dict:
     top2 = lp[:, 0].topk(2, dim=-1).values
     margin = (top2[:, 0] - top2[:, 1]).tolist()
     first = [bool(tok_c[i, 0] == tok_p[i, 0]) or margin[i] < 2 * err for i in range(c["batch"])]
-    out = {"phase": "recurrent", "path": "card_vs_cpu", "arch": arch, "dtype": dtype, "n_layers": cfg.n_layers,
-           "d_model": cfg.d_model, "limits": lim, "prefill_logits_max_abs_err": err, "max_abs_logit": scale,
+    out = {"phase": "recurrent" if spec is None else spec["phase"], "path": "card_vs_cpu", "arch": arch,
+           "dtype": dtype, "n_layers": cfg.n_layers, "d_model": cfg.d_model, "limits": lim,
+           "mesh": None if spec is None else dict(zip(("data", "model"), spec["shape"])), "cache_len": cache_len,
+           "prefill_logits_max_abs_err": err, "max_abs_logit": scale,
            "states": states, "code_agreement": codes, "tokens_card": tok_c.tolist(), "tokens_cpu": tok_p.tolist(),
            "token_agreement": float((tok_c == tok_p).mean()), "top2_margin_cpu": margin,
            "finite": bool(torch.isfinite(lc).all()), "card_s": secs["card"], "cpu_s": secs["cpu"]}
@@ -3634,10 +3727,11 @@ FRONTEND_CHECK = {
 #: TRAIN_CHECK's float32 limits
 SOFTCAP_CHECK = dict(cap=1.0, batch=2, prompt_len=64, gen=4, seq=64, lr=1e-3)
 #: the serving paths, weights from seed 0, NUQ cache on: musicgen-large at
-#: full width and all 48 layers (3.23 B parameters, 6.5 GB in bf16), 4 x
-#: 2,048 frame embeddings + 32 generated; pixtral-12b at full width cut to
-#: 10 of its 40 layers (for time: its decoder is mistral-nemo-12b's, which
-#: the moe phase serves at all 40), 4 x 2,048 patch embeddings + 8
+#: full width and 24 of its 48 layers (3.23 B parameters, 6.5 GB in bf16 at
+#: 48; cut for the script's time, DENSE_PATH), 4 x 2,048 frame embeddings +
+#: 32 generated; pixtral-12b at full width cut to 10 of its 40 layers (for
+#: time: its decoder is mistral-nemo-12b's, which the moe phase serves too),
+#: 4 x 2,048 patch embeddings + 8
 FRONTEND_PATHS = (
     dict(arch="musicgen-large", batch=4, prompt_len=2048, gen=32, n_layers=24),
     dict(arch="pixtral-12b", batch=4, prompt_len=2048, gen=8, n_layers=10),
@@ -3987,10 +4081,53 @@ def slot_launches():
             setattr(ops, n, fn)
 
 
+@contextlib.contextmanager
+def sync_inputs():
+    """The calls to the compressed sync in the block: a list of (trees,
+    arguments), `trees` the gradient tree of each slot of the sync's mesh
+    (under tensor parallelism of each data shard) on the CPU in its dtype,
+    `arguments` the call's other arguments by name. Every tree holds the
+    global mean there (`steps._mesh_train_step`)."""
+    import inspect
+
+    from repro_torch.core import gradient as gradmod
+
+    seen, orig = [], gradmod.compressed_grad_sync
+    sig = inspect.signature(orig)
+
+    def record(grads, *a, **kw):
+        args = sig.bind(grads, *a, **kw).arguments
+        trees = [grads] if isinstance(grads, dict) else list(grads)
+        seen.append(([{k: v.detach().cpu() for k, v in t.items()} for t in trees],
+                     {k: v for k, v in args.items() if k != "grads"}))
+        return orig(grads, *a, **kw)
+
+    gradmod.compressed_grad_sync = record
+    try:
+        yield seen
+    finally:
+        gradmod.compressed_grad_sync = orig
+
+
+def replay_sync(call: tuple, name: str) -> torch.Tensor:
+    """The sync's output for leaf `name` recomputed on the CPU from a
+    recorded call (`sync_inputs`): the CPU's quantize and dequantize of the
+    trees that call was given, float32."""
+    from repro_torch.core import gradient as gradmod
+    from repro_torch.runtime.elastic import DeviceMesh
+
+    trees, args = call
+    mesh, specs = args["mesh"], args.get("param_specs")
+    kw = {**args, "mesh": DeviceMesh((torch.device("cpu"),) * mesh.size, mesh.shape, mesh.axis_names),
+          "param_specs": None if specs is None else {name: specs[name]}}
+    return gradmod.compressed_grad_sync([{name: t[name]} for t in trees], **kw)[0][name].to(torch.float32)
+
+
 def mesh_train_once(d, cfg, tree: dict, tokens: np.ndarray, mesh) -> tuple:
     """One data-parallel step of `cfg` on `mesh` (slots on `d`) from the
     numpy weights `tree`: (loss, grad_norm, {name: AdamW's m}, {name:
-    update}), the leaves gathered whole on the CPU."""
+    update}, {name: the merged gradient entering the compressed sync}, the
+    sync's recorded call), the leaves gathered whole on the CPU."""
     c = TRAIN_CHECK
     with partition.logical_axes(MAP3):
         specs = param_specs(cfg, "train")
@@ -4006,22 +4143,43 @@ def mesh_train_once(d, cfg, tree: dict, tokens: np.ndarray, mesh) -> tuple:
                      v={k: t.placement.zeros(t.shape, torch.float32) for k, t in params.items()})
     before = {k: t.gather().cpu() for k, t in params.items()}
     b = {"inputs": torch.from_numpy(tokens[:, :-1]).to(d), "labels": torch.from_numpy(tokens[:, 1:]).to(d)}
-    params, opt, m = step(params, opt, b)
+    with sync_inputs() as seen:
+        params, opt, m = step(params, opt, b)
     moments = {k: t.gather().cpu() for k, t in opt.m.items()}
     updates = {k: t.gather().cpu() - before[k] for k, t in params.items()}
-    return float(m["loss"]), float(m["grad_norm"]), moments, updates
+    merged = {k: v.to(torch.float32) for k, v in seen[0][0][0].items()}
+    return float(m["loss"]), float(m["grad_norm"]), moments, updates, merged, seen[0]
 
 
 def check_mesh_train_card_vs_cpu(dev, spec: dict = MESH_TRAIN, phase: str = "mesh") -> dict:
-    """(a) first: one compressed data-parallel step at full width and 2
-    layers on the mesh of `spec` ((pod 2, data 1, model 1); the tp phase's
-    (pod 2, data 1, model 2) splits the model axis), card slots against CPU
-    slots, the same numpy weights and tokens, in float32 and in bf16, held
-    to TRAIN_CHECK leaf by leaf."""
+    """(a) first: one compressed data-parallel step of `spec`'s arch
+    (qwen3-1.7b unless named) at full width and 2 layers on the mesh of
+    `spec` ((pod 2, data 1, model 1); the tp phases' (pod 2, data 1, model
+    2) splits the model axis), card slots against CPU slots, the same numpy
+    weights and tokens, in float32 and in bf16, held to TRAIN_CHECK leaf by
+    leaf: the loss, the gradient norm, the merged gradient entering the
+    compressed pod sync (the data and model sums' result), AdamW's first
+    moment after the sync and the step's updates.
+
+    The moment is (1 - b1) x the clipped, synced gradient. Each of its
+    leaves is held within the merged gradients' limit of the CPU's; a leaf
+    that is not is held within that limit of the moment recomputed from the
+    card's own merged gradient, quantized and dequantized by the CPU
+    (`replay_sync`) and clipped by the card's gradient norm. An element of
+    the merged gradient within float32 noise of a mu-law code boundary
+    lands one code apart on the two sides, ~4 % of its chunk's absmax, which
+    in a leaf of a few thousand elements moves the relative norm past 1e-3
+    (mamba2-1.3b's `conv_b`, whose 256 B and C channels fill a 2,048-element
+    chunk alone: 1.9e-3 in its first run on the H100); the recomputation
+    from the card's inputs has no such flips, and a fault in the card's
+    quantize or dequantize still shows there. The 8-bit codes of each
+    side's merged gradient that differ in the worst leaf are reported."""
     c = TRAIN_CHECK
-    cfg = dataclasses.replace(get_arch(LM_ARCH).model, n_layers=c["layers"])
+    arch = spec.get("arch", LM_ARCH)
+    cfg = dataclasses.replace(get_arch(arch).model, n_layers=c["layers"])
     tree = params_to_numpy(init_params(cfg, seed=0, device="cpu", param_dtype="float32"))
     tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (c["batch"], c["seq"] + 1)).astype(np.int32)
+    opt = AdamWConfig(lr=c["lr"])
     bad, out = [], {}
     for dtype in ("float32", "bfloat16"):
         cfg = dataclasses.replace(cfg, dtype=dtype)
@@ -4031,18 +4189,32 @@ def check_mesh_train_card_vs_cpu(dev, spec: dict = MESH_TRAIN, phase: str = "mes
             mesh = card_mesh(spec["shape"], spec["names"], d)
             got[d.type] = mesh_train_once(d, cfg, tree, tokens, mesh)
             free_card()
-        (lc, gc, mc, uc), (lp, gp, mp, up) = got["cuda"], got["cpu"]
-        grad_rel = {k: rel_norm(mc[k], mp[k]) for k in mp}
+        (lc, gc, mc, uc, gc_in, call), (lp, gp, mp, up, gp_in, _) = got["cuda"], got["cpu"]
+        grad_rel = {k: rel_norm(gc_in[k], gp_in[k]) for k in gp_in}
+        synced_rel = {k: rel_norm(mc[k], mp[k]) for k in mp}
         update_rel = {k: rel_norm(uc[k], up[k]) for k in up}
         tol = c[dtype]
+        scale = torch.tensor(min(1.0, opt.clip_norm / max(gc, 1e-12)), dtype=torch.float32)
+        replayed = {}
+        for k, r in synced_rel.items():
+            if r > tol["grad_rel"]:
+                g = replay_sync(call, k)
+                replayed[k] = rel_norm(mc[k], (g * scale).to(mc[k].dtype) * (1 - opt.b1))
+        held = {k: min(r, replayed.get(k, r)) for k, r in synced_rel.items()}
+        worst = max(synced_rel, key=synced_rel.get)
+        codes = [quantize_tensor(g[worst], GradCompressionConfig())[0] for g in (gc_in, gp_in)]
         r = {"loss_card": lc, "loss_cpu": lp, "loss_rel": abs(lc - lp) / abs(lp), "grad_norm_card": gc,
              "grad_norm_cpu": gp, "grad_norm_rel": abs(gc - gp) / abs(gp),
              "grad_rel_max": max(grad_rel.values()), "grad_rel_worst": max(grad_rel, key=grad_rel.get),
+             "synced_rel_max": synced_rel[worst], "synced_rel_worst": worst,
+             "synced_worst_codes_apart": int((codes[0] != codes[1]).sum()), "synced_worst_numel": mp[worst].numel(),
+             "synced_replayed_rel": replayed, "synced_held_max": max(held.values()),
+             "synced_held_worst": max(held, key=held.get),
              "update_rel_max": max(update_rel.values()), "update_rel_worst": max(update_rel, key=update_rel.get),
-             "finite": all(bool(torch.isfinite(g).all()) for g in mc.values()) and math.isfinite(lc),
-             "tolerance": tol, "seconds": time.perf_counter() - t0}
+             "finite": all(bool(torch.isfinite(g).all()) for g in (*mc.values(), *gc_in.values()))
+             and math.isfinite(lc), "tolerance": tol, "seconds": time.perf_counter() - t0}
         out[dtype] = r
-        emit({"phase": phase, "path": "train_card_vs_cpu", "dtype": dtype,
+        emit({"phase": phase, "path": "train_card_vs_cpu", "arch": arch, "dtype": dtype,
               "mesh": dict(zip(spec["names"], spec["shape"])),
               "config": {k: c[k] for k in ("layers", "batch", "seq", "lr")}, **r})
         if not r["finite"]:
@@ -4053,20 +4225,26 @@ def check_mesh_train_card_vs_cpu(dev, spec: dict = MESH_TRAIN, phase: str = "mes
             bad.append(f"{dtype}: gradient norm {gc} on the card against {gp}")
         if r["grad_rel_max"] > tol["grad_rel"]:
             bad.append(f"{dtype}: merged gradient of {r['grad_rel_worst']} differs by {r['grad_rel_max']}")
+        if r["synced_held_max"] > tol["grad_rel"]:
+            bad.append(f"{dtype}: AdamW's m of {r['synced_held_worst']} differs by {r['synced_held_max']} "
+                       f"(the CPU's {synced_rel[r['synced_held_worst']]})")
         if r["update_rel_max"] > tol["update_rel"]:
             bad.append(f"{dtype}: update of {r['update_rel_worst']} differs by {r['update_rel_max']}")
     if bad:
-        raise AssertionError("card and CPU data-parallel training disagree: " + "; ".join(bad))
+        raise AssertionError(f"{arch}: card and CPU data-parallel training disagree: " + "; ".join(bad))
     return out
 
 
 def run_mesh_train(dev, t: dict = MESH_TRAIN, phase: str = "mesh") -> dict:
-    """(a): `train(mesh=...)` at full width and depth (or `t["n_layers"]`),
-    with the launch counts set to 0 just before and read just after: B10's
-    lse form twice per layer, step and slot (the forward and full remat's
-    recompute) in each slot's program (under tensor parallelism, on the
-    slot's heads), B2 once per step (the feed), no other form of B10."""
-    cfg = get_arch(LM_ARCH).model
+    """(a): `train(mesh=...)` of `t`'s arch (qwen3-1.7b unless named) at
+    full width and depth (or `t["n_layers"]`), with the launch counts set
+    to 0 just before and read just after: B10's lse form twice per
+    attention layer, step and slot (the forward and full remat's recompute)
+    in each slot's program (under tensor parallelism, on the slot's heads;
+    none for the ssm family), B2 once per step (the feed), no other form of
+    B10."""
+    arch = t.get("arch", LM_ARCH)
+    cfg = get_arch(arch).model
     if t.get("n_layers"):
         cfg = dataclasses.replace(cfg, n_layers=t["n_layers"])
     mesh = card_mesh(t["shape"], t["names"], dev)
@@ -4081,8 +4259,8 @@ def run_mesh_train(dev, t: dict = MESH_TRAIN, phase: str = "mesh") -> dict:
         tp = tp_active_on(cfg, mesh, MAP3)
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
-    per_step = (2 if cfg.remat == "full" else 1) * cfg.n_layers * t["steps"]
-    want_slot = {"flash_attention_fwd_lse": per_step}
+    per_step = (2 if cfg.remat == "full" else 1) * attention_layers(cfg) * t["steps"]
+    want_slot = {"flash_attention_fwd_lse": per_step} if per_step else {}
     checks = {
         "steps": run.final_step == t["steps"] and len(run.losses) == t["steps"],
         "losses_finite": all(math.isfinite(x) for x in run.losses),
@@ -4092,14 +4270,14 @@ def run_mesh_train(dev, t: dict = MESH_TRAIN, phase: str = "mesh") -> dict:
         and not any(launches[k] for k in ("flash_attention_fwd_tc", "flash_attention_fwd",
                                           "flash_attention_fwd_lse_fma")),
     }
-    emit({"phase": phase, "path": "train", "arch": LM_ARCH, "mesh": dict(zip(t["names"], t["shape"])),
+    emit({"phase": phase, "path": "train", "arch": arch, "mesh": dict(zip(t["names"], t["shape"])),
           "mapping": MAP3, "n_layers": cfg.n_layers, "batch": t["batch"], "seq": t["seq"], "steps": t["steps"],
           "losses": run.losses, "step_s": run.step_s, "tokens_per_s": run.tokens_per_s,
           "peak_memory_allocated": torch.cuda.max_memory_allocated(), "wire_bytes": compat.wire_bytes(),
           "launches": {k: launches[k] for k in MESH_KERNELS}, "launches_per_slot": per_slot,
           "tensor_parallel": tp, "checks": checks, "seconds": wall})
     if not all(checks.values()):
-        raise AssertionError(f"the data-parallel train path fails its checks: {checks}; per slot {per_slot}")
+        raise AssertionError(f"{arch}: the data-parallel train path fails its checks: {checks}; per slot {per_slot}")
     free_card()
     return launches
 
@@ -4166,12 +4344,15 @@ def check_mesh_serve_card_vs_cpu(dev, spec: dict) -> dict:
 
 
 def run_mesh_serve(dev, spec: dict) -> dict:
-    """(b)/(c): `spec["arch"]` at full width (and `n_layers`) served through
-    `serve(mesh=...)` with the launch counts set to 0 just before and read
-    just after: B10's tensor-core kernel once per layer in each data
-    shard's slot program when the data axis splits the batch, else once
-    per layer on the whole batch; every slot's ring shard of 1/n of the
-    ring. Then one profiled decode step for the busy share."""
+    """(b)/(c), and the tp phases' serving paths: `spec["arch"]` at full
+    width (and `n_layers`) served through `serve(mesh=...)` with the launch
+    counts set to 0 just before and read just after: B10's tensor-core
+    kernel once per attention layer in each data shard's slot program when
+    the data axis splits the batch, in each slot's program on its heads
+    under tensor parallelism, else once per attention layer on the whole
+    batch (never for the attention-free ssm family); every slot's ring
+    shard of 1/n of the ring, every recurrent state held as shards. Then
+    one profiled decode step for the busy share and the host's ops."""
     cfg = get_arch(spec["arch"]).model
     if spec.get("n_layers"):
         cfg = dataclasses.replace(cfg, n_layers=spec["n_layers"])
@@ -4193,24 +4374,39 @@ def run_mesh_serve(dev, spec: dict) -> dict:
     launches, wire = ops.launch_counts(), compat.wire_bytes()
     n_data, n_model = spec["shape"]
     tp = tp_active_on(cfg, mesh, MAP2)
-    if n_data > 1 or tp:  # per data shard, or under tensor parallelism per slot on its heads
-        want = {s: {"flash_attention_fwd_tc": cfg.n_layers} for s in range(mesh.size)}
+    n_attn = attention_layers(cfg)
+    if not n_attn:
+        want = {}
+    elif n_data > 1 or tp:  # per data shard, or under tensor parallelism per slot on its heads
+        want = {s: {"flash_attention_fwd_tc": n_attn} for s in range(mesh.size)}
     else:
-        want = {"whole": {"flash_attention_fwd_tc": cfg.n_layers}}
-    ring = run.cache["layers"]["k_codes"]
-    w = _round_window(cfg.effective_kv_window(spec["prompt_len"] + spec["gen"]))
+        want = {"whole": {"flash_attention_fwd_tc": n_attn}}
+    ring = attention_ring(cfg, run.cache)
+    w = None if ring is None else _round_window(cfg.effective_kv_window(spec["prompt_len"] + spec["gen"]))
+    rows = spec["batch"] // n_data if spec["batch"] > 1 else 1
     checks = {
         "per_slot_b10": per_slot == want,
         "no_fma": launches["flash_attention_fwd"] == 0,
         "logits_finite": bool(torch.isfinite(run.prefill_logits).all()),
         "tokens_in_vocab": bool(((run.tokens >= 0) & (run.tokens < cfg.padded_vocab)).all()),
-        "ring_shards": len(ring.shards) == mesh.size and all(
-            tuple(sh.shape) == (cfg.n_layers, spec["batch"] // n_data, w // n_model, cfg.n_kv_heads, cfg.head_dim)
-            for sh in ring.shards),
         "pos": run.cache["pos"] == spec["prompt_len"] + spec["gen"] - 1,
     }
+    if ring is not None:
+        checks["ring_shards"] = len(ring["k_codes"].shards) == mesh.size and all(
+            tuple(sh.shape) == (n_attn, rows, w // n_model, cfg.n_kv_heads, cfg.head_dim)
+            for sh in ring["k_codes"].shards)
+    ring_ids = {id(v) for v in (ring or {}).values()}
+    states = [v for v in sharded_leaves(run.cache) if id(v) not in ring_ids]
+    if cfg.family in ("ssm", "hybrid"):
+        checks["state_shards"] = bool(states) and all(
+            isinstance(v, Sharded) and len(v.shards) == mesh.size
+            and math.prod(v.shards[0].shape) * n_model * (spec["batch"] // rows) == math.prod(v.shape)
+            for v in states)
+        checks["states_finite"] = all(bool(torch.isfinite(sh.float()).all()) for v in states for sh in v.shards)
     if n_model > 1:
-        checks["lse_merge_on_the_wire"] = wire.get("pmax", 0) > 0 and wire.get("psum", 0) > 0
+        checks["split_sums_on_the_wire"] = wire.get("psum", 0) > 0 and wire.get("all_gather", 0) > 0
+        if n_attn:
+            checks["lse_merge_on_the_wire"] = wire.get("pmax", 0) > 0
     if (n_data > 1 or tp) and cfg.family == "moe":
         checks["moe_buffers_gathered"] = wire.get("all_gather", 0) > 0
     line = {"phase": spec.get("phase", "mesh"), "path": f"serve/{spec['arch']}", "tensor_parallel": tp,
@@ -4229,9 +4425,10 @@ def run_mesh_serve(dev, spec: dict) -> dict:
         cache, _ = decode_step(model, cfg, cache, tok)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3
-        busy = device_busy_ms(lambda: decode_step(model, cfg, cache, tok))
+        busy, top, host_ops = device_busy_ms(lambda: decode_step(model, cfg, cache, tok), top=4)
     line.update({"decode_step_wall_ms": wall_ms, "decode_step_busy_ms": busy,
-                 "busy_share": busy / wall_ms if busy else None, "seconds": time.perf_counter() - t0})
+                 "busy_share": busy / wall_ms if busy else None, "decode_step_top_kernels_ms": top,
+                 "host_ops_per_decode_step": host_ops, "seconds": time.perf_counter() - t0})
     emit(line)
     del run, model, prompts, cache
     free_card()
@@ -4287,9 +4484,45 @@ TP_TRAIN = dict(shape=(2, 1, 2), names=("pod", "data", "model"), steps=2, batch=
 TP_MOE = dict(arch="qwen3-moe-30b-a3b", shape=(1, 4), batch=4, prompt_len=2048, gen=4, n_layers=4, phase="tp")
 
 
-def run_tp(dev) -> dict:
-    """The tp phase: (a)-(c) with their card-vs-CPU checks. Returns the
-    launches of the three main paths."""
+#: the tp_recurrent paths (ROADMAP A10 item 5c): the ssm and hybrid families
+#: split over the model axis, every slot on the one H100, each held card
+#: against CPU on the same slots first:
+#:  (d) mamba2-1.3b at full width and depth (48 layers) served 4 x 2,048 + 4
+#:      on (data 1, model 4): 2,128 of in_proj's 8,512 columns, 1,088 of the
+#:      4,352 conv channels (17 heads' worth, straddling the slot's 16 SSD
+#:      heads) and 1,024 of out_proj's rows a slot; its check at
+#:      RECURRENT_CHECK's 2 layers and limits, both dtypes;
+#:  (e) recurrentgemma-9b at full width and depth (38 layers) served 2 x
+#:      4,096 + 4 on (data 1, model 4), so that its 2,048-slot rings wrap:
+#:      4 of the 16 heads (G 4 over the one kv head, B10's Dh 256
+#:      tensor-core instance, 12 launches a slot), 1,024 of 4,096 RG-LRU
+#:      channels, 3,072 of 12,288 d_ff and 512 ring slots a slot; its check
+#:      at RECURRENT_CHECK's 5 layers and limits, both dtypes, in a cache of
+#:      512 positions, so that the ring's four 128-slot scale groups split 4
+#:      ways (256 would be one group: refused, as TP_SERVE's check keeps
+#:      512); its codes are compared after the prefill, when every slot of
+#:      both rings holds the same tokens;
+#:  (f) training: mamba2-1.3b on (pod 2, data 1, model 2), its split train
+#:      check at 2 layers in float32 and bf16 under TRAIN_CHECK, then
+#:      `train(mesh=...)` at full width and 8 of its 48 layers (TP_TRAIN's
+#:      cut), 2 compressed steps of 4 x 1,024 through B2.
+#: recurrentgemma-9b's split training does not run on the card: its float32
+#: masters and moments, with a 1.05 B-parameter embedding, do not fit a
+#: useful depth beside the other paths; the CPU tests hold it
+TP_RECURRENT_SERVE = (
+    dict(arch="mamba2-1.3b", shape=(1, 4), batch=4, prompt_len=2048, gen=4, phase="tp_recurrent"),
+    dict(arch="recurrentgemma-9b", shape=(1, 4), batch=2, prompt_len=4096, gen=4, phase="tp_recurrent",
+         check_cache_len=512),
+)
+TP_TRAIN_SSM = dict(TP_TRAIN, arch="mamba2-1.3b")
+
+
+def run_tp(dev) -> tuple:
+    """The tp phase: (a)-(c) with their card-vs-CPU checks (a `tp` line
+    with their seconds), then the tp_recurrent paths (d)-(f)
+    (`run_tp_recurrent`). Returns (the launches of the six main paths,
+    those of B10's Dh 256 instance in (e))."""
+    t0 = time.perf_counter()
     launches = {k: 0 for k in KERNELS}
     for fn in (lambda: (check_mesh_serve_card_vs_cpu(dev, TP_SERVE), run_mesh_serve(dev, TP_SERVE))[1],
                lambda: (check_mesh_train_card_vs_cpu(dev, TP_TRAIN, "tp"), run_mesh_train(dev, TP_TRAIN, "tp"))[1],
@@ -4297,7 +4530,67 @@ def run_tp(dev) -> dict:
         for k, n in fn().items():
             if k in launches:
                 launches[k] += n
-    return launches
+    end_phase("tp", t0)
+    got, dh256 = run_tp_recurrent(dev)
+    for k, n in got.items():
+        launches[k] += n
+    return launches, dh256
+
+
+def run_tp_recurrent(dev) -> tuple:
+    """(d)-(f) with their card-vs-CPU checks, then a `tp_recurrent` line
+    with their seconds. Returns (their launches, B10's Dh 256 instance's
+    launches in (e))."""
+    t0 = time.perf_counter()
+    launches = {k: 0 for k in KERNELS}
+    dh256 = 0
+    for spec in TP_RECURRENT_SERVE:
+        for dtype in RECURRENT_CHECK["dtypes"]:
+            check_recurrent_card_vs_cpu(dev, spec["arch"], dtype, spec)
+        got = run_mesh_serve(dev, spec)
+        if get_arch(spec["arch"]).model.family == "hybrid":
+            dh256 += got["flash_attention_fwd_tc"]
+        for k, n in got.items():
+            if k in launches:
+                launches[k] += n
+    check_mesh_train_card_vs_cpu(dev, TP_TRAIN_SSM, "tp_recurrent")
+    for k, n in run_mesh_train(dev, TP_TRAIN_SSM, "tp_recurrent").items():
+        if k in launches:
+            launches[k] += n
+    end_phase("tp_recurrent", t0)
+    return launches, dh256
+
+
+def keep_freed_host_memory() -> dict:
+    """This process's own allocator: glibc serves every host allocation
+    from its heap (M_MMAP_MAX 0) and keeps what is freed there (M_TRIM_
+    THRESHOLD at its largest) until a phase ends (`end_phase`). The CPU
+    halves of the card-vs-CPU checks allocate and free tensors of up to GBs
+    at full width; by default glibc maps each afresh and returns it when
+    freed, so every one is faulted in page by page again. Returns mallopt's
+    answers (1 each: accepted)."""
+    import ctypes.util
+
+    libc = ctypes.CDLL(ctypes.util.find_library("c"))
+    m_trim_threshold, m_mmap_max = -1, -4
+    got = {"M_MMAP_MAX": libc.mallopt(m_mmap_max, 0), "M_TRIM_THRESHOLD": libc.mallopt(m_trim_threshold, 2**31 - 1)}
+    if not all(v == 1 for v in got.values()):
+        raise RuntimeError(f"glibc refused the allocator settings: {got}")
+    return got
+
+
+def end_phase(name: str, t0: float) -> None:
+    """A phase's closing line: its seconds, this process's peak host memory
+    so far and its resident memory once the heap's free pages are handed
+    back (glibc's `malloc_trim`, so that a later phase's allocations do
+    not sit in holes an earlier one left)."""
+    import ctypes.util
+
+    ctypes.CDLL(ctypes.util.find_library("c")).malloc_trim(0)
+    with open("/proc/self/statm") as f:
+        rss = int(f.read().split()[1]) * resource.getpagesize()
+    emit({"phase": name, "seconds": time.perf_counter() - t0,
+          "peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024, "rss_bytes": rss})
 
 
 def main() -> int:
@@ -4305,7 +4598,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
     dev = torch.device("cuda")
-    t0 = time.perf_counter()
+    malloc = keep_freed_host_memory()
+    t_start = t0 = time.perf_counter()
     build.library()
     log = build.build_log()
     regs = [ln.strip() for ln in log.splitlines() if "registers" in ln]
@@ -4316,7 +4610,7 @@ def main() -> int:
         "injected_warpgroup_arrives": tc_log.count("C7519"),
     }
     emit({"phase": "build", "seconds": time.perf_counter() - t0, "ptxas": regs, "flash_tc": flash_tc,
-          "torch": torch.__version__, "cuda": torch.version.cuda, "numpy": np.__version__})
+          "torch": torch.__version__, "cuda": torch.version.cuda, "numpy": np.__version__, "mallopt": malloc})
 
     t0 = time.perf_counter()
     err = check_kernels(dev)
@@ -4352,22 +4646,22 @@ def main() -> int:
     for run in (run_api_dict, run_api_adaptive):
         for k, n in run(dev, full_values["rovio"]).items():
             launches[k] += n
-    emit({"phase": "api", "seconds": time.perf_counter() - t0})
+    end_phase("api", t0)
     t0 = time.perf_counter()
     gang_launches, serve_gang = run_gang(dev, full_values)
     for k, n in gang_launches.items():
         launches[k] += n
-    emit({"phase": "gang", "seconds": time.perf_counter() - t0})
+    end_phase("gang", t0)
     t0 = time.perf_counter()
     for k, n in run_fleet(dev, full_values["rovio"], serve_gang).items():
         launches[k] += n
-    emit({"phase": "fleet", "seconds": time.perf_counter() - t0})
+    end_phase("fleet", t0)
     t0 = time.perf_counter()
     check_lm_card_vs_cpu(dev)
     lm_launches, model, prompts = run_lm(dev)
     for k, n in lm_launches.items():
         launches[k] += n
-    emit({"phase": "lm", "seconds": time.perf_counter() - t0})
+    end_phase("lm", t0)
     t0 = time.perf_counter()
     check_train_card_vs_cpu(dev)
     check_train_feed(dev)
@@ -4376,7 +4670,7 @@ def main() -> int:
     for k, n in train_launches.items():
         launches[k] += n
     run_train_drill(dev)
-    emit({"phase": "train", "seconds": time.perf_counter() - t0})
+    end_phase("train", t0)
     missing = [k for k, n in launches.items() if n == 0 and k not in OFF_PATH + EVAL_ONLY]
     if missing:
         raise AssertionError(f"the main paths did not launch: {missing}")
@@ -4399,12 +4693,12 @@ def main() -> int:
     t0 = time.perf_counter()
     for k, n in run_moe(dev).items():
         launches[k] += n
-    emit({"phase": "moe", "seconds": time.perf_counter() - t0})
+    end_phase("moe", t0)
     t0 = time.perf_counter()
     rec_launches, dh256_launches, times[DH256] = run_recurrent(dev)
     for k, n in rec_launches.items():
         launches[k] += n
-    emit({"phase": "recurrent", "seconds": time.perf_counter() - t0})
+    end_phase("recurrent", t0)
     launches[DH256], eval_launches[DH256] = dh256_launches, 0
     err[DH256] = max(dh256_err, times[DH256]["max_abs_err"])
     t0 = time.perf_counter()
@@ -4415,15 +4709,16 @@ def main() -> int:
         err[k] = max(err.get(k, 0.0), e)
     err[SOFTCAP] = max(err[SOFTCAP], fe_times[SOFTCAP]["max_abs_err"])
     times[SOFTCAP], eval_launches[SOFTCAP] = fe_times[SOFTCAP], 0
-    emit({"phase": "frontends", "seconds": time.perf_counter() - t0})
+    end_phase("frontends", t0)
     t0 = time.perf_counter()
     for k, n in run_mesh(dev).items():
         launches[k] += n
-    emit({"phase": "mesh", "seconds": time.perf_counter() - t0})
-    t0 = time.perf_counter()
-    for k, n in run_tp(dev).items():
+    end_phase("mesh", t0)
+    tp_launches, tp_dh256 = run_tp(dev)
+    for k, n in tp_launches.items():
         launches[k] += n
-    emit({"phase": "tp", "seconds": time.perf_counter() - t0})
+    launches[DH256] += tp_dh256
+    end_phase("host", t_start)
     emit({"kernels": [
         {
             "name": name, "route": "cuda", "source": src, "replaces": replaces,

@@ -260,6 +260,19 @@ def mulaw_decode_unsigned(code: torch.Tensor, qbits: int, vmax: float, mu: float
     return table[bits._u(code).clamp(max=(1 << qbits) - 1)]
 
 
+def signed_table(qbits: int, vmax: float, mu: float, round_int: bool, device) -> torch.Tensor:
+    """float32[2^qbits]: the value of every signed code, a sign bit over a
+    (qbits - 1)-bit magnitude (code s 2^(qbits-1) + m -> (-1)^s decode(m),
+    -0.0 for the negative zero), cached like the tables."""
+    device = torch.device(device)
+    key = ("signed", qbits, float(vmax), float(mu), round_int, device)
+    t = _TORCH_TABLES.get(key)
+    if t is None:
+        dec = decode_table(qbits - 1, float(vmax), float(mu), round_int)
+        t = _TORCH_TABLES[key] = torch.from_numpy(np.concatenate([dec, -dec])).to(device)
+    return t
+
+
 def mulaw_encode_signed(d: torch.Tensor, qbits: int, dmax: float,
                         mu: float = DEFAULT_MU) -> torch.Tensor:
     """Quantize float32 values in [-dmax, dmax]: 1 sign bit + (qbits-1)
@@ -271,10 +284,9 @@ def mulaw_encode_signed(d: torch.Tensor, qbits: int, dmax: float,
 
 def mulaw_decode_signed(code: torch.Tensor, qbits: int, dmax: float, mu: float = DEFAULT_MU,
                         round_int: bool = True) -> torch.Tensor:
-    """Inverse of `mulaw_encode_signed` (float32; a set sign bit negates)."""
-    c = bits._u(code)
-    mag = mulaw_decode_unsigned(c & ((1 << (qbits - 1)) - 1), qbits - 1, dmax, mu, round_int)
-    return torch.where(((c >> (qbits - 1)) & 1) == 1, -mag, mag)
+    """Inverse of `mulaw_encode_signed` (float32; a set sign bit negates;
+    bits above the code's qbits ignored), one gather from `signed_table`."""
+    return signed_table(qbits, dmax, mu, round_int, code.device)[code.to(torch.int64) & ((1 << qbits) - 1)]
 
 
 def to_u32_saturating(x: torch.Tensor) -> torch.Tensor:

@@ -36,7 +36,7 @@ from typing import Any, Callable, List, Mapping, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import compat
-from repro_torch.core.algorithms.nuq import mulaw_decode_unsigned, mulaw_encode_unsigned
+from repro_torch.core.algorithms.nuq import mulaw_decode_signed, mulaw_encode_signed
 
 
 @dataclasses.dataclass(frozen=True)
@@ -67,9 +67,7 @@ def quantize_tensor(x: torch.Tensor, cfg: GradCompressionConfig) -> Tuple[torch.
     ch = flat.reshape(-1, cfg.chunk)
     scale = torch.amax(torch.abs(ch), dim=1) + 1e-12
     xn = ch / scale[:, None]
-    sign = (xn < 0).to(torch.int32)
-    mag = mulaw_encode_unsigned(torch.abs(xn), cfg.qbits - 1, 1.0, cfg.mu)
-    codes = ((sign << (cfg.qbits - 1)) | mag).reshape(-1).to(torch.uint8)
+    codes = mulaw_encode_signed(xn, cfg.qbits, 1.0, cfg.mu).reshape(-1).to(torch.uint8)
     if cfg.qbits == 4:
         codes = codes[0::2] | (codes[1::2] << 4)
     return codes, scale, n
@@ -83,10 +81,7 @@ def dequantize_tensor(packed: torch.Tensor, scale: torch.Tensor, n: int, shape,
         lo = (packed & 0x0F).to(torch.int32)
         hi = (packed >> 4).to(torch.int32)
         codes = torch.stack([lo, hi], dim=1).reshape(-1)
-    sign = (codes >> (cfg.qbits - 1)) & 1
-    mag = mulaw_decode_unsigned(codes & ((1 << (cfg.qbits - 1)) - 1), cfg.qbits - 1, 1.0, cfg.mu,
-                                round_int=False)
-    xn = torch.where(sign == 1, -mag, mag).reshape(-1, cfg.chunk)
+    xn = mulaw_decode_signed(codes, cfg.qbits, 1.0, cfg.mu, round_int=False).reshape(-1, cfg.chunk)
     flat = (xn * scale[:, None]).reshape(-1)[:n]
     return flat.reshape(shape).to(dtype)
 

@@ -20,8 +20,9 @@ For each cell this:
 the placements of the step's arguments and results on one device;
 `temp_size_in_bytes` is the peak of the live tensors the slot's ops create
 and `peak_memory_in_bytes` adds the arguments: the eager program's, not a
-compiler's. The ssm and hybrid families' model axis is not split yet
-(ROADMAP A10 item 5c): their cells are refused.
+compiler's. Every family's model axis is split (tensor parallelism); the
+SSD chunk loop of a prefill runs one chunk on `meta`, counted once per
+chunk (`models/ssd.py`).
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen3-1.7b --shape decode_32k --mesh pod
@@ -54,8 +55,6 @@ from repro_torch.optim.adamw import AdamWState
 from repro_torch.runtime.sharding import Placement, Sharded, batch_specs, param_specs, physical_specs
 
 META = torch.device("meta")
-REFUSED_5C = ("the model axis's compute of the ssm and hybrid families is not split yet "
-              "(ROADMAP A10 item 5c)")
 
 
 @dataclasses.dataclass
@@ -90,13 +89,20 @@ def _batch_bytes(mesh, cfg, kind: str, feeds: dict, data_ok: bool, mb: int = 1) 
 
 
 def _cache_bytes(cache: dict) -> int:
-    """One slot's bytes of a decode cache: the first shard of each ring
-    leaf (every slot's is alike), and `pos` as the reference's int32."""
-    total = 4
-    for v in cache["layers"].values():
-        t = v.shards[0] if isinstance(v, Sharded) else v
-        total += t.numel() * t.element_size()
-    return total
+    """One slot's bytes of a decode cache: the first shard of each leaf,
+    rings and recurrent states (every slot's is alike), and `pos` as the
+    reference's int32."""
+    def leaves(node: dict) -> int:
+        total = 0
+        for k, v in node.items():
+            if isinstance(v, dict):
+                total += leaves(v)
+            elif k != "pos":
+                t = v.shards[0] if isinstance(v, Sharded) else v
+                total += t.numel() * t.element_size()
+        return total
+
+    return 4 + leaves(cache)
 
 
 def run_cell(arch_id: str, shape_name: str, multi_pod: bool, kv_quant: Optional[bool] = None,
@@ -110,8 +116,6 @@ def run_cell(arch_id: str, shape_name: str, multi_pod: bool, kv_quant: Optional[
     if spec.skips and shape_name in spec.skips:
         return CellResult({**base, "status": "skipped", "reason": spec.skips[shape_name]})
     cfg = spec.model
-    if cfg.family not in ("dense", "moe"):
-        return CellResult({**base, "status": "refused", "reason": REFUSED_5C})
     if kv_quant is not None:
         cfg = dataclasses.replace(cfg, kv_quant=kv_quant)
 

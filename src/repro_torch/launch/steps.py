@@ -3,7 +3,7 @@
 `make_train_step` returns (init_fn, train_step): microbatched gradient
 accumulation in float32, optional compressed gradient sync across a mesh
 axis, AdamW applied in place, and metrics; on a mesh, data parallel, and
-tensor parallel over the model axis for the dense and moe families.
+tensor parallel over the model axis for every family.
 `make_serve_step` / `make_prefill_step` wrap the decode and prefill paths.
 """
 from __future__ import annotations
@@ -157,20 +157,21 @@ def _mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, step_cfg: TrainStep
         each pod's codes averaged with identical ones;
       * AdamW: the global norm clip on the whole gradients, then each
         slot updates its own shards in place.
-    Tensor parallelism (the dense and moe families on a model axis wider
-    than one slot, `transformer.tp_active`): each data shard runs one group
+    Tensor parallelism (every family on a model axis wider than one slot,
+    `transformer.tp_active`): each data shard runs one group
     program over its model group (`transformer.loss_group`) instead of
     one program per slot. Each slot's leaves are its model shards of the
     masters gathered over the data axes only (`Sharded.gather_over`); one
     autograd graph runs over the group's slots, differentiating the loss of
     its first slot (every slot holds the same value); a leaf the model
     axis does not split gets each slot's partial gradient, summed over the
-    group; the gradients are summed over the data axes; the pod sync
-    quantizes whole leaves (the model shards all-gathered), as the
-    reference's does; the clip's norm is a `psum` of the model slots'
+    group (a replicated per-channel or per-head leaf of the recurrent
+    blocks, `conv_b`, `lam`, `A_log`, ..., of which each slot uses its
+    slice, the same way); the gradients are summed over the data axes;
+    the pod sync quantizes whole leaves (the model shards all-gathered),
+    as the reference's does; the clip's norm is a `psum` of the model slots'
     squared norms, a replicated leaf counted once; AdamW runs on each
-    slot's own shards. The ssm and hybrid families keep one program per
-    slot with whole weights (ROADMAP A10 item 5c)."""
+    slot's own shards."""
     from repro_torch.runtime.elastic import logical_mapping
     from repro_torch.runtime.sharding import Placement
 
@@ -182,7 +183,7 @@ def _mesh_train_step(cfg: ModelConfig, opt_cfg: AdamWConfig, step_cfg: TrainStep
     n_data = compat.n_slots(mesh, daxes)
     with partition.logical_axes(mapping):
         maxes = partition.model_axes(mesh)
-    tp = cfg.family in ("dense", "moe") and bool(maxes) and compat.n_slots(mesh, maxes) > 1
+    tp = bool(maxes) and compat.n_slots(mesh, maxes) > 1
     #: the axes a slot's gradient spans: all of them, or under tensor
     #: parallelism all but the model axes (its model shard)
     oaxes = tuple(a for a in mesh.axis_names if not tp or a not in maxes)

@@ -19,15 +19,14 @@ there. Inside a slot's program (`slot_program`: one slot of the mesh runs
 its shard of a batch, as a `shard_map` body does) `hint` checks that each
 dim named by a split logical axis has its shard's size.
 
-Tensor parallelism (the dense and moe families on a model axis wider than
-one slot) runs one program per data shard over that shard's model group
+Tensor parallelism (every family on a model axis wider than one slot)
+runs one program per data shard over that shard's model group
 (`model_groups`, a `Group`): the layer code holds lists of per-slot
 tensors, one per model slot, each on its slot's device, and the slots meet
 at the collectives of `compat.py`. `Group.map` runs each slot's part under
 its slot program, whose split also names "model" (the vocab, the one dim
 the model code hints over "model"), so `hint` checks the slot's vocab
-shard too. The ssm and hybrid families compute with whole weights on every
-model slot (ROADMAP A10 item 5c).
+shard too.
 """
 from __future__ import annotations
 

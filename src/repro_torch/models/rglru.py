@@ -11,6 +11,16 @@ A_t * cumsum(b / A), would underflow float32 at S = 4,096.) Decode carries
 
 Plain torch, no kernel: the reference computes the block in jnp, and no
 Pallas kernel of its reaches it.
+
+Tensor parallelism (`rglru_group`, a model group of n slots,
+`models/partition.py`): a slot holds 1/n of the columns of `w_in_x`,
+`w_in_gate`, `w_a` and `w_x`, of the conv's channels (`conv_w` and its
+`conv_tail` shard) and of `w_out`'s rows, and the RG-LRU state `h` of its
+R / n channels. Its in-projections give its channels of `xb` and of the
+gate, and the conv runs per channel against its tail; `w_a` and `w_x` take
+every channel of `xb`, which is all-gathered; the scan runs on the slot's
+channels into its `h` shard, and `w_out`'s row shards give partial sums
+(`compat.psum`).
 """
 from __future__ import annotations
 
@@ -19,6 +29,7 @@ from typing import Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch import compat
 from repro_torch.models.params import Storage, _Params
 
 C_SCALE = 8.0  # Griffin's fixed temperature on the recurrence gate
@@ -87,27 +98,67 @@ def _lru_scan(a: torch.Tensor, bx: torch.Tensor, h0: torch.Tensor) -> torch.Tens
     return h + a_cum * h0[:, None, :]
 
 
+def _project(x: torch.Tensor, p: Mapping[str, torch.Tensor], conv_b: torch.Tensor,
+             tail: Optional[torch.Tensor]):
+    """The in-projections of x (B, S, D) on `p`'s columns and the causal
+    conv of their channels (bias `conv_b`): (gate, xb, the new conv tail)."""
+    gate = gelu_tanh((x @ p["w_in_gate"]).to(torch.float32)).to(x.dtype)
+    xb, new_tail = causal_conv1d(x @ p["w_in_x"], p["conv_w"], conv_b, tail)
+    return gate, xb, new_tail
+
+
+def _gated_scan(xa: torch.Tensor, xb: torch.Tensor, gate: torch.Tensor, h0: torch.Tensor,
+                p: Mapping[str, torch.Tensor], sl: slice = slice(None)):
+    """The RG-LRU on the channels `sl` and the gated out-projection: the
+    gates r and i from xa (B, S, R), every channel of the conv's output,
+    against `p`'s columns of `w_a`/`w_x` and its `sl` slice of `b_a`, `b_x`
+    and `lam`; the scan of xb (the channels `sl`) from h0, gated, against
+    `p`'s rows of `w_out`: (y (B, S, D), h_last float32)."""
+    f32 = torch.float32
+    r = torch.sigmoid((xa @ p["w_a"] + p["b_a"][sl]).to(f32))
+    i = torch.sigmoid((xa @ p["w_x"] + p["b_x"][sl]).to(f32))
+    a = torch.exp(-C_SCALE * r * softplus(p["lam"][sl]))  # a_t (B, S, R)
+    bx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (i * xb.to(f32))
+    h = _lru_scan(a, bx, h0.to(f32))
+    return (h.to(xb.dtype) * gate) @ p["w_out"], h[:, -1, :]
+
+
 def rglru_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor, h0: torch.Tensor,
                 conv_tail: Optional[torch.Tensor] = None):
     """x (B, S, D) -> (y (B, S, D), h_last float32 (B, R), conv_tail).
 
     Griffin's recurrent block: in-projection, causal conv, RG-LRU, gated
     out-projection; S = 1 is a decode step (the same code, O(1) state)."""
-    dt = x.dtype
-    gate = gelu_tanh((x @ params["w_in_gate"]).to(torch.float32)).to(dt)
-    xb = x @ params["w_in_x"]
-    xb, new_tail = causal_conv1d(xb, params["conv_w"], params["conv_b"], conv_tail)
+    gate, xb, new_tail = _project(x, params, params["conv_b"], conv_tail)
+    y, h_last = _gated_scan(xb, xb, gate, h0, params)
+    return y, h_last, new_tail
 
-    r = torch.sigmoid((xb @ params["w_a"] + params["b_a"]).to(torch.float32))
-    i = torch.sigmoid((xb @ params["w_x"] + params["b_x"]).to(torch.float32))
-    log_a = -C_SCALE * r * softplus(params["lam"])  # log a_t (B, S, R)
-    a = torch.exp(log_a)
-    gated_x = i * xb.to(torch.float32)
-    bx = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gated_x
 
-    h = _lru_scan(a, bx, h0.to(torch.float32))
-    y = (h.to(dt) * gate) @ params["w_out"]
-    return y, h[:, -1, :], new_tail
+def rglru_group(g, ps, xs, h0s=None, conv_tails=None):
+    """`rglru_apply` over a model group (see the module's docstring): xs[i]
+    (B, S, D) replicated on slot i, ps[i] the slot's parameters (its model
+    shards; `conv_b`, `b_a`, `b_x` and `lam` whole, of which it takes its
+    slice), h0s[i] (B, R / n) and conv_tails[i] (B, W-1, R / n) its state
+    shards (zeros when None). Returns (ys, each slot's h_last and tail);
+    ys[i] (B, S, D) the replicated output."""
+    rn = ps[0]["w_in_x"].shape[1]
+    none = [None] * g.n
+
+    def channels(i: int) -> slice:
+        return slice(i * rn, (i + 1) * rn)
+
+    proj = g.map(lambda i, x, p, tail: _project(x, p, p["conv_b"][channels(i)], tail), xs, ps, conv_tails or none)
+    xb_all = compat.all_gather([t[1] for t in proj], g.devices, dim=-1)
+
+    def scan(i, xa, pr, p, h0):
+        gate, xb = pr[0], pr[1]
+        if h0 is None:
+            h0 = torch.zeros((xb.shape[0], rn), dtype=torch.float32, device=xb.device)
+        return _gated_scan(xa, xb, gate, h0, p, channels(i))
+
+    out = g.map(scan, xb_all, proj, ps, h0s or none)
+    ys = compat.psum([o[0] for o in out], g.devices)
+    return ys, [o[1] for o in out], [t[2] for t in proj]
 
 
 def init_rglru_state(batch: int, lru_width: int, device=None) -> torch.Tensor:

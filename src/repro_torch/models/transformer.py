@@ -46,27 +46,33 @@ backward, both decode reads.
 
 Under a mesh and logical mapping (`models/partition.py`), the reference's
 `partition.hint` sites are kept (the identity on whole tensors, a shape
-check inside a slot's program), the rings of the decode cache are held as
-`runtime/sharding.Sharded` per `sharding.cache_specs` (batch over data,
-ring over model; the recurrent states stay whole), a prefill writes each
-layer's shards from its whole K/V, its B10 attention runs per data shard
-on the shard's slot, the decode reads the ring through the
-distributed-LSE branch of `kvcache.decode_attend_dlse`, and an moe block
-dispatches per data shard (`models/moe.py`).
+check inside a slot's program), the decode cache is held as
+`runtime/sharding.Sharded` per `sharding.cache_specs` (the rings' batch
+over data and ring over model; the recurrent states' batch over data and
+`ssm_state`'s heads, the conv tails' channels and the RG-LRU's `h` width
+over model). On a model axis of one slot a prefill writes each layer's
+shards from its whole K/V, its B10 attention runs per data shard on the
+shard's slot, the decode reads the ring through the distributed-LSE branch
+of `kvcache.decode_attend_dlse`, an moe block dispatches per data shard
+(`models/moe.py`), and a recurrent block gathers its state shards, steps
+and writes them back.
 
-Tensor parallelism: for the dense and moe families on a model axis wider
-than one slot (`tp_active`), `prefill`, `decode_step` and the train step
+Tensor parallelism: for every family on a model axis wider than one slot
+(`tp_active`), `prefill`, `decode_step` and the train step
 (`launch/steps.py`) run one program per data shard over its model group
 (`partition.Group`), on lists of per-slot tensors: the embedding and head
 split by vocab (a masked lookup of the slot's rows then `compat.psum`;
 logits (data, None, "model"); a vocab-parallel cross-entropy, `ce_group`;
 a greedy argmax over the split vocab, `decode_greedy`), attention split by
 heads (`layers.head_splits`), the SwiGLU's d_ff and the moe experts split
-(`moe.moe_group`), norms and residuals replicated. Each slot writes its
-slice of the ring from K/V gathered over the group, and the decode merges
-the slots' statistics over their ring slices (`kvcache.
-decode_attend_group`). The ssm and hybrid families keep whole weights on
-every model slot (ROADMAP A10 item 5c).
+(`moe.moe_group`), the Mamba2 mixer by heads and conv channels
+(`ssd.mamba2_group`), the RG-LRU by channels (`rglru.rglru_group`), norms
+and residuals replicated. Each slot writes its slice of the ring from K/V
+gathered over the group, and the decode merges the slots' statistics over
+their ring slices (`kvcache.decode_attend_group`); the hybrid's local
+attention does so over its window's ring, which splits only where its
+scale groups divide the model axis. Each slot carries its shards of the
+recurrent states.
 """
 from __future__ import annotations
 
@@ -198,11 +204,26 @@ class SSMBlock(_Params):
         O(1) update of one token when `decode`; the new state written back
         in place."""
         fn = ssd.mamba2_decode if decode else ssd.mamba2_apply
-        y, h, tail = fn(self.mixer.params(), cfg, layers.rms_norm(x, self.p("norm")), state["ssm_state"],
-                        state["conv_tail"])
-        state["ssm_state"].copy_(h)
-        state["conv_tail"].copy_(tail)
+        whole = _whole_state(state, x.device)
+        y, h, tail = fn(self.mixer.params(), cfg, layers.rms_norm(x, self.p("norm")), whole["ssm_state"],
+                        whole["conv_tail"])
+        _write_state(state, whole, {"ssm_state": h, "conv_tail": tail})
         return x + y
+
+
+def _whole_state(state: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """A block's recurrent state as whole tensors: a `Sharded` leaf (a
+    model axis of one slot, the batch over data) gathered on `device`."""
+    return {k: v if isinstance(v, torch.Tensor) else v.gather(device) for k, v in state.items()}
+
+
+def _write_state(state: Dict[str, Any], whole: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]) -> None:
+    """The new state into the cache in place (into a `Sharded` leaf's
+    shards through its gathered copy)."""
+    for k, t in new.items():
+        whole[k].copy_(t)
+        if not isinstance(state[k], torch.Tensor):
+            state[k].write(whole[k])
 
 
 class RecSublayer(_Params):
@@ -232,9 +253,9 @@ class RecSublayer(_Params):
     def step_(self, cfg: ModelConfig, x: torch.Tensor, state: Dict[str, torch.Tensor]) -> torch.Tensor:
         """x through the sublayer from the state in `state` (`h`,
         `conv_tail`), the new state written back in place."""
-        x, h, tail = self.apply(cfg, x, state["h"], state["conv_tail"])
-        state["h"].copy_(h)
-        state["conv_tail"].copy_(tail)
+        whole = _whole_state(state, x.device)
+        x, h, tail = self.apply(cfg, x, whole["h"], whole["conv_tail"])
+        _write_state(state, whole, {"h": h, "conv_tail": tail})
         return x
 
 
@@ -427,10 +448,11 @@ def _ring(cfg: ModelConfig, n: int, batch: int, w: int, device: torch.device) ->
     (uint8 codes + float32 group scales) when `cfg.kv_quant`, else raw in
     `cfg.dtype`. Under a mesh and mapping each is a `sharding.Sharded` by
     `sharding.cache_specs` (batch over data when batch > 1, ring over
-    model)."""
+    model); the model axis splits a ring only where its scale groups (its
+    slots, raw) divide over the model slots, else ValueError."""
     kh, dh = cfg.n_kv_heads, cfg.head_dim
+    g = min(kvcache.SCALE_GROUP, w) if cfg.kv_quant else 1
     if cfg.kv_quant:
-        g = min(kvcache.SCALE_GROUP, w)
         leaves = {"k_codes": ((n, batch, w, kh, dh), torch.uint8, 0.0),
                   "v_codes": ((n, batch, w, kh, dh), torch.uint8, 0.0),
                   "k_scale": ((n, batch, w // g, kh), torch.float32, 1.0),
@@ -441,12 +463,28 @@ def _ring(cfg: ModelConfig, n: int, batch: int, w: int, device: torch.device) ->
     mesh, axes = partition.current_mesh(), partition.current_axes()
     if mesh is None or axes is None:
         return {k: torch.full(shape, fill, dtype=dt, device=device) for k, (shape, dt, fill) in leaves.items()}
+    m = partition.model_width(mesh)
+    if (w // g) % m:
+        raise ValueError(f"a ring of {w} slots in groups of {g} does not split over {m} model slots: the model "
+                         f"axis splits a ring only where its groups divide over it (W / {g} % n == 0)")
     from repro_torch.runtime.sharding import Placement
 
     data = "data" if batch > 1 else None
     return {k: Placement(mesh, partition.spec(*((None, data, "model") + (None,) * (len(shape) - 3))))
             .zeros(shape, dt, fill, logical=(None, data, "model") + (None,) * (len(shape) - 3))
             for k, (shape, dt, fill) in leaves.items()}
+
+
+def _state(shape: tuple, dtype: torch.dtype, logical: tuple, device: torch.device):
+    """A recurrent state leaf of zeros: under a mesh and mapping a
+    `sharding.Sharded` by its logical spec (`sharding.cache_specs`), else a
+    tensor on `device`."""
+    mesh, axes = partition.current_mesh(), partition.current_axes()
+    if mesh is None or axes is None:
+        return torch.zeros(shape, dtype=dtype, device=device)
+    from repro_torch.runtime.sharding import Placement
+
+    return Placement(mesh, partition.spec(*logical)).zeros(shape, dtype, logical=logical)
 
 
 def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int, device: Device = None) -> Dict[str, Any]:
@@ -457,25 +495,29 @@ def init_decode_cache(cfg: ModelConfig, batch: int, seq_len: int, device: Device
     The ssm family keeps `layers/ssm_state` (float32 (L, B, G, E, P, N)) and
     `layers/conv_tail` ((L, B, W-1, conv_dim) in `cfg.dtype`); the hybrid's
     RG-LRU sublayers `groups/{rec1,rec2}` and `tail` hold `h` (float32 (n,
-    B, lru_width)) and `conv_tail` ((n, B, W-1, lru_width))."""
+    B, lru_width)) and `conv_tail` ((n, B, W-1, lru_width)). Under a mesh
+    and mapping every leaf is a `sharding.Sharded` by `sharding.cache_specs`."""
     device = resolve_device(device)
     dt = dtype_of(cfg)
+    data = "data" if batch > 1 else None
     if cfg.family == "ssm":
         n = cfg.n_layers
         e = cfg.ssm_heads // cfg.ssm_groups
         return {"pos": 0, "layers": {
-            "ssm_state": torch.zeros((n, batch, cfg.ssm_groups, e, cfg.ssm_head_dim, cfg.ssm_state),
-                                     dtype=torch.float32, device=device),
-            "conv_tail": torch.zeros((n, batch, cfg.conv_width - 1, ssd.conv_dim(cfg)), dtype=dt, device=device),
+            "ssm_state": _state((n, batch, cfg.ssm_groups, e, cfg.ssm_head_dim, cfg.ssm_state), torch.float32,
+                                (None, data, None, "model", None, None), device),
+            "conv_tail": _state((n, batch, cfg.conv_width - 1, ssd.conv_dim(cfg)), dt, (None, data, None, "model"),
+                                device),
         }}
     w = _round_window(cfg.effective_kv_window(seq_len))
     if cfg.family != "hybrid":
         return {"pos": 0, "layers": _ring(cfg, cfg.n_layers, batch, w, device)}
     groups, rem = cfg.hybrid_pattern()
 
-    def rec_state(n: int) -> Dict[str, torch.Tensor]:
-        return {"h": torch.zeros((n, batch, cfg.lru_width), dtype=torch.float32, device=device),
-                "conv_tail": torch.zeros((n, batch, cfg.conv_width - 1, cfg.lru_width), dtype=dt, device=device)}
+    def rec_state(n: int) -> Dict[str, Any]:
+        return {"h": _state((n, batch, cfg.lru_width), torch.float32, (None, data, "model"), device),
+                "conv_tail": _state((n, batch, cfg.conv_width - 1, cfg.lru_width), dt, (None, data, None, "model"),
+                                    device)}
 
     cache = {"pos": 0, "groups": {"rec1": rec_state(groups), "rec2": rec_state(groups),
                                   "attn": _ring(cfg, groups, batch, w, device)}}
@@ -663,9 +705,9 @@ def prefill(model: Transformer, cfg: ModelConfig, inputs: torch.Tensor,
 
 # ======================================================= tensor parallelism ===
 def tp_active(cfg: ModelConfig) -> bool:
-    """The dense and moe families under a mapping and mesh whose model axis
-    holds more than one slot: their compute is split over it."""
-    return cfg.family in ("dense", "moe") and partition.model_width() > 1
+    """Under a mapping and mesh whose model axis holds more than one slot:
+    the compute of every family is split over it."""
+    return partition.model_width() > 1
 
 
 def nested(named: Dict[str, Any]) -> Dict[str, Any]:
@@ -681,10 +723,15 @@ def nested(named: Dict[str, Any]) -> Dict[str, Any]:
 
 
 def tp_layout(cfg: ModelConfig, n: int):
-    """(head splits of the n model slots, whether wk/wv are split)."""
+    """(head splits of the n model slots, whether wk/wv are split): of the
+    attention layers (`layers`, or the hybrid's `groups`); (None, False)
+    for the attention-free ssm family."""
     from repro_torch.runtime.sharding import model_split
 
-    kv_sharded = model_split(cfg)["layers.0.attn.wk"] is not None
+    if cfg.family == "ssm":
+        return None, False
+    stack = "groups" if cfg.family == "hybrid" else "layers"
+    kv_sharded = model_split(cfg)[f"{stack}.0.attn.wk"] is not None
     return layers.head_splits(cfg, n, kv_sharded), kv_sharded
 
 
@@ -698,8 +745,10 @@ def tp_groups(cfg: ModelConfig, batch: int):
     split = {"model": (cfg.padded_vocab, n)}
     if data_split:
         split["data"] = (batch, n_data)
-    variants = tuple((sp.heads[1] - sp.heads[0], sp.kv[1] - sp.kv[0], sp.own_kv[1] - sp.own_kv[0],
-                      sp.kv_index is None) for sp in tp_layout(cfg, n)[0])
+    splits = tp_layout(cfg, n)[0]
+    variants = None if splits is None else tuple(
+        (sp.heads[1] - sp.heads[0], sp.kv[1] - sp.kv[0], sp.own_kv[1] - sp.own_kv[0], sp.kv_index is None)
+        for sp in splits)
     return [dataclasses.replace(g, variants=variants) for g in partition.model_groups(mesh, split)], data_split
 
 
@@ -788,6 +837,12 @@ def moe_capacity(cfg: ModelConfig, tokens: int, n_data: int, data_split: bool) -
     return capacity(tokens, cfg)
 
 
+def _swiglu_group(g, fps, ns):
+    """A SwiGLU over a group: each slot's d_ff shard on the normed ns, the
+    partial sums added (`compat.psum`)."""
+    return compat.psum(g.map(lambda i, x, fp: layers.swiglu(fp, x), ns, fps), g.devices)
+
+
 def ffn_group(g, cfg: ModelConfig, lps, hs, cap: int = 0, moe_kw: Optional[dict] = None):
     """The block's FFN on the normed hs over a group: (ys, aux per slot or
     None). SwiGLU's shards give partial sums (`compat.psum`)."""
@@ -796,12 +851,79 @@ def ffn_group(g, cfg: ModelConfig, lps, hs, cap: int = 0, moe_kw: Optional[dict]
     ns = g.map(lambda i, h, lp: layers.rms_norm(h, lp["ffn_norm"]), hs, lps)
     if cfg.family == "moe":
         return moe_group(g, [lp["moe"] for lp in lps], cfg, ns, cap, **(moe_kw or {}))
-    return compat.psum(g.map(lambda i, x, lp: layers.swiglu(lp["ffn"], x), ns, lps), g.devices), None
+    return _swiglu_group(g, [lp["ffn"] for lp in lps], ns), None
 
 
-def block_train_group(g, cfg: ModelConfig, lps, xs, cap: int, moe_kw: Optional[dict] = None):
-    """`Block.forward` over a group: (xs out, aux per slot or None)."""
+def _write_states(states, **new) -> None:
+    """Each slot's new recurrent state into its views of the cache, in place."""
+    for i, st in enumerate(states):
+        for k, ts in new.items():
+            st[k].copy_(ts[i])
+
+
+def ssm_group(g, cfg: ModelConfig, lps, xs, states=None, decode: bool = False):
+    """`SSMBlock` over a group (`ssd.mamba2_group`): xs out; `states[i]`
+    slot i's views of the layer's `ssm_state` and `conv_tail` shards,
+    written in place (zeros in, nothing written, when None)."""
+    ns = g.map(lambda i, x, lp: layers.rms_norm(x, lp["norm"]), xs, lps)
+    ys, hs, tails = ssd.mamba2_group(g, [lp["mixer"] for lp in lps], cfg, ns,
+                                     None if states is None else [st["ssm_state"] for st in states],
+                                     None if states is None else [st["conv_tail"] for st in states], decode)
+    if states is not None:
+        _write_states(states, ssm_state=hs, conv_tail=tails)
+    return g.map(lambda i, x, y: partition.hint(x + y, "data", None, None), xs, ys)
+
+
+def rec_group(g, cfg: ModelConfig, lps, xs, states=None):
+    """`RecSublayer` over a group (`rglru.rglru_group`, then the split
+    SwiGLU): xs out; `states` as `ssm_group` takes them (`h`,
+    `conv_tail`)."""
+    ns = g.map(lambda i, x, lp: layers.rms_norm(x, lp["mix_norm"]), xs, lps)
+    ys, hs, tails = rglru.rglru_group(g, [lp["rglru"] for lp in lps], ns,
+                                      None if states is None else [st["h"] for st in states],
+                                      None if states is None else [st["conv_tail"] for st in states])
+    if states is not None:
+        _write_states(states, h=hs, conv_tail=tails)
+    xs = g.map(lambda i, x, y: x + y, xs, ys)
+    ff = _swiglu_group(g, [lp["ffn"] for lp in lps], g.map(lambda i, x, lp: layers.rms_norm(x, lp["ffn_norm"]),
+                                                           xs, lps))
+    return g.map(lambda i, x, y: partition.hint(x + y, "data", None, None), xs, ff)
+
+
+def hybrid_group(g, cfg: ModelConfig, lps, xs, attend, states=None):
+    """`HybridGroup` over a group: `rec1`, `rec2` (`rec_group`, `states`
+    {"rec1": [...], "rec2": [...]} or None), then `attend(normed xs)` (the
+    split local attention's summed output) and the split SwiGLU."""
+    for name in ("rec1", "rec2"):
+        xs = rec_group(g, cfg, [lp[name] for lp in lps], xs, None if states is None else states[name])
+    a = attend(g.map(lambda i, x, lp: layers.rms_norm(x, lp["attn_norm"]), xs, lps))
+    hs = g.map(lambda i, x, y: x + y, xs, a)
+    ff = _swiglu_group(g, [lp["attn_ffn"] for lp in lps],
+                       g.map(lambda i, h, lp: layers.rms_norm(h, lp["attn_ffn_norm"]), hs, lps))
+    return g.map(lambda i, h, y: partition.hint(h + y, "data", None, None), hs, ff)
+
+
+def block_keys(cfg: ModelConfig):
+    """(stack, index) of each block in order: `layers`, or the hybrid's
+    `groups` then `tail`."""
+    if cfg.family == "hybrid":
+        groups, rem = cfg.hybrid_pattern()
+        return [("groups", i) for i in range(groups)] + [("tail", i) for i in range(rem)]
+    return [("layers", i) for i in range(cfg.n_layers)]
+
+
+def block_train_group(g, cfg: ModelConfig, lps, xs, cap: int, moe_kw: Optional[dict] = None,
+                      stack: str = "layers"):
+    """A block's training forward over a group (the block of `stack`):
+    (xs out, aux per slot or None)."""
+    if cfg.family == "ssm":
+        return ssm_group(g, cfg, lps, xs), None
+    if stack == "tail":
+        return rec_group(g, cfg, lps, xs), None
     splits, kv_sharded = tp_layout(cfg, g.n)
+    if cfg.family == "hybrid":
+        return hybrid_group(g, cfg, lps, xs, lambda ns: layers.attention_train_group(
+            g, [lp["attn"] for lp in lps], cfg, ns, splits, kv_sharded, window=cfg.local_window)), None
     ns = g.map(lambda i, x, lp: layers.rms_norm(x, lp["attn_norm"]), xs, lps)
     a = layers.attention_train_group(g, [lp["attn"] for lp in lps], cfg, ns, splits, kv_sharded,
                                      window=cfg.swa_window)
@@ -819,16 +941,16 @@ def loss_group(g, cfg: ModelConfig, ps, batch: Dict[str, torch.Tensor], compute:
     xs = embed_group(g, cfg, ps, batch["inputs"], compute)
     remat = cfg.remat == "full" and torch.is_grad_enabled()
     auxs = []
-    for li in range(cfg.n_layers):
-        lps = [p["layers"][str(li)] for p in ps]
+    for stack, li in block_keys(cfg):
+        lps = [p[stack][str(li)] for p in ps]
         kw = dict(moe_kw or {})
         if isinstance(kw.get("record"), dict):
             kw["record"] = kw["record"].setdefault(li, [])
         if isinstance(kw.get("f_global"), dict):
             kw["f_global"] = kw["f_global"][li]
 
-        def fn(*x_in, lps=lps, kw=kw):
-            out, aux = block_train_group(g, cfg, lps, list(x_in), cap, kw)
+        def fn(*x_in, lps=lps, kw=kw, stack=stack):
+            out, aux = block_train_group(g, cfg, lps, list(x_in), cap, kw, stack)
             return (*out, *(aux or ()))
 
         res = checkpoint(fn, *xs, use_reentrant=False) if remat else fn(*xs)
@@ -841,67 +963,97 @@ def loss_group(g, cfg: ModelConfig, ps, batch: Dict[str, torch.Tensor], compute:
     return ce, g.map(lambda i, c: torch.sum(torch.stack([a[i].to(c.device) for a in auxs])), ce)
 
 
-def _slot_ring(cache_layers: Dict[str, Any], g, i: int, li: int) -> Dict[str, torch.Tensor]:
-    """Slot i's slice of layer li's ring (views of its shards)."""
-    return {k: t.shards[g.slots[i]][li] for k, t in cache_layers.items()}
+def _slot_states(node: Dict[str, Any], g, li: int) -> list:
+    """Each slot's slice of block li's leaves of one cache node (a ring, or
+    a recurrent state): views of its shards."""
+    return [{k: t.shards[s][li] for k, t in node.items()} for s in g.slots]
+
+
+def _attend_prefill_group(g, cfg: ModelConfig, aps, ns, positions, ring: Dict[str, Any], li: int,
+                          window: Optional[int]):
+    """A layer's split prefill attention (B10 on each slot's heads), its
+    ring's slices written from K/V gathered over the group: the summed
+    output on every slot."""
+    splits, kv_sharded = tp_layout(cfg, g.n)
+    qs, ks, vs = layers.attention_group_qkv(g, aps, cfg, ns, positions, splits, kv_sharded)
+
+    def attend(i, q, k, v):
+        k, v = layers.grouped_kv(splits[i], k, v)
+        return ops.flash_attention_fwd(q, k, v, window=window, causal=True, softcap=cfg.attn_logit_softcap)
+
+    a = layers.attention_group_out(g, aps, g.map(attend, qs, ks, vs, by=g.variants), splits)
+
+    def own(t):
+        return g.map(lambda i, x: x[:, :, splits[i].own_kv[0] - splits[i].kv[0]:
+                                    splits[i].own_kv[1] - splits[i].kv[0]], t, by=g.variants)
+
+    k_all = compat.all_gather(own(ks), g.devices, dim=2)
+    v_all = compat.all_gather(own(vs), g.devices, dim=2)
+    rings = _slot_states(ring, g, li)
+    w_local = next(iter(rings[0].values())).shape[1]
+    g.map(lambda i, k, v: kvcache.store_slice(rings[i], k, v, i * w_local, w_local * g.n, cfg.kv_quant,
+                                              lambda whole, k_, v_: store_kv(cfg, whole, k_, v_)),
+          k_all, v_all)
+    return a
+
+
+def _attend_decode_group(g, cfg: ModelConfig, aps, ns, positions, ring: Dict[str, Any], li: int, pos: int,
+                         window: Optional[int]):
+    """A layer's split decode attention: every head's q and the token's
+    K/V on every slot, the token written into the slot whose ring slice
+    holds it, the slots' statistics merged (`kvcache.decode_attend_group`):
+    the summed output on every slot."""
+    splits, kv_sharded = tp_layout(cfg, g.n)
+    qs, ks, vs = layers.attention_group_qkv(g, aps, cfg, ns, positions, splits, kv_sharded, all_heads=True)
+    outs = kvcache.decode_attend_group(g, qs, _slot_states(ring, g, li), ks, vs, pos, window,
+                                       softcap=cfg.attn_logit_softcap)
+    return layers.attention_group_out(g, aps, outs, splits, all_heads=True)
+
+
+def _group_blocks(g, cfg: ModelConfig, ps, xs, cache: Dict[str, Any], cap: int, attend, decode: bool):
+    """Every block over the group from `cache`'s states and rings (updated
+    in place); `attend(lps' attention params, normed xs, ring, li, window)`
+    the split prefill or decode attention. Returns xs out."""
+    for stack, li in block_keys(cfg):
+        lps = [p[stack][str(li)] for p in ps]
+        if cfg.family == "ssm":
+            xs = ssm_group(g, cfg, lps, xs, _slot_states(cache["layers"], g, li), decode)
+        elif stack == "tail":
+            xs = rec_group(g, cfg, lps, xs, _slot_states(cache["tail"], g, li))
+        elif cfg.family == "hybrid":
+            st = {name: _slot_states(cache["groups"][name], g, li) for name in ("rec1", "rec2")}
+            xs = hybrid_group(g, cfg, lps, xs, lambda ns, lps=lps, li=li: attend(
+                [lp["attn"] for lp in lps], ns, cache["groups"]["attn"], li, cfg.local_window), st)
+        else:
+            ns = g.map(lambda i, x, lp: layers.rms_norm(x, lp["attn_norm"]), xs, lps)
+            a = attend([lp["attn"] for lp in lps], ns, cache["layers"], li, cfg.swa_window)
+            hs = g.map(lambda i, x, y: x + y, xs, a)
+            ys, _ = ffn_group(g, cfg, lps, hs, cap)
+            xs = g.map(lambda i, h, y: partition.hint(h + y, "data", None, None), hs, ys)
+    return xs
 
 
 def _group_prefill(g, cfg: ModelConfig, ps, inputs: torch.Tensor, cache: Dict[str, Any], compute, cap: int):
-    """A prompt through the group: the rings' slices written, and each
-    slot's logits shard of the last position (B, 1, V / n)."""
-    splits, kv_sharded = tp_layout(cfg, g.n)
+    """A prompt through the group: the rings' slices and the recurrent
+    states' shards written, and each slot's logits shard of the last
+    position (B, 1, V / n)."""
     b, s = inputs.shape[:2]
     xs = embed_group(g, cfg, ps, inputs, compute)
     positions = torch.arange(s, dtype=torch.int32, device=xs[0].device)[None].expand(b, s)
-    w_local = next(iter(cache["layers"].values())).shards[g.slots[0]].shape[2]
-    for li in range(cfg.n_layers):
-        lps = [p["layers"][str(li)] for p in ps]
-        aps = [lp["attn"] for lp in lps]
-        ns = g.map(lambda i, x, lp: layers.rms_norm(x, lp["attn_norm"]), xs, lps)
-        qs, ks, vs = layers.attention_group_qkv(g, aps, cfg, ns, positions, splits, kv_sharded)
-
-        def attend(i, q, k, v):
-            k, v = layers.grouped_kv(splits[i], k, v)
-            return ops.flash_attention_fwd(q, k, v, window=cfg.swa_window, causal=True,
-                                           softcap=cfg.attn_logit_softcap)
-
-        a = layers.attention_group_out(g, aps, g.map(attend, qs, ks, vs, by=g.variants), splits)
-
-        def own(t):
-            return g.map(lambda i, x: x[:, :, splits[i].own_kv[0] - splits[i].kv[0]:
-                                        splits[i].own_kv[1] - splits[i].kv[0]], t, by=g.variants)
-
-        k_all = compat.all_gather(own(ks), g.devices, dim=2)
-        v_all = compat.all_gather(own(vs), g.devices, dim=2)
-        g.map(lambda i, k, v: kvcache.store_slice(_slot_ring(cache["layers"], g, i, li), k, v, i * w_local,
-                                                  w_local * g.n, cfg.kv_quant,
-                                                  lambda whole, k_, v_: store_kv(cfg, whole, k_, v_)),
-              k_all, v_all)
-        hs = g.map(lambda i, x, y: x + y, xs, a)
-        ys, _ = ffn_group(g, cfg, lps, hs, cap)
-        xs = g.map(lambda i, h, y: h + y, hs, ys)
+    xs = _group_blocks(g, cfg, ps, xs, cache, cap, lambda aps, ns, ring, li, window: _attend_prefill_group(
+        g, cfg, aps, ns, positions, ring, li, window), decode=False)
     return logits_group(g, cfg, ps, g.map(lambda i, x: x[:, -1:], xs))
 
 
 def _group_decode(g, cfg: ModelConfig, ps, inputs_t: torch.Tensor, cache: Dict[str, Any], compute, cap: int):
-    """One token through the group at `cache["pos"]`, the rings' slices
-    updated in place: each slot's logits shard (B, 1, V / n)."""
-    splits, kv_sharded = tp_layout(cfg, g.n)
+    """One token through the group at `cache["pos"]`, the rings' slices and
+    the states' shards updated in place: each slot's logits shard (B, 1,
+    V / n)."""
     pos = cache["pos"]
     xs = embed_group(g, cfg, ps, inputs_t, compute)
     positions = torch.full((xs[0].shape[0], 1), pos, dtype=torch.int32, device=xs[0].device)
-    for li in range(cfg.n_layers):
-        lps = [p["layers"][str(li)] for p in ps]
-        aps = [lp["attn"] for lp in lps]
-        ns = g.map(lambda i, x, lp: layers.rms_norm(x, lp["attn_norm"]), xs, lps)
-        qs, ks, vs = layers.attention_group_qkv(g, aps, cfg, ns, positions, splits, kv_sharded, all_heads=True)
-        rings = [_slot_ring(cache["layers"], g, i, li) for i in range(g.n)]
-        outs = kvcache.decode_attend_group(g, qs, rings, ks, vs, pos, cfg.swa_window,
-                                           softcap=cfg.attn_logit_softcap)
-        a = layers.attention_group_out(g, aps, outs, splits, all_heads=True)
-        hs = g.map(lambda i, x, y: x + y, xs, a)
-        ys, _ = ffn_group(g, cfg, lps, hs, cap)
-        xs = g.map(lambda i, h, y: partition.hint(h + y, "data", None, None), hs, ys)
+    xs = _group_blocks(g, cfg, ps, xs, cache, cap, lambda aps, ns, ring, li, window: _attend_decode_group(
+        g, cfg, aps, ns, positions, ring, li, pos, window), decode=True)
     return logits_group(g, cfg, ps, xs)
 
 
@@ -929,8 +1081,12 @@ def _whole_logits(parts, device) -> torch.Tensor:
 def _check_tp_cache(cache: Dict[str, Any]) -> None:
     from repro_torch.runtime.sharding import Sharded
 
-    if not all(isinstance(t, Sharded) for t in cache["layers"].values()):
-        raise ValueError("a tensor-parallel decode reads a ring held as shards (`init_decode_cache` "
+    def leaves(node):
+        for v in node.values():
+            yield from leaves(v) if isinstance(v, dict) else (v,)
+
+    if not all(isinstance(t, Sharded) for t in leaves({k: v for k, v in cache.items() if k != "pos"})):
+        raise ValueError("a tensor-parallel decode reads a cache held as shards (`init_decode_cache` "
                          "under the mesh)")
 
 

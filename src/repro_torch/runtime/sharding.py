@@ -24,10 +24,14 @@ is a tensor held as one shard per slot, each on its slot's device, with
 its placement and global shape; `gather` rebuilds the whole tensor, the
 counterpart of reading a global array, and `gather_over` rebuilds it over
 some mesh axes only, keeping the slot's shard along the others. Under
-tensor parallelism (the dense and moe families on a model axis wider than
-one slot) a slot gathers a weight over the data axes alone (FSDP) and
-computes on its model shard (`model_split`, `slot_weight`); the ssm and
-hybrid families gather their weights whole (ROADMAP A10 item 5c).
+tensor parallelism (every family on a model axis wider than one slot) a
+slot gathers a weight over the data axes alone (FSDP) and computes on its
+model shard (`model_split`, `slot_weight`); a replicated leaf (a norm, or
+a recurrent block's per-channel or per-head `conv_b`, `lam`, `b_a`, `b_x`,
+`A_log`, `D`, `dt_bias`, mamba2's gated-norm `norm`) reaches every slot
+whole, and the group forms of `models/ssd.py` and `models/rglru.py` take
+the slot's slice of it. The decode cache's recurrent states are held as
+`Sharded` by `cache_specs`, as its rings are.
 """
 from __future__ import annotations
 
@@ -148,8 +152,10 @@ def batch_specs(cfg: ModelConfig, kind: str, data_ok: bool = True) -> Dict[str, 
 
 def cache_specs(cfg: ModelConfig, batch: int, seq_len: int) -> Dict[str, Any]:
     """Logical specs for the port's decode cache (`init_decode_cache`, built
-    on `meta`): batch -> data, ring -> model. batch == 1 leaves the batch
-    unsharded and keeps the ring on model. `pos` (an int) gets ()."""
+    on `meta`): batch -> data, ring -> model, and the recurrent states'
+    heads (`ssm_state`), channels (`conv_tail`) and width (`h`) -> model.
+    batch == 1 leaves the batch unsharded and keeps the ring on model.
+    `pos` (an int) gets ()."""
     from repro_torch.models.transformer import init_decode_cache
 
     with partition.set_mesh(None):
