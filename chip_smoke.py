@@ -266,7 +266,18 @@ Phases, each printing one line per check:
                for mixtral the ring (the last 4,096 positions stored, each
                decode step overwriting the oldest slot); then each dense
                config at full width and 16 of its layers, 4 x 2,048 + 8, as
-               the lm path;
+               the lm path; then qwen3-moe-30b-a3b trained (ROADMAP A10
+               item 6): at full width and 2 layers on the card and the CPU
+               from the same numpy weights and tokens, 2 x 128, float32 and
+               bf16 (loss, aux loss, each layer's routing recorded in the
+               forward and in full remat's recompute, dropped pairs, every
+               gradient with the stacked expert leaves compared on the
+               experts routed alike, one AdamW step's updates;
+               MOE_TRAIN_CHECK, TRAIN_CHECK), then `train()` at full width
+               and MOE_TRAIN's depth, 8 compressed steps of 4 x 1,024
+               (launches: B10's lse form twice a layer and step, B2 once a
+               step), and a warm, a timed and a profiled step (busy share,
+               top kernels, device ms by torch op);
   13. recurrent — the ssm and hybrid families, on a card the moe phase's
                models have left: mamba2-1.3b at full width and 2 layers and
                recurrentgemma-9b at full width and 5 layers (one group and
@@ -340,7 +351,15 @@ Phases, each printing one line per check:
                (pod 2, data 1, model 2). Each first held card against CPU on
                the same mesh (LM_CHECK, RECURRENT_CHECK, TRAIN_CHECK,
                MOE_CHECK["route"]); B10 launched in each slot's program on
-               its heads; every state and ring held as shards.
+               its heads; every state and ring held as shards;
+  17. examples — the PyTorch twins of the reference's five examples
+               (`examples/torch_*.py`), each run in this process on the
+               card at its small setting (train_lm: --small --steps 8
+               --fail-at 4; the others at their defaults), its printed
+               lines checked (EXAMPLES) and its launches counted:
+               quickstart's adpcm handle runs B1 with B4, B3, B6 and B7,
+               multipod_tour's sharded tdic32 B1 and B5, serve_lm's
+               prefill B10, train_lm's feed and step B2 and B10's lse form.
 Then one JSON line of per-kernel numbers, the card's name and power limit as
 nvidia-smi reports them, and a last JSON line with the device.
 
@@ -355,6 +374,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import resource
 import shutil
 import subprocess
@@ -366,6 +386,7 @@ from typing import Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -750,6 +771,10 @@ BITPACK_CASES = (
     (1, 4100, 8202, "random", 0),  # two rounds of 2,048 symbols
     (4, 2048, 4098, "random", 1),  # unaligned: scalar loads, rows off their quads
     (3, 333, 101, "wide", 2),
+    # rows whose copy does not fit shared memory: the unstaged instances (a
+    # planner candidate's LAZY micro-batch block is one row of 49,152)
+    (1, 49152, 98306, "random", 0),
+    (2, 30000, 60002, "wide", 1),
 )
 
 
@@ -786,7 +811,7 @@ def check_bitpack(dev) -> dict:
         err["unpack_blocks"] = max(err["unpack_blocks"], max_abs_err(back, ref.unpack_blocks_ref(rows, blen)))
         if 64 * s <= 32 * ow:  # every symbol fits the row
             err["unpack_blocks"] = max(err["unpack_blocks"], max_abs_err(back, codes))
-    for nb, s, ow in ((4, 64, 40), (2, 333, 20), (128, 2048, 1000)):
+    for nb, s, ow in ((4, 64, 40), (2, 333, 20), (128, 2048, 1000), (1, 40000, 70000)):
         words = bits._i32(torch.randint(0, 2**32, (nb, ow), generator=gen)).to(dev)
         blen = torch.randint(0, 65, (nb * s,), generator=gen, dtype=torch.int32).to(dev)
         got = ops.unpack_blocks(words, blen)
@@ -1882,7 +1907,7 @@ def run_lm(dev, arch: str = LM_ARCH, batch: int = LM_BATCH, prompt_len: int = LM
     }
     t0 = time.perf_counter()
     with torch.inference_mode():
-        busy_p, top_p, ops_p = device_busy_ms(lambda: prefill(model, cfg, prompts, cache_len), top=8)
+        busy_p, top_p, ops_p, _ = device_busy_ms(lambda: prefill(model, cfg, prompts, cache_len), top=8)
         cache, lg = prefill(model, cfg, prompts, cache_len)
         tok = torch.argmax(lg, dim=-1).to(torch.int32)
         torch.cuda.synchronize()
@@ -1893,7 +1918,7 @@ def run_lm(dev, arch: str = LM_ARCH, batch: int = LM_BATCH, prompt_len: int = LM
                 cache, lg2 = decode_step(model, cfg, cache, decode_input(model, tok))
                 tok = torch.argmax(lg2, dim=-1).to(torch.int32)
 
-        busy_d, top_d, ops_d = device_busy_ms(decode_loop, top=8)
+        busy_d, top_d, ops_d, _ = device_busy_ms(decode_loop, top=8)
         del cache
     profile_s = time.perf_counter() - t0
     # the unprofiled run's wall time for as many decode steps as were profiled
@@ -2283,14 +2308,14 @@ def run_train(dev, cycles_per_ms: float):
         torch.cuda.synchronize()
         step_ms = (time.perf_counter() - t1) * 1e3
         b = feed.next_batch()
-        busy, top, host_ops = device_busy_ms(lambda: train_step(model, opt_state, b), top=12)
+        busy, top, host_ops, top_ops = device_busy_ms(lambda: train_step(model, opt_state, b), top=12)
         times = time_train_flash(dev, model, b, cycles_per_ms)
     finally:
         feed.stop()
     del model, opt_state
     emit({"phase": "train", "path": "profiled_step", "timed_step_ms": step_ms, "device_busy_ms": busy,
-          "busy_share": busy / step_ms if busy else None, "top_kernels_ms": top, "host_ops_per_step": host_ops,
-          "seconds": time.perf_counter() - t0})
+          "busy_share": busy / step_ms if busy else None, "top_kernels_ms": top, "top_ops_ms": top_ops,
+          "host_ops_per_step": host_ops, "seconds": time.perf_counter() - t0})
     return launches, times
 
 
@@ -2349,7 +2374,9 @@ def device_busy_ms(fn, top: int = 0):
     `top`, returns (ms, the `top` kernel names with the most device time and
     their ms, the count of torch ops the host called at top level: aten ops
     inside no other synchronous host event of their thread, the parents
-    `prof.events()` gives).
+    `prof.events()` gives, and the `top` torch ops with the most device time
+    and their ms: each device event charged, through its launch's
+    correlation id, to the op that launched it, named by `op_label`).
 
     The trace is read from the profiler's raw events: `prof.events()` builds
     a Python object and the parent tree for each of them, ~0.28 ms a host op
@@ -2362,28 +2389,53 @@ def device_busy_ms(fn, top: int = 0):
         fn()
         torch.cuda.synchronize()
     by_name: dict = {}
-    spans: dict = {}  # thread -> [(start, -end, name)] of its synchronous host events
+    device_events: list = []  # (ms, the launching host event's correlation id)
+    spans: dict = {}  # thread -> [(start, -end, name, correlation id or None)] of its synchronous host events
     for e in prof.profiler.kineto_results.events():
         name = e.name()
         if name in PROFILER_UTILITY_OPS or getattr(e, "is_hidden_event", lambda: False)():
             continue
         if e.device_type() == DeviceType.CUDA:
-            by_name[name] = by_name.get(name, 0.0) + (e.end_ns() - e.start_ns()) / 1e6
+            ms = (e.end_ns() - e.start_ns()) / 1e6
+            by_name[name] = by_name.get(name, 0.0) + ms
+            device_events.append((ms, e.linked_correlation_id()))
         elif e.device_type() == DeviceType.CPU and not e.is_async() and e.start_thread_id() == e.end_thread_id():
-            spans.setdefault(e.start_thread_id(), []).append((e.start_ns(), -e.end_ns(), name))
+            # a host op's own correlation id; a runtime call (its launch) links to its op's instead
+            corr = e.correlation_id() if e.linked_correlation_id() == 0 else None
+            spans.setdefault(e.start_thread_id(), []).append((e.start_ns(), -e.end_ns(), name, corr))
     host_ops = 0
+    launched = {corr for _, corr in device_events}
+    labels: dict = {}  # correlation id -> op_label of the host event and its enclosing ones
     for evs in spans.values():
-        ends = []  # the ends of the events enclosing the current one, innermost last
-        for start, neg_end, name in sorted(evs):
-            while ends and (start >= ends[-1] or -neg_end > ends[-1]):
-                ends.pop()
-            host_ops += not ends and name.startswith("aten::")
-            ends.append(-neg_end)
+        stack = []  # (end, name) of the events enclosing the current one, innermost last
+        for start, neg_end, name, corr in sorted(evs, key=lambda ev: ev[:3]):
+            while stack and (start >= stack[-1][0] or -neg_end > stack[-1][0]):
+                stack.pop()
+            host_ops += not stack and name.startswith("aten::")
+            stack.append((-neg_end, name))
+            if top and corr in launched:
+                labels[corr] = op_label([n for _, n in stack])
     total = sum(by_name.values())
     ms = total if total > 0 else None
     if not top:
         return ms
-    return ms, sorted(by_name.items(), key=lambda kv: -kv[1])[:top], host_ops
+    kernels = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+    per_op: dict = {}
+    for t, corr in device_events:
+        label = labels.get(corr, "(no host op)")
+        per_op[label] = per_op.get(label, 0.0) + t
+    return ms, kernels, host_ops, sorted(per_op.items(), key=lambda kv: -kv[1])[:top]
+
+
+def op_label(names: list) -> str:
+    """The torch op a device event is charged to, from the names of its
+    launching host event and those enclosing it (outermost first): the
+    outermost aten op below the innermost autograd node (a backward node,
+    or the recompute a node's saved tensors ran), else the innermost
+    name."""
+    node = max((i for i, n in enumerate(names) if n.startswith("autograd::engine::evaluate_function")),
+               default=-1)
+    return next((n for n in names[node + 1:] if n.startswith("aten::")), names[-1])
 
 
 def run_full(dev, name: str, values: np.ndarray):
@@ -3257,10 +3309,10 @@ def check_moe_route(dev, shape=None, phase: str = "moe") -> dict:
     return out
 
 
-def moe_prefill_drops(model, cfg, prompts, cache_len: int) -> tuple:
-    """One more prefill, outside the timed run, with a hook on each layer's
-    MoEFFN: the (token, choice) pairs its routing drops. Returns (dropped
-    per layer, cache, logits)."""
+@contextlib.contextmanager
+def dropped_pairs(model, cfg):
+    """While open, each layer's MoEFFN call appends to the yielded list the
+    (token, choice) pairs its routing drops (a forward hook on each)."""
     drops = []
 
     def hook(mod, args, _out):
@@ -3273,10 +3325,17 @@ def moe_prefill_drops(model, cfg, prompts, cache_len: int) -> tuple:
 
     handles = [blk.moe.register_forward_hook(hook) for blk in model.layers]
     try:
-        cache, logits = prefill(model, cfg, prompts, cache_len)
+        yield drops
     finally:
         for h in handles:
             h.remove()
+
+
+def moe_prefill_drops(model, cfg, prompts, cache_len: int) -> tuple:
+    """One more prefill, outside the timed run: (the (token, choice) pairs
+    each layer's routing drops, cache, logits)."""
+    with dropped_pairs(model, cfg) as drops:
+        cache, logits = prefill(model, cfg, prompts, cache_len)
     return drops, cache, logits
 
 
@@ -3357,7 +3416,9 @@ def run_moe_path(dev, spec: dict) -> dict:
 
 def run_moe(dev) -> dict:
     """The moe phase: paths 2-6 (path 1 is the flash phase's
-    MOE_FLASH_CASES). Returns the launches of the main paths (4-6)."""
+    MOE_FLASH_CASES), then moe training (`check_moe_train_card_vs_cpu`,
+    `run_moe_train`) on the card the served paths have freed. Returns the
+    launches of the main paths (4-6 and the train run)."""
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("TF32 is on: the router's float32 product must be true float32")
     free_card()
@@ -3385,6 +3446,405 @@ def run_moe(dev) -> dict:
         del model, prompts
         free_card()
     emit({"phase": "moe", "path": "dense-configs", "seconds": time.perf_counter() - t0})
+    t0 = time.perf_counter()
+    check_moe_train_card_vs_cpu(dev)
+    free_card()
+    for k, n in run_moe_train(dev).items():
+        launches[k] += n
+    emit({"phase": "moe", "path": "train-all", "seconds": time.perf_counter() - t0})
+    return launches
+
+
+#: the moe phase's training part (ROADMAP A10 item 6): qwen3-moe-30b-a3b
+#: at full width (d_model 2,048, 32 heads over 4 kv heads of 128, 128
+#: experts of d_ff 768, top-8, capacity factor 1.25, an untied 151,936
+#: vocabulary, full remat). (a) card against CPU at 2 layers (2 x 0.623 B
+#: + 0.622 B = 1.87 B parameters, 7.5 GB a float32 set), 2 x 128 tokens,
+#: float32 then bf16, the same numpy weights (drawn on the card from seed
+#: 0) and tokens on both. The limits, written before the first run that
+#: reads them and never loosened after one:
+#:  * loss, every held gradient and the updates: TRAIN_CHECK's, as they
+#:    stand, in each dtype; the aux loss: TRAIN_CHECK's loss limit;
+#:  * routing: where float32 summation order moves a near-tie of a token's
+#:    8th and 9th experts the two sides route a pair to different experts.
+#:    Each side's `sel` is recorded per layer (a pre-hook on each MoEFFN,
+#:    the module's own `route` on its input) in the forward and in full
+#:    remat's recompute, which must route alike on each side (the
+#:    recompute's dispatch must be the forward's). The share of each
+#:    token's routed experts that both sides route (`sel_set_agreement`,
+#:    over all layers) must be >= MOE_CHECK's 0.999; `sel` compared place
+#:    by place (`sel_agreement`, MOE_CHECK's route measure) is printed, not
+#:    gated: two near-tied experts inside a token's top 8 swap places and
+#:    route the same pairs to the same slots at the same gates;
+#:  * a flip swaps an expert's whole gradient, and the stacked expert
+#:    leaves (E, ., .) hold all 128 experts: their rows are compared only
+#:    for experts whose routed (token, slot) set is the same on both sides
+#:    (the count left out printed per layer), every other leaf whole;
+#:  * each side's dispatch of its `sel` on its own device equals the CPU's
+#:    dispatch of that `sel`, and the dropped pairs of a layer whose
+#:    routing agrees in full are equal.
+#: The first chip run (H100, 700 W) held both dtypes' whole steps to these
+#: limits. float32 passed in full: every routed expert alike, gradients
+#: within 4.4e-6. bf16 did not: 0.9915 of the routed pairs alike (0.919
+#: place by place), 9 and 27 experts left out, the router's gradient 0.15
+#: apart (its loss 4.3e-4 and aux loss 6.5e-4 apart). In bf16 the blocks'
+#: inputs differ by bf16 rounding steps (B10's tensor-core output is held
+#: within one bf16 step of its plain version, C4, and GEMMs summed in
+#: another order round elsewhere), which moves near-ties of the router's
+#: 128 probabilities far more often than float32's summation order does,
+#: and a flipped token moves every column of the router's gradient (the
+#: softmax couples them). So each dtype is also held stage by stage: the
+#: card runs each stage on the CPU's own input to it and the CPU's
+#: gradient at its output (`staged_loss`), where the router's input is
+#: the CPU's and the two sides' routings differ by float32 summation order
+#: alone; that form is held to every limit above, in both dtypes. Its
+#: first run staged whole blocks, and bf16 failed again (0.9978 of the
+#: routed pairs alike, 9 experts left out in layer 0: a block's attention,
+#: B10 within one bf16 step, still moves the router's input); the stages
+#: are since the embedding, each block's attention sublayer (to the moe's
+#: normed input), its moe sublayer, each under full remat, and the head
+#: (written before that form's first run). The whole step stays
+#: held to every limit in float32 and to the loss and aux limits in bf16;
+#: bf16's whole-step routing, gradients and updates are printed.
+#: AdamW's step runs one leaf at a time (clip_norm None: each leaf's update
+#: is its own), so that the CPU side holds weights, gradients and updates
+#: (22.5 GB with the numpy tree) and not AdamW's moments and foreach
+#: temporaries besides
+MOE_TRAIN_CHECK = dict(arch="qwen3-moe-30b-a3b", layers=2, batch=2, seq=128, lr=TRAIN_CHECK["lr"],
+                       sel_set=MOE_CHECK["route"]["float32"]["sel"], aux_weight=TrainStepConfig().aux_weight)
+#: (b) `train()` at full width cut to 3 of 48 layers, 8 compressed steps of
+#: TRAIN_BATCH x TRAIN_SEQ through B2. 16 bytes a parameter (float32
+#: masters, gradients, two moments) and AdamW's foreach passes, which hold
+#: three more float32 sets at once (mhat, v / bc2 and its sqrt): at 4
+#: layers (3.11 B parameters) 7 sets are 87 GB, past the card's 80; at 3
+#: (2.49 B) ~70 GB
+MOE_TRAIN = dict(arch="qwen3-moe-30b-a3b", n_layers=3, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ)
+#: the stacked expert leaves, compared on the experts routed alike
+EXPERT_LEAF = re.compile(r"^layers\.(\d+)\.moe\.(w_gate|w_up|w_down)$")
+
+
+def stage_recorder(i: int, last: bool, rec: dict):
+    """A forward hook on block i that records, on its first call (not
+    remat's recompute), its input and the gradient at its output, for
+    block 0 the gradient at its input (the embedding's output), for the
+    last block its output (the head's input)."""
+    def hook(_mod, args, output):
+        if f"x{i}" in rec:
+            return
+        x, out = args[1], output[0]
+        rec[f"x{i}"] = x.detach()
+        out.register_hook(lambda g: rec.__setitem__(f"g{i}", g.detach()))
+        if i == 0:
+            x.register_hook(lambda g: rec.__setitem__("g_embed", g.detach()))
+        if last:
+            rec["x_final"] = out.detach()
+    return hook
+
+
+def attention_stage(blk, cfg, x: torch.Tensor) -> tuple:
+    """A block's first half, as `Block.forward` runs it: (h = x + its
+    attention, the moe's input: h normed by `ffn_norm`)."""
+    h = x + layers.attention_train(blk.attn.params(), cfg, layers.rms_norm(x, blk.p("attn_norm")),
+                                   window=cfg.swa_window)
+    h = partition.hint(h, "data", None, None)
+    return h, layers.rms_norm(h, blk.p("ffn_norm"))
+
+
+def staged_loss(model, cfg, inputs: torch.Tensor, labels: torch.Tensor, st: dict, aux_weight: float) -> tuple:
+    """A scalar whose gradient with respect to every parameter is the
+    whole step's, given another side's recorded stages `st`: the embedding
+    of `inputs` dotted with the gradient at its output; for each block its
+    attention sublayer (`attention_stage`) on the block's recorded input,
+    h dotted with the gradient at the block's output and the normed h with
+    the gradient at the moe's input, and its MoEFFN on the moe's recorded
+    input dotted with the gradient at the block's output plus aux_weight x
+    its aux loss, each sublayer under full remat as `forward` runs the
+    block; and the head's cross-entropy (`loss_fn`'s) on the recorded final
+    hidden state. Returns (that scalar, the cross-entropy, the summed aux
+    loss)."""
+    total = torch.sum(model.embedding(inputs) * st["g_embed"]).float()
+
+    def run(fn, *args):
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False) if cfg.remat == "full" \
+            else fn(*args)
+
+    auxs = []
+    for i, blk in enumerate(model.layers):
+        h, n = run(lambda x, blk=blk: attention_stage(blk, cfg, x), st[f"x{i}"])
+        y, aux = run(blk.moe, cfg, st[f"n{i}"])
+        total = total + (torch.sum(h * st[f"g{i}"]) + torch.sum(n * st[f"gn{i}"])
+                         + torch.sum(y * st[f"g{i}"])).float() + aux_weight * aux
+        auxs.append(aux)
+    logp = torch.log_softmax(model.logits(st["x_final"]).to(torch.float32), dim=-1)
+    nll = -torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    ce = torch.sum(nll) / nll.numel()
+    return total + ce, ce, torch.sum(torch.stack(auxs))
+
+
+def moe_train_side(model, cfg, tokens: np.ndarray, lr: float, aux_weight: float,
+                   stages: Optional[dict] = None) -> dict:
+    """One side of `check_moe_train_card_vs_cpu` on `model`'s device, its
+    parameters left as they are (float32 masters). Without
+    `stages`: the whole step, `loss_fn` under full remat and autograd,
+    recording every stage (`stage_recorder`, and the moe's input and the
+    gradient there; returned on the CPU under "stages"). With another side's `stages`: `staged_loss` on them. Either
+    way the loss (`loss_fn`'s: cross-entropy + aux_weight x aux), the aux loss, every parameter's
+    gradient, one AdamW step's updates, and each layer's `sel` in every
+    MoEFFN call (the forward's, then the recompute's, on the CPU). The
+    gradients and updates stay on the model's device."""
+    d = model.device
+    inputs, labels = (torch.from_numpy(a).to(d) for a in (tokens[:, :-1], tokens[:, 1:]))
+    params = dict(model.named_parameters())
+    routes = {i: [] for i in range(cfg.n_layers)}
+    rec: dict = {}
+
+    def recorder(i):
+        def hook(mod, args):
+            x = args[1]
+            with torch.no_grad():
+                _, sel, _, _ = moe.route(mod.p("router"), cfg, x.reshape(-1, cfg.d_model))
+            routes[i].append(sel.cpu())
+            if stages is None and f"n{i}" not in rec:  # the moe's input and the gradient there
+                rec[f"n{i}"] = x.detach()
+                x.register_hook(lambda g: rec.__setitem__(f"gn{i}", g.detach()))
+        return hook
+
+    handles = [blk.moe.register_forward_pre_hook(recorder(i)) for i, blk in enumerate(model.layers)]
+    try:
+        if stages is None:
+            handles += [blk.register_forward_hook(stage_recorder(i, i == cfg.n_layers - 1, rec))
+                        for i, blk in enumerate(model.layers)]
+            loss, metrics = loss_fn(model, cfg, {"inputs": inputs, "labels": labels}, aux_weight)
+            value, aux = loss, metrics["aux"]
+        else:
+            loss, ce, aux = staged_loss(model, cfg, inputs, labels, {k: v.to(d) for k, v in stages.items()},
+                                        aux_weight)
+            value = ce + aux_weight * aux
+        grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+    finally:
+        for h in handles:
+            h.remove()
+    opt_init, opt_update = adamw(AdamWConfig(lr=lr, clip_norm=None))
+    updates = {}
+    with torch.no_grad():
+        for k, p in params.items():
+            one = {k: p}
+            updates[k] = opt_update({k: grads[k]}, opt_init(one), one)[0][k]
+    out = {"loss": value.item(), "aux": aux.item(), "routes": routes, "grads": grads, "updates": updates}
+    if stages is None:
+        out["stages"] = {k: v.cpu() for k, v in rec.items()}
+    del params, loss, value, aux, rec
+    return out
+
+
+def expert_table(sel: torch.Tensor, cfg, cap: int) -> tuple:
+    """(table (E, cap): the token in each expert's slot, -1 where empty;
+    the dropped pairs) of one layer's `sel` (T, k), dispatched on the CPU."""
+    e, slot = moe._dispatch_indices(sel.reshape(-1), cfg.n_experts, cap)
+    tok = torch.arange(sel.numel()) // cfg.n_experts_per_token
+    keep = slot < cap
+    table = torch.full((cfg.n_experts, cap), -1, dtype=torch.int64)
+    table[e[keep], slot[keep]] = tok[keep]
+    return table, int((~keep).sum())
+
+
+def moe_train_compare(dev, cfg, cap: int, card: dict, host: dict, tol: dict, sel_set: float,
+                      gate_all: bool) -> tuple:
+    """Card side against CPU side (`moe_train_side`'s results, the CPU's
+    gradients and updates moved to the card): the routing per layer, the
+    loss and aux loss, every gradient and update (the stacked expert
+    leaves on the experts routed alike). Returns (the line's
+    numbers, the failures: all of MOE_TRAIN_CHECK's limits with `gate_all`,
+    else the finite values and the loss and aux limits)."""
+    t = host["routes"][0][0].shape[0]
+    layers_out, agree_rows, bad, routing_bad = [], {}, [], []
+    pos = inter = n = 0
+    for i in range(cfg.n_layers):
+        rc, rh = card["routes"][i], host["routes"][i]
+        remat_alike = {side: len(r) == 2 and torch.equal(r[0], r[1]) for side, r in (("card", rc), ("cpu", rh))}
+        sc, sh = rc[0], rh[0]
+        pos += int((sc == sh).sum())
+        ohc = torch.zeros(t, cfg.n_experts, dtype=torch.bool).scatter_(1, sc, True)
+        ohh = torch.zeros(t, cfg.n_experts, dtype=torch.bool).scatter_(1, sh, True)
+        inter += int((ohc & ohh).sum())
+        n += sc.numel()
+        (tc, dc), (th, dh) = expert_table(sc, cfg, cap), expert_table(sh, cfg, cap)
+        rows = (tc == th).all(dim=1)
+        agree_rows[i] = rows
+        own = moe._dispatch_indices(sc.to(dev).reshape(-1), cfg.n_experts, cap)
+        dispatch_alike = all(torch.equal(a.cpu(), b) for a, b in
+                             zip(own, moe._dispatch_indices(sc.reshape(-1), cfg.n_experts, cap)))
+        layers_out.append({"dropped_card": dc, "dropped_cpu": dh, "experts_left_out": int((~rows).sum()),
+                           "routing_alike": bool(torch.equal(ohc, ohh)), "remat_routes_alike": remat_alike,
+                           "card_dispatch_equals_cpu_dispatch": dispatch_alike})
+        if not all(remat_alike.values()):
+            bad.append(f"layer {i}'s recompute routes otherwise than its forward: {remat_alike}")
+        if not dispatch_alike:
+            bad.append(f"layer {i}'s dispatch on the card differs from the CPU's of the same sel")
+        if torch.equal(ohc, ohh) and dc != dh:
+            routing_bad.append(f"layer {i} routes alike but drops {dc} pairs on the card, {dh} on the CPU")
+    grad_rel, update_rel, finite = {}, {}, math.isfinite(card["loss"]) and math.isfinite(card["aux"])
+    for k, gp in host["grads"].items():  # both sides' leaves on the card
+        m = EXPERT_LEAF.match(k)
+        rows = agree_rows[int(m.group(1))].to(dev) if m else slice(None)
+        gc, uc = card["grads"][k], card["updates"][k]
+        finite = finite and bool(torch.isfinite(gc).all())
+        grad_rel[k] = rel_norm(gc[rows], gp[rows])
+        update_rel[k] = rel_norm(uc[rows], host["updates"][k][rows])
+    r = {"loss_card": card["loss"], "loss_cpu": host["loss"],
+         "loss_rel": abs(card["loss"] - host["loss"]) / abs(host["loss"]),
+         "aux_card": card["aux"], "aux_cpu": host["aux"],
+         "aux_rel": abs(card["aux"] - host["aux"]) / abs(host["aux"]),
+         "sel_agreement": pos / n, "sel_set_agreement": inter / n, "capacity": cap,
+         "pairs_per_layer": n // cfg.n_layers, "layers": layers_out,
+         "grad_rel_max": max(grad_rel.values()), "grad_rel_worst": max(grad_rel, key=grad_rel.get),
+         "update_rel_max": max(update_rel.values()), "update_rel_worst": max(update_rel, key=update_rel.get),
+         "finite": finite, "tolerance": tol, "sel_set_limit": sel_set, "gated": "all" if gate_all else
+         "finite, loss, aux"}
+    if r["sel_set_agreement"] < sel_set:
+        routing_bad.append(f"routed experts agree at {r['sel_set_agreement']}")
+    if r["grad_rel_max"] > tol["grad_rel"]:
+        routing_bad.append(f"gradient of {r['grad_rel_worst']} differs by {r['grad_rel_max']}")
+    if r["update_rel_max"] > tol["update_rel"]:
+        routing_bad.append(f"update of {r['update_rel_worst']} differs by {r['update_rel_max']}")
+    if not finite:
+        bad.append("non-finite loss, aux loss or gradients on the card")
+    if not r["loss_rel"] <= tol["loss_rel"]:
+        bad.append(f"loss {card['loss']} on the card against {host['loss']}")
+    if not r["aux_rel"] <= tol["loss_rel"]:
+        bad.append(f"aux loss {card['aux']} on the card against {host['aux']}")
+    return r, bad + (routing_bad if gate_all else [])
+
+
+def check_moe_train_card_vs_cpu(dev, small: Optional[dict] = None) -> dict:
+    """The moe phase's training check (a): qwen3-moe-30b-a3b at full width
+    (or with the config fields `small` for a small check) and
+    MOE_TRAIN_CHECK's layers trained
+    one step on the card and on the CPU, float32 then bf16: the whole step,
+    then stage by stage on the CPU's recorded stages, each held to
+    MOE_TRAIN_CHECK and TRAIN_CHECK as its comment says. The CPU side runs
+    first and keeps only its loss, aux, routes, gradients, updates and
+    stages, the gradients and updates moved to the card; the card's are
+    compared with them there, leaf by leaf."""
+    c = MOE_TRAIN_CHECK
+    base = dataclasses.replace(get_arch(c["arch"]).model, n_layers=c["layers"], **(small or {}))
+    tree = params_to_numpy(init_params(base, seed=0, device=dev, param_dtype="float32"))
+    tokens = np.random.default_rng(5).integers(0, base.vocab_size, (c["batch"], c["seq"] + 1)).astype(np.int32)
+    cap = moe.capacity(c["batch"] * c["seq"], base)
+    out = {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        t0 = time.perf_counter()
+        host = moe_train_side(params_from_numpy(tree, cfg, "cpu", param_dtype="float32"), cfg, tokens, c["lr"],
+                              c["aux_weight"])
+        for key in ("grads", "updates"):  # to the card, leaf by leaf: compared there
+            host[key] = {k: host[key].pop(k).to(dev) for k in list(host[key])}
+        t1 = time.perf_counter()
+        model = params_from_numpy(tree, cfg, dev, param_dtype="float32")
+        bad, out[dtype] = [], {}
+        for form in ("whole", "staged"):
+            t2 = time.perf_counter()
+            card = moe_train_side(model, cfg, tokens, c["lr"], c["aux_weight"],
+                                  host["stages"] if form == "staged" else None)
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            card_s = time.perf_counter() - t2
+            r, failed = moe_train_compare(dev, cfg, cap, card, host, TRAIN_CHECK[dtype], c["sel_set"],
+                                          gate_all=form == "staged" or dtype == "float32")
+            del card
+            free_card()
+            out[dtype][form] = r
+            bad += [f"{dtype} {form}: {f}" for f in failed]
+            emit({"phase": "moe", "path": "train_card_vs_cpu" + ("_staged" if form == "staged" else ""),
+                  "arch": c["arch"], "dtype": dtype,
+                  "config": {**{k: c[k] for k in ("layers", "batch", "seq", "lr")}, "d_model": cfg.d_model,
+                             "experts": cfg.n_experts, "top_k": cfg.n_experts_per_token, "remat": cfg.remat},
+                  **r, "cpu_s": t1 - t0, "card_s": card_s})
+        del host, model
+        free_card()
+        if bad:
+            raise AssertionError("card and CPU moe training disagree: " + "; ".join(bad))
+    return out
+
+
+def routed_drops(model, cfg, batch: dict) -> tuple:
+    """One forward of `loss_fn` without gradients: (the dropped (token,
+    choice) pairs per layer, the aux loss)."""
+    with dropped_pairs(model, cfg) as drops, torch.no_grad():
+        _, metrics = loss_fn(model, cfg, batch)
+    return drops, metrics["aux"].item()
+
+
+def run_moe_train(dev) -> dict:
+    """The moe phase's training part (b): `launch.train.train` on
+    qwen3-moe-30b-a3b at full width and MOE_TRAIN's depth, MOE_TRAIN's
+    steps of 4 x 1,024 through B2's compressed feed, the launch counts set
+    to 0 just before and read just after (B10's lse form twice a layer and
+    step, B2 once a step, no other B10 form); then on a fresh model a warm,
+    a timed and a profiled step (busy share, top kernels, device ms by
+    torch op), and one forward without gradients for the aux loss and the
+    dropped pairs per layer. Returns the train run's launches."""
+    t = MOE_TRAIN
+    full = get_arch(t["arch"]).model
+    cfg = dataclasses.replace(full, n_layers=t["n_layers"])
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    run = train(cfg, steps=t["steps"], batch=t["batch"], seq=t["seq"], device=dev, log_every=t["steps"])
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    train_s = time.perf_counter() - t0
+    want = {"flash_attention_fwd_lse": 2 * cfg.n_layers * t["steps"], "unpack_blocks": t["steps"],
+            "flash_attention_fwd_tc": 0, "flash_attention_fwd": 0, "flash_attention_fwd_lse_fma": 0}
+    wrong = {k: launches[k] for k, n in want.items() if launches[k] != n}
+    free_card()
+    t1 = time.perf_counter()
+    init_fn, train_step = make_train_step(cfg, AdamWConfig(lr=3e-4), device=dev)
+    model, opt_state = init_fn(1)
+    feed = CompressedFeed(zipf_token_stream(cfg.vocab_size, t["batch"], t["seq"], seed=1), device=dev).start()
+    try:
+        model, opt_state, _ = train_step(model, opt_state, feed.next_batch())
+        b = feed.next_batch()
+        torch.cuda.synchronize()
+        ts = time.perf_counter()
+        model, opt_state, _ = train_step(model, opt_state, b)
+        torch.cuda.synchronize()
+        step_ms = (time.perf_counter() - ts) * 1e3
+        b = feed.next_batch()
+        busy, top, host_ops, top_ops = device_busy_ms(lambda: train_step(model, opt_state, b), top=12)
+        drops, aux = routed_drops(model, cfg, b)
+    finally:
+        feed.stop()
+    profiled_peak = torch.cuda.max_memory_allocated()
+    del model, opt_state, b
+    free_card()
+    checks = {
+        "steps": run.final_step == t["steps"] and len(run.losses) == t["steps"] and run.restarts == 0,
+        "losses_finite": all(math.isfinite(x) for x in run.losses),
+        "loss_fell": run.losses[-1] < run.losses[0],
+        "launches": not wrong,
+        "aux_finite_positive": math.isfinite(aux) and aux > 0,
+    }
+    tokens = t["batch"] * t["seq"]
+    steady = sorted(run.step_s[1:])[len(run.step_s[1:]) // 2]
+    emit({
+        "phase": "moe", "path": "train", "arch": t["arch"], "n_layers": cfg.n_layers,
+        "cut": f"{cfg.n_layers} of {full.n_layers} layers", "d_model": cfg.d_model, "params": cfg.param_count(),
+        "experts": cfg.n_experts, "top_k": cfg.n_experts_per_token, "capacity": moe.capacity(tokens, cfg),
+        "batch": t["batch"], "seq": t["seq"], "steps": t["steps"], "remat": cfg.remat, "dtype": cfg.dtype,
+        "param_dtype": cfg.param_dtype, "losses": run.losses, "step_s": run.step_s, "wall_s": run.wall_s,
+        "tokens_per_s": run.tokens_per_s, "steady_step_s": steady, "steady_tokens_per_s": tokens / steady,
+        "feed_ratio": run.feed_ratio, "peak_memory_allocated": peak, "launches": launches,
+        "launches_expected": want, "aux": aux, "dropped_pairs_per_layer": drops,
+        "pairs_per_layer": tokens * cfg.n_experts_per_token, "checks": checks, "train_call_s": train_s,
+    })
+    emit({"phase": "moe", "path": "train_profiled_step", "timed_step_ms": step_ms, "device_busy_ms": busy,
+          "busy_share": busy / step_ms if busy else None, "top_kernels_ms": top, "top_ops_ms": top_ops,
+          "host_ops_per_step": host_ops, "peak_memory_allocated": profiled_peak,
+          "seconds": time.perf_counter() - t1})
+    if not all(checks.values()):
+        raise AssertionError(f"the moe train path fails its checks: {checks}; launches off: {wrong}")
     return launches
 
 
@@ -4425,7 +4885,7 @@ def run_mesh_serve(dev, spec: dict) -> dict:
         cache, _ = decode_step(model, cfg, cache, tok)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t1) * 1e3
-        busy, top, host_ops = device_busy_ms(lambda: decode_step(model, cfg, cache, tok), top=4)
+        busy, top, host_ops, _ = device_busy_ms(lambda: decode_step(model, cfg, cache, tok), top=4)
     line.update({"decode_step_wall_ms": wall_ms, "decode_step_busy_ms": busy,
                  "busy_share": busy / wall_ms if busy else None, "decode_step_top_kernels_ms": top,
                  "host_ops_per_decode_step": host_ops, "seconds": time.perf_counter() - t0})
@@ -4559,6 +5019,95 @@ def run_tp_recurrent(dev) -> tuple:
             launches[k] += n
     end_phase("tp_recurrent", t0)
     return launches, dh256
+
+
+#: the examples phase: each twin of the reference's examples
+#: (`examples/torch_<name>.py`), its arguments, the lines it must print
+#: (each pattern matched by a line of its own) and the kernels it must
+#: launch. The values checked are those fixed by the configuration, not by
+#: the data (ROADMAP C3: datasets differ across numpy versions): the ADPCM
+#: and NUQ ratios, the caches' bytes, the restart, the remesh. Not the
+#: planner's picks (quickstart's [2], edge_planner's point A): its energy
+#: budget reads host walls, and a first candidate's one-time set-up can
+#: spend it (the twin then prints no pick); the line is printed as it came
+EXAMPLES = (
+    dict(name="quickstart", args=(), lines=(
+        r"^\[0\] negotiated: adpcm \(Table 1 ADPCM, wire id 2\), block 2048 tuples, scan chunk 128$",
+        r"^\[1\] ADPCM on ECG: ratio 4\.00x, [\d.]+ MB/s, NRMSE [\d.]+% \(frame: \d+ wire bytes\)$",
+        r"^\[3\] NUQ KV cache: 2\.00x vs bf16, value error [\d.]+%$"),
+        kernels=("pack_blocks_meta7", "compact_blocks", "adpcm_lane_encode", "adpcm_lane_decode")),
+    dict(name="serve_lm", args=(), lines=(
+        r"^NUQ-quantized cache: +[\d.]+ tok/s decode, prefill +[\d.]+ ms, cache 0\.39 MB  \(2\.00x smaller than "
+        r"raw\)$",
+        r"^raw bf16     cache: +[\d.]+ tok/s decode, prefill +[\d.]+ ms, cache 0\.79 MB$",
+        r"^  sample tokens: \[\d+(, \d+){9}\]$"),
+        kernels=("flash_attention_fwd_tc",)),
+    dict(name="train_lm", args=("--small", "--steps", "8", "--fail-at", "4"), lines=(
+        r"^training qwen3-10m: [\d.]+M params, 8 steps @ batch 8 x seq 256$",
+        r"^loss [\d.]+ -> [\d.]+ over 8 steps$",
+        r"^throughput \d+ tok/s; feed compression [\d.]+x; restarts 1 \(injected\), stragglers flagged \d+$"),
+        kernels=("unpack_blocks", "flash_attention_fwd_lse")),
+    dict(name="edge_planner", args=(), lines=(
+        r"^solution space on 'ecg' \(11 candidates\):$",
+        r"^planner's point A: \S+$",
+        r"^paper point A \(PLA, co-designed\):  ratio=[\d.]+ ",
+        r"^paper point B \(careless Tdic32\):   ratio=[\d.]+ "),
+        kernels=("pack_blocks_meta7", "compact_blocks")),
+    dict(name="multipod_tour", args=(), lines=(
+        r"^devices: 8$",
+        r"^\[1\] sharded tdic32 \(private state\): warmed-up ratio [\d.]+ across 8 devices$",
+        r"^\[1\] sharded tdic32 \(shared state\): warmed-up ratio [\d.]+ across 8 devices$",
+        r"^\[2\] compressed pod gradient sync: max err \d\.\d\de-04 ",
+        r"^\[3\] elastic remesh 8->4 devices: mesh \{'data': 1, 'model': 4\}, data intact: True$"),
+        kernels=("pack_blocks", "dict_probe")),
+)
+
+
+def run_example(spec: dict) -> tuple:
+    """One twin run in this process on the card (`main(args)`, its
+    `--device` left at its default), its output captured and its launches
+    counted from 0. Returns (printed lines, launches, seconds)."""
+    import importlib.util
+    import io
+
+    path = Path(__file__).resolve().parent / "examples" / f"torch_{spec['name']}.py"
+    mod_spec = importlib.util.spec_from_file_location(f"example_torch_{spec['name']}", path)
+    mod = importlib.util.module_from_spec(mod_spec)
+    mod_spec.loader.exec_module(mod)
+    out = io.StringIO()
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        mod.main(list(spec["args"]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out.getvalue().splitlines(), ops.launch_counts(), seconds
+
+
+def run_examples(dev) -> dict:
+    """The examples phase: each of EXAMPLES run on the card, each of its
+    patterns matched by a printed line, each of its kernels launched; a line
+    per twin with its printed lines, launches and seconds. Returns the
+    phase's launches."""
+    launches = {k: 0 for k in KERNELS}
+    bad = []
+    for spec in EXAMPLES:
+        lines, counts, seconds = run_example(spec)
+        missing = [p for p in spec["lines"] if not any(re.search(p, ln) for ln in lines)]
+        idle = [k for k in spec["kernels"] if counts[k] == 0]
+        emit({"phase": "examples", "example": f"examples/torch_{spec['name']}.py", "args": list(spec["args"]),
+              "device": str(dev), "printed": lines, "launches": {k: n for k, n in counts.items() if n},
+              "lines_missing": missing, "kernels_idle": idle, "seconds": seconds})
+        if missing or idle:
+            bad.append(f"torch_{spec['name']}.py: lines missing {missing}, kernels not launched {idle}")
+        for k, n in counts.items():
+            if k in launches:
+                launches[k] += n
+        free_card()
+    if bad:
+        raise AssertionError("the examples' twins fail their checks: " + "; ".join(bad))
+    return launches
 
 
 def keep_freed_host_memory() -> dict:
@@ -4718,6 +5267,10 @@ def main() -> int:
     for k, n in tp_launches.items():
         launches[k] += n
     launches[DH256] += tp_dh256
+    t0 = time.perf_counter()
+    for k, n in run_examples(dev).items():
+        launches[k] += n
+    end_phase("examples", t0)
     end_phase("host", t_start)
     emit({"kernels": [
         {

@@ -283,7 +283,7 @@ def main() -> int:
                         "queued": queued}
                 times.setdefault((kernel, tree, "ms"), []).append(ms)
                 if kernel.startswith("rans_section"):
-                    busy, top, _ = chip_smoke.device_busy_ms(fn, top=8)
+                    busy, top, _, _ = chip_smoke.device_busy_ms(fn, top=8)
                     line["busy_ms"], line["busy_top"] = busy, top
                     times.setdefault((kernel, tree, "busy_ms"), []).append(busy)
                 lines.append(line)

@@ -34,6 +34,12 @@
 // Contributions past `out_words` are dropped, as the reference's
 // `.at[].add(mode="drop")` drops them.
 //
+// A row whose copy does not fit shared memory (out_words past ~58,000: a
+// planner candidate's LAZY micro-batch block of 49,152 symbols has 98,306)
+// takes the kernel's unstaged instance (kStaged false): the CTA zeroes its
+// row in device memory, the scan's barriers order that before the ORs, and
+// the symbols OR into the row there with global atomicOr; no store pass.
+//
 // With the template flag kMeta the same launch also does B4's work
 // (`src/repro/kernels/frame_compact.py: pack_meta7_blocks`, plain version
 // `kernels/ref.py: pack_meta7_ref`) for blocks of a multiple of 32
@@ -93,19 +99,40 @@ __device__ __forceinline__ void store_meta7(const int (&n)[kPer], int first, int
   }
 }
 
-template <bool kVec, bool kMeta>
+// The staged row out with 16-byte stores: quad q holds row words 4q - mis ..
+// 4q - mis + 3; the ends are partial, the zero tail past the live prefix
+// comes from registers.
+__device__ __forceinline__ void store_row(const uint4* quads, int carry, int out_words, int mis, int nq,
+                                          uint32_t* __restrict__ out) {
+  const int live = min(out_words, (carry + 31) >> 5);
+  for (int q = threadIdx.x; q < nq; q += kThreads) {
+    const int w0 = 4 * q - mis;
+    const uint4 v = w0 < live ? quads[q] : make_uint4(0u, 0u, 0u, 0u);
+    if (w0 >= 0 && w0 + 4 <= out_words) {
+      *reinterpret_cast<uint4*>(out + w0) = v;
+    } else {
+      const uint32_t e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        if (w0 + j >= 0 && w0 + j < out_words) out[w0 + j] = e[j];
+    }
+  }
+}
+
+template <bool kVec, bool kMeta, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 pack_blocks_kernel(const uint2* __restrict__ codes, const int* __restrict__ bitlen,
                    int symbols, int out_words, uint32_t* __restrict__ words,
                    int* __restrict__ nbits, uint32_t* __restrict__ meta) {
-  extern __shared__ uint4 quads[];  // (out_words + mis + 3) / 4 quads
+  extern __shared__ uint4 quads[];  // kStaged: (out_words + mis + 3) / 4 quads
   __shared__ int warp_sums[kThreads / 32];
-  uint32_t* buf = reinterpret_cast<uint32_t*>(quads);
   const size_t blk = blockIdx.x;
   const uint2* c = codes + blk * symbols;
   const int* bl = bitlen + blk * symbols;
   uint32_t* out = words + blk * out_words;
-  const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(out) >> 2) & 3);
+  // the row the symbols OR into: a shared-memory copy, or the row itself
+  uint32_t* buf = kStaged ? reinterpret_cast<uint32_t*>(quads) : out;
+  const int mis = kStaged ? static_cast<int>((reinterpret_cast<uintptr_t>(out) >> 2) & 3) : 0;
   const int nq = (out_words + mis + 3) >> 2;
 
   int carry = 0;
@@ -117,7 +144,11 @@ pack_blocks_kernel(const uint2* __restrict__ codes, const int* __restrict__ bitl
     load_codes<kVec>(c, first, symbols, code);
     if constexpr (kMeta) store_meta7(n, first, symbols, meta + blk * (symbols / 32 * 7));
     if (base == 0) {  // ordered before the ORs by the scan's barriers
-      for (int q = threadIdx.x; q < nq; q += kThreads) quads[q] = make_uint4(0u, 0u, 0u, 0u);
+      if constexpr (kStaged) {
+        for (int q = threadIdx.x; q < nq; q += kThreads) quads[q] = make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        for (int i = threadIdx.x; i < out_words; i += kThreads) out[i] = 0u;
+      }
     }
     int local[kPer], sum = 0;
 #pragma unroll
@@ -142,21 +173,9 @@ pack_blocks_kernel(const uint2* __restrict__ codes, const int* __restrict__ bitl
     }
     carry += round_total;
   }
-  __syncthreads();
-
-  // quad q holds row words 4q - mis .. 4q - mis + 3; the ends are partial
-  const int live = min(out_words, (carry + 31) >> 5);
-  for (int q = threadIdx.x; q < nq; q += kThreads) {
-    const int w0 = 4 * q - mis;
-    const uint4 v = w0 < live ? quads[q] : make_uint4(0u, 0u, 0u, 0u);
-    if (w0 >= 0 && w0 + 4 <= out_words) {
-      *reinterpret_cast<uint4*>(out + w0) = v;
-    } else {
-      const uint32_t e[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        if (w0 + j >= 0 && w0 + j < out_words) out[w0 + j] = e[j];
-    }
+  if constexpr (kStaged) {
+    __syncthreads();
+    store_row(quads, carry, out_words, mis, nq, out);
   }
   if (threadIdx.x == 0) nbits[blk] = carry;
 }
@@ -165,10 +184,14 @@ template <bool kMeta>
 int launch_pack(const void* codes, const void* bitlen, int nblocks, int symbols, int out_words,
                 void* words, void* nbits, void* meta, void* stream) {
   if (nblocks == 0) return 0;
-  const size_t smem = static_cast<size_t>((out_words + 6) / 4) * sizeof(uint4);
+  size_t smem = static_cast<size_t>((out_words + 6) / 4) * sizeof(uint4);
   const bool vec = symbols % 4 == 0 &&
                    ((reinterpret_cast<uintptr_t>(codes) | reinterpret_cast<uintptr_t>(bitlen)) & 15) == 0;
-  auto kernel = vec ? pack_blocks_kernel<true, kMeta> : pack_blocks_kernel<false, kMeta>;
+  auto kernel = vec ? pack_blocks_kernel<true, kMeta, true> : pack_blocks_kernel<false, kMeta, true>;
+  if (!repro::fits_smem(kernel, smem)) {  // the row in device memory
+    kernel = vec ? pack_blocks_kernel<true, kMeta, false> : pack_blocks_kernel<false, kMeta, false>;
+    smem = 0;
+  }
   cudaError_t err = repro::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<nblocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

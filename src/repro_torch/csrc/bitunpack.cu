@@ -33,6 +33,11 @@
 //     further words as their offsets grow.
 // A window that starts past the row reads its last word, then zeros: the
 // reference pads two zero words and clamps the window's start.
+//
+// A row whose copy does not fit shared memory (in_words past ~58,000: a
+// planner candidate's LAZY micro-batch block of 49,152 symbols has 98,306)
+// takes the kernel's unstaged instance (kStaged false): the windows read
+// the row in device memory, nothing is staged.
 
 #include "common.cuh"
 
@@ -67,23 +72,24 @@ __device__ __forceinline__ uint2 extract(const uint32_t* buf, int mis, int in_wo
                     ((g1 >> s) | repro::shl(g2, 32 - s)) & repro::mask_bits(n - 32));
 }
 
-template <bool kVec>
+template <bool kVec, bool kStaged>
 __global__ void __launch_bounds__(kThreads)
 unpack_blocks_kernel(const uint32_t* __restrict__ words, int in_words,
                      const int* __restrict__ bitlen, int symbols,
                      uint2* __restrict__ codes) {
-  extern __shared__ uint4 quads[];  // (in_words + mis + 3) / 4 quads
+  extern __shared__ uint4 quads[];  // kStaged: (in_words + mis + 3) / 4 quads
   __shared__ int warp_sums[kThreads / 32];
   __shared__ __align__(16) int offs[kRound + 4];  // the round's bit offsets, then its end
-  const uint32_t* buf = reinterpret_cast<const uint32_t*>(quads);
   const size_t blk = blockIdx.x;
   const uint32_t* row = words + blk * in_words;
   const int* bl = bitlen + blk * symbols;
   uint2* out = codes + blk * symbols;
-  const int mis = static_cast<int>((reinterpret_cast<uintptr_t>(row) >> 2) & 3);
+  // the row the windows read: its staged copy in shared memory, or itself
+  const uint32_t* buf = kStaged ? reinterpret_cast<const uint32_t*>(quads) : row;
+  const int mis = kStaged ? static_cast<int>((reinterpret_cast<uintptr_t>(row) >> 2) & 3) : 0;
   const int nq = (in_words + mis + 3) >> 2;
 
-  const bool prefetched = threadIdx.x < nq;
+  const bool prefetched = kStaged && threadIdx.x < nq;
   const uint4 pre = prefetched ? load_quad(row, in_words, mis, threadIdx.x)
                                : make_uint4(0u, 0u, 0u, 0u);
   int staged = 0;  // quads in shared memory, block-uniform
@@ -105,14 +111,16 @@ unpack_blocks_kernel(const uint32_t* __restrict__ words, int in_words,
     if (threadIdx.x == 0) offs[kRound] = carry;  // symbols past the block have n = 0
 
     // the words any window of this round can read, as quads
-    const int need = min(in_words, max(1, ((carry - 1) >> 5) + 3));
-    const int need_q = (need + mis + 3) >> 2;
-    if (need_q > staged) {
-      if (staged == 0 && prefetched) quads[threadIdx.x] = pre;
-      const int from = staged == 0 ? min(nq, kThreads) : staged;
-      for (int q = from + threadIdx.x; q < need_q; q += kThreads)
-        quads[q] = load_quad(row, in_words, mis, q);
-      staged = max(need_q, from);
+    if constexpr (kStaged) {
+      const int need = min(in_words, max(1, ((carry - 1) >> 5) + 3));
+      const int need_q = (need + mis + 3) >> 2;
+      if (need_q > staged) {
+        if (staged == 0 && prefetched) quads[threadIdx.x] = pre;
+        const int from = staged == 0 ? min(nq, kThreads) : staged;
+        for (int q = from + threadIdx.x; q < need_q; q += kThreads)
+          quads[q] = load_quad(row, in_words, mis, q);
+        staged = max(need_q, from);
+      }
     }
     __syncthreads();
 
@@ -144,10 +152,14 @@ extern "C" int repro_unpack_blocks(const void* words, int nblocks, int in_words,
                                    const void* bitlen, int symbols, void* codes,
                                    void* stream) {
   if (nblocks == 0) return 0;
-  const size_t smem = static_cast<size_t>((in_words + 6) / 4) * sizeof(uint4);
+  size_t smem = static_cast<size_t>((in_words + 6) / 4) * sizeof(uint4);
   const bool vec = symbols % 4 == 0 &&
                    ((reinterpret_cast<uintptr_t>(bitlen) | reinterpret_cast<uintptr_t>(codes)) & 15) == 0;
-  auto kernel = vec ? unpack_blocks_kernel<true> : unpack_blocks_kernel<false>;
+  auto kernel = vec ? unpack_blocks_kernel<true, true> : unpack_blocks_kernel<false, true>;
+  if (!repro::fits_smem(kernel, smem)) {  // the row read in device memory
+    kernel = vec ? unpack_blocks_kernel<true, false> : unpack_blocks_kernel<false, false>;
+    smem = 0;
+  }
   cudaError_t err = repro::allow_smem(kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   kernel<<<nblocks, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(

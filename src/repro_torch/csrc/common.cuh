@@ -73,6 +73,19 @@ __device__ __forceinline__ void load_ints(const int* __restrict__ p, int first, 
   }
 }
 
+// Whether `dynamic` bytes of shared memory beside the kernel's static ones
+// fit one block on the current device (its opt-in limit: 227 KB on Hopper).
+template <typename Kernel>
+inline bool fits_smem(Kernel kernel, size_t dynamic) {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) != cudaSuccess ||
+      cudaFuncGetAttributes(&attr, kernel) != cudaSuccess)
+    return false;
+  return dynamic + attr.sharedSizeBytes <= static_cast<size_t>(optin);
+}
+
 // Opt a kernel into more than 48 KB of dynamic shared memory when needed.
 template <typename Kernel>
 inline cudaError_t allow_smem(Kernel kernel, size_t bytes) {

@@ -9,7 +9,9 @@ block scan of the thread totals give every symbol its bit offset; each
 symbol ORs its words into a shared-memory copy of the row (shared
 atomicOr: the fields are disjoint), which goes out with 16-byte stores,
 the zero tail straight from registers. Blocks of more than 2,048 symbols
-take rounds with a running carry.
+take rounds with a running carry. A row whose copy does not fit shared
+memory (~58,000 words) takes the kernel's unstaged instance, which ORs into
+the zeroed row in device memory.
 
 With `meta` the same launch also packs the block's bit lengths at 7 bits
 each (B4's work, for blocks of a multiple of 32 symbols): each group of 4

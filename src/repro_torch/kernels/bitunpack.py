@@ -8,7 +8,9 @@ give the offsets, which go to shared memory with the row's live words
 only (the words a window can read); then each thread extracts pairs of
 symbols spread over the threads, so a warp's 16-byte stores of two codes
 are contiguous. Blocks of more than 2,048 symbols take rounds with a
-running carry.
+running carry. A row whose copy does not fit shared memory (~58,000 words)
+takes the kernel's unstaged instance, whose windows read the row in device
+memory.
 
 `launch` runs the kernel on validated CUDA tensors; `ops.unpack_blocks` is
 the public wrapper.

@@ -1,6 +1,6 @@
-"""The port stands alone: importing every module of `repro_torch` and
-`chip_smoke` (without running it) loads neither jax nor the reference
-package, and an entry point given no device on a host without a GPU (the
+"""The port stands alone: importing every module of `repro_torch`,
+`chip_smoke` and the examples' PyTorch twins (`examples/torch_*.py`;
+neither run) loads neither jax nor the reference package, and an entry point given no device on a host without a GPU (the
 pipelines, the LM `serve`) raises instead of falling back to the CPU."""
 import os
 import subprocess
@@ -19,6 +19,11 @@ import repro_torch
 for mod in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
     importlib.import_module(mod.name)
 import chip_smoke  # noqa: F401  (imported, not run)
+import importlib.util, pathlib
+for path in sorted(pathlib.Path({root!r}, "examples").glob("torch_*.py")):
+    spec = importlib.util.spec_from_file_location("example_" + path.stem, path)
+    spec.loader.exec_module(importlib.util.module_from_spec(spec))  # main() is not called
+    print("TWIN", path.name)
 leaked = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "repro"))
 print("LEAKED", leaked)
 print("IMPORTED", sorted(m for m in sys.modules if m.startswith("repro_torch")))
@@ -80,6 +85,14 @@ def test_the_dry_run_modules_are_probed(probe_output):
     for mod in ("repro_torch.launch.dryrun", "repro_torch.launch.hlo_analysis", "repro_torch.core.energy",
                 "repro_torch.configs.base"):
         assert repr(mod) in line, mod
+
+
+def test_the_example_twins_are_probed(probe_output):
+    """The five twins of the reference's examples are imported by the probe
+    and so held to it."""
+    twins = [ln.split()[1] for ln in probe_output.splitlines() if ln.startswith("TWIN")]
+    assert twins == [f"torch_{n}.py" for n in ("edge_planner", "multipod_tour", "quickstart", "serve_lm",
+                                                "train_lm")]
 
 
 def test_no_device_on_a_cpu_only_host_raises(probe_output):
