@@ -233,7 +233,9 @@ Phases, each printing one line per check:
                section form on the same section beside its contract kernel,
                with the whole decode from host words to host bytes timed
                against the contract kernel's route it replaced; B1 with B4
-               fused in on the tcomp32 path's first chunk); B10 on
+               fused in on the tcomp32 path's first chunk; B1 and B2 on a
+               row of 49,152 symbols, the planner's LAZY block, on their
+               unstaged instances: `unstaged_*` on their rows); B10 on
                the full lm path's layer-0
                q, k, v: the tensor-core kernel in bf16 and the FMA kernel on
                the same values in float32, each beside torch's
@@ -352,7 +354,20 @@ Phases, each printing one line per check:
                the same mesh (LM_CHECK, RECURRENT_CHECK, TRAIN_CHECK,
                MOE_CHECK["route"]); B10 launched in each slot's program on
                its heads; every state and ring held as shards;
-  17. examples — the PyTorch twins of the reference's five examples
+  17. tp_train — training split over (pod 1, data 1, model 4), every slot
+               on the one card, no pod sync (`run_tp_train`, TP_TRAIN_SPLIT):
+               recurrentgemma-9b at 3 of 38 layers (B10's lse form on its
+               Dh 256 instance), qwen3-moe-30b-a3b's experts split at 3 of
+               48 and mixtral-8x7b's experts' d_ff split at 1 of 32, each
+               first held card against CPU on the same slots in float32
+               and bf16 (`check_split_train_card_vs_cpu`: loss, aux loss,
+               gradient norm, AdamW's first moment and the updates shard by
+               shard, the moe routing in the forward and the recompute, the
+               dropped pairs; TRAIN_CHECK, MOE_TRAIN_CHECK["sel_set"]),
+               then 2 steps of `train(mesh=...)` through B2 with B10's
+               launches counted per slot; the lse form at the hybrid's
+               shape timed beside SDPA's flash call;
+  18. examples — the PyTorch twins of the reference's five examples
                (`examples/torch_*.py`), each run in this process on the
                card at its small setting (train_lm: --small --steps 8
                --fail-at 4; the others at their defaults), its printed
@@ -493,6 +508,10 @@ LM_KERNELS = ("flash_attention_fwd", "flash_attention_fwd_tc", "flash_attention_
 #: 128 (`flash_attn_tc.cu`, `Tiling<4>`): the same wrapper and counter as
 #: `flash_attention_fwd_tc`; its launches are the recurrent phase's
 DH256 = "flash_attention_fwd_tc_dh256"
+#: the kernels line's row of B10's lse form at head dim 256 (the same
+#: instance): the same wrapper and counter as `flash_attention_fwd_lse`; its
+#: launches are the tp_train phase's split recurrentgemma training's
+DH256_LSE = "flash_attention_fwd_lse_dh256"
 #: B10's kernel -> its lse form's wrapper
 LSE_FORM = {flash_attn.TENSOR_CORE: "flash_attention_fwd_lse", flash_attn.FMA: "flash_attention_fwd_lse_fma"}
 #: kernels the eval paths run and the full paths do not: B5's probe, which
@@ -576,6 +595,7 @@ FLASH_CASES += MOE_FLASH_CASES
 RECURRENT_FLASH_CASES = (
     (2, 4096, 4096, 16, 1, 256, 2048, True, torch.bfloat16),
     (2, 4096, 4096, 4, 1, 256, 2048, True, torch.bfloat16),  # its split prefill: 4 heads a slot, G 4
+    (4, 1024, 1024, 4, 1, 256, 2048, True, torch.bfloat16),  # its split training's slot: 4 heads, G 4
     (2, 333, 400, 8, 2, 256, 100, True, torch.bfloat16),
     (1, 500, 500, 8, 2, 192, None, True, torch.bfloat16),
     (1, 190, 190, 4, 2, 256, None, False, torch.bfloat16),
@@ -1311,6 +1331,44 @@ def bound(nbytes: int, nops: int) -> tuple:
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
+#: B1's and B2's unstaged instances' timed row: one row of 49,152 symbols
+#: (a planner candidate's LAZY micro-batch block, the examples' planners'),
+#: bitlens 0..64 at random, 98,306 words out
+UNSTAGED_ROW = (1, 49152, 98306)
+
+
+def time_unstaged(dev, cycles_per_ms: float) -> dict:
+    """B1 and B2 on UNSTAGED_ROW, whose copy does not fit shared memory
+    (`repro::fits_smem`: their unstaged instances), each held bit-exact
+    against its plain version on it and timed beside it. Bound: time_kernels'
+    bytes for B1 and B2 at that shape over the memory rate. Returns
+    {kernel: {unstaged_ms, unstaged_plain_ms, unstaged_bound_ms,
+    unstaged_symbols, unstaged_max_abs_err}}."""
+    c, s, ow = UNSTAGED_ROW
+    codes, blen = random_symbols(torch.Generator().manual_seed(17), c, s, dev)
+    words, nbits = ops.pack_blocks(codes, blen, block=s, out_words=ow)
+    live = int(((nbits.to(torch.int64) + 31) // 32).sum())
+    w_ref, n_ref = ref.pack_blocks_ref(codes, blen, s, ow)
+    plan = {
+        "pack_blocks": (lambda: ops.pack_blocks(codes, blen, block=s, out_words=ow),
+                        lambda: ref.pack_blocks_ref(codes, blen, s, ow),
+                        max(max_abs_err(words, w_ref), max_abs_err(nbits, n_ref)),
+                        c * s * 12 + c * ow * 4 + c * 4),
+        "unpack_blocks": (lambda: ops.unpack_blocks(words, blen), lambda: ref.unpack_blocks_ref(words, blen),
+                          max(max_abs_err(ops.unpack_blocks(words, blen), ref.unpack_blocks_ref(words, blen)),
+                              max_abs_err(ops.unpack_blocks(words, blen), codes)),
+                          live * 4 + c * s * 4 + c * s * 8),
+    }
+    out = {}
+    for name, (kern, plain, e, nbytes) in plan.items():
+        ms, _ = time_ms(kern, 50, cycles_per_ms)
+        plain_ms, _ = time_ms(plain, 5, cycles_per_ms)
+        out[name] = {"unstaged_ms": ms, "unstaged_plain_ms": plain_ms,
+                     "unstaged_bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "unstaged_symbols": c * s,
+                     "unstaged_max_abs_err": e}
+    return out
+
+
 def time_kernels(dev, full_values: dict, heavy_frame: bits.Frame) -> dict:
     """Kernel and plain-version times at the main paths' shapes, on their
     own data: B1-B4 on the first fused chunk (128 blocks) of the tcomp32
@@ -1684,7 +1742,8 @@ def check_flash(dev) -> dict:
     """Phase 5: B10 against its plain version on every case of FLASH_CASES,
     in both forms; returns the largest max-abs error of out for each of its
     two kernels in each form (the lse form's out is the plain form's), and
-    under DH256 that of the tensor-core kernel's cases above head dim 128."""
+    under DH256 and DH256_LSE those of the tensor-core kernel's cases above
+    head dim 128 in each form."""
     gen = torch.Generator(device=dev).manual_seed(21)
     worst = {k: 0.0 for k in LM_KERNELS}
     for case in FLASH_CASES:
@@ -1700,7 +1759,7 @@ def check_flash(dev) -> dict:
         ok, tol = flash_within(got, want)
         finite = bool(torch.isfinite(got).all())
         expected = flash_attn.kernel_for(dt, dh, h // kh)
-        if (case in MOE_FLASH_CASES + RECURRENT_FLASH_CASES[:2] + FRONTEND_FLASH_CASES
+        if (case in MOE_FLASH_CASES + RECURRENT_FLASH_CASES[:3] + FRONTEND_FLASH_CASES
                 and expected != flash_attn.TENSOR_CORE):
             raise AssertionError(f"the B10 case {case} of a served config would run on {expected}")
         split = None
@@ -1724,6 +1783,8 @@ def check_flash(dev) -> dict:
               "kernel": [LSE_FORM[expected]], "out_bit_identical": True, "lse_max_abs_err": lse_err,
               "lse_tolerance": "|d| <= 1e-4 + 1e-5 |plain|"})
         worst[LSE_FORM[expected]] = max(worst[LSE_FORM[expected]], err)
+        if expected == flash_attn.TENSOR_CORE and dh > 128:
+            worst[DH256_LSE] = max(worst.get(DH256_LSE, 0.0), err)
     return worst
 
 
@@ -3656,11 +3717,48 @@ def moe_train_compare(dev, cfg, cap: int, card: dict, host: dict, tol: dict, sel
     leaves on the experts routed alike). Returns (the line's
     numbers, the failures: all of MOE_TRAIN_CHECK's limits with `gate_all`,
     else the finite values and the loss and aux limits)."""
-    t = host["routes"][0][0].shape[0]
+    r, agree_rows, bad, routing_bad = route_compare(dev, cfg, cap, card["routes"], host["routes"], sel_set)
+    grad_rel, update_rel, finite = {}, {}, math.isfinite(card["loss"]) and math.isfinite(card["aux"])
+    for k, gp in host["grads"].items():  # both sides' leaves on the card
+        m = EXPERT_LEAF.match(k)
+        rows = agree_rows[int(m.group(1))].to(dev) if m else slice(None)
+        gc, uc = card["grads"][k], card["updates"][k]
+        finite = finite and bool(torch.isfinite(gc).all())
+        grad_rel[k] = rel_norm(gc[rows], gp[rows])
+        update_rel[k] = rel_norm(uc[rows], host["updates"][k][rows])
+    r.update({"loss_card": card["loss"], "loss_cpu": host["loss"],
+              "loss_rel": abs(card["loss"] - host["loss"]) / abs(host["loss"]),
+              "aux_card": card["aux"], "aux_cpu": host["aux"],
+              "aux_rel": abs(card["aux"] - host["aux"]) / abs(host["aux"]),
+              "grad_rel_max": max(grad_rel.values()), "grad_rel_worst": max(grad_rel, key=grad_rel.get),
+              "update_rel_max": max(update_rel.values()), "update_rel_worst": max(update_rel, key=update_rel.get),
+              "finite": finite, "tolerance": tol, "gated": "all" if gate_all else "finite, loss, aux"})
+    if r["grad_rel_max"] > tol["grad_rel"]:
+        routing_bad.append(f"gradient of {r['grad_rel_worst']} differs by {r['grad_rel_max']}")
+    if r["update_rel_max"] > tol["update_rel"]:
+        routing_bad.append(f"update of {r['update_rel_worst']} differs by {r['update_rel_max']}")
+    if not finite:
+        bad.append("non-finite loss, aux loss or gradients on the card")
+    if not r["loss_rel"] <= tol["loss_rel"]:
+        bad.append(f"loss {card['loss']} on the card against {host['loss']}")
+    if not r["aux_rel"] <= tol["loss_rel"]:
+        bad.append(f"aux loss {card['aux']} on the card against {host['aux']}")
+    return r, bad + (routing_bad if gate_all else [])
+
+
+def route_compare(dev, cfg, cap: int, card_routes: dict, host_routes: dict, sel_set: float) -> tuple:
+    """Each layer's routing, card against CPU ({layer: [the forward's sel,
+    the recompute's]} on the CPU): (the line's numbers, the experts routed
+    alike per layer (E,) bool, the failures that hold in every dtype (remat
+    routing otherwise than the forward, the card's dispatch of its own sel
+    otherwise than the CPU's), those that hold where routing is gated
+    (routed experts agreeing below `sel_set`, other drops under the same
+    routing))."""
+    t = host_routes[0][0].shape[0]
     layers_out, agree_rows, bad, routing_bad = [], {}, [], []
     pos = inter = n = 0
     for i in range(cfg.n_layers):
-        rc, rh = card["routes"][i], host["routes"][i]
+        rc, rh = card_routes[i], host_routes[i]
         remat_alike = {side: len(r) == 2 and torch.equal(r[0], r[1]) for side, r in (("card", rc), ("cpu", rh))}
         sc, sh = rc[0], rh[0]
         pos += int((sc == sh).sum())
@@ -3683,37 +3781,11 @@ def moe_train_compare(dev, cfg, cap: int, card: dict, host: dict, tol: dict, sel
             bad.append(f"layer {i}'s dispatch on the card differs from the CPU's of the same sel")
         if torch.equal(ohc, ohh) and dc != dh:
             routing_bad.append(f"layer {i} routes alike but drops {dc} pairs on the card, {dh} on the CPU")
-    grad_rel, update_rel, finite = {}, {}, math.isfinite(card["loss"]) and math.isfinite(card["aux"])
-    for k, gp in host["grads"].items():  # both sides' leaves on the card
-        m = EXPERT_LEAF.match(k)
-        rows = agree_rows[int(m.group(1))].to(dev) if m else slice(None)
-        gc, uc = card["grads"][k], card["updates"][k]
-        finite = finite and bool(torch.isfinite(gc).all())
-        grad_rel[k] = rel_norm(gc[rows], gp[rows])
-        update_rel[k] = rel_norm(uc[rows], host["updates"][k][rows])
-    r = {"loss_card": card["loss"], "loss_cpu": host["loss"],
-         "loss_rel": abs(card["loss"] - host["loss"]) / abs(host["loss"]),
-         "aux_card": card["aux"], "aux_cpu": host["aux"],
-         "aux_rel": abs(card["aux"] - host["aux"]) / abs(host["aux"]),
-         "sel_agreement": pos / n, "sel_set_agreement": inter / n, "capacity": cap,
-         "pairs_per_layer": n // cfg.n_layers, "layers": layers_out,
-         "grad_rel_max": max(grad_rel.values()), "grad_rel_worst": max(grad_rel, key=grad_rel.get),
-         "update_rel_max": max(update_rel.values()), "update_rel_worst": max(update_rel, key=update_rel.get),
-         "finite": finite, "tolerance": tol, "sel_set_limit": sel_set, "gated": "all" if gate_all else
-         "finite, loss, aux"}
+    r = {"sel_agreement": pos / n, "sel_set_agreement": inter / n, "capacity": cap,
+         "pairs_per_layer": n // cfg.n_layers, "layers": layers_out, "sel_set_limit": sel_set}
     if r["sel_set_agreement"] < sel_set:
         routing_bad.append(f"routed experts agree at {r['sel_set_agreement']}")
-    if r["grad_rel_max"] > tol["grad_rel"]:
-        routing_bad.append(f"gradient of {r['grad_rel_worst']} differs by {r['grad_rel_max']}")
-    if r["update_rel_max"] > tol["update_rel"]:
-        routing_bad.append(f"update of {r['update_rel_worst']} differs by {r['update_rel_max']}")
-    if not finite:
-        bad.append("non-finite loss, aux loss or gradients on the card")
-    if not r["loss_rel"] <= tol["loss_rel"]:
-        bad.append(f"loss {card['loss']} on the card against {host['loss']}")
-    if not r["aux_rel"] <= tol["loss_rel"]:
-        bad.append(f"aux loss {card['aux']} on the card against {host['aux']}")
-    return r, bad + (routing_bad if gate_all else [])
+    return r, agree_rows, bad, routing_bad
 
 
 def check_moe_train_card_vs_cpu(dev, small: Optional[dict] = None) -> dict:
@@ -4512,10 +4584,13 @@ SLOT_COUNTED = ("flash_attention_fwd_lse", "flash_attention_fwd_tc", "flash_atte
 
 
 @contextlib.contextmanager
-def slot_launches():
+def slot_launches(keep: Optional[dict] = None, dims: Optional[dict] = None):
     """Each call of B10's wrappers made inside the block, its launches
     bucketed by the slot program it ran under (`"whole"` outside one). The
-    wrappers' own counts are untouched."""
+    wrappers' own counts are untouched. With `dims`, the launches are also
+    counted there by kernel and head dim ({"<kernel>/<Dh>": n}); with
+    `keep`, the first launching call's q, k, v (copies) and keywords in
+    slot 0 are kept there by kernel."""
     buckets: dict = {}
     originals = {n: getattr(ops, n) for n in SLOT_COUNTED}
 
@@ -4525,10 +4600,16 @@ def slot_launches():
             out = fn(*a, **kw)
             after = ops.launch_counts()
             prog = partition.current_slot()
-            b = buckets.setdefault("whole" if prog is None else prog.slot, {})
+            slot = "whole" if prog is None else prog.slot
+            b = buckets.setdefault(slot, {})
             for k in MESH_KERNELS:
                 if after[k] != before[k]:
                     b[k] = b.get(k, 0) + after[k] - before[k]
+                    if dims is not None:
+                        key = f"{k}/{a[0].shape[-1]}"
+                        dims[key] = dims.get(key, 0) + after[k] - before[k]
+                    if keep is not None and slot == 0 and k not in keep:
+                        keep[k] = (tuple(t.detach().clone() for t in a[:3]), dict(kw))
             return out
         return inner
 
@@ -4695,27 +4776,29 @@ def check_mesh_train_card_vs_cpu(dev, spec: dict = MESH_TRAIN, phase: str = "mes
     return out
 
 
-def run_mesh_train(dev, t: dict = MESH_TRAIN, phase: str = "mesh") -> dict:
+def run_mesh_train(dev, t: dict = MESH_TRAIN, phase: str = "mesh", keep: Optional[dict] = None) -> dict:
     """(a): `train(mesh=...)` of `t`'s arch (qwen3-1.7b unless named) at
-    full width and depth (or `t["n_layers"]`), with the launch counts set
+    full width and depth (or `t["n_layers"]`), with the compressed pod sync
+    unless `t["sync"]` is False, with the launch counts set
     to 0 just before and read just after: B10's lse form twice per
     attention layer, step and slot (the forward and full remat's recompute)
     in each slot's program (under tensor parallelism, on the slot's heads;
     none for the ssm family), B2 once per step (the feed), no other form of
-    B10."""
+    B10. `keep` as `slot_launches` takes it."""
     arch = t.get("arch", LM_ARCH)
-    cfg = get_arch(arch).model
-    if t.get("n_layers"):
-        cfg = dataclasses.replace(cfg, n_layers=t["n_layers"])
+    full = get_arch(arch).model
+    cfg = dataclasses.replace(full, n_layers=t["n_layers"]) if t.get("n_layers") else full
     mesh = card_mesh(t["shape"], t["names"], dev)
     free_card()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launches()
     compat.reset_wire()
     t0 = time.perf_counter()
-    with partition.logical_axes(MAP3), slot_launches() as per_slot:
+    head_dims: dict = {}
+    with partition.logical_axes(MAP3), slot_launches(keep, head_dims) as per_slot:
         run = train(cfg, steps=t["steps"], batch=t["batch"], seq=t["seq"], device=dev, mesh=mesh,
-                    grad_compression=GradCompressionConfig(), log_every=t["steps"])
+                    grad_compression=GradCompressionConfig() if t.get("sync", True) else None,
+                    log_every=t["steps"])
         tp = tp_active_on(cfg, mesh, MAP3)
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -4726,16 +4809,18 @@ def run_mesh_train(dev, t: dict = MESH_TRAIN, phase: str = "mesh") -> dict:
         "losses_finite": all(math.isfinite(x) for x in run.losses),
         "per_slot_b10": all(per_slot.get(s, {}) == want_slot for s in range(mesh.size)),
         "b2_per_step": launches["unpack_blocks"] == t["steps"],
+        "b10_head_dim": set(head_dims) <= {f"flash_attention_fwd_lse/{cfg.head_dim}"},
         "b10_total": launches["flash_attention_fwd_lse"] == per_step * mesh.size
         and not any(launches[k] for k in ("flash_attention_fwd_tc", "flash_attention_fwd",
                                           "flash_attention_fwd_lse_fma")),
     }
-    emit({"phase": phase, "path": "train", "arch": arch, "mesh": dict(zip(t["names"], t["shape"])),
-          "mapping": MAP3, "n_layers": cfg.n_layers, "batch": t["batch"], "seq": t["seq"], "steps": t["steps"],
-          "losses": run.losses, "step_s": run.step_s, "tokens_per_s": run.tokens_per_s,
+    emit({"phase": phase, "path": t.get("path", "train"), "arch": arch, "mesh": dict(zip(t["names"], t["shape"])),
+          "mapping": MAP3, "n_layers": cfg.n_layers, "cut": f"{cfg.n_layers} of {full.n_layers} layers",
+          "params": cfg.param_count(), "pod_sync": t.get("sync", True), "batch": t["batch"], "seq": t["seq"],
+          "steps": t["steps"], "losses": run.losses, "step_s": run.step_s, "tokens_per_s": run.tokens_per_s,
           "peak_memory_allocated": torch.cuda.max_memory_allocated(), "wire_bytes": compat.wire_bytes(),
           "launches": {k: launches[k] for k in MESH_KERNELS}, "launches_per_slot": per_slot,
-          "tensor_parallel": tp, "checks": checks, "seconds": wall})
+          "launches_by_head_dim": head_dims, "tensor_parallel": tp, "checks": checks, "seconds": wall})
     if not all(checks.values()):
         raise AssertionError(f"{arch}: the data-parallel train path fails its checks: {checks}; per slot {per_slot}")
     free_card()
@@ -4966,9 +5051,6 @@ TP_MOE = dict(arch="qwen3-moe-30b-a3b", shape=(1, 4), batch=4, prompt_len=2048, 
 #:      check at 2 layers in float32 and bf16 under TRAIN_CHECK, then
 #:      `train(mesh=...)` at full width and 8 of its 48 layers (TP_TRAIN's
 #:      cut), 2 compressed steps of 4 x 1,024 through B2.
-#: recurrentgemma-9b's split training does not run on the card: its float32
-#: masters and moments, with a 1.05 B-parameter embedding, do not fit a
-#: useful depth beside the other paths; the CPU tests hold it
 TP_RECURRENT_SERVE = (
     dict(arch="mamba2-1.3b", shape=(1, 4), batch=4, prompt_len=2048, gen=4, phase="tp_recurrent"),
     dict(arch="recurrentgemma-9b", shape=(1, 4), batch=2, prompt_len=4096, gen=4, phase="tp_recurrent",
@@ -5019,6 +5101,394 @@ def run_tp_recurrent(dev) -> tuple:
             launches[k] += n
     end_phase("tp_recurrent", t0)
     return launches, dh256
+
+
+#: the tp_train phase (ROADMAP A10 items 6b-6d): training split over the
+#: model axis of a (pod 1, data 1, model 4) mesh under MAP3, the four slots
+#: on the one H100. Its model split is the one tests/test_torch_tp.py and
+#: tests/test_torch_tp_recurrent.py hold against the reference on (data 1,
+#: model 4) (tests/test_torch_tp_train_card.py ties the two meshes); a data
+#: axis of 1 gathers no whole shard (FSDP), and a pod axis of 1 has nothing
+#: to sync, so the paths run without the compressed sync. Each at full
+#: width, after the earlier phases have freed the card, held card against
+#: CPU on the same slots first (`check_split_train_card_vs_cpu`), then
+#: `train(mesh=...)` for 2 steps of 4 x 1,024 through B2:
+#:  * recurrentgemma-9b at 3 of its 38 layers, one whole group (RG-LRU,
+#:    RG-LRU, local attention): the least depth that trains the attention
+#:    layer. A slot holds 4 of the 16 query heads over the one kv head (G 4,
+#:    Dh 256: B10's lse form on its tensor-core Dh 256 instance, twice a
+#:    step, the forward and full remat's recompute; the 2,048-key window
+#:    never bites at 1,024), 1,024 of the 4,096 RG-LRU channels, 3,072 of
+#:    12,288 d_ff and 64,000 of the 256,000 vocab rows (2.687 B parameters,
+#:    2.097 B of them `embed` and `head`); its check at the same 3 layers;
+#:  * qwen3-moe-30b-a3b with its experts split, 32 of 128 a slot, at 3 of 48
+#:    layers (the one-device path's depth, `MOE_TRAIN`), 8 query heads over 1
+#:    kv head a slot (G 8); its check at MOE_TRAIN_CHECK's 2 layers;
+#:  * mixtral-8x7b with each expert's d_ff split, 3,584 of 14,336 columns of
+#:    each of the 8 a slot, at 2 of 32 layers (3.165 B parameters): 1 layer
+#:    (1.713 B) peaked at 38.5 GB on the H100, and a second adds 1.451 B at
+#:    ~21 bytes (`reckoned_bytes`), ~69 GB; 8 query heads over 2 kv heads a
+#:    slot (G 4); its check at 1 layer, whose CPU half at 2 layers would
+#:    hold ~70 GB of the host's 96 GiB beside the script.
+#: The depths are cut for the card's memory: 16 bytes a parameter (float32
+#: masters, AdamW's two moments, the gradients), the bf16 working copies
+#: and the per-shard AdamW's float32 temporaries (`reckoned_bytes`).
+#: The check's CPU half stops where the step's per-shard AdamW begins
+#: (`adamw_inputs`), and the CPU's clipped gradient shards are taken through
+#: the same AdamW on the card (`host_adamw`): AdamW is elementwise and held
+#: card against CPU by the train, mesh and tp phases' checks; on the H100
+#: machine's host recurrentgemma's CPU step took 46.6-47.4 s with it and
+#: 22.9-25.0 s without (another host), the peak host RSS 81.4 and 52.0 GB.
+#: The check's limits, written before its first run and never loosened:
+#: float32, every limit of TRAIN_CHECK (the loss; the gradient norm and
+#: AdamW's first moment at `grad_rel`, each leaf over its four shards; the
+#: updates) and for the moe configs the aux loss at `loss_rel`,
+#: MOE_TRAIN_CHECK["sel_set"] on the routed experts, the stacked expert
+#: leaves compared on each slot's experts routed alike, the dropped pairs
+#: equal where a layer routes alike; bf16, the hybrid every limit of
+#: TRAIN_CHECK["bfloat16"], the moe configs the loss and aux limits with
+#: their routing, moments and updates printed (MOE_TRAIN_CHECK's rule for
+#: a whole step: bf16 routing flips between the card and the CPU, and the
+#: split step has no stages to hold apart). In both dtypes every layer's
+#: recompute routes as its forward, every slot routes as slot 0 and the
+#: card's dispatch of its own routing is the CPU's
+SPLIT_TRAIN = dict(shape=(1, 1, 4), names=("pod", "data", "model"), steps=2, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                   sync=False)
+TP_TRAIN_SPLIT = (
+    dict(SPLIT_TRAIN, arch="recurrentgemma-9b", n_layers=3, check_layers=3, path="train-hybrid"),
+    dict(SPLIT_TRAIN, arch="qwen3-moe-30b-a3b", n_layers=3, check_layers=MOE_TRAIN_CHECK["layers"],
+         path="train-moe"),
+    dict(SPLIT_TRAIN, arch="mixtral-8x7b", n_layers=2, check_layers=1, path="train-mixtral"),
+)
+
+
+@contextlib.contextmanager
+def split_routes():
+    """Every `moe.route` call made in the block (`moe_group` routes the
+    shard's tokens on every slot, with the slot's copy of the router):
+    {the router's data pointer: [(sel on the CPU, aux)]} in first-call
+    order, one router per layer and slot, each called by the forward and
+    then by full remat's recompute."""
+    calls: dict = {}
+    orig = moe.route
+
+    def record(router, cfg, xt):
+        out = orig(router, cfg, xt)
+        calls.setdefault(router.data_ptr(), []).append((out[1].detach().cpu(), float(out[3].detach())))
+        return out
+
+    moe.route = record
+    try:
+        yield calls
+    finally:
+        moe.route = orig
+
+
+@contextlib.contextmanager
+def adamw_inputs():
+    """The split step's per-shard AdamW held back for the block
+    (`steps.adamw`, taken when the step is built, and `steps.apply_updates_`,
+    when it runs): each call records its input, the slot's clipped
+    gradient shards, and updates nothing. Yields the records, one
+    {name: shard} per slot in slot order."""
+    from repro_torch.launch import steps as step_module
+
+    seen, orig = [], (step_module.adamw, step_module.apply_updates_)
+
+    def recording_adamw(cfg):
+        def update(grads, state, params):
+            seen.append(dict(grads))
+            return {}, state, {"lr": float(cfg.lr)}
+
+        return orig[0](cfg)[0], update
+
+    step_module.adamw, step_module.apply_updates_ = recording_adamw, lambda params, updates: None
+    try:
+        yield seen
+    finally:
+        step_module.adamw, step_module.apply_updates_ = orig
+
+
+def split_train_side(d, cfg, named: dict, tokens: np.ndarray, spec: dict, host: bool = False) -> dict:
+    """One step of `cfg` split over `spec`'s mesh with every slot on `d`,
+    from the float32 weights `named` ({name: tensor}, on any device; the
+    masters placed shard by shard from them: no whole copy on `d`), without
+    a pod sync. Returns the loss, ce and gradient norm; per leaf AdamW's
+    first moment and the update (the masters less `named`, in place), a
+    tensor per slot on `d`, and each slot's slice of the leaf; with `host`,
+    AdamW held back (`adamw_inputs`) and per leaf the clipped gradient it
+    was given instead; for the moe family each layer's routing on slot 0
+    ([forward's sel, recompute's] on the CPU), whether every slot routed
+    as slot 0, and the aux loss of the forward's routing; the seconds of
+    the set-up and of the step."""
+    c = TRAIN_CHECK
+    t0 = time.perf_counter()
+    mesh = card_mesh(spec["shape"], spec["names"], d)
+    with contextlib.ExitStack() as stack:
+        seen = stack.enter_context(adamw_inputs()) if host else None
+        with partition.logical_axes(MAP3):
+            specs = param_specs(cfg, "train")
+            _, step = make_train_step(cfg, AdamWConfig(lr=c["lr"]), mesh=mesh,
+                                      param_pspecs=physical_specs(specs), device=d)
+        params = reshard({k: named[k] for k in specs}, specs, mesh, MAP3)
+        # held back, AdamW reads no moment: the masters stand in for them
+        m, v = (params, params) if host else (
+            {k: t.placement.zeros(t.shape, torch.float32) for k, t in params.items()} for _ in range(2))
+        opt = AdamWState(step=torch.zeros((), dtype=torch.int32), m=m, v=v)
+        batch = {"inputs": torch.from_numpy(tokens[:, :-1]).to(d), "labels": torch.from_numpy(tokens[:, 1:]).to(d)}
+        t1 = time.perf_counter()
+        with split_routes() as calls:
+            params, opt, metrics = step(params, opt, batch)
+    out = {"loss": float(metrics["loss"]), "ce": float(metrics["ce"]), "grad_norm": float(metrics["grad_norm"]),
+           "slices": {k: [t.placement.slices(t.shape, s) for s in range(mesh.size)] for k, t in params.items()},
+           "setup_s": t1 - t0, "step_s": time.perf_counter() - t1}
+    if host:
+        out["g"] = {k: [seen[s][k] for s in range(mesh.size)] for k in params}
+    else:
+        out["m"], out["updates"] = {k: t.shards for k, t in opt.m.items()}, {}
+        for k, t in params.items():
+            for s, shard in enumerate(t.shards):
+                shard.sub_(named[k][out["slices"][k][s]].to(d))
+            out["updates"][k] = t.shards
+    del opt, params
+    if cfg.family == "moe":
+        n = mesh.shape[mesh.axis_names.index("model")]
+        seq = list(calls.values())
+        out["routes"] = {i: [sel for sel, _ in seq[i * n]] for i in range(cfg.n_layers)}
+        out["slots_route_alike"] = len(seq) == cfg.n_layers * n and all(
+            len(seq[i * n + j]) == len(seq[i * n])
+            and all(torch.equal(a[0], b[0]) for a, b in zip(seq[i * n + j], seq[i * n]))
+            for i in range(cfg.n_layers) for j in range(n))
+        out["aux"] = sum(seq[i * n][0][1] for i in range(cfg.n_layers))
+    return out
+
+
+def host_adamw(dev, named: dict, k: str, host: dict, card: dict) -> tuple:
+    """Leaf k's AdamW moment and update for the CPU side's clipped gradient
+    (`split_train_side(host=True)`), each slot's on `dev` by the step's own
+    AdamW (`adamw`, clip off, from zero moments, on the slot's slice of
+    `named`), the update as the step leaves it (the master plus it, less
+    the master). The host's gradient shards are dropped."""
+    update = adamw(AdamWConfig(lr=TRAIN_CHECK["lr"], clip_norm=None))[1]
+    ms, us = [], []
+    for g, sl in zip(host["g"].pop(k), card["slices"][k]):
+        g, p = g.to(dev), named[k][sl].to(dev)
+        st = AdamWState(step=torch.zeros((), dtype=torch.int32), m={k: torch.zeros_like(g)},
+                        v={k: torch.zeros_like(g)})
+        u = update({k: g}, st, {k: p})[0][k]
+        ms.append(st.m[k])
+        us.append((p + u) - p)
+    return ms, us
+
+
+def shards_rel(dev, card: list, host: list, rows=None) -> tuple:
+    """(||card - host|| / ||host|| over every slot's shard of a leaf, in
+    float64 on `dev`, each CPU shard moved there in turn; whether the card's
+    shards are finite). `rows(s)`: the rows of slot s's shard to compare."""
+    num = den = 0.0
+    finite = True
+    for s, (a, b) in enumerate(zip(card, host)):
+        b = b.to(dev)
+        if rows is not None:
+            r = rows(s).to(dev)
+            a, b = a[r], b[r]
+        finite = finite and bool(torch.isfinite(a).all())
+        num += torch.sum(torch.square(a.double() - b.double())).item()
+        den += torch.sum(torch.square(b.double())).item()
+    return (math.sqrt(num / den) if den else math.sqrt(num)), finite
+
+
+def split_train_compare(dev, cfg, named: dict, card: dict, host: dict, tol: dict, gate_all: bool) -> tuple:
+    """Card side against CPU side (`split_train_side`'s results, the CPU's
+    taken through AdamW by `host_adamw`; each leaf's shards dropped on both
+    sides once compared): the loss, the gradient norm, AdamW's first moment
+    and the update leaf by leaf over the slots' shards; for the moe family
+    the routing per layer (`route_compare`), the aux loss, and the stacked
+    expert leaves on each slot's experts routed alike. Returns (the line's
+    numbers, the failures: every limit with `gate_all`, else the finite
+    values and the loss and aux limits)."""
+    r, agree_rows, bad, routing_bad = {}, {}, [], []
+    moe_family = cfg.family == "moe"
+    if moe_family:
+        cap = moe.capacity(host["routes"][0][0].shape[0], cfg)
+        r, agree_rows, bad, routing_bad = route_compare(dev, cfg, cap, card["routes"], host["routes"],
+                                                        MOE_TRAIN_CHECK["sel_set"])
+        r["slots_route_alike"] = {"card": card["slots_route_alike"], "cpu": host["slots_route_alike"]}
+        if not all(r["slots_route_alike"].values()):
+            bad.append(f"a slot routes otherwise than slot 0: {r['slots_route_alike']}")
+    mspec = model_split(cfg)
+    moment_rel, update_rel = {}, {}
+    finite = math.isfinite(card["loss"]) and math.isfinite(card["grad_norm"])
+    for k in list(host["g"]):
+        em = EXPERT_LEAF.match(k)
+        rows = None
+        if em and not bool(agree_rows[int(em.group(1))].all()):
+            alike, n = agree_rows[int(em.group(1))], len(host["g"][k])
+            el = cfg.n_experts // n
+            rows = (lambda s, a=alike, el=el: a[s * el:(s + 1) * el]) if mspec[k] == 0 else (lambda s, a=alike: a)
+        host_m, host_u = host_adamw(dev, named, k, host, card)
+        moment_rel[k], fin = shards_rel(dev, card["m"].pop(k), host_m, rows)
+        update_rel[k], _ = shards_rel(dev, card["updates"].pop(k), host_u, rows)
+        finite = finite and fin
+    r.update({"loss_card": card["loss"], "loss_cpu": host["loss"],
+              "loss_rel": abs(card["loss"] - host["loss"]) / abs(host["loss"]),
+              "grad_norm_card": card["grad_norm"], "grad_norm_cpu": host["grad_norm"],
+              "grad_norm_rel": abs(card["grad_norm"] - host["grad_norm"]) / abs(host["grad_norm"]),
+              "moment_rel_max": max(moment_rel.values()), "moment_rel_worst": max(moment_rel, key=moment_rel.get),
+              "update_rel_max": max(update_rel.values()), "update_rel_worst": max(update_rel, key=update_rel.get),
+              "finite": finite, "tolerance": tol, "gated": "all" if gate_all else "finite, loss, aux"})
+    if moe_family:
+        r.update({"aux_card": card["aux"], "aux_cpu": host["aux"],
+                  "aux_rel": abs(card["aux"] - host["aux"]) / abs(host["aux"])})
+        if not r["aux_rel"] <= tol["loss_rel"]:
+            bad.append(f"aux loss {card['aux']} on the card against {host['aux']}")
+    if not finite:
+        bad.append("non-finite loss, gradient norm or moments on the card")
+    if not r["loss_rel"] <= tol["loss_rel"]:
+        bad.append(f"loss {card['loss']} on the card against {host['loss']}")
+    if r["grad_norm_rel"] > tol["grad_rel"]:
+        routing_bad.append(f"gradient norm {card['grad_norm']} on the card against {host['grad_norm']}")
+    if r["moment_rel_max"] > tol["grad_rel"]:
+        routing_bad.append(f"AdamW's m of {r['moment_rel_worst']} differs by {r['moment_rel_max']}")
+    if r["update_rel_max"] > tol["update_rel"]:
+        routing_bad.append(f"update of {r['update_rel_worst']} differs by {r['update_rel_max']}")
+    return r, bad + (routing_bad if gate_all else [])
+
+
+def check_split_train_card_vs_cpu(dev, spec: dict, cfg=None) -> dict:
+    """A tp_train path's check: one step of `spec`'s arch at full width and
+    `spec["check_layers"]` (or of `cfg`, a small config for the CPU tests)
+    split over `spec`'s mesh, card slots against CPU slots, the same numpy
+    weights (seed 0, drawn on `dev`) and TRAIN_CHECK's tokens, float32 then
+    bf16, held as the tp_train comment says (`split_train_compare`). The
+    weights stay on `dev` (the host holds no copy of them); the CPU side
+    runs first, up to AdamW's per-shard update, and keeps its numbers,
+    routing and clipped gradient shards on the host; then the card's whole
+    step; then leaf by leaf the CPU's gradient is taken through the step's
+    AdamW on the card (`host_adamw`) and compared with the card's moment and
+    update there."""
+    c = TRAIN_CHECK
+    base = cfg or dataclasses.replace(get_arch(spec["arch"]).model, n_layers=spec["check_layers"])
+    named = {k: p.detach() for k, p in init_params(base, seed=0, device=dev, param_dtype="float32")
+             .named_parameters()}
+    tokens = np.random.default_rng(5).integers(0, base.vocab_size, (c["batch"], c["seq"] + 1)).astype(np.int32)
+    out, bad = {}, []
+    for dtype in ("float32", "bfloat16"):
+        cfg = dataclasses.replace(base, dtype=dtype)
+        t0 = time.perf_counter()
+        host = split_train_side(torch.device("cpu"), cfg, named, tokens, spec, host=True)
+        t1 = time.perf_counter()
+        rss = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024
+        card = split_train_side(dev, cfg, named, tokens, spec)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        seconds = {f"{side}_{k}": v[k] for side, v in (("cpu", host), ("card", card)) for k in ("setup_s", "step_s")}
+        r, failed = split_train_compare(dev, cfg, named, card, host, c[dtype],
+                                        gate_all=dtype == "float32" or cfg.family != "moe")
+        del card, host
+        free_card()
+        out[dtype] = r
+        bad += [f"{dtype}: {f}" for f in failed]
+        emit({"phase": spec.get("phase", "tp_train"), "path": "train_card_vs_cpu", "arch": spec["arch"],
+              "dtype": dtype, "mesh": dict(zip(spec["names"], spec["shape"])),
+              "config": {**{k: c[k] for k in ("batch", "seq", "lr")}, "layers": cfg.n_layers, "d_model": cfg.d_model,
+                         "params": cfg.param_count(), "remat": cfg.remat},
+              **r, "cpu_s": t1 - t0, "card_s": t2 - t1, "compare_s": time.perf_counter() - t2, **seconds,
+              "peak_rss_after_cpu_side": rss,
+              "peak_rss_bytes": resource.getrusage(resource.RUSAGE_SELF).ru_maxrss * 1024})
+    del named
+    free_card()
+    if bad:
+        raise AssertionError(f"{spec['arch']}: card and CPU split training disagree: " + "; ".join(bad))
+    return out
+
+
+def reckoned_bytes(cfg, n_slots: int) -> int:
+    """The split step's reckoned peak of card memory for `cfg`'s parameters
+    P: 16 P (float32 masters, AdamW's two moments, the gradients), 2 P (the
+    bf16 working copies) and 3 x 4 P / n_slots (the per-shard AdamW's
+    float32 temporaries: one slot's shards at a time); activations apart."""
+    p = cfg.param_count()
+    return 16 * p + 2 * p + 12 * p // n_slots
+
+
+def time_split_flash_dh256(dev, kept: tuple, cycles_per_ms: float) -> dict:
+    """B10's lse form on the split hybrid training's own q, k, v (slot 0's
+    first launch: 4 x 1,024, 4 heads over 1, Dh 256) beside its plain
+    version and torch's flash `_scaled_dot_product_flash_attention` (out
+    and lse, causal, k and v repeated to the 4 heads; the library
+    yardstick, which the port never calls). Bound as `time_train_flash`'s:
+    the band's operations at the bf16 tensor-core peak against q, k, v
+    read and out and lse written once."""
+    (q, k, v), kw = kept
+    window = kw.get("window")
+    b, s, h, dh = q.shape
+    g = h // k.shape[2]
+    with torch.no_grad():
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k.repeat_interleave(g, 2), v.repeat_interleave(g, 2)))
+        before = ops.launch_counts()["flash_attention_fwd_lse"]
+        got, lse = ops.flash_attention_fwd_lse(q, k, v, **kw)
+        if ops.launch_counts()["flash_attention_fwd_lse"] != before + 1:
+            raise AssertionError("the split hybrid's lse call did not run the tensor-core kernel")
+        want, want_lse = ref.flash_reference_lse(q, k, v, **kw)
+        ok, tol = flash_within(got, want)
+        err = (got.float() - want.float()).abs().max().item()
+        lse_err = (lse - want_lse).abs().max().item()
+        if not (ok and lse_err <= LSE_TOL[0] + LSE_TOL[1] * want_lse.abs().max().item()):
+            raise AssertionError(f"B10's Dh 256 lse form disagrees on the split hybrid's inputs: {err}, lse {lse_err}")
+        ms, host_ms = time_ms(lambda: ops.flash_attention_fwd_lse(q, k, v, **kw), 50, cycles_per_ms)
+        plain_ms, plain_host_ms = time_ms(lambda: ref.flash_reference_lse(q, k, v, **kw), 5, cycles_per_ms)
+        lib = {}
+        try:
+            def library():
+                return torch.ops.aten._scaled_dot_product_flash_attention(qt, kt, vt, 0.0, True)
+
+            lib["library_lse_max_abs_err"] = (library()[1][..., :s].float() - want_lse).abs().max().item()
+            lib["library_ms"] = time_ms(library, 50, cycles_per_ms)[0]
+        except RuntimeError as exc:  # a backend that refuses these inputs: recorded, not timed
+            lib["library_ms"], lib["library_refused"] = None, str(exc).splitlines()[0][:200]
+    nops = flash_attn.flops(b, s, s, h, dh, window, True)
+    nbytes = 2 * (q.numel() * q.element_size() + k.numel() * k.element_size()) + lse.numel() * 4
+    by_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    by_ops = nops / BF16_TENSOR_OPS_PER_S * 1e3
+    bound_ms, bound_by = (by_ops, "operations") if by_ops >= by_bytes else (by_bytes, "bytes")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes,
+            "ops": nops, "chain_steps": None, "host_ms": host_ms, "plain_host_ms": plain_host_ms,
+            "max_abs_err": err, "lse_max_abs_err": lse_err, "tolerance": tol, "dtype": str(q.dtype),
+            "shape": [b, s, h, k.shape[2], dh], "window": window, "tflops": nops / (ms * 1e-3) / 1e12, **lib}
+
+
+def run_tp_train(dev) -> tuple:
+    """The tp_train phase: each TP_TRAIN_SPLIT path's check, then its
+    `train(mesh=...)` (B10's lse form on each slot's heads, at Dh 256 on the
+    hybrid), then a `tp_train` line with the phase's seconds. Returns (the
+    paths' launches, the hybrid path's lse launches, the Dh 256 lse form
+    timed on its inputs)."""
+    t0 = time.perf_counter()
+    launches = {k: 0 for k in KERNELS}
+    dh256, timing = 0, None
+    for spec in TP_TRAIN_SPLIT:
+        free_card()
+        check_split_train_card_vs_cpu(dev, spec)
+        cfg = dataclasses.replace(get_arch(spec["arch"]).model, n_layers=spec["n_layers"])
+        emit({"phase": "tp_train", "path": spec["path"], "arch": spec["arch"], "params": cfg.param_count(),
+              "reckoned_bytes": reckoned_bytes(cfg, spec["shape"][-1]),
+              "card_bytes": torch.cuda.get_device_properties(dev).total_memory})
+        kept: dict = {}
+        got = run_mesh_train(dev, dict(spec, phase="tp_train"), "tp_train", keep=kept)
+        for k, n in got.items():
+            if k in launches:
+                launches[k] += n
+        if cfg.family == "hybrid":
+            dh256 = got["flash_attention_fwd_lse"]
+            timing = time_split_flash_dh256(dev, kept["flash_attention_fwd_lse"], sleep_cycles_per_ms())
+            emit({"phase": "tp_train", "path": spec["path"], "flash_lse_dh256":
+                  {k: v for k, v in timing.items() if k != "max_abs_err"}})
+        del kept
+        free_card()
+    end_phase("tp_train", t0)
+    return launches, dh256, timing
 
 
 #: the examples phase: each twin of the reference's examples
@@ -5171,7 +5641,7 @@ def main() -> int:
 
     t0 = time.perf_counter()
     flash_err = check_flash(dev)
-    dh256_err = flash_err.pop(DH256)
+    dh256_err, dh256_lse_err = flash_err.pop(DH256), flash_err.pop(DH256_LSE)
     err.update(flash_err)
     emit({"phase": "flash", "within_tolerance": True, "max_abs_err": flash_err,
           "seconds": time.perf_counter() - t0})
@@ -5226,8 +5696,10 @@ def main() -> int:
 
     t_timing = time.perf_counter()
     times = time_kernels(dev, full_values, frames["heavy"])
+    for k, t in time_unstaged(dev, sleep_cycles_per_ms()).items():
+        times[k].update(t)
     for k, t in times.items():
-        err[k] = max(err[k], t["max_abs_err"])
+        err[k] = max(err[k], t["max_abs_err"], t.get("unstaged_max_abs_err", 0))
     bad = {k: v for k, v in err.items() if v != 0 and k not in LM_KERNELS}
     if bad:
         raise AssertionError(f"kernels disagree with their plain versions at the main paths' shapes: {bad}")
@@ -5267,6 +5739,11 @@ def main() -> int:
     for k, n in tp_launches.items():
         launches[k] += n
     launches[DH256] += tp_dh256
+    tt_launches, launches[DH256_LSE], times[DH256_LSE] = run_tp_train(dev)
+    for k, n in tt_launches.items():
+        launches[k] += n
+    eval_launches[DH256_LSE] = 0
+    err[DH256_LSE] = max(dh256_lse_err, times[DH256_LSE]["max_abs_err"])
     t0 = time.perf_counter()
     for k, n in run_examples(dev).items():
         launches[k] += n
@@ -5283,11 +5760,14 @@ def main() -> int:
             **{k: times[name][k] for k in ("never_converging_ms", "never_converging_serial_ms",
                                            "per_block_ms", "per_block_busy_ms", "route_ms",
                                            "contract_route_ms", "lse_max_abs_err",
-                                           "plain_backward_ms", "library_flash_causal_ms", "uncapped_ms")
+                                           "plain_backward_ms", "library_flash_causal_ms", "uncapped_ms",
+                                           "unstaged_ms", "unstaged_plain_ms", "unstaged_bound_ms",
+                                           "unstaged_symbols")
                if k in times[name]},
         }
         for name, (src, replaces) in {**KERNELS, DH256: KERNELS["flash_attention_fwd_tc"],
-                                      SOFTCAP: KERNELS["flash_attention_fwd_tc"]}.items()
+                                      SOFTCAP: KERNELS["flash_attention_fwd_tc"],
+                                      DH256_LSE: KERNELS["flash_attention_fwd_lse"]}.items()
     ]})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
