@@ -374,7 +374,17 @@ Phases, each printing one line per check:
                lines checked (EXAMPLES) and its launches counted:
                quickstart's adpcm handle runs B1 with B4, B3, B6 and B7,
                multipod_tour's sharded tdic32 B1 and B5, serve_lm's
-               prefill B10, train_lm's feed and step B2 and B10's lse form.
+               prefill B10, train_lm's feed and step B2 and B10's lse form;
+  19. helpers — the reference's last public helpers on the card
+               (`run_helpers`): `Codec.roundtrip` of raw32 and every codec
+               of Table 1 on a slice of the eval volume (4 lanes x
+               HELPERS_TUPLES; lossless: the input exactly; lossy: the CPU
+               path's roundtrip, within `error_bound()`; adpcm's B6/B7 and
+               tdic32's B5 launched), `Encoded.total_bits` against the
+               CPU's, a card compress's `CompactedPayload.block_payloads()`
+               against the CPU path's block by block, `init_cache` on the
+               card and its `cache_bytes`, and one B1+B4 launch timed by
+               `metrics.timed`.
 Then one JSON line of per-kernel numbers, the card's name and power limit as
 nvidia-smi reports them, and a last JSON line with the device.
 
@@ -411,7 +421,7 @@ from repro_torch.core import bits, dictstore  # noqa: E402
 from repro_torch.core.algorithms import WIRE_CODEC_NAMES, make_codec  # noqa: E402
 from repro_torch.core.pipeline import CompressionPipeline, DecompressionPipeline  # noqa: E402
 from repro_torch.data import make_dataset  # noqa: E402
-from repro_torch.core import engine, entropy, kvcache  # noqa: E402
+from repro_torch.core import engine, entropy, kvcache, metrics  # noqa: E402
 from repro_torch.runtime.elastic import ElasticSession  # noqa: E402
 from repro_torch.runtime.fault import DeviceLossInjector  # noqa: E402
 from repro_torch.kernels import build, delta_nuq, flash_attn, ops, rans, ref  # noqa: E402
@@ -5580,6 +5590,87 @@ def run_examples(dev) -> dict:
     return launches
 
 
+#: the helpers phase's slice of the eval volume: tuples a lane, 4 lanes
+HELPERS_TUPLES = 4096
+
+
+def run_helpers(dev) -> dict:
+    """The helpers phase: the port of the reference's last public helpers
+    on the card, each against the CPU path on the same inputs. Returns the
+    launches of the roundtrips and the compress (not the timed B1+B4
+    launches)."""
+    from repro_torch.core.algorithms import PAPER_TABLE1
+
+    t0 = time.perf_counter()
+    n = 4 * HELPERS_TUPLES
+    data = {"rovio": make_dataset("rovio", n_tuples=EVAL_BYTES // 16, seed=7).stream()[:n],
+            "ecg": ecg_stream(EVAL_BYTES // 4)[:n]}
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    bad, codecs = [], {}
+    for name in ("raw32",) + tuple(PAPER_TABLE1.values()):
+        # each codec as the path phase configures it (its first config there)
+        fields, dataset = next((f, d) for c, f, _, d in PATH_CONFIGS if c.split("/")[0].split("+")[0] == name)
+        spec = JobSpec(**fields)
+        if dataset == "ecg":
+            spec = spec.calibrated(data["ecg"][:CALIBRATION_TUPLES])  # the path phase's sample
+        codec = make_codec(name, **spec.codec_kwargs)
+        x = data[dataset].reshape(4, HELPERS_TUPLES)
+        card = bits.u32_numpy(codec.roundtrip(bits.u32_tensor(x, dev)))
+        cpu = bits.u32_numpy(codec.roundtrip(bits.u32_tensor(x, "cpu")))
+        err = int(np.abs(card.astype(np.int64) - x.astype(np.int64)).max())
+        bound = codec.error_bound()
+        _, enc_card = codec.encode(codec.init_state(4, dev), bits.u32_tensor(x, dev))
+        _, enc_cpu = codec.encode(codec.init_state(4, torch.device("cpu")), bits.u32_tensor(x, "cpu"))
+        total = enc_card.total_bits
+        ok = (np.array_equal(card, cpu) and (codec.meta.lossy or err == 0)
+              and (bound is None or err <= bound) and total.device.type == "cuda"
+              and int(total) == int(enc_cpu.total_bits))
+        codecs[name] = {"dataset": dataset, "lossy": codec.meta.lossy, "max_abs_err": err,
+                        "error_bound": bound, "total_bits": int(total), "equals_cpu": ok}
+        if not ok:
+            bad.append(name)
+    spec = JobSpec(codec="rle")
+    values = data["rovio"][: 5 * 2048 * 4 + 777]
+    card_pipe, cpu_pipe = CompressionPipeline(spec, device=dev), CompressionPipeline(spec, device="cpu")
+    views = card_pipe.execute(card_pipe.shape_blocks(values), collect_payload=True).compacted.block_payloads()
+    want = cpu_pipe.execute(cpu_pipe.shape_blocks(values), collect_payload=True).compacted.block_payloads()
+    blocks_ok = len(views) == len(want) and all(
+        a.nbits == b.nbits and a.valid == b.valid and np.array_equal(a.words, b.words)
+        and np.array_equal(a.bitlen, b.bitlen) for a, b in zip(views, want))
+    if not blocks_ok:
+        bad.append("block_payloads")
+    dims = (28, 4, 2048, 8, 128)  # qwen3-1.7b's ring at the lm phase's batch and prompt
+    cache = kvcache.init_cache(*dims)
+    want_bytes = 2 * math.prod(dims) + 2 * 4 * math.prod(dims[:2] + (dims[2] // kvcache.SCALE_GROUP, dims[3])) + 4
+    cache_ok = (cache.k_codes.is_cuda and cache.window == dims[2]
+                and kvcache.cache_bytes(cache) == want_bytes == kvcache.cache_bytes(cache.tensors()))
+    if not cache_ok:
+        bad.append("init_cache")
+    del cache
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()  # the helpers' own launches; the timed one below is a measurement
+    rng = np.random.default_rng(11)
+    blen = torch.from_numpy(rng.integers(0, 33, 16 * 2048).astype(np.int32)).to(dev)
+    codes = torch.from_numpy(rng.integers(0, 2**31, (16 * 2048, 2)).astype(np.int32)).to(dev)
+    codes[:, 1] = 0
+    codes[:, 0] &= ((1 << blen.long()) - 1).int()
+    got, secs = metrics.timed(ops.pack_blocks_meta7, codes, blen, 2048, 2 * 2048 + 2, warmup=2, iters=10)
+    plain = ref.pack_blocks_ref(codes.cpu(), blen.cpu(), 2048, 2 * 2048 + 2) + (
+        ref.pack_meta7_ref(blen.cpu().reshape(16, 2048)),)
+    timed_ok = secs > 0 and all(torch.equal(g.cpu(), w) for g, w in zip(got, plain))
+    if not timed_ok:
+        bad.append("timed")
+    emit({"phase": "helpers", "device": str(dev), "roundtrip": codecs, "block_payloads": len(views),
+          "block_payloads_equal_cpu": blocks_ok, "init_cache": {"dims": list(dims), "cache_bytes": want_bytes,
+                                                                 "ok": cache_ok},
+          "timed_pack_blocks_meta7_ms": secs * 1e3, "launches": {k: v for k, v in counts.items() if v},
+          "seconds": time.perf_counter() - t0})
+    if bad:
+        raise AssertionError(f"the helpers disagree on the card: {bad}")
+    return counts
+
+
 def keep_freed_host_memory() -> dict:
     """This process's own allocator: glibc serves every host allocation
     from its heap (M_MMAP_MAX 0) and keeps what is freed there (M_TRIM_
@@ -5748,6 +5839,10 @@ def main() -> int:
     for k, n in run_examples(dev).items():
         launches[k] += n
     end_phase("examples", t0)
+    t0 = time.perf_counter()
+    for k, n in run_helpers(dev).items():
+        launches[k] += n
+    end_phase("helpers", t0)
     end_phase("host", t_start)
     emit({"kernels": [
         {

@@ -26,6 +26,11 @@ class Encoded:
     codes: torch.Tensor  # int32[..., L, B, 2] (low word, high word), LSB-first
     bitlen: torch.Tensor  # int32[..., L, B]     (0 => suppressed slot)
 
+    @property
+    def total_bits(self) -> torch.Tensor:
+        """The sum of `bitlen`: a 0-d int64 tensor on `bitlen`'s device."""
+        return self.bitlen.sum(dtype=torch.int64)
+
 
 @dataclasses.dataclass(frozen=True)
 class CodecMeta:
@@ -110,6 +115,20 @@ class Codec:
     @property
     def name(self) -> str:
         return self.meta.name
+
+    def roundtrip(self, x: torch.Tensor) -> torch.Tensor:
+        """Single-shot encode + flush + decode from fresh state, on `x`'s
+        device: int32[L, B] bits in, the reconstruction's int32[L, B] bits
+        out (a stream-scope decode's one value per slot trimmed to B)."""
+        lanes = x.shape[0]
+        st_e = self.init_state(lanes, x.device)
+        st_d = self.init_state(lanes, x.device)
+        st_e, enc = self.encode(st_e, x)
+        tail = self.flush(st_e)
+        if tail is not None:
+            enc = Encoded(torch.cat([enc.codes, tail.codes], dim=1), torch.cat([enc.bitlen, tail.bitlen], dim=1))
+        _, xhat = self.decode(st_d, enc)
+        return xhat[:, : x.shape[1]]
 
 
 _REGISTRY: Dict[str, Callable[..., Codec]] = {}

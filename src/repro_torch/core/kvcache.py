@@ -25,14 +25,15 @@ of the reference's `shard_map`.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch import compat
 from repro_torch.core.algorithms.nuq import mulaw_decode_unsigned, mulaw_encode_unsigned
-from repro_torch.core.device import on_device
+from repro_torch.core.device import DeviceLike, on_device, resolve_device
 from repro_torch.models import partition
 
 SCALE_GROUP = 128  # tokens per quantization scale group
@@ -62,6 +63,43 @@ def dequant_table(qbits: int, device) -> torch.Tensor:
         table = _DEQUANT_TABLE_8 if qbits == 8 else _build_dequant_table(qbits)
         t = _TABLES[key] = torch.from_numpy(table.copy()).to(device)
     return t
+
+
+@dataclasses.dataclass
+class QuantKVCache:
+    """One layer-stacked quantized KV cache (the reference's form; the
+    serving paths keep the same tensors in a dict ring)."""
+
+    k_codes: torch.Tensor  # uint8 [L, B, W, K, Dh]
+    v_codes: torch.Tensor  # uint8 [L, B, W, K, Dh]
+    k_scale: torch.Tensor  # float32 [L, B, W // G, K]
+    v_scale: torch.Tensor  # float32 [L, B, W // G, K]
+    length: torch.Tensor  # int32 [] tokens currently valid (ring if > W)
+
+    @property
+    def window(self) -> int:
+        return self.k_codes.shape[2]
+
+    def tensors(self) -> Dict[str, torch.Tensor]:
+        """The fields by name, the tensors themselves (no copies)."""
+        return {f.name: getattr(self, f.name) for f in dataclasses.fields(self)}
+
+
+def init_cache(n_layers: int, batch: int, window: int, kv_heads: int, head_dim: int,
+               device: DeviceLike = None) -> QuantKVCache:
+    """Zero codes, scales of one (G = min(128, window) slots a scale), length
+    0, on `device` (the card unless the caller names another)."""
+    dev = resolve_device(device)
+    g = min(SCALE_GROUP, window)
+    codes = (n_layers, batch, window, kv_heads, head_dim)
+    scales = (n_layers, batch, window // g, kv_heads)
+    return QuantKVCache(
+        k_codes=torch.zeros(codes, dtype=torch.uint8, device=dev),
+        v_codes=torch.zeros(codes, dtype=torch.uint8, device=dev),
+        k_scale=torch.ones(scales, dtype=torch.float32, device=dev),
+        v_scale=torch.ones(scales, dtype=torch.float32, device=dev),
+        length=torch.zeros((), dtype=torch.int32, device=dev),
+    )
 
 
 def _signed_codes(xn: torch.Tensor, qbits: int) -> torch.Tensor:
@@ -112,14 +150,17 @@ def dequantize_block_kmajor(codes: torch.Tensor, scale: torch.Tensor, ring_w: in
 
 
 # ----------------------------------------------------------------- writes --
-def prefill_layer(cache: Dict[str, torch.Tensor], layer: int, k: torch.Tensor,
-                  v: torch.Tensor) -> Dict[str, torch.Tensor]:
+def prefill_layer(cache: Union[QuantKVCache, Dict[str, torch.Tensor]], layer: int, k: torch.Tensor,
+                  v: torch.Tensor) -> Union[QuantKVCache, Dict[str, torch.Tensor]]:
     """Write a whole prefill (B, S <= W, K, Dh) for one layer at slot 0 of a
     layer-stacked quantized cache ({k,v}_codes (L, B, W, K, Dh), {k,v}_scale
-    (L, B, W // G, K)), in place: S padded with zeros to a multiple of the
-    scale group, then quantized. Sets cache["length"] = S."""
+    (L, B, W // G, K)), a `QuantKVCache` or the same tensors in a dict, in
+    place: S padded with zeros to a multiple of the scale group, then
+    quantized. Sets the length to S (a 0-d int32 tensor in a
+    `QuantKVCache`, an int in a dict)."""
+    t = cache.tensors() if isinstance(cache, QuantKVCache) else cache
     s = k.shape[1]
-    g = min(SCALE_GROUP, cache["k_codes"].shape[2])
+    g = min(SCALE_GROUP, t["k_codes"].shape[2])
     pad = (-s) % g
     if pad:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
@@ -127,11 +168,14 @@ def prefill_layer(cache: Dict[str, torch.Tensor], layer: int, k: torch.Tensor,
     kc, ks = quantize_block(k)
     vc, vs = quantize_block(v)
     n = kc.shape[1]
-    cache["k_codes"][layer, :, :n] = kc
-    cache["v_codes"][layer, :, :n] = vc
-    cache["k_scale"][layer, :, :ks.shape[1]] = ks
-    cache["v_scale"][layer, :, :vs.shape[1]] = vs
-    cache["length"] = s
+    t["k_codes"][layer, :, :n] = kc
+    t["v_codes"][layer, :, :n] = vc
+    t["k_scale"][layer, :, :ks.shape[1]] = ks
+    t["v_scale"][layer, :, :vs.shape[1]] = vs
+    if isinstance(cache, QuantKVCache):
+        cache.length = torch.tensor(s, dtype=torch.int32, device=cache.k_codes.device)
+    else:
+        cache["length"] = s
     return cache
 
 
@@ -356,9 +400,11 @@ def join_rows(result, device) -> Optional[torch.Tensor]:
     return compat.all_gather(outs, [device], dim=0)[0] if split else outs[0].to(device)
 
 
-def cache_bytes(ring: Dict[str, torch.Tensor]) -> int:
-    """Bytes of a ring's tensors (codes and scales, or raw K/V)."""
-    return sum(t.numel() * t.element_size() for t in ring.values())
+def cache_bytes(cache: Union[QuantKVCache, Dict[str, torch.Tensor]]) -> int:
+    """Bytes of a ring's tensors (codes and scales, or raw K/V), or of a
+    `QuantKVCache`'s (its 4-byte length included, as the reference counts)."""
+    ts = cache.tensors() if isinstance(cache, QuantKVCache) else cache
+    return sum(t.numel() * t.element_size() for t in ts.values())
 
 
 # ---------------------------------------------------- tensor parallelism --

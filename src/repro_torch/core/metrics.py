@@ -1,12 +1,14 @@
 """Evaluation metrics (paper §4.1): compression ratio, NRMSE, throughput,
 end-to-end latency, and the analytic energy estimate (port of
-`repro/core/metrics.py`; numpy only)."""
+`repro/core/metrics.py`); `timed`, the wall time of a function."""
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+import time
+from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 
 def compression_ratio(input_bits: float, output_bits: float) -> float:
@@ -101,3 +103,43 @@ class RunStats:
         if self.energy_j is not None:
             parts.append(f"E={self.energy_j:.4f}J")
         return ",".join(parts)
+
+
+def _wait(result) -> None:
+    """Wait for every CUDA tensor in `result` (nested tuples, lists and
+    dicts, dataclasses' fields): synchronize each one's device once, as
+    `jax.block_until_ready` waits for a result. Nothing to wait for on the
+    CPU."""
+    devices = set()
+
+    def walk(x) -> None:
+        if isinstance(x, torch.Tensor):
+            if x.is_cuda:
+                devices.add(x.device)
+        elif isinstance(x, dict):
+            for v in x.values():
+                walk(v)
+        elif isinstance(x, (list, tuple)):
+            for v in x:
+                walk(v)
+        elif dataclasses.is_dataclass(x) and not isinstance(x, type):
+            for f in dataclasses.fields(x):
+                walk(getattr(x, f.name))
+
+    walk(result)
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+
+
+def timed(fn: Callable, *args, warmup: int = 1, iters: int = 3):
+    """Wall-time `fn(*args)` after `warmup` calls, waiting for each result's
+    tensors; returns (the last result, seconds per call)."""
+    result = None
+    for _ in range(warmup):
+        result = fn(*args)
+        _wait(result)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        result = fn(*args)
+        _wait(result)
+    return result, (time.perf_counter() - t0) / iters

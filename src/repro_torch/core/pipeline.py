@@ -217,6 +217,22 @@ class CompactedPayload:
     packed_meta: Optional[np.ndarray]  # uint32 — wire 7-bit metadata stream
     d2h_bytes: int  # payload + metadata + counter bytes fetched from the device
 
+    def block_payloads(self) -> List[BlockPayload]:
+        """Per-block view (numpy slices of `payload` and `bitlen`, no copies)
+        for consumers of the legacy per-block form."""
+        used = (self.block_bits + 31) // 32
+        w_off = np.concatenate([[0], np.cumsum(used)]).astype(np.int64)
+        s_off = np.concatenate([[0], np.cumsum(self.sym_counts)]).astype(np.int64)
+        return [
+            BlockPayload(
+                self.payload[w_off[b]: w_off[b + 1]],
+                int(self.block_bits[b]),
+                self.bitlen[s_off[b]: s_off[b + 1]],
+                int(self.block_valid[b]),
+            )
+            for b in range(self.block_bits.size)
+        ]
+
 
 @dataclasses.dataclass
 class ExecutionResult:
@@ -229,6 +245,16 @@ class ExecutionResult:
     compacted: Optional[CompactedPayload] = None  # compacted egress (default)
     legacy_payload: Optional[List[BlockPayload]] = None  # compact=False path
     flush_slots: int = 0  # per-lane slots of the flush mini-block
+
+    @property
+    def payload(self) -> Optional[List[BlockPayload]]:
+        """Per-block wire contributions (either egress path), or None when
+        the run did not collect a payload."""
+        if self.legacy_payload is not None:
+            return self.legacy_payload
+        if self.compacted is not None:
+            return self.compacted.block_payloads()
+        return None
 
 
 @dataclasses.dataclass
@@ -254,7 +280,8 @@ class _EgressSink:
     the frame's global metadata stream without re-alignment.
     """
 
-    def __init__(self):
+    def __init__(self, pipe: "CompressionPipeline"):
+        self.pipe = pipe
         self._pending = None
         self.block_bits: List[int] = []
         self.block_valid: List[int] = []
@@ -293,6 +320,9 @@ class _EgressSink:
             self.raw_bitlens.append(r)
             meta_bytes = r.nbytes
         self.d2h_bytes += seg.nbytes + meta_bytes + extra_bytes
+        self.pipe.d2h_payload_bytes += seg.nbytes
+        self.pipe.d2h_meta_bytes += meta_bytes
+        self.pipe.d2h_ctrl_bytes += extra_bytes
 
     def put_chunk(self, tb, payload, total, meta, packed: bool, syms: int, valid: int):
         """One fused chunk: tb int32[C], payload int32[C*OW] (compacted,
@@ -513,6 +543,22 @@ class CompressionPipeline(BlockedExecutor):
         #: global stream without re-alignment; odd geometries fall back to
         #: raw int32 bitlen transfer
         self._meta7_ok = self.plan.block_tuples % 32 == 0
+        #: egress bytes fetched device -> host, both egress paths under one
+        #: meter (the solo and gang sinks, the legacy collection, a server
+        #: session's commits)
+        self.d2h_payload_bytes = 0
+        self.d2h_meta_bytes = 0
+        self.d2h_ctrl_bytes = 0
+
+    @property
+    def d2h_bytes(self) -> int:
+        """Total egress (payload + metadata + counters) bytes fetched."""
+        return self.d2h_payload_bytes + self.d2h_meta_bytes + self.d2h_ctrl_bytes
+
+    def reset_d2h(self) -> None:
+        self.d2h_payload_bytes = 0
+        self.d2h_meta_bytes = 0
+        self.d2h_ctrl_bytes = 0
 
     # -------------------------------------------------------------- core step
     def _pack(self, enc: Encoded, n_blocks: int, meta7: bool = False):
@@ -878,7 +924,7 @@ class CompressionPipeline(BlockedExecutor):
         S = len(shaped_list)
         bt = self.block_tuples
         lanes = self.config.lanes
-        sinks = [_EgressSink() for _ in range(S)]
+        sinks = [_EgressSink(self) for _ in range(S)]
         pending = None
 
         def fetch(item) -> None:
@@ -1063,7 +1109,7 @@ class CompressionPipeline(BlockedExecutor):
         blocks_dev, tail_dev, mask_dev = self._stage(shaped)
         if state is None:
             state = self.init_state()
-        sink = _EgressSink()
+        sink = _EgressSink(self)
         bt = self.block_tuples
         lanes = self.config.lanes
         rem = shaped.n_valid - len(shaped.blocks) * bt
@@ -1127,6 +1173,8 @@ class CompressionPipeline(BlockedExecutor):
         for w, b in zip(words_acc, blen_acc):
             w = bits.u32_numpy(w)
             b = b.cpu().numpy().astype(np.int32)
+            self.d2h_payload_bytes += w.nbytes
+            self.d2h_meta_bytes += b.nbytes
             if w.ndim == 2:  # one fused chunk: (chunk, OW) / (chunk, L*B)
                 words_np.extend(w)
                 blen_np.extend(b)

@@ -689,6 +689,9 @@ class StreamSession:
             else:
                 # legacy: full worst-case buffer
                 payload = with_backoff(lambda: bits.u32_numpy(words))
+            self.pipeline.d2h_payload_bytes += payload.nbytes
+            self.pipeline.d2h_meta_bytes += meta_np.nbytes
+            self.pipeline.d2h_ctrl_bytes += 4
             self._egress_blocks.append((payload, tbi, meta_np, req.n))
             self._egress_values.append(req.values[: req.n].copy())
         rec = FlushRecord(

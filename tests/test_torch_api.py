@@ -28,6 +28,8 @@ from repro_torch.configs import cstream_edge as tedge
 from repro_torch.core import dictstore as tds
 from repro_torch.core.pipeline import dispatch_signature
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 GEOM = dict(lanes=2, micro_batch_bytes=1024)
 
 #: spec fields -> negotiation outcome, for both packages

@@ -10,6 +10,8 @@ from hypothesis_compat import given, settings, st  # skips when absent
 from repro.core import bits as rbits
 from repro_torch.core import bits as tbits
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 BITLENS = np.array([0, 1, 31, 32, 33, 64], np.int32)
 LENGTHS = [0, 1, 31, 32, 33, 2048]
 

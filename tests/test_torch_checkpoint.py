@@ -21,6 +21,8 @@ from repro_torch.checkpoint import CheckpointManager, latest_step, load_checkpoi
 from repro_torch.checkpoint.manager import _COMMIT_SUFFIX, committed_steps, tree_flatten
 from repro_torch.optim import AdamWConfig, adamw
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 
 def tree():
     return {

@@ -20,6 +20,8 @@ from repro_torch.core.algorithms import leb128 as tleb
 from repro_torch.core.pipeline import CompressionPipeline
 from repro_torch.core.strategies import EngineConfig
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 CODECS = ("raw32", "tcomp32", "leb128", "delta_leb128")
 #: every codec the port registers: the reference's whole registry
 PORTED = CODECS + ("tdic32", "rle", "leb128_nuq", "uanuq", "adpcm", "uaadpcm", "pla")

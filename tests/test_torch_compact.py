@@ -24,6 +24,8 @@ import torch
 from repro_torch.core import bits as tbits
 from repro_torch.kernels import ops, ref
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 THREADS, GROUP = 256, 128
 
 

@@ -12,6 +12,7 @@ import dataclasses
 
 import numpy as np
 import pytest
+import torch
 
 from repro import cstream as rcs
 from repro.core import controller as rctl
@@ -24,6 +25,8 @@ from repro_torch.core import planner as tplan
 from repro_torch.core.algorithms import WIRE_CODEC_NAMES
 from repro_torch.core.energy import PROFILES
 from repro_torch.core.pipeline import DecompressionPipeline
+
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
 
 GEOM = dict(lanes=2, micro_batch_bytes=1024)
 PROBE = {"cheap": 10.7, "heavy": 6.0}

@@ -38,6 +38,8 @@ from repro_torch.core.calibration import calibrated_kwargs
 from repro_torch.data import make_dataset
 from repro_torch.kernels import delta_nuq, ops, ref
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 LANES, MU = 4, 255.0
 #: the kernel's constants (csrc/delta_nuq.cu kSeg, kWarm, kSpecThreads)
 KERNEL_SPLIT = (delta_nuq.SEGMENT, delta_nuq.WARMUP, delta_nuq.SPEC_THREADS)

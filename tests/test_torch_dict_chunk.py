@@ -18,6 +18,8 @@ from repro_torch.core import bits as tbits
 from repro_torch.core import pipeline as tpipe
 from repro_torch.kernels import dict_hash, ops
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 CPU = torch.device("cpu")
 KNUTH = np.uint32(2654435761)
 #: (idx_bits, lanes, tuples per lane B, blocks per call C); each case runs

@@ -18,6 +18,8 @@ from repro_torch.core import pipeline as tpipe
 from repro_torch.kernels import dict_hash as thash
 from repro_torch.kernels import ops
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 CPU = torch.device("cpu")
 LANES = 4
 

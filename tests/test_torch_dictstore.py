@@ -25,6 +25,8 @@ from repro_torch.core.algorithms import make_codec
 from repro_torch.core.pipeline import DecompressionPipeline
 from repro_torch.kernels import ref
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 IDX_BITS = 8
 #: small geometry: 2 lanes x 128 tuples a block
 GEOM = dict(lanes=2, micro_batch_bytes=1024)

@@ -36,11 +36,14 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from repro_torch.configs import get_arch
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.launch import dryrun
 from repro_torch.runtime.elastic import make_mesh
+
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
 
 SHAPES = (ShapeSpec("train_4k", "train", 64, 4), ShapeSpec("prefill_32k", "prefill", 512, 4),
           ShapeSpec("decode_32k", "decode", 512, 4))

@@ -34,6 +34,8 @@ from repro_torch.core.algorithms import state_from_numpy
 from repro_torch.data import make_dataset
 from repro_torch.runtime.elastic import ElasticSession
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 #: name -> EngineConfig fields (4 lanes, 2 KiB micro-batches)
 CONFIGS = {
     "tcomp32": dict(codec="tcomp32"),

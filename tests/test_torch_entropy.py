@@ -14,6 +14,8 @@ from repro_torch.core import bits as tbits
 from repro_torch.core import entropy as tent
 from repro_torch.kernels import ops
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 CPU = torch.device("cpu")
 
 

@@ -7,8 +7,11 @@ takes from host walls, nor so the planner's pick, whose energy budget
 reads them (on the CPU the twin's first candidate pays the process's
 one-time set-up inside its wall)."""
 import pytest
+import torch
 
 from torch_example_runs import run_pair
+
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
 
 HEADER = r"^solution space on '(\w+)' \((\d+) candidates\):$"
 ROW = r"^  [* ] (\S+) +ratio= *([\d.]+) nrmse= *([\d.]+)% "

@@ -18,6 +18,8 @@ import torch
 
 from torch_example_runs import run_pair, run_twin
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 SHARDED = r"^\[1\] sharded tdic32 \({state} state\): warmed-up ratio ([\d.]+) across (\d+) devices$"
 SYNC = r"^\[2\] compressed pod gradient sync: max err (\S+) "
 REMESH = "[3] elastic remesh 8->4 devices: mesh {'data': 1, 'model': 4}, data intact: True"

@@ -13,12 +13,15 @@ through the port's own planner on the same stream with the budget lifted
 (ratio and NRMSE are the host-free criteria), and the twin's printed pick
 wherever it printed one."""
 import pytest
+import torch
 
 from repro_torch.core.planner import Constraints, choose, enumerate_solutions
 from repro_torch.data.datasets import make_dataset
 from repro_torch.data.stream import rate_for_dataset
 
 from torch_example_runs import run_pair
+
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
 
 NEGOTIATED = r"^\[0\] negotiated: (\S+) \(Table 1 (.+), wire id (\d+)\), block (\d+) tuples, scan chunk (\d+)$"
 HANDLE = r"^\[1\] ADPCM on ECG: ratio ([\d.]+)x, [\d.]+ MB/s, NRMSE ([\d.]+)% \(frame: (\d+) wire bytes\)$"

@@ -6,8 +6,11 @@ compared: tok/s and prefill ms (host walls) and the sample tokens (the
 twin's weights come from a `torch.Generator`, the reference's from
 `jax.random`)."""
 import pytest
+import torch
 
 from torch_example_runs import run_pair
+
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
 
 CACHE = r"^{kind} cache: +[\d.]+ tok/s decode, prefill +[\d.]+ ms, cache ([\d.]+) MB(.*)$"
 

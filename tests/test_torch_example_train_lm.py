@@ -6,8 +6,11 @@ Zipf tokens through the same delta_leb128 codec), as both print them. Not
 compared: the losses themselves (the twin's initial weights come from a
 `torch.Generator`, the reference's from `jax.random`) and tok/s."""
 import pytest
+import torch
 
 from torch_example_runs import run_pair
+
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
 
 ARGS = ("--small", "--steps", "8", "--fail-at", "4")
 HEADER = r"^training (\S+): ([\d.]+)M params, (\d+) steps @ batch (\d+) x seq (\d+)$"

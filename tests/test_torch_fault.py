@@ -16,6 +16,7 @@ import time
 
 import numpy as np
 import pytest
+import torch
 
 from repro import cstream as rcs
 from repro.core.strategies import EngineConfig as RefConfig
@@ -26,6 +27,8 @@ from repro_torch.core import dictstore
 from repro_torch.core.strategies import EngineConfig
 from repro_torch.runtime import fault as tfault
 from repro_torch.runtime.server import ServerCore
+
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
 
 BOTH = [tfault, rfault]
 

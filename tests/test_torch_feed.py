@@ -12,6 +12,8 @@ from repro.data import pipeline as rp
 from repro_torch.data import pipeline as tp
 from repro_torch.kernels import ops
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 
 def test_zipf_stream_equals_reference():
     a, b = rp.zipf_token_stream(1000, 3, 17, seed=4), tp.zipf_token_stream(1000, 3, 17, seed=4)

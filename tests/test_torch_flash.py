@@ -26,6 +26,8 @@ import torch
 
 from repro_torch.kernels import flash_attn, ops, ref
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 F32_TOL = 2e-4
 
 

@@ -39,6 +39,8 @@ from repro_torch.runtime import elastic as telastic
 from repro_torch.runtime import fault as tfault
 from repro_torch.runtime.server import StreamServer
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 CPU = torch.device("cpu")
 #: stateful codecs (rle runs, tdic32 dictionary) next to stateless: the
 #: shard scatter must keep every member straight, like the gang scatter

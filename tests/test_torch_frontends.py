@@ -42,6 +42,8 @@ from repro_torch.models.convert import (frontend_params_from_numpy, named_to_tre
                                         params_to_numpy)
 from repro_torch.optim import AdamWConfig
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 ARCHS = ("musicgen-large", "pixtral-12b")
 #: the reference's parameter counts, in billions to two places
 PARAMS_B = {"musicgen-large": 3.23, "pixtral-12b": 12.25}

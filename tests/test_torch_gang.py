@@ -35,6 +35,8 @@ from repro_torch.data import stream as tstream
 from repro_torch.runtime.elastic import ElasticSession
 from repro_torch.runtime.server import StreamServer
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 #: stateful codecs (rle: carried runs, stream-scope decode; adpcm: predictor
 #: replay) ride next to stateless ones: the scatter must keep each straight
 MIX = [("tcomp32", "micro"), ("rle", "sensor"), ("adpcm", "ecg"), ("tdic32", "rovio")]

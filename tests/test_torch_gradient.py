@@ -20,6 +20,8 @@ from repro.core import gradient as rg
 from repro_torch.core import gradient as tg
 from repro_torch.runtime.elastic import make_mesh
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 
 def _cfgs(**kw):
     return rg.GradCompressionConfig(**kw), tg.GradCompressionConfig(**kw)

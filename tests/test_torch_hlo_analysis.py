@@ -15,6 +15,8 @@ from repro_torch.launch.hlo_analysis import CollectiveStats, Cost, analyze_progr
 from repro_torch.models import partition
 from repro_torch.runtime.elastic import make_mesh
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 META = torch.device("meta")
 
 

@@ -14,6 +14,8 @@ from repro_torch.core import dictstore
 from repro_torch.core.algorithms import make_codec
 from repro_torch.kernels import ops, ref
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 RNG_SEED = 11
 
 

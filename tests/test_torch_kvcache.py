@@ -25,6 +25,8 @@ import torch
 from repro.core import kvcache as rk
 from repro_torch.core import kvcache as tk
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 CODE_RATE = 1 - 1e-5
 
 
@@ -133,15 +135,13 @@ def test_prefill_layer_matches_reference(s, w):
     k = rng.normal(0, 1.5, (2, s, 2, 16)).astype(np.float32)
     v = rng.normal(size=(2, s, 2, 16)).astype(np.float32)
     ref = jax.jit(lambda c, k, v: rk.prefill_layer(c, jnp.asarray(1), k, v))(rk.init_cache(3, 2, w, 2, 16), k, v)
-    init = rk.init_cache(3, 2, w, 2, 16)
-    cache = {name: _t(getattr(init, name)) for name in ("k_codes", "v_codes", "k_scale", "v_scale")}
-    got = tk.prefill_layer(cache, 1, _t(k), _t(v))
-    assert got["length"] == s == int(ref.length)
+    got = tk.prefill_layer(tk.init_cache(3, 2, w, 2, 16, device="cpu"), 1, _t(k), _t(v))
+    assert int(got.length) == s == int(ref.length)
     for name in ("k_scale", "v_scale"):
-        np.testing.assert_array_equal(got[name].numpy().view(np.uint32),
+        np.testing.assert_array_equal(getattr(got, name).numpy().view(np.uint32),
                                       np.asarray(getattr(ref, name)).view(np.uint32))
     for name in ("k_codes", "v_codes"):
-        a, b = got[name].numpy(), np.asarray(getattr(ref, name))
+        a, b = getattr(got, name).numpy(), np.asarray(getattr(ref, name))
         assert _rate(a, b) >= CODE_RATE, (name, _rate(a, b))
         np.testing.assert_array_equal(a[[0, 2]], b[[0, 2]])
 

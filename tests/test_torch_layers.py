@@ -20,6 +20,8 @@ from repro.models import layers as rl
 from repro_torch.configs import get_arch
 from repro_torch.models import layers as tl
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 CFG = get_arch("qwen3-1.7b").model.reduced(dtype="float32")
 
 

@@ -37,6 +37,8 @@ from repro_torch.core.calibration import calibrated_kwargs
 from repro_torch.core.pipeline import CompressionPipeline, DecompressionPipeline
 from repro_torch.data import make_dataset
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 CPU = torch.device("cpu")
 LANES = 4
 LOSSY = ("adpcm", "uaadpcm", "leb128_nuq", "uanuq", "pla")

@@ -53,6 +53,8 @@ from repro_torch.optim import AdamWConfig
 from repro_torch.runtime import sharding
 from repro_torch.runtime.elastic import make_mesh, reshard
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 CPU = torch.device("cpu")
 MAP2 = {"data": "data", "model": "model"}
 MAP3 = {"data": ("pod", "data"), "model": "model"}

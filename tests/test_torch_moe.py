@@ -42,6 +42,8 @@ from repro_torch.models import transformer as tt
 from repro_torch.models.convert import named_to_tree, params_from_numpy, params_to_numpy
 from repro_torch.optim import AdamWConfig
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 MOE_ARCHS = ("qwen3-moe-30b-a3b", "mixtral-8x7b")
 DENSE_ARCHS = ("deepseek-coder-33b", "mistral-nemo-12b", "phi4-mini-3.8b")
 #: the wider variant: 16 experts, top-8, half the capacity, so pairs drop

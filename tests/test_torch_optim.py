@@ -25,6 +25,8 @@ from repro_torch.optim import AdamWConfig, adamw, warmup_cosine
 from repro_torch.optim.adamw import apply_updates, apply_updates_, clip_by_global_norm, global_norm
 from repro_torch.optim.schedules import constant
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 
 def _t(a):
     return torch.from_numpy(np.array(a, np.float32))

@@ -6,7 +6,9 @@ uaadpcm, leb128_nuq, uanuq, pla); and every ported codec with
 `entropy="rans"` — in fused lazy mode (small micro-batches and
 scan_chunk=2, so streams cross chunk boundaries) and in eager mode, over the
 length grid {0, 1, lanes-1, block-1, block, block+1, 3*block+ragged} and
-with integrity off and on:
+with integrity off and on (the configurations with the rANS stage in
+`tests/test_torch_pipeline_rans.py`, which runs this file's cases on its
+own worker):
   * `compress_to_frame(v).to_bytes()` is byte-identical to the reference's;
   * frames decode across both ways (lossless codecs to the input, lossy
     ones to the reference's own decode, within `error_bound()` where the
@@ -21,6 +23,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from repro import cstream
 from repro.core import calibration as rcal
@@ -38,6 +41,8 @@ from repro_torch.core import metrics as tmetrics
 from repro_torch.core import strategies as tstrat
 from repro_torch.core.pipeline import CompressionPipeline, DecompressionPipeline
 from repro_torch.data import datasets as tdata
+
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
 
 CODECS = ("raw32", "tcomp32", "leb128", "delta_leb128")
 #: the second slice's paths: tdic32 (mode x state strategy), rle, and the
@@ -61,6 +66,10 @@ SLICE3 = {
 CONFIGS = {**{c: dict(codec=c) for c in CODECS}, **SLICE2, **SLICE3}
 ALL = tuple(CONFIGS)
 LOSSLESS = tuple(c for c in CONFIGS if c not in SLICE3)
+#: the configurations whose frames, roundtrips and egress paths this file
+#: holds; those with the rANS stage are `test_torch_pipeline_rans.py`'s
+RANS = tuple(c for c in ALL if c.endswith("+rans"))
+HERE = tuple(c for c in ALL if c not in RANS)
 LANES = 4
 #: fused: 32-tuple blocks (the 7-bit metadata path), two blocks per chunk;
 #: eager: one lane-aligned unit per block (raw metadata, per-block steps)
@@ -125,11 +134,7 @@ def _ref_frame(codec: str, mode: str, n: int, integrity) -> bytes:
 
 
 # ------------------------------------------------------------ frame parity --
-@pytest.mark.parametrize("integrity", CRC)
-@pytest.mark.parametrize("length_idx", range(7))
-@pytest.mark.parametrize("mode", sorted(MODES))
-@pytest.mark.parametrize("codec", ALL)
-def test_frames_byte_identical_and_cross_decode(codec, mode, length_idx, integrity):
+def frames_case(codec, mode, length_idx, integrity):
     n = _length(mode, length_idx)
     v = _values(n, n)
     _, pipe, decomp = _port_pipes(codec, mode, integrity)
@@ -146,10 +151,7 @@ def test_frames_byte_identical_and_cross_decode(codec, mode, length_idx, integri
         np.testing.assert_array_equal(ref_back, v)
 
 
-@pytest.mark.parametrize("integrity", CRC)
-@pytest.mark.parametrize("mode", sorted(MODES))
-@pytest.mark.parametrize("codec", LOSSLESS)
-def test_run_roundtrip_is_lossless(codec, mode, integrity):
+def roundtrip_lossless_case(codec, mode, integrity):
     spec, pipe, decomp = _port_pipes(codec, mode, integrity)
     v = _values(77, _length(mode, 6))
     rt = api.run_roundtrip(pipe, decomp, spec, v, arrival_rate_tps=1e6)
@@ -160,10 +162,7 @@ def test_run_roundtrip_is_lossless(codec, mode, integrity):
     assert rt.compress.stats.latency_s is not None and rt.compress.stats.energy_j > 0
 
 
-@pytest.mark.parametrize("integrity", CRC)
-@pytest.mark.parametrize("mode", sorted(MODES))
-@pytest.mark.parametrize("codec", tuple(SLICE3))
-def test_run_roundtrip_of_lossy_codecs_holds_error_bound(codec, mode, integrity):
+def roundtrip_lossy_case(codec, mode, integrity):
     """A lossy roundtrip returns the reference's decode of the same frame;
     the bounded codecs (leb128_nuq, uanuq, pla) stay within
     `error_bound()`, ADPCM/UAADPCM (no bound) report their error."""
@@ -177,9 +176,7 @@ def test_run_roundtrip_of_lossy_codecs_holds_error_bound(codec, mode, integrity)
     assert (rt.compress.frame.entropy is not None) == (spec.entropy == "rans")
 
 
-@pytest.mark.parametrize("mode", sorted(MODES))
-@pytest.mark.parametrize("codec", ALL)
-def test_legacy_collection_matches_compacted_egress(codec, mode):
+def legacy_case(codec, mode):
     """compact=False (full worst-case buffers, `build_frame`) and the device
     compaction path give the same bytes; so do the per-block bit counts of
     a run that collects no payload, against the reference."""
@@ -190,6 +187,34 @@ def test_legacy_collection_matches_compacted_egress(codec, mode):
     ours = pipe.execute(pipe.shape_blocks(v)).per_block_bits
     theirs = rpipe.execute(rpipe.shape_blocks(v)).per_block_bits
     np.testing.assert_array_equal(ours, theirs)
+
+
+@pytest.mark.parametrize("integrity", CRC)
+@pytest.mark.parametrize("length_idx", range(7))
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("codec", HERE)
+def test_frames_byte_identical_and_cross_decode(codec, mode, length_idx, integrity):
+    frames_case(codec, mode, length_idx, integrity)
+
+
+@pytest.mark.parametrize("integrity", CRC)
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("codec", tuple(c for c in LOSSLESS if c in HERE))
+def test_run_roundtrip_is_lossless(codec, mode, integrity):
+    roundtrip_lossless_case(codec, mode, integrity)
+
+
+@pytest.mark.parametrize("integrity", CRC)
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("codec", tuple(c for c in SLICE3 if c in HERE))
+def test_run_roundtrip_of_lossy_codecs_holds_error_bound(codec, mode, integrity):
+    roundtrip_lossy_case(codec, mode, integrity)
+
+
+@pytest.mark.parametrize("mode", sorted(MODES))
+@pytest.mark.parametrize("codec", HERE)
+def test_legacy_collection_matches_compacted_egress(codec, mode):
+    legacy_case(codec, mode)
 
 
 @pytest.mark.parametrize("integrity", CRC)
@@ -337,8 +362,6 @@ def test_datasets_match_reference(name):
 def test_no_device_entropy_frame_parse_raises_without_gpu():
     """An entropy frame parsed with no device follows the entry points'
     rule: CUDA, or a RuntimeError naming device='cpu' (not a FrameError)."""
-    import torch
-
     if torch.cuda.is_available():
         pytest.skip("this host has a GPU; the no-device default is CUDA here")
     spec, pipe, _ = _port_pipes("tcomp32+rans", "fused", None)

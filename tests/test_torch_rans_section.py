@@ -29,6 +29,8 @@ from repro_torch.core import bits as tbits
 from repro_torch.core import entropy as tent
 from repro_torch.kernels import ops, ref, rans
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 THREADS, LANES, ROWS, CHUNKS_PER_CTA = 256, 8, 512, 32
 PARTS, PART_ROWS, PART_BYTES, FLUSH_ROWS = 4, 128, 1024, 64
 STRIDE = PART_BYTES + 16

@@ -33,6 +33,8 @@ from repro_torch.core import bits as tbits
 from repro_torch.core import entropy as tent
 from repro_torch.kernels import ops, rans, ref
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 LANES, ROWS, CHUNK = 8, 512, 4096
 RING, AHEAD, CHECK, TILE_ROWS = 64, 32, 8, 16
 M32 = (1 << 32) - 1

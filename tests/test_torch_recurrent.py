@@ -53,6 +53,8 @@ from repro_torch.models import transformer as tt
 from repro_torch.models.convert import named_to_tree, params_from_numpy, params_to_numpy
 from repro_torch.optim import AdamWConfig
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 ARCHS = ("mamba2-1.3b", "recurrentgemma-9b")
 
 

@@ -45,6 +45,8 @@ from repro_torch.launch import serve as tserve
 from repro_torch.models import transformer as tt
 from repro_torch.models.convert import params_from_numpy, params_to_numpy
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 S, GEN = 150, 4  # a prompt that is not a multiple of the 128-token scale group
 
 

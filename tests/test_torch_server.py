@@ -32,6 +32,8 @@ from repro_torch.data import make_dataset
 from repro_torch.runtime.elastic import ElasticSession
 from repro_torch.runtime.server import ServerCore, StreamServer, StreamSession
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 #: codec chosen per dataset (paper Fig 5: no codec wins everywhere)
 MIX = [("tcomp32", "micro"), ("tdic32", "rovio"), ("tcomp32", "stock"), ("tdic32", "sensor")]
 #: SessionReport / ServerReport fields that are not measured walls

@@ -24,6 +24,8 @@ from repro_torch.models.convert import STACKS
 from repro_torch.runtime import sharding as tsh
 from repro_torch.runtime.elastic import ElasticSession, make_mesh, reshard
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 CPU = torch.device("cpu")
 
 

@@ -41,6 +41,8 @@ from repro_torch.models import layers as tl
 from repro_torch.models import transformer as tt
 from repro_torch.models.convert import named_to_tree, params_from_numpy
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 F32_TOL = 2e-4
 #: the model tests' cap: qwen3's normed q and k give scaled scores of
 #: order 1 at head dim 32, so a cap of 1 bends most of them

@@ -47,6 +47,8 @@ from repro_torch.models import transformer as tt
 from repro_torch.models.convert import named_to_tree, params_from_numpy, params_to_numpy, tree_to_named
 from repro_torch.optim import AdamWConfig
 
+torch.set_num_threads(1)  # one intra-op thread: the suite's workers share the host's cores
+
 KEY = jax.random.PRNGKey(0)
 
 
